@@ -1,0 +1,581 @@
+"""Continuous-batching serving engine over the folded integer model.
+
+The port of the reference ``serve/engine.py`` for its default setup: the
+paged int8 KV pool, ``kv_bits=8``, one device (``tp=1``), no speculative
+decoding, on-demand page growth with preemption (or ``reserve_policy=
+"full"``), prefix sharing through the allocator's registry, chunked
+prefill under a token budget, greedy or sampled decode.
+
+``poll()`` runs ONE scheduler tick — shed expired → admit → prefill chunks
+under the budget → grow decode pages (preempting when the pool runs dry) →
+one decode forward for every slot whose prompt is cached — and returns the
+tick's ``TokenEvent`` stream; ``step()``, ``run()`` and ``generate()`` wrap
+it.  The host-side bookkeeping (``serve/scheduler.py``, ``serve/prefix.py``,
+``serve/stats.py``) is the reference's, so on the ``ref`` kernel backend the
+engine's greedy tokens and counters equal the reference engine's.
+
+The engine runs where the folded weights live: CUDA weights take the
+``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
+Options the port does not have yet (contiguous layout, ``kv_bits=4``,
+``tp > 1`` / a mesh, ``spec_k > 0``, a shared prefix tier, the lockstep
+engine) raise ``EngineConfigError`` or ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import serve_int as S
+from repro_torch.models.transformer import slot_kinds
+from repro_torch.serve import stats as stats_schema
+from repro_torch.serve.scheduler import BlockAllocator, Scheduler, SlotState, pages_needed
+
+_ROADMAP = "ROADMAP Open items §1"
+
+
+class RequestStatus(enum.Enum):
+    """WAITING → PREFILL → DECODE → FINISHED, with CANCELLED and FAILED
+    exits; preemption moves a seated request back to WAITING."""
+    WAITING = "waiting"
+    PREFILL = "prefill"
+    DECODE = "decode"
+    FINISHED = "finished"
+    CANCELLED = "cancelled"
+    FAILED = "failed"
+
+    @property
+    def terminal(self) -> bool:
+        return self in (RequestStatus.FINISHED, RequestStatus.CANCELLED,
+                        RequestStatus.FAILED)
+
+
+class RequestCancelled(RuntimeError):
+    """Raised by ``Request.result()`` for a cancelled / shed request."""
+
+
+class RequestFailed(RuntimeError):
+    """Raised by ``Request.result()`` for a failed request."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One element of the ``poll()`` event stream (see the reference)."""
+    rid: int
+    token: Optional[int]
+    index: int
+    final: bool
+    finish_reason: Optional[str] = None
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    eos_token: Optional[int] = None
+    deadline_tick: Optional[int] = None  # shed if still WAITING at this tick
+    out: Optional[np.ndarray] = None
+    rid: Optional[int] = None
+    status: RequestStatus = RequestStatus.WAITING
+    finish_reason: Optional[str] = None
+
+    def result(self) -> np.ndarray:
+        if self.status is RequestStatus.FINISHED:
+            return self.out
+        if self.status is RequestStatus.CANCELLED:
+            raise RequestCancelled(
+                f"request rid={self.rid} cancelled ({self.finish_reason}); "
+                f"{0 if self.out is None else len(self.out)} partial token(s) in .out")
+        if self.status is RequestStatus.FAILED:
+            raise RequestFailed(f"request rid={self.rid} failed ({self.finish_reason})")
+        raise RuntimeError(f"request rid={self.rid} still in flight "
+                           f"(status={self.status.value})")
+
+
+class EngineConfigError(ValueError):
+    """An EngineConfig is invalid or incompatible with the model config."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Typed, validated engine options — the reference's fields and
+    field-level validation; the engine then refuses the options the port
+    does not serve yet."""
+    batch_slots: int = 8
+    max_len: int = 512
+    seed: int = 0
+    prefill_bucket: int = 16
+    cache_layout: str = "auto"           # auto | paged | contiguous
+    page_size: int = 16
+    n_pages: Optional[int] = None
+    max_batched_tokens: Optional[int] = None
+    max_prefill_chunk: Optional[int] = None
+    reserve_policy: Optional[str] = None  # None | "full" | "ondemand"
+    kv_bits: int = 8
+    tp: int = 1
+    mesh: object = None
+    spec_k: int = 0
+    draft: object = "prompt_lookup"
+
+    def validate(self) -> "EngineConfig":
+        def bad(msg):
+            raise EngineConfigError(f"invalid EngineConfig: {msg}")
+        if self.batch_slots < 1:
+            bad(f"batch_slots must be >= 1 (got {self.batch_slots})")
+        if self.max_len < 1:
+            bad(f"max_len must be >= 1 (got {self.max_len})")
+        if self.prefill_bucket < 1:
+            bad(f"prefill_bucket must be >= 1 (got {self.prefill_bucket})")
+        if self.cache_layout not in ("auto", "paged", "contiguous"):
+            bad(f"cache_layout must be auto|paged|contiguous (got {self.cache_layout!r})")
+        if self.page_size < 1:
+            bad(f"page_size must be >= 1 (got {self.page_size})")
+        if self.n_pages is not None and self.n_pages < 2:
+            bad(f"n_pages must be >= 2 — page 0 is the reserved trash page "
+                f"(got {self.n_pages})")
+        if self.reserve_policy not in (None, "full", "ondemand"):
+            bad(f"reserve_policy must be full|ondemand (got {self.reserve_policy!r})")
+        chunky = self.max_batched_tokens is not None or self.max_prefill_chunk is not None
+        if chunky and self.cache_layout == "contiguous":
+            bad("chunked prefill (max_batched_tokens / max_prefill_chunk) "
+                "requires cache_layout='paged' — chunks are pages")
+        if self.max_batched_tokens is not None and self.max_batched_tokens < 1:
+            bad(f"max_batched_tokens must be >= 1 (got {self.max_batched_tokens})")
+        if self.max_prefill_chunk is not None and (
+                self.max_prefill_chunk < self.page_size
+                or self.max_prefill_chunk % self.page_size):
+            bad(f"max_prefill_chunk must be a positive multiple of "
+                f"page_size={self.page_size} (got {self.max_prefill_chunk})")
+        if self.reserve_policy == "ondemand" and self.cache_layout == "contiguous":
+            bad("reserve_policy='ondemand' (on-demand page growth) requires "
+                "cache_layout='paged'")
+        if self.kv_bits not in (8, 4):
+            bad(f"kv_bits must be one of 8, 4 (got {self.kv_bits})")
+        if self.kv_bits != 8 and self.cache_layout == "contiguous":
+            bad("kv_bits=4 packs the paged KV pool; "
+                "cache_layout='contiguous' stores int8 rows only")
+        if self.tp < 1:
+            bad(f"tp must be >= 1 (got {self.tp})")
+        if (self.tp != 1 or self.mesh is not None) and self.cache_layout == "contiguous":
+            bad("tensor parallelism shards the paged KV pool; "
+                "cache_layout='contiguous' has no TP path")
+        if self.spec_k < 0:
+            bad(f"spec_k must be >= 0 (got {self.spec_k})")
+        if self.spec_k > 0 and self.cache_layout == "contiguous":
+            bad("speculative decoding (spec_k > 0) verifies through the paged "
+                "prefill path; cache_layout='contiguous' has no verify forward")
+        if self.spec_k > 0 and self.kv_bits != 8:
+            bad("spec_k > 0 with kv_bits=4 is not supported")
+        return self
+
+    def check_ported(self) -> "EngineConfig":
+        """Refuse, naming the ROADMAP item, what the port does not serve yet."""
+        def no(what):
+            raise EngineConfigError(f"{what} is not ported yet: {_ROADMAP}")
+        if self.cache_layout == "contiguous":
+            no("cache_layout='contiguous'")
+        if self.kv_bits != 8:
+            no("kv_bits=4 (the int4-packed KV pool)")
+        if self.tp != 1 or self.mesh is not None:
+            no("tensor parallelism (tp > 1 / mesh)")
+        if self.spec_k:
+            no("speculative decoding (spec_k > 0)")
+        return self
+
+
+def _config_only(config: Optional[EngineConfig], kw: dict, caller: str) -> EngineConfig:
+    if kw:
+        raise TypeError(
+            f"{caller}(cfg, folded, {next(iter(kw))}=..., ...) keyword options were "
+            f"removed; pass {caller}(cfg, folded, EngineConfig(...)) — valid fields: "
+            f"{', '.join(f.name for f in dataclasses.fields(EngineConfig))}")
+    return (config if config is not None else EngineConfig()).validate().check_ported()
+
+
+def supports_continuous(cfg: ModelConfig) -> bool:
+    return cfg.frontend == "none" and cfg.n_lm_heads == 1
+
+
+def make_engine(cfg: ModelConfig, folded, config: Optional[EngineConfig] = None, **kw):
+    """The continuous engine; archs that need the lockstep engine raise."""
+    config = _config_only(config, kw, "make_engine")
+    if not supports_continuous(cfg):
+        raise NotImplementedError(f"arch {cfg.name!r} needs the LockstepEngine, which is "
+                                  f"not ported yet: {_ROADMAP}")
+    return Engine(cfg, folded, config)
+
+
+class LockstepEngine:
+    """The reference's lockstep baseline; not ported yet."""
+
+    def __init__(self, *args, **kw):  # noqa: ARG002
+        raise NotImplementedError(f"LockstepEngine is not ported yet: {_ROADMAP}")
+
+
+class Engine:
+    """Continuous-batching integer serving engine (token-budget step loop)."""
+
+    def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
+                 **kw):
+        config = _config_only(config, kw, "Engine")
+        if not supports_continuous(cfg):
+            raise EngineConfigError(f"continuous engine serves token-LM archs; arch "
+                                    f"{cfg.name!r} needs LockstepEngine")
+        pageable = cfg.causal and not cfg.sliding_window and \
+            all(m == "attn" for m, _ in slot_kinds(cfg))
+        if not pageable:
+            raise NotImplementedError(
+                f"arch {cfg.name!r} needs the contiguous cache layout, which is not "
+                f"ported yet: {_ROADMAP}")
+        self.cfg = cfg
+        self.config = config
+        self.device = folded["embed"]["tokens_i8"].device
+        self.folded = S.prepare_folded(cfg, folded)
+        self.batch = config.batch_slots
+        self.max_len = config.max_len
+        self.smax = config.max_len
+        self.layout = "paged"
+        self.page_size = config.page_size
+        self.max_batched_tokens = config.max_batched_tokens
+        self.max_prefill_chunk = config.max_prefill_chunk
+        self.reserve_policy = config.reserve_policy or "ondemand"
+        self.kv_bits = 8
+        self.spec_k = 0
+        self.tp = 1
+        self.max_blocks = pages_needed(self.smax, self.page_size)
+        # +1: page 0 is the reserved trash page (inactive-slot writes)
+        self.n_pages = config.n_pages if config.n_pages is not None \
+            else self.batch * self.max_blocks + 1
+        self._init_state(config.seed)
+
+    @staticmethod
+    def _zero_counters() -> Dict[str, int]:
+        c: Dict = {k: 0 for k in stats_schema.COUNTERS}
+        c["accept_len_hist"] = {}
+        return c
+
+    def _init_state(self, seed: int):
+        self.requests: Dict[int, Request] = {}
+        self._events: List[TokenEvent] = []
+        self.pos = np.zeros(self.batch, np.int32)
+        self.rng = np.random.default_rng(seed)
+        self.counters = self._zero_counters()
+        self.alloc = BlockAllocator(
+            self.n_pages, self.page_size,
+            bytes_per_page=S.paged_page_nbytes(self.cfg, self.page_size, self.kv_bits))
+        self.sched = Scheduler(self.batch, allocator=self.alloc,
+                               max_batched_tokens=self.max_batched_tokens,
+                               max_prefill_chunk=self.max_prefill_chunk,
+                               reserve=self.reserve_policy)
+        self.cache = S.init_paged_cache(self.cfg, self.n_pages, self.page_size,
+                                        self.kv_bits, device=self.device)
+        self.block_tables = np.zeros((self.batch, self.max_blocks), np.int32)
+
+    # --- forwards --------------------------------------------------------
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _decode(self, toks: np.ndarray) -> np.ndarray:
+        logits, self.cache = S.serve_forward(
+            self.cfg, self.folded, self._tensor(toks), cache=self.cache,
+            pos_offset=self._tensor(self.pos), mode="decode",
+            block_tables=self._tensor(self.block_tables))
+        return logits[:, -1].cpu().numpy()
+
+    def _prefill(self, toks: np.ndarray, btab: np.ndarray, pos0: int, row: int):
+        logits, self.cache = S.serve_forward(
+            self.cfg, self.folded, self._tensor(toks), cache=self.cache,
+            pos_offset=pos0, mode="prefill", block_tables=self._tensor(btab))
+        return logits[0, row].cpu().numpy()
+
+    # --- prefix sharing ---------------------------------------------------
+
+    def attach_prefix_tier(self, tier):  # noqa: ARG002
+        raise NotImplementedError(f"the shared prefix tier is not ported yet: {_ROADMAP}")
+
+    # --- observability ---------------------------------------------------
+
+    def stats(self, check: bool = False) -> Dict:
+        """Instantaneous serving gauges + the cumulative ``counters``, in the
+        reference's frozen schema (``serve/stats.py``)."""
+        pre = [self.sched.slots[b] for b in self.sched.prefilling]
+        chunk = self.max_prefill_chunk
+        pending = [st.prompt_len - st.prefill_pos for st in pre]
+        al = self.alloc
+        if check:
+            al.check_invariants()
+        g = dict(
+            schema_version=stats_schema.STATS_SCHEMA_VERSION,
+            waiting=len(self.sched.waiting),
+            decode_slots_active=len(self.sched.decoding),
+            prefill_slots=len(pre),
+            free_slots=self.sched.n_free,
+            prefill_tokens_pending=sum(pending),
+            prefill_chunks_pending=sum(-(-p // chunk) if chunk else 1 for p in pending),
+            spec_k=self.spec_k,
+            pages_in_use=al.live,
+            pages_free=al.free_list_pages,
+            pages_cached_lru=al.lru_pages,
+            pages_capacity=al.capacity,
+            tp=self.tp,
+        )
+        g["counters"] = dict(self.counters)
+        return stats_schema.validate_stats(g, paged=True)
+
+    def _set_table_row(self, b: int, pages: List[int]):
+        self.block_tables[b, :] = 0
+        self.block_tables[b, :len(pages)] = pages
+
+    # --- request lifecycle ----------------------------------------------
+
+    def submit(self, request: Request) -> int:
+        ln = len(request.prompt)
+        if ln < 1 or request.max_new_tokens < 1:
+            raise ValueError(
+                f"request needs a non-empty prompt and max_new_tokens >= 1 "
+                f"(got prompt len {ln}, max_new_tokens {request.max_new_tokens})")
+        if ln + request.max_new_tokens > self.max_len:
+            raise ValueError(f"request needs {ln + request.max_new_tokens} cache rows, "
+                             f"engine max_len={self.max_len}")
+        worst = pages_needed(ln + request.max_new_tokens - 1, self.page_size)
+        if worst > self.alloc.capacity:
+            raise ValueError(f"request needs up to {worst} cache pages, pool has "
+                             f"{self.alloc.capacity} (n_pages={self.n_pages})")
+        rid = self.sched.submit(request)
+        request.rid = rid
+        request.status = RequestStatus.WAITING
+        request.finish_reason = None
+        request.out = None
+        self.requests[rid] = request
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request anywhere in its lifecycle; a seated request's
+        pages are freed through the ordinary eviction path.  Returns False
+        when ``rid`` is unknown or already terminal."""
+        req = self.requests.get(rid)
+        if req is None:
+            return False
+        for b, st in enumerate(self.sched.slots):
+            if st is not None and st.rid == rid:
+                st = self.sched.evict(b)
+                self.pos[b] = 0
+                self.block_tables[b, :] = 0
+                emitted = st.emitted
+                break
+        else:
+            item = self.sched.remove_waiting(rid)
+            assert item is not None, f"rid {rid} tracked but not found"
+            emitted = item.emitted if isinstance(item, SlotState) else []
+        self._terminate(rid, req, emitted, RequestStatus.CANCELLED, "cancelled")
+        self.counters["cancelled"] += 1
+        return True
+
+    def _terminate(self, rid: int, req: Request, emitted: List[int],
+                   status: RequestStatus, reason: str):
+        self.requests.pop(rid, None)
+        req.out = np.asarray(emitted, np.int32)
+        req.status = status
+        req.finish_reason = reason
+        self._events.append(TokenEvent(rid, None, len(emitted), True, reason))
+
+    def _shed_expired(self):
+        if not self.sched.waiting:
+            return
+        t = self.counters["ticks"]
+        for rid, item in list(self.sched.waiting):
+            req = item.request if isinstance(item, SlotState) else item
+            if req.deadline_tick is None or t < req.deadline_tick:
+                continue
+            self.sched.remove_waiting(rid)
+            emitted = item.emitted if isinstance(item, SlotState) else []
+            self._terminate(rid, req, emitted, RequestStatus.CANCELLED, "deadline")
+            self.counters["shed_deadline"] += 1
+
+    def _pick_token(self, logits_row: np.ndarray, req: Request) -> int:
+        if req.temperature > 0:
+            z = logits_row / max(req.temperature, 1e-4)
+            z = z + self.rng.gumbel(size=z.shape)
+            return int(np.argmax(z))
+        return int(np.argmax(logits_row))
+
+    def _run_chunk(self, b: int, st: SlotState, pos0: int, ntok: int) -> List[TokenEvent]:
+        """One prefill chunk for slot ``b``: prompt rows [pos0, pos0+ntok),
+        padded to whole pages, written and read through a local block-table
+        row (the shared row stays zero until handoff, so decode ticks cannot
+        scribble on the slot's pages).  The final chunk's last real row hands
+        the request into decode with no extra forward."""
+        req = st.request
+        prompt = np.asarray(st.prompt_tokens(), np.int32).reshape(-1)
+        ln = len(prompt)
+        if pos0 < st.hwm_rows:
+            self.counters["recomputed_tokens"] += min(pos0 + ntok, st.hwm_rows) - pos0
+        final = pos0 + ntok >= ln
+        pad = pages_needed(ntok, self.page_size) * self.page_size
+        toks = np.zeros((1, pad), np.int32)
+        toks[0, :ntok] = prompt[pos0:pos0 + ntok]
+        btab = np.zeros((1, self.max_blocks), np.int32)
+        btab[0, :len(st.pages)] = st.pages
+        last = self._prefill(toks, btab, pos0, ntok - 1)
+        st.prefill_pos = pos0 + ntok
+        st.chunks_done += 1
+        self.counters["prefill_tokens"] += ntok
+        self.counters["prefill_chunks"] += 1
+        if not final:
+            return []
+        ptoks = [int(t) for t in prompt]
+        self.alloc.register_prefix(ptoks, st.pages)
+        self._set_table_row(b, st.pages)
+        st.tokens = None
+        if st.shared_rows:
+            self.counters["prefix_hits"] += 1
+            self.counters["shared_rows"] += st.shared_rows
+            if st.chunks_done == 1:
+                self.counters["suffix_prefills"] += 1
+        elif st.chunks_done == 1:
+            self.counters["oneshot_prefills"] += 1
+        if st.chunks_done > 1:
+            self.counters["chunked_prefills"] += 1
+        self.pos[b] = ln
+        st.pos = ln
+        tok = self._pick_token(last, req)
+        st.last_token = tok
+        st.emitted.append(tok)
+        req.status = RequestStatus.DECODE
+        if self._done(st):
+            self._finish(b)
+        return [TokenEvent(st.rid, tok, len(st.emitted) - 1, req.status.terminal,
+                           req.finish_reason)]
+
+    def _finish(self, b: int):
+        st = self.sched.evict(b)
+        req = self.requests.pop(st.rid)
+        req.out = np.asarray(st.emitted, np.int32)
+        req.status = RequestStatus.FINISHED
+        req.finish_reason = "eos" if (req.eos_token is not None and st.emitted
+                                      and st.emitted[-1] == req.eos_token) else "length"
+        self.pos[b] = 0
+        self.block_tables[b, :] = 0
+        self.counters["completed"] += 1
+
+    # --- on-demand growth + preemption -----------------------------------
+
+    def _preempt(self, b: int):
+        st = self.sched.slots[b]
+        was_prefilling = st.prefilling
+        self.sched.preempt(b)
+        st.request.status = RequestStatus.WAITING
+        self.pos[b] = 0
+        self.block_tables[b, :] = 0
+        self.counters["preemptions"] += 1
+        self.counters["preempted_prefill" if was_prefilling else "preempted_decode"] += 1
+        self.counters["spilled_rows"] += st.spilled_rows
+
+    def _grow_rows(self, b: int, st: SlotState, rows: int):
+        while True:
+            got = self.sched.grow(st, rows)
+            if got is not None:
+                self.counters["grown_pages"] += got
+                break
+            v = self.sched.pick_victim(exclude=frozenset({b}))
+            if v is None:
+                raise RuntimeError("page pool exhausted with no preemption victim; "
+                                   "submit() sizing makes this unreachable")
+            self._preempt(v)
+        if got:
+            self._set_table_row(b, st.pages)
+
+    def _grow_decode_pages(self):
+        for b in sorted(self.sched.decoding, key=lambda i: self.sched.slots[i].rid):
+            st = self.sched.slots[b]
+            if st is None:              # preempted by an earlier grower
+                continue
+            self._grow_rows(b, st, st.pos + 1)
+
+    def _done(self, st: SlotState) -> bool:
+        req = st.request
+        if len(st.emitted) >= req.max_new_tokens:
+            return True
+        return req.eos_token is not None and bool(st.emitted) and \
+            st.emitted[-1] == req.eos_token
+
+    # --- the engine loop ------------------------------------------------
+
+    def poll(self) -> List[TokenEvent]:
+        """One scheduler tick (see the module docstring)."""
+        self.counters["ticks"] += 1
+        self._shed_expired()
+        events = self._events
+        self._events = []
+        for _b, st in self.sched.admit():
+            st.request.status = RequestStatus.PREFILL
+            if st.preemptions:
+                self.counters["restores"] += 1
+        if self.sched.waiting and self.sched.n_free > 0:
+            self.counters["pool_wait_ticks"] += 1
+        n_decode = len(self.sched.decoding)
+        used = 0
+        chunked: set = set()
+        while True:
+            plan = self.sched.next_chunk(n_decode, used, exclude=frozenset(chunked))
+            if plan is None:
+                break
+            b, st, pos0, ntok = plan
+            chunked.add(b)
+            used += ntok + (pos0 + ntok >= st.prompt_len)
+            events.extend(self._run_chunk(b, st, pos0, ntok))
+        for b in self.sched.prefilling:
+            st = self.sched.slots[b]
+            st.starved_ticks = 0 if b in chunked else st.starved_ticks + 1
+        if self.reserve_policy == "ondemand":
+            self._grow_decode_pages()
+        active = self.sched.decoding
+        self.counters["cache_pages_peak"] = self.alloc.peak_live
+        if not active:
+            return events
+        toks = np.zeros((self.batch, 1), np.int32)
+        for b in active:
+            toks[b, 0] = self.sched.slots[b].last_token
+        rows = self._decode(toks)
+        for b in active:
+            st = self.sched.slots[b]
+            req = st.request
+            self.pos[b] += 1
+            st.pos += 1
+            tok = self._pick_token(rows[b], req)
+            st.last_token = tok
+            st.emitted.append(tok)
+            if self._done(st):
+                self._finish(b)
+            events.append(TokenEvent(st.rid, tok, len(st.emitted) - 1,
+                                     req.status.terminal, req.finish_reason))
+        self.counters["decode_steps"] += 1
+        self.counters["decode_tokens"] += len(active)
+        return events
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._events) or self.sched.has_work
+
+    def step(self) -> List[Tuple[int, int]]:
+        """One tick, as (rid, token) pairs (token-less terminal events dropped)."""
+        return [(e.rid, e.token) for e in self.poll() if e.token is not None]
+
+    def run(self) -> List[Tuple[int, int]]:
+        out = []
+        while self.has_work:
+            out.extend(self.step())
+        return out
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Submit everything, drain, return the requests with ``.out`` filled."""
+        for r in requests:
+            self.submit(r)
+        self.run()
+        return requests
