@@ -7,20 +7,29 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 ``nvcc`` and PyTorch built for CUDA.  It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the four CUDA kernels of the serving path from
-   ``src/repro_torch/csrc`` and prints the build time and each kernel's
-   registers and shared memory;
+2. builds the six CUDA kernels of the port (``_build.KERNELS``) from
+   ``src/repro_torch/csrc``, one ``nvcc`` each, all at once, and prints the
+   build time and each kernel's registers and shared memory;
 3. holds every kernel against its plain PyTorch version on the card at the
-   yi-6b shapes of the serving path (equal arrays required) and times the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call;
+   shapes of the serving paths (yi-6b for the four of the engine, BERT-base
+   for ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays
+   required) and times the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call;
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
    with chunked prefill, which must give the same tokens, reuse a shared
-   prefix and launch every kernel;
+   prefix and launch every kernel of that path;
 5. checks the integer forward's logits (finite, right shape) at full width,
-   and on a small model against the same forward on the CPU.
+   and on a small model against the same forward on the CPU;
+6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
+   3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
+   calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
+   forward at (1, 128), the paper's point, and at (8, 512), checks the
+   logits (finite, right shape) and each kernel's launches per forward
+   (``quant_softmax`` 12, the policy's GEMM 72, ``quant_layernorm`` 25),
+   prints the median latency and sequences/s at (1, 128), and holds the
+   small BERT on the card against the CPU (equal logits).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
 on the served path, mismatches, times, bound); the last is
@@ -42,6 +51,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+F32_OPS_PER_S = 67e12          # H100 SXM CUDA-core float32 rate (32-bit ops)
 L2_BYTES = 50 << 20            # H100 L2 cache
 SEED = 0
 
@@ -55,9 +65,9 @@ def check(cond, msg: str):
         raise SmokeFailure(msg)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -269,6 +279,73 @@ def phase_paged_prefill(torch, gen):
                 shape="B=1 H=32 Hkv=4 D=128 P=16 S=512 pos0=0")
 
 
+def phase_quant_softmax(torch, gen):
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.core import qsoftmax as qs
+    from repro_torch.kernels import quant_softmax as mod
+    from repro_torch.kernels.ref import quant_softmax_ref
+
+    lut = torch.as_tensor(qs.make_exp_lut(), dtype=torch.int32, device="cuda")
+    M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
+             fxp.quantize_multiplier(1.0 / (40.0 * qs.LUT_DELTA)))
+    # BERT's rows: B * 12 heads * S queries of S keys, at (1, 128), (8, 512)
+    # and a ragged S = 77 with the tail of every third row masked
+    mism, err, main = 0, 0.0, None
+    for r, s in ((1536, 128), (49152, 512), (7392, 77)):
+        x = torch.randint(-400_000, 400_000, (r, s), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        if s == 77:
+            x[::3, 50:] -= qs.MASK_OFFSET
+        args = (x, M, sh, lut)
+        c, e = compare(mod.quant_softmax(*args), quant_softmax_ref(*args))
+        mism, err = mism + c, max(err, e)
+        row = dict(ms=device_ms(torch, mod.quant_softmax, args),
+                   plain_ms=device_ms(torch, quant_softmax_ref, args, cold=False),
+                   library_ms=None)
+        # 4 bytes in and 1 out per code; ~16 32-bit integer operations per code
+        row["bound_ms"], row["bound_by"] = bound_ms(5 * r * s + 4 * 256 + 8, 16.0 * r * s,
+                                                    F32_OPS_PER_S)
+        print(f"  quant_softmax R={r:5d} S={s}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+        if main is None:
+            main = row
+    return dict(main, mismatches=mism, max_abs_err=err,
+                shape="R=1536 S=128 (BERT-base at (1, 128): 12 heads x 128 queries)")
+
+
+def phase_int8_bitsplit(torch, gen):
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.kernels import int4_matmul as mod
+    from repro_torch.kernels.ref import int8_bitsplit_matmul_ref
+
+    mism, err, rows, main = 0, 0.0, [], None
+    for m in (128, 4096):                     # B*S at (1, 128) and (8, 512)
+        for k, n in ((768, 768), (768, 3072), (3072, 768)):
+            x = _rand_i8(torch, gen, (m, k))
+            w = _rand_i8(torch, gen, (k, n))
+            bias = torch.randint(-(1 << 16), 1 << 16, (n,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
+                     fxp.quantize_multiplier(40.0 / (np.sqrt(k) * 73.0 * 73.0)))
+            args = (x, w, bias, M, sh)
+            c, e = compare(mod.int8_bitsplit_matmul(*args), int8_bitsplit_matmul_ref(*args))
+            mism, err = mism + c, max(err, e)
+            row = dict(m=m, k=k, n=n, ms=device_ms(torch, mod.int8_bitsplit_matmul, args),
+                       plain_ms=device_ms(torch, int8_bitsplit_matmul_ref, args, cold=False),
+                       library_ms=device_ms(torch, torch._int_mm, (x, w)))
+            row["bound_ms"], row["bound_by"] = bound_ms(m * k + k * n + 4 * n + m * n,
+                                                        2.0 * m * k * n)
+            rows.append(row)
+            if (m, k, n) == (128, 768, 3072):
+                main = row
+    for r in rows:
+        print(f"  int8_bitsplit_matmul M={r['m']:4d} K={r['k']:4d} N={r['n']:4d}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, _int_mm "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return dict(main, mismatches=mism, max_abs_err=err,
+                shape="M=128 (BERT-base at (1, 128)) K=768 N=3072 (w1)")
+
+
 # --- the served path ---------------------------------------------------------------
 
 def _prompts(vocab: int):
@@ -284,13 +361,40 @@ def _prompts(vocab: int):
     return out
 
 
-def profile_decode(torch, cfg, folded, n: int = 3):
-    """Where a steady decode tick's time goes: the served requests, once
-    every prompt is cached, run ``n`` decode ticks on the host clock and
-    ``n`` under torch.profiler (device activity only); prints device time
-    by kernel and the device's busy share of an unprofiled tick."""
+def profile_steps(torch, step, what: str, n: int = 3):
+    """Where the time of ``step()`` goes: ``n`` calls on the host clock
+    (each ending in a synchronise) and ``n`` under torch.profiler (device
+    activity only); prints the device's busy share of an unprofiled call
+    and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    wall_ms = float(np.median(walls)) * 1e3
+    busy_ms = sum(r[0] for r in rows) / n / 1e3
+    if not rows:
+        print(f"  {what}: {wall_ms:.2f} ms wall; device time not measured "
+              "(the profiler recorded none)")
+        return
+    print(f"  {what}: {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} %)")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"    {us / n / 1e3:8.3f} ms/call {count // n:5d}x  {key[:80]}")
+
+
+def profile_decode(torch, cfg, folded):
+    """A steady decode tick of the served requests, once every prompt is
+    cached (``Engine.poll`` ends in a device-to-host copy)."""
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
     eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024))
@@ -298,27 +402,7 @@ def profile_decode(torch, cfg, folded, n: int = 3):
         eng.submit(Request(prompt=p, max_new_tokens=32))
     while eng.sched.waiting or eng.sched.prefilling:
         eng.poll()
-    walls = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        eng.poll()                      # ends in a device-to-host copy
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng.poll()
-        torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    wall_ms = float(np.median(walls)) * 1e3
-    busy_ms = sum(r[0] for r in rows) / n / 1e3
-    if not rows:
-        print(f"  decode tick: {wall_ms:.2f} ms wall; device time not measured "
-              "(the profiler recorded none)")
-        return
-    print(f"  decode tick (batch 8): {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f} %)")
-    for us, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"    {us / n / 1e3:8.3f} ms/tick {count // n:5d}x  {key[:80]}")
+    profile_steps(torch, eng.poll, "decode tick (batch 8)")
 
 
 def serve(torch, cfg, folded, kernels, **extra):
@@ -451,16 +535,119 @@ def phase_small_reference(torch):
     check(agree >= 0.99, f"small model: card and CPU disagree on {1 - agree:.3f} of rows")
 
 
+BERT_LAUNCHES = {"quant_softmax": 12, "gemm": 72, "quant_layernorm": 25}   # per forward
+
+
+def bert_forward_once(torch, S, cfg, folded, toks, kernels):
+    """One cache-less integer forward with the counts of ``kernels`` set to
+    0 just before it; returns (logits, launches by kernel name)."""
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    logits, _ = S.serve_forward(cfg, folded, toks)
+    torch.cuda.synchronize()
+    return logits, {k.__name__: k.launches for k in kernels}
+
+
+def phase_bert(torch):
+    """BERT-base at full width under W4A8 (the paper's FQ-BERT) and W8A8
+    (Q8BERT): calibrate, fold, and the cache-less integer forward at the
+    paper's (1, 128) and at (8, 512), each through quant_softmax, the
+    policy's GEMM and quant_layernorm.  Returns the launches of the
+    (1, 128) forward under each policy."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy
+    from repro_torch.kernels.int4_matmul import int4_matmul, int8_bitsplit_matmul
+    from repro_torch.kernels.quant_layernorm import quant_layernorm
+    from repro_torch.kernels.quant_softmax import quant_softmax
+    from repro_torch.launch.serve import calibrated_folded
+    from repro_torch.models import serve_int as S
+
+    base = get_config("bert-base")
+    check((base.n_layers, base.d_model, base.n_heads, base.hd, base.d_ff, base.vocab_size,
+           base.causal) == (12, 768, 12, 64, 3072, 30522, False), "bert-base is not full width")
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name in ("POLICY_FQ", "POLICY_W8A8"):
+        cfg = dataclasses.replace(base, quant=getattr(policy, name))
+        gemm = int8_bitsplit_matmul if cfg.quant.w_bits == 8 else int4_matmul
+        kernels = (quant_softmax, gemm, quant_layernorm)
+        want = {"quant_softmax": BERT_LAUNCHES["quant_softmax"],
+                gemm.__name__: BERT_LAUNCHES["gemm"],
+                "quant_layernorm": BERT_LAUNCHES["quant_layernorm"]}
+        t0 = time.perf_counter()
+        folded = S.prepare_folded(cfg, calibrated_folded(cfg, SEED, device="cuda"))
+        torch.cuda.synchronize()
+        print(f"  {name}: init + calibrate (2, 128) + fold {time.perf_counter() - t0:.1f} s")
+        for b, s in ((1, 128), (8, 512)):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+                                   device="cuda")
+            logits, launches = bert_forward_once(torch, S, cfg, folded, toks, kernels)
+            check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()),
+                  f"bert {name} ({b}, {s}): logits shape {tuple(logits.shape)} or non-finite")
+            check(launches == want, f"bert {name} ({b}, {s}): launches {launches} != {want}")
+            print(f"    ({b}, {s}): logits finite, launches per forward {launches}")
+            if (b, s) == (1, 128):
+                out[name] = launches
+                walls = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    S.serve_forward(cfg, folded, toks)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                lat = float(np.median(walls))
+                print(f"    (1, 128) latency median {lat * 1e3:.2f} ms over 10 forwards "
+                      f"({1.0 / lat:.1f} sequences/s; host clock, smoke observation)")
+                profile_steps(torch, lambda: S.serve_forward(cfg, folded, toks),
+                              "(1, 128) forward")
+            else:
+                t0 = time.perf_counter()
+                S.serve_forward(cfg, folded, toks)
+                torch.cuda.synchronize()
+                print(f"    (8, 512) one forward {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        del folded
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_bert_reference(torch):
+    """The smoke bert-base under both policies: the cache-less integer
+    forward on the card (the kernels) against the CPU (the plain versions);
+    every stage is integer but the lm_head's exact product and scale, so
+    the logits must be equal."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import policy
+    from repro_torch.launch.serve import calibrated_folded
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import tree_map
+
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, 512, (2, 77)).astype(np.int32))
+    for name in ("POLICY_FQ", "POLICY_W8A8"):
+        cfg = dataclasses.replace(smoke_config("bert-base"), quant=getattr(policy, name))
+        folded = calibrated_folded(cfg, SEED, device="cpu")
+        want, _ = S.serve_forward(cfg, folded, toks)
+        got, _ = S.serve_forward(cfg, tree_map(lambda t: t.to("cuda"), folded), toks.to("cuda"))
+        differ = int((got.cpu() != want).sum())
+        print(f"  small bert-base {name}, card vs CPU: {differ} of {want.numel()} logits differ")
+        check(differ == 0, f"small bert {name}: card and CPU logits differ")
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import torch
 
         from repro_torch.kernels import _build
-        from repro_torch.kernels.decode_attention import paged_decode_qattention
-        from repro_torch.kernels.int4_matmul import int4_matmul
-        from repro_torch.kernels.prefill_attention import paged_prefill_qattention
-        from repro_torch.kernels.quant_layernorm import quant_layernorm
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import int4_matmul as mm
+        from repro_torch.kernels import prefill_attention as pa
+        from repro_torch.kernels import quant_layernorm as ln
+        from repro_torch.kernels import quant_softmax as sm
     except ImportError as e:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: {e}", file=sys.stderr)
         return 2
@@ -483,18 +670,24 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s for {len(_build.KERNELS)} kernels (nvcc "
           f"{' '.join(_build.FLAGS)})")
     for name, info in _build.build_info.items():
-        usage = [ln.split(":", 1)[1].strip() for ln in info["ptxas"].splitlines()
-                 if "Used" in ln]
+        usage = [line.split(":", 1)[1].strip() for line in info["ptxas"].splitlines()
+                 if "Used" in line]
         print(f"  {name}: {'; '.join(usage)}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    wrappers = [int4_matmul, quant_layernorm, paged_prefill_qattention,
-                paged_decode_qattention]
-    phases = [phase_int4_matmul, phase_quant_layernorm, phase_paged_prefill,
-              phase_paged_decode]
+    table = [  # (wrapper, its kernel phase, source, the TPU kernel it replaces)
+        (mm.int4_matmul, phase_int4_matmul, mm.SOURCE, mm.REPLACES),
+        (ln.quant_layernorm, phase_quant_layernorm, ln.SOURCE, ln.REPLACES),
+        (pa.paged_prefill_qattention, phase_paged_prefill, pa.SOURCE, pa.REPLACES),
+        (da.paged_decode_qattention, phase_paged_decode, da.SOURCE, da.REPLACES),
+        (sm.quant_softmax, phase_quant_softmax, sm.SOURCE, sm.REPLACES),
+        (mm.int8_bitsplit_matmul, phase_int8_bitsplit, mm.BITSPLIT_SOURCE, mm.BITSPLIT_REPLACES),
+    ]
+    check(len(table) == len(_build.KERNELS), "the kernel table and _build.KERNELS disagree")
+    engine_wrappers = [fn for fn, *_ in table[:4]]      # the yi-6b engine's kernels
     rows = []
-    for fn, phase in zip(wrappers, phases):
+    for fn, phase, *_ in table:
         print(f"[kernel] {fn.__name__}")
         row = phase(torch, gen)
         print(f"  mismatches vs plain: {row['mismatches']} (max abs err {row['max_abs_err']})")
@@ -503,16 +696,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("[serve] yi-6b, full width, 8 requests x 32 new tokens")
-    served = phase_serve(torch, wrappers)
+    served = phase_serve(torch, engine_wrappers)
     print("[check] small model against the CPU")
     phase_small_reference(torch)
+    print("[bert] bert-base, full width, W4A8 and W8A8, cache-less integer forward")
+    bert = phase_bert(torch)
+    print("[check] small bert-base against the CPU")
+    phase_small_bert_reference(torch)
 
+    # launches: each kernel's count on its own main path (yi-6b one-shot
+    # serving for the engine's four; BERT at (1, 128) for the other two)
+    launches = dict(zip([fn.__name__ for fn in engine_wrappers], served["launches"]))
+    launches["quant_softmax"] = bert["POLICY_FQ"]["quant_softmax"]
+    launches["int8_bitsplit_matmul"] = bert["POLICY_W8A8"]["int8_bitsplit_matmul"]
+    check(all(n > 0 for n in launches.values()), f"a kernel was never launched: {launches}")
     kernels = []
-    for fn, row, n in zip(wrappers, rows, served["launches"]):
-        mod = sys.modules[fn.__module__]
+    for (fn, _, source, replaces), row in zip(table, rows):
         kernels.append({
-            "name": fn.__name__, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": n, "max_abs_err": row["max_abs_err"],
+            "name": fn.__name__, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[fn.__name__], "max_abs_err": row["max_abs_err"],
             "mismatches": row["mismatches"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})

@@ -10,57 +10,55 @@
 // What bounds it on the H100: at decode (M <= 8) the packed weights are the
 // only large operand, so the bound is bytes (K*N/2 per call over 3.35 TB/s);
 // at prefill (M in the hundreds) it is int8 operations.  This first version
-// is the simple, exact one: each block owns a BM x 64 output tile, stages the
-// x tile and the unpacked nibble planes of the w tile in shared memory (each
-// packed byte is read from device memory once per block column), and
-// accumulates with __dp4a on CUDA cores.  It does not use the tensor cores
-// (wgmma) or TMA; BM = 16 for decode keeps the wasted rows of a small M low.
-#include "common.cuh"
+// is the simple, exact one (dp4a_gemm.cuh): each block owns a BM x 64 output
+// tile, stages the x tile and the unpacked nibble planes of the w tile in
+// shared memory (each packed byte is read from device memory once per block
+// column), and accumulates with __dp4a on CUDA cores.  It does not use the
+// tensor cores (wgmma) or TMA; BM = 16 for decode keeps the wasted rows of a
+// small M low.
+#include "dp4a_gemm.cuh"
 
 namespace {
 
-constexpr int kBN = 64;           // output columns per block
-constexpr int kBK2 = 32;          // packed rows per K step
-constexpr int kBK = 2 * kBK2;     // k values per K step (both nibble planes)
-constexpr int kLds = kBK + 4;     // padded shared row: 17 words, conflict-free
-constexpr int kThreads = 256;     // 16 x 16 threads
+using fq::kBK;
+using fq::kBN;
+using fq::kGemmThreads;
+constexpr int kBK2 = kBK / 2;     // packed rows per K step
 
 template <int BM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGemmThreads)
 int4_matmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                    const int* __restrict__ bias, const int* __restrict__ Mq,
                    const int* __restrict__ shq, int8_t* __restrict__ out,
                    int M, int K, int N) {
-  constexpr int RM = BM / 16;     // output rows per thread
-  __shared__ __align__(16) int8_t xs[BM][kLds];
-  __shared__ __align__(16) int8_t ws[kBN][kLds];
+  __shared__ fq::GemmTiles<BM> t;
   const int K2 = K / 2;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * kBN;
-  int acc[RM][4];
+  int acc[BM / 16][4];
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int i = 0; i < BM / 16; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
   for (int k0 = 0; k0 < K2; k0 += kBK2) {
     // x tile: row r, bytes [0, 32) = columns k0.. of the low plane's k range,
     // bytes [32, 64) = columns K/2 + k0.. (the high plane's k range)
-    for (int i = tid; i < BM * (kBK / 4); i += kThreads) {
+    for (int i = tid; i < BM * (kBK / 4); i += kGemmThreads) {
       const int r = i / (kBK / 4);
       const int c = (i % (kBK / 4)) * 4;
       const int gm = m0 + r;
       const int gk = c < kBK2 ? k0 + c : K2 + k0 + (c - kBK2);
       int v = 0;
       if (gm < M) v = *reinterpret_cast<const int*>(x + static_cast<size_t>(gm) * K + gk);
-      *reinterpret_cast<int*>(&xs[r][c]) = v;
+      *reinterpret_cast<int*>(&t.xs[r][c]) = v;
     }
     // w tile: 32 packed rows x 64 columns, unpacked and transposed so that
     // ws[n][kk] holds the code of k = kk (low plane) / kk - 32 + K/2 (high)
-    for (int i = tid; i < kBK2 * (kBN / 4); i += kThreads) {
+    for (int i = tid; i < kBK2 * (kBN / 4); i += kGemmThreads) {
       const int r = i / (kBN / 4);
       const int n = (i % (kBN / 4)) * 4;
       unsigned v = 0;
@@ -69,41 +67,15 @@ int4_matmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int byte = static_cast<int>((v >> (8 * j)) & 0xffu);
-        ws[n + j][r] = static_cast<int8_t>(((byte & 15) ^ 8) - 8);
-        ws[n + j][kBK2 + r] = static_cast<int8_t>((((byte >> 4) & 15) ^ 8) - 8);
+        t.ws[n + j][r] = static_cast<int8_t>(((byte & 15) ^ 8) - 8);
+        t.ws[n + j][kBK2 + r] = static_cast<int8_t>((((byte >> 4) & 15) ^ 8) - 8);
       }
     }
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; kk += 4) {
-      int a[RM];
-      int b[4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = *reinterpret_cast<const int*>(&xs[ty + 16 * i][kk]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const int*>(&ws[tx + 16 * j][kk]);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
+    fq::gemm_step<BM>(t, acc, tx, ty);
     __syncthreads();
   }
-
-  const int Mv = *Mq;
-  const int shv = *shq;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N)
-        out[static_cast<size_t>(gm) * N + gn] =
-            fq::requantize8(fq::wrap_add(acc[i][j], bias[gn]), Mv, shv);
-    }
-  }
+  fq::gemm_epilogue<BM>(acc, bias, Mq, shq, out, M, N, m0, n0, tx, ty);
 }
 
 }  // namespace
@@ -115,19 +87,17 @@ extern "C" int int4_matmul(const void* x, const void* w, const void* bias,
                            const void* Mq, const void* shq, void* out,
                            int M, int K, int N, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + kBN - 1) / kBN, 1);
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const uint8_t*>(w);
   const auto* bp = static_cast<const int*>(bias);
   const auto* mp = static_cast<const int*>(Mq);
   const auto* sp = static_cast<const int*>(shq);
   auto* op = static_cast<int8_t*>(out);
-  if (M <= 16) {
-    grid.y = (M + 15) / 16;
-    int4_matmul_kernel<16><<<grid, kThreads, 0, s>>>(xp, wp, bp, mp, sp, op, M, K, N);
-  } else {
-    grid.y = (M + 63) / 64;
-    int4_matmul_kernel<64><<<grid, kThreads, 0, s>>>(xp, wp, bp, mp, sp, op, M, K, N);
-  }
+  if (M <= 16)
+    int4_matmul_kernel<16><<<fq::gemm_grid(M, N, 16), kGemmThreads, 0, s>>>(
+        xp, wp, bp, mp, sp, op, M, K, N);
+  else
+    int4_matmul_kernel<64><<<fq::gemm_grid(M, N, 64), kGemmThreads, 0, s>>>(
+        xp, wp, bp, mp, sp, op, M, K, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("int4_matmul", "quant_layernorm", "paged_prefill_attention",
-           "paged_decode_attention")
+           "paged_decode_attention", "quant_softmax", "int8_bitsplit_matmul")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -10,8 +10,6 @@ Backends (env ``REPRO_TORCH_KERNELS`` or the per-call ``impl=``):
                CUDA tensor and computes the plain version only for a CPU
                tensor, so the CPU tests can drive this control flow.
   * ``auto`` — ``gpu`` for CUDA tensors, ``ref`` otherwise (default).
-
-Paths the port does not have yet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,11 +20,13 @@ import torch
 
 from repro_torch.core.qlayernorm import QLNParams
 from repro_torch.core.qlinear import FoldedLinear
+from repro_torch.core.qsoftmax import MASK_OFFSET
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import paged_decode_qattention
-from repro_torch.kernels.int4_matmul import int4_matmul
+from repro_torch.kernels.int4_matmul import int4_matmul, int8_bitsplit_matmul
 from repro_torch.kernels.prefill_attention import paged_prefill_qattention
 from repro_torch.kernels.quant_layernorm import quant_layernorm
+from repro_torch.kernels.quant_softmax import quant_softmax
 
 BACKENDS = ("auto", "ref", "gpu")
 
@@ -40,20 +40,28 @@ def backend(override: Optional[str] = None, device=None) -> str:
     return b
 
 
-def not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Open items §1")
-
-
 def linear_w4a8(x_i8: torch.Tensor, f: FoldedLinear, *, impl: Optional[str] = None):
-    """y_i8 = requant(x_i8 @ unpack(W4) + b).  x: int8 (..., K) -> (..., N)."""
-    if f.w_bits != 4:
-        raise not_ported("w_bits=8 serving (int8_bitsplit_matmul)")
+    """y_i8 = requant(x_i8 @ unpack(W4) + b).  x: int8 (..., K) -> (..., N).
+    A ``w_bits=8`` linear (plain int8 codes) takes the bit-split W8A8 path."""
+    if f.w_bits == 8:
+        return linear_w8a8_bitsplit(x_i8, f.w_packed, f.bias_i, f.M, f.shift, impl=impl)
     lead = x_i8.shape[:-1]
     x2 = x_i8.reshape(-1, x_i8.shape[-1])
     if backend(impl, x_i8.device) == "ref":
         y = _ref.int4_matmul_ref(x2, f.w_packed, f.bias_i, f.M, f.shift)
     else:
         y = int4_matmul(x2, f.w_packed, f.bias_i, f.M, f.shift)
+    return y.reshape(*lead, -1)
+
+
+def linear_w8a8_bitsplit(x_i8, w_i8, bias_i, M, shift, *, impl: Optional[str] = None):
+    """8x8 matmul as two 8x4 passes (BIM Type-A).  x: int8 (..., K) -> (..., N)."""
+    lead = x_i8.shape[:-1]
+    x2 = x_i8.reshape(-1, x_i8.shape[-1])
+    if backend(impl, x_i8.device) == "ref":
+        y = _ref.int8_bitsplit_matmul_ref(x2, w_i8, bias_i, M, shift)
+    else:
+        y = int8_bitsplit_matmul(x2, w_i8, bias_i, M, shift)
     return y.reshape(*lead, -1)
 
 
@@ -67,10 +75,15 @@ def layernorm_q(x_i8: torch.Tensor, p: QLNParams, *, eps_codes: int = 1, impl=No
 
 
 def softmax_q(x_int, M_idx, shift_idx, lut, mask=None, *, impl=None):
-    """Quantized row softmax over the last axis (int32 codes -> int8)."""
-    if backend(impl, x_int.device) == "gpu" and x_int.device.type == "cuda":
-        raise not_ported("the quant_softmax kernel")
-    return _ref.quant_softmax_ref(x_int, M_idx, shift_idx, lut, mask=mask)
+    """Quantized row softmax over the last axis (int32 codes -> int8);
+    ``mask`` bool, True = attend."""
+    if backend(impl, x_int.device) == "ref":
+        return _ref.quant_softmax_ref(x_int, M_idx, shift_idx, lut, mask=mask)
+    if mask is not None:
+        x_int = torch.where(mask, x_int, x_int - MASK_OFFSET)
+    s = x_int.shape[-1]
+    y = quant_softmax(x_int.to(torch.int32).reshape(-1, s), M_idx, shift_idx, lut)
+    return y.reshape(x_int.shape)
 
 
 def paged_decode_attention_q(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,

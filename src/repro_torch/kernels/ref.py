@@ -34,6 +34,17 @@ def int4_matmul_ref(x_i8, w_packed, bias_i32, M_q, shift_q):
     return fxp.requantize(acc, M_q, shift_q, bits=8)
 
 
+def int8_bitsplit_matmul_ref(x_i8, w_i8, bias_i32, M_q, shift_q):
+    """W8A8 as two nibble products + shift-add (the BIM Type-A identity
+    w = (w >> 4) * 16 + (w & 15): hi signed, lo unsigned), + bias,
+    fixed-point requantize -> int8 (M, N)."""
+    w32 = w_i8.to(torch.int32)
+    acc_hi = int_matmul(x_i8, w32 >> 4)
+    acc_lo = int_matmul(x_i8, w32 & 15)
+    acc = (acc_hi << 4) + acc_lo + bias_i32.to(torch.int32)
+    return fxp.requantize(acc, M_q, shift_q, bits=8)
+
+
 def quant_softmax_ref(x_int, M_idx, shift_idx, lut, mask=None, axis=-1):
     return qs.quant_softmax(x_int, M_idx, shift_idx, lut, mask=mask, axis=axis)
 

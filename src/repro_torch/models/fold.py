@@ -1,6 +1,7 @@
 """Fold calibrated float params + activation maxima into the integer serving
-form (paper Eq. 4/5): packed-int4 weights, int32 biases, Q15 fixed-point
-multipliers, integer LN constants, LUT index multipliers.
+form (paper Eq. 4/5): packed-int4 (at ``w_bits=8`` int8) weights, int32
+biases, Q15 fixed-point multipliers, integer LN constants, LUT index
+multipliers.
 
 Same float32 arithmetic as the reference ``models/fold.py`` (whose
 ``jax.vmap`` over reps is a loop here), so the folded integers are equal.
@@ -43,10 +44,15 @@ def site_scale(amax_val, policy: QuantPolicy):
     return _scale8(s, policy)
 
 
+def _weight_codes(codes: torch.Tensor, w_bits: int) -> torch.Tensor:
+    """Serving layout of (K, N) weight codes: plain int8 at ``w_bits=8`` (the
+    Q8BERT point, served by the bit-split W8A8 kernel), K-planar packed
+    int4 otherwise."""
+    return codes if w_bits == 8 else packing.pack_int4_planar(codes, axis=0)
+
+
 def fold_linear_t(w, b, s_a, s_y, policy: QuantPolicy) -> Dict:
-    """Fold y = x@w + b into {packed int4 w, int32 b, M, sh}."""
-    if policy.w_bits != 4:
-        raise NotImplementedError("w_bits=8 folding is not ported: ROADMAP Open items §1")
+    """Fold y = x@w + b into {w codes (``_weight_codes``), int32 b, M, sh}."""
     w = w.to(F32)
     qm = q.qmax(policy.w_bits)
     s_w = _scale8(q.rdiv(qm, torch.clamp(q.per_tensor_max(w), min=1e-8)), policy)
@@ -55,7 +61,7 @@ def fold_linear_t(w, b, s_a, s_y, policy: QuantPolicy) -> Dict:
     bias_i = torch.clamp(torch.round(bias * (s_a * s_w)), -(2.0**31 - 1),
                          2.0**31 - 1).to(torch.int32)
     M, sh = fxp.quantize_multiplier_array(s_y / (s_a * s_w))
-    return {"w": packing.pack_int4_planar(codes, axis=0), "b": bias_i, "M": M, "sh": sh}
+    return {"w": _weight_codes(codes, policy.w_bits), "b": bias_i, "M": M, "sh": sh}
 
 
 def fold_norm_t(p_norm, s_y) -> Dict:
@@ -179,7 +185,7 @@ def fold_params(cfg: ModelConfig, params: Dict, amax: Dict) -> Dict:
     qm = q.qmax(pol.w_bits)
     s_w = q.rdiv(qm, torch.clamp(q.per_tensor_max(w), min=1e-8))
     codes = torch.clamp(torch.round(w * s_w), -qm, qm).to(torch.int8)
-    folded["lm_head"] = {"w": packing.pack_int4_planar(codes, axis=0),
+    folded["lm_head"] = {"w": _weight_codes(codes, pol.w_bits),
                          "inv_acc": 1.0 / (s_head * s_w)}
     folded["s_embed"] = s_emb
     folded["s_head"] = s_head

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -102,18 +103,53 @@ def apply_rope(x, pos, theta, partial: float = 1.0):
 
 # --- quantized-softmax simulator -----------------------------------------------
 
+def recip_f32(c: float) -> float:
+    """The float32 reciprocal by which XLA replaces a division by the
+    constant ``c`` (its algebraic simplifier rewrites ``x / c`` as
+    ``x * (1 / c)``, so the reference rounds twice where torch rounds once)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """float32 sum over the last axis in the order XLA's CPU backend adds:
+    a row longer than ``window`` is zero-padded to a multiple of it (the
+    smaller half of the padding in front), each window is summed left to
+    right, and the window sums are reduced the same way.
+
+    Exact for rows longer than 32 and up to 17 long.  A row of 18 to 32
+    entries stays one reduce that XLA fuses with its producers and lets
+    LLVM reassociate (8-lane partial sums), which this order does not
+    follow: the softmax simulator's float island (ROADMAP §3)."""
+    n = x.shape[-1]
+    if n > window:
+        pad = -n % window
+        x = F.pad(x, (pad // 2, pad - pad // 2))
+        return xla_row_sum(xla_row_sum(x.reshape(*x.shape[:-1], -1, window), window),
+                           window)
+    s = torch.zeros_like(x[..., 0])
+    for i in range(n):
+        s = s + x[..., i]
+    return s
+
+
 def lut_softmax_qat(logits, s_logit, enabled: bool):
     """Simulation of the 256-entry LUT softmax on real-valued logits (mask
-    already applied as -1e9); ``s_logit`` = codes per real logit unit."""
+    already applied as -1e9); ``s_logit`` = codes per real logit unit.
+
+    The reference's float32 result bit for bit, except on rows of 18 to 32
+    entries (``xla_row_sum``): its divisions by the constants
+    ``LUT_DELTA`` and 255 are multiplications by their float32
+    reciprocals, and its row sum follows XLA's order.  A plain ``/`` and
+    ``torch.sum`` move ``round(p * 128)`` by one code at ties."""
     if not enabled:
         return torch.softmax(logits, dim=-1)
     lf = logits.to(torch.float32)
     lq = torch.round(lf * s_logit) / s_logit
     m = torch.amax(lq, -1, keepdim=True)
-    idx = torch.clamp(torch.round((m - lq) / LUT_DELTA), 0, 255)
-    num = torch.round(torch.exp(-idx * LUT_DELTA) * 255.0) / 255.0
+    idx = torch.clamp(torch.round((m - lq) * recip_f32(LUT_DELTA)), 0, 255)
+    num = torch.round(torch.exp(-idx * LUT_DELTA) * 255.0) * recip_f32(255.0)
     num = torch.where(idx >= 255, torch.zeros_like(num), num)
-    den = torch.clamp(torch.sum(num, -1, keepdim=True), min=1e-9)
+    den = torch.clamp(xla_row_sum(num)[..., None], min=1e-9)
     p = torch.round(num / den * 128.0) / 128.0
     return p.to(logits.dtype)
 
@@ -150,7 +186,7 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
     a_q, _ = _amax_or_obs(amax["q"], qh)
     a_k, _ = _amax_or_obs(amax["k"], kh)
     s_logit = math.sqrt(hd) * q.rdiv(127.0, a_q) * q.rdiv(127.0, a_k)
-    lg = torch.einsum("bqhd,bkhd->bhqk", qh, kg) / math.sqrt(hd)
+    lg = torch.einsum("bqhd,bkhd->bhqk", qh, kg) * recip_f32(math.sqrt(hd))
     if mask is None and cfg.causal:
         ar = torch.arange(s, device=x.device)
         mask = (ar[None, :] <= ar[:, None])[None, None]

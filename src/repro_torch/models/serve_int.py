@@ -2,16 +2,18 @@
 chunk prefill into the paged int8 KV pool, and single-token paged decode.
 
 The paper's deployment datapath: int8 activations end to end, packed-int4
-weights, LUT softmax, integer LN, int8 KV pool, with one float island (the
-RoPE rotation) and the fp32 ``lm_head`` scale.  Mirrors the reference
-``models/serve_int.py`` for all-attention dense archs; every other branch
-raises ``NotImplementedError``.
+(or int8, ``w_bits=8``) weights, LUT softmax, integer LN, int8 KV pool, with
+one float island (the RoPE rotation) and the fp32 ``lm_head`` scale.
+Mirrors the reference ``models/serve_int.py`` for all-attention dense archs,
+causal (yi-6b) and bidirectional (BERT, cache-less prefill only); every
+other branch raises ``NotImplementedError``.
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
 reference's ``ref`` backend; on ``gpu`` they take the q7 paged kernels, as
 the reference's ``pallas`` backend does.  The cache-less causal prefill
-takes the blocked ``flash_qattention_torch`` on every backend.
+takes the blocked ``flash_qattention_torch`` on every backend; the
+bidirectional one the row softmax (``ops.softmax_q``), the kernel on ``gpu``.
 
 Unlike the functional reference, the paged pool is updated IN PLACE (the
 returned cache is the same dict of tensors): at full width a copy of the
@@ -26,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core import packing
+from repro_torch.core import quant as q
 from repro_torch.core.qlayernorm import QLNParams
 from repro_torch.core.qlinear import FoldedLinear
 from repro_torch.core.qsoftmax import MASK_OFFSET, make_exp_lut
@@ -273,20 +276,34 @@ def layer_views(folded: Dict, n_reps: int):
     return folded.get("layers") or [tree_index(folded["blocks"], r) for r in range(n_reps)]
 
 
-def head_weights(folded: Dict) -> torch.Tensor:
-    """The lm_head's int4 codes as float32 (K, V), unpacked once."""
+def head_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The float type in which the lm_head's integer product is exact.
+
+    Every partial sum of ``x_i8 @ w`` is an integer of magnitude at most
+    d_model * 127 * qmax(w_bits); float32 holds every such integer while
+    that stays below 2^24 (BERT-base at w8: 768 * 127 * 127 = 12.4 M; yi-6b
+    at w4: 4096 * 127 * 7 = 3.6 M) and float64 far beyond (yi-6b at w8:
+    66 M)."""
+    bound = cfg.d_model * 127 * q.qmax(cfg.quant.w_bits)
+    return torch.float32 if bound < 2**24 else torch.float64
+
+
+def head_weights(cfg: ModelConfig, folded: Dict) -> torch.Tensor:
+    """The lm_head's codes (int8 at w8, unpacked int4 otherwise) as a
+    (K, V) tensor of ``head_dtype``, converted once."""
     head = folded["lm_head"]
     if "w_f" in head:
         return head["w_f"]
-    return packing.unpack_int4_planar(head["w"], axis=0).to(torch.float32)
+    w = head["w"] if cfg.quant.w_bits == 8 else packing.unpack_int4_planar(head["w"], axis=0)
+    return w.to(head_dtype(cfg))
 
 
 def prepare_folded(cfg: ModelConfig, folded: Dict) -> Dict:
     """A shallow copy of ``folded`` with the per-layer views and the
-    unpacked lm_head cached, for a serving loop that runs many forwards."""
+    converted lm_head cached, for a serving loop that runs many forwards."""
     out = dict(folded)
     out["layers"] = layer_views(folded, cfg.n_reps)
-    out["lm_head"] = dict(folded["lm_head"], w_f=head_weights(folded))
+    out["lm_head"] = dict(folded["lm_head"], w_f=head_weights(cfg, folded))
     return out
 
 
@@ -352,8 +369,9 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
                 x = _resid_add(x, f["res_m"], _mlp_int(x, f, cfg))
         x = _rescale_i8(x, f_rep["block_out_rescale"])
     x = _ln(x, folded["final_norm"], cfg)
-    # lm_head: the only product outside a kernel.  Every partial sum is an
-    # integer below 2^24 (|x| <= 127, |w| <= 7, K <= 4096 * ...), so the
-    # float32 product is exact (TF32 must stay off on the card).
-    acc = torch.matmul(x.to(torch.float32), head_weights(folded))
+    # lm_head: the only product outside a kernel, exact in head_dtype (TF32
+    # must stay off on the card); then the reference's int32 -> float32
+    # accumulator times the float32 scale.
+    w = head_weights(cfg, folded)
+    acc = torch.matmul(x.to(w.dtype), w).to(torch.float32)
     return acc * folded["lm_head"]["inv_acc"], cache

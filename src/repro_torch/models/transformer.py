@@ -159,6 +159,17 @@ def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
             mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None):
     """QAT (calibration) forward.  Returns (logits, obs tree matching
     ``init_amax``, aux_loss)."""
+    x, obs = hidden(cfg, params, amax, tokens, mask=mask, pos=pos)
+    w = params["embed"]["tokens"].T if cfg.tied_embeddings else params["lm_head"]
+    logits = x @ w
+    return logits.to(torch.float32), obs, torch.zeros((), device=x.device)
+
+
+@torch.no_grad()
+def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
+           mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None):
+    """The backbone of ``forward``: embeddings -> blocks -> final norm ->
+    the fake-quantized head input.  Returns (hidden (B, S, d), obs)."""
     check_ported(cfg)
     policy = cfg.quant
     x = params["embed"]["tokens"][tokens.long()]
@@ -181,7 +192,4 @@ def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
         per_rep.append(obs_rep)
     x = L.qnorm(x, params["final_norm"], policy, cfg.norm_type)
     x, obs_head = L.fake_quant_act(x, amax["head_in"], policy.a_bits, policy.quantize_wa)
-    w = params["embed"]["tokens"].T if cfg.tied_embeddings else params["lm_head"]
-    logits = x @ w
-    obs = {"blocks": tree_stack(per_rep), "embed_out": obs_embed, "head_in": obs_head}
-    return logits.to(torch.float32), obs, torch.zeros((), device=x.device)
+    return x, {"blocks": tree_stack(per_rep), "embed_out": obs_embed, "head_in": obs_head}

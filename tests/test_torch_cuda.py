@@ -20,14 +20,17 @@ from repro_torch.core import qlayernorm as qln
 from repro_torch.core import qsoftmax as qs
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.decode_attention import paged_decode_qattention
-from repro_torch.kernels.int4_matmul import int4_matmul
+from repro_torch.kernels.int4_matmul import BITSPLIT_MAX_K, int4_matmul, int8_bitsplit_matmul
 from repro_torch.kernels.prefill_attention import paged_prefill_qattention
 from repro_torch.kernels.quant_layernorm import quant_layernorm
+from repro_torch.kernels.quant_softmax import quant_softmax
 from repro_torch.launch.serve import calibrated_folded
 from repro_torch.models.transformer import tree_map
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 
-KERNELS = (int4_matmul, quant_layernorm, paged_prefill_qattention, paged_decode_qattention)
+ENGINE_KERNELS = (int4_matmul, quant_layernorm, paged_prefill_qattention,
+                  paged_decode_qattention)
+KERNELS = ENGINE_KERNELS + (quant_softmax, int8_bitsplit_matmul)
 
 
 @pytest.fixture
@@ -45,6 +48,27 @@ def _mm(m, k, n, seed, device):
     M, sh = fxp.quantize_multiplier(0.00071 * 128 / np.sqrt(k))
     return (x.to(device), packing.pack_int4_planar(codes, axis=0).to(device),
             bias.to(device), M, sh)
+
+
+def _mm8(m, k, n, seed, device, lo=-128):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(lo, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(lo, 128, (k, n)).astype(np.int8))
+    bias = torch.from_numpy(rng.integers(-50_000, 50_000, (n,)).astype(np.int32))
+    M, sh = fxp.quantize_multiplier(0.0071 / np.sqrt(k))
+    return x.to(device), w.to(device), bias.to(device), M, sh
+
+
+def _softmax(r, s, seed, device):
+    """int32 logit codes with masked tails (2^30 below) on every third row
+    and row 0 wholly masked, the q8 table and its index multiplier."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-400_000, 400_000, (r, s)).astype(np.int32)
+    x[::3, (2 * s) // 3:] -= qs.MASK_OFFSET
+    x[0] -= qs.MASK_OFFSET
+    M, sh = fxp.quantize_multiplier(1.0 / (rng.uniform(20, 60) * qs.LUT_DELTA))
+    lut = torch.as_tensor(qs.make_exp_lut(), dtype=torch.int32)
+    return torch.from_numpy(x).to(device), M, sh, lut.to(device)
 
 
 def _ln(r, n, seed, subtract_mean, device):
@@ -124,6 +148,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert torch.equal(paged_decode_qattention(*args), ref.paged_decode_qattention_ref(*args))
     args = _prefill(4, 2, 32, 8, 16, [0, 5], "cpu")
     assert torch.equal(paged_prefill_qattention(*args), ref.paged_prefill_qattention_ref(*args))
+    args = _softmax(5, 77, 1, "cpu")
+    assert torch.equal(quant_softmax(*args), ref.quant_softmax_ref(*args))
+    args = _mm8(5, 128, 96, 1, "cpu")
+    assert torch.equal(int8_bitsplit_matmul(*args), ref.int8_bitsplit_matmul_ref(*args))
     assert [k.launches for k in KERNELS] == before
 
 
@@ -149,6 +177,10 @@ def test_wrappers_refuse_other_devices():
         int4_matmul(x, w, b, M, sh)
     with pytest.raises(ValueError, match="unsupported device"):
         quant_layernorm(*_ln(2, 64, 1, False, "meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        quant_softmax(*_softmax(2, 8, 1, "meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_bitsplit_matmul(*_mm8(4, 64, 8, 1, "meta"))
 
 
 @pytest.mark.cuda
@@ -193,6 +225,55 @@ def test_paged_prefill_kernel_equals_plain(cuda, h, hkv, d, psize, sq, pos0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(1536, 128), (3000, 512), (77 * 12, 77), (9, 1), (3, 1500)])
+def test_quant_softmax_kernel_equals_plain(cuda, r, s):
+    """BERT's (B*12*S, S) rows, a ragged S, one key, a row longer than a
+    block; every third row masked after 2/3 of its keys, row 0 wholly
+    masked (it keeps its own max, so it is an ordinary row 2^30 lower)."""
+    args = _softmax(r, s, r + s, cuda)
+    assert torch.equal(_launched_once(quant_softmax, *args), ref.quant_softmax_ref(*args))
+
+
+@pytest.mark.cuda
+def test_quant_softmax_kernel_clamps_an_empty_denominator(cuda):
+    """A table that is 0 past a few entries and at index 0 zeroes some
+    rows' sums: den clamps to 1 and those probabilities are 0."""
+    x, M, sh, lut = _softmax(64, 40, 3, cuda)
+    lut = lut.clone()
+    lut[0] = 0
+    lut[4:] = 0
+    out = _launched_once(quant_softmax, x, M, sh, lut)
+    assert torch.equal(out, ref.quant_softmax_ref(x, M, sh, lut))
+    assert int((out == 0).all(dim=1).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(128, 768, 768), (128, 768, 3072), (128, 3072, 768),
+                                   (4096, 768, 3072), (5, 64, 12), (37, 3072, 100)])
+def test_int8_bitsplit_matmul_kernel_equals_plain(cuda, m, k, n):
+    args = _mm8(m, k, n, 7, cuda)
+    assert torch.equal(_launched_once(int8_bitsplit_matmul, *args),
+                       ref.int8_bitsplit_matmul_ref(*args))
+
+
+@pytest.mark.cuda
+def test_int8_bitsplit_matmul_holds_its_k_bound(cuda):
+    """At the largest K the kernel takes, all codes -128: every partial sum
+    reaches K * 128 * 128 < 2^31 on both sides, and they agree; one K step
+    more is refused."""
+    k = BITSPLIT_MAX_K // 64 * 64
+    x = torch.full((4, k), -128, dtype=torch.int8, device=cuda)
+    w = torch.full((k, 8), -128, dtype=torch.int8, device=cuda)
+    b = torch.zeros(8, dtype=torch.int32, device=cuda)
+    args = (x, w, b, 16384, 30)
+    assert torch.equal(_launched_once(int8_bitsplit_matmul, *args),
+                       ref.int8_bitsplit_matmul_ref(*args))
+    with pytest.raises(ValueError, match="K"):
+        int8_bitsplit_matmul(torch.zeros((4, k + 64), dtype=torch.int8, device=cuda),
+                             torch.zeros((k + 64, 8), dtype=torch.int8, device=cuda), b, 1, 0)
+
+
+@pytest.mark.cuda
 def test_engine_on_card_chunked_equals_oneshot(cuda):
     """The smoke yi-6b through the engine on the card (the gpu backend):
     chunked and one-shot prefill give the same greedy tokens, a shared
@@ -210,10 +291,33 @@ def test_engine_on_card_chunked_equals_oneshot(cuda):
         eng.generate(reqs)
         return [r.out.tolist() for r in reqs], eng.counters
 
-    for k in KERNELS:
+    for k in ENGINE_KERNELS:
         k.launches = 0
     one, c1 = run()
-    assert all(k.launches > 0 for k in KERNELS), [k.launches for k in KERNELS]
+    assert all(k.launches > 0 for k in ENGINE_KERNELS), [k.launches for k in ENGINE_KERNELS]
     chunked, c2 = run(max_prefill_chunk=8, max_batched_tokens=16)
     assert one == chunked
     assert c1["prefix_hits"] >= 1 and c2["chunked_prefills"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["POLICY_FQ", "POLICY_W8A8"])
+def test_small_bert_on_card_equals_cpu(cuda, pol):
+    """The smoke bert-base under both policies: the cache-less integer
+    forward on the card (quant_softmax, the GEMM of the policy, the LN)
+    equals the same forward on the CPU, logit for logit."""
+    import dataclasses
+
+    from repro_torch.core import policy
+    from repro_torch.models import serve_int as S
+
+    cfg = dataclasses.replace(smoke_config("bert-base"), quant=getattr(policy, pol))
+    folded = calibrated_folded(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 77)))
+    want, _ = S.serve_forward(cfg, folded, toks)
+    gemm = int8_bitsplit_matmul if cfg.quant.w_bits == 8 else int4_matmul
+    for k in (quant_softmax, gemm, quant_layernorm):
+        k.launches = 0
+    got, _ = S.serve_forward(cfg, tree_map(lambda t: t.to(cuda), folded), toks.to(cuda))
+    assert (quant_softmax.launches, gemm.launches, quant_layernorm.launches) == (2, 12, 5)
+    assert torch.equal(got.cpu(), want)

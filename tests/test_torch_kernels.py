@@ -1,9 +1,10 @@
-"""The port's four kernels.
+"""The port's six kernels.
 
 On the CPU: each plain version (``repro_torch.kernels.ref``, which is also
 what each wrapper computes for a CPU tensor) against both the reference's
 oracle (``repro.kernels.ref``) and its Pallas kernel in interpret mode, on
-the same numpy inputs.  int4_matmul and LN must be equal.  The two paged
+the same numpy inputs.  The GEMMs, LN and the row softmax must be equal.
+The two paged
 attention kernels must be equal except for +-1 codes on at most 0.1 % of
 elements: their fp32 online carry calls ``exp``, and torch's CPU ``exp``
 differs from XLA's by an ulp on some inputs (ROADMAP §1); the count is
@@ -13,6 +14,7 @@ The CUDA kernels against their plain versions on the card are in
 ``test_torch_cuda.py``, which imports no JAX so that it runs where only
 PyTorch is installed.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,15 +27,21 @@ from repro.core import qsoftmax as jqs
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import paged_decode_qattention as j_decode
 from repro.kernels.int4_matmul import int4_matmul as j_int4
+from repro.kernels.int4_matmul import int8_bitsplit_matmul as j_bitsplit
 from repro.kernels.prefill_attention import paged_prefill_qattention as j_prefill
 from repro.kernels.quant_layernorm import quant_layernorm as j_ln
+from repro.kernels.quant_softmax import quant_softmax as j_softmax
+from repro.models import layers as j_layers
 from repro_torch.core import qlayernorm as tln
+from repro_torch.core.qlinear import FoldedLinear
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import paged_decode_qattention
-from repro_torch.kernels.int4_matmul import int4_matmul
+from repro_torch.kernels.int4_matmul import int4_matmul, int8_bitsplit_matmul
 from repro_torch.kernels.prefill_attention import paged_prefill_qattention
 from repro_torch.kernels.quant_layernorm import quant_layernorm
+from repro_torch.kernels.quant_softmax import quant_softmax
+from repro_torch.models import layers as t_layers
 
 FLIP_FRACTION = 1e-3
 
@@ -204,3 +212,91 @@ def test_ops_backends_agree_on_cpu():
                                   ops.paged_prefill_attention_q(*args, impl="gpu").numpy())
     with pytest.raises(ValueError):
         ops.backend("pallas")
+
+
+@pytest.mark.parametrize("r,s", [(13, 16), (30, 77), (9, 128), (5, 512)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_quant_softmax_plain_equals_reference(r, s, masked):
+    """Rows (R not a multiple of 8) of int32 logit codes, masked as the
+    model masks them (2^30 below, half the rows cut after a ragged key
+    count, one row wholly masked); the reference kernel gets the rows
+    padded to 8 as its ops.softmax_q pads them."""
+    rng = np.random.default_rng(r * s)
+    x = rng.integers(-400_000, 400_000, (r, s)).astype(np.int32)
+    if masked:
+        x[::2, (s * 2) // 3:] -= jqs.MASK_OFFSET
+        x[1] -= jqs.MASK_OFFSET
+    M, sh = jfx.quantize_multiplier(1.0 / (rng.uniform(20, 60) * jqs.LUT_DELTA))
+    lut = jqs.make_exp_lut()
+    got = quant_softmax(_t(x), M, sh, _t(lut)).numpy()            # CPU: plain
+    want = jref.quant_softmax_ref(jnp.asarray(x), jnp.int32(M), jnp.int32(sh), jnp.asarray(lut))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    xp = np.concatenate([x, np.zeros((-r % 8, s), np.int32)])
+    pallas = j_softmax(jnp.asarray(xp), jnp.int32(M), jnp.int32(sh), jnp.asarray(lut),
+                       interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas)[:r])
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 128, 128), (5, 256, 96), (40, 512, 256)])
+def test_int8_bitsplit_matmul_plain_equals_reference(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    bias = rng.integers(-50_000, 50_000, (n,)).astype(np.int32)
+    M, sh = jfx.quantize_multiplier(0.0071 / np.sqrt(k))
+    got = int8_bitsplit_matmul(_t(x), _t(w), _t(bias), M, sh).numpy()   # CPU: plain
+    want = jref.int8_bitsplit_matmul_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                         jnp.int32(M), jnp.int32(sh))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    mp = -(-m // 8) * 8
+    xp = np.zeros((mp, k), np.int8)
+    xp[:m] = x
+    pallas = j_bitsplit(jnp.asarray(xp), jnp.asarray(w), jnp.asarray(bias), jnp.int32(M),
+                        jnp.int32(sh), bm=8, bn=min(n, 128) if n % 128 == 0 else n,
+                        bk=128, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas)[:m])
+    # the bit split is the direct int32 product, what the CUDA kernel computes
+    direct = x.astype(np.int64) @ w.astype(np.int64) + bias
+    assert np.abs(direct).max() < 2**31
+    np.testing.assert_array_equal(
+        got, jfx.requantize(jnp.asarray(direct.astype(np.int32)), jnp.int32(M), jnp.int32(sh)))
+
+
+def test_ops_route_w8_linears_and_softmax_alike_on_both_backends():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 5, 64)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (64, 12)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-999, 999, (12,)).astype(np.int32))
+    f = FoldedLinear(w_packed=w, bias_i=b, M=torch.tensor(23170), shift=torch.tensor(21),
+                         w_bits=8)
+    y = ops.linear_w4a8(x, f, impl="gpu")
+    assert y.shape == (2, 5, 12)
+    np.testing.assert_array_equal(y.numpy(), ops.linear_w4a8(x, f, impl="ref").numpy())
+    s = torch.from_numpy(rng.integers(-9000, 9000, (2, 3, 7, 7)).astype(np.int32))
+    mask = torch.from_numpy(np.tril(np.ones((7, 7), bool)))
+    lut = torch.from_numpy(jqs.make_exp_lut())
+    np.testing.assert_array_equal(ops.softmax_q(s, 19000, 20, lut, mask, impl="gpu").numpy(),
+                                  ops.softmax_q(s, 19000, 20, lut, mask, impl="ref").numpy())
+
+
+@pytest.mark.parametrize("s", [16, 24, 32, 33, 77, 128, 512])
+def test_lut_softmax_qat_matches_xla(s):
+    """The QAT softmax simulator against the reference's, both float32,
+    jitted as in its calibration forward: equal for rows of up to 17 and
+    of more than 32 keys; rows of 18 to 32 keys are a float island (XLA
+    fuses and reassociates that row sum), at most 0.05 % of probabilities
+    off, each by exactly 1/128 (ROADMAP §3).  Half of one head is masked."""
+    rng = np.random.default_rng(s)
+    logits = (rng.standard_normal((2, 12, 64, s)) * 3).astype(np.float32)
+    logits[0, 0, :, s // 2:] = -1e9
+    s_logit = np.float32(rng.uniform(5, 60))
+    want = np.asarray(jax.jit(lambda a, b: j_layers.lut_softmax_qat(a, b, True))(
+        jnp.asarray(logits), jnp.float32(s_logit)))
+    got = t_layers.lut_softmax_qat(torch.from_numpy(logits), torch.tensor(s_logit), True).numpy()
+    flips = int((got != want).sum())
+    print(f"lut_softmax_qat S={s}: {flips} of {got.size} probabilities differ")
+    if s <= 17 or s > 32:
+        assert flips == 0
+    else:
+        assert flips <= 5e-4 * got.size
+        assert set(np.unique(np.abs(got - want))) <= {0.0, 1.0 / 128}
