@@ -7,21 +7,30 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 ``nvcc`` and PyTorch built for CUDA.  It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the six CUDA kernels of the port (``_build.KERNELS``) from
+2. builds the nine CUDA kernels of the port (``_build.KERNELS``) from
    ``src/repro_torch/csrc``, one ``nvcc`` each, all at once, and prints the
    build time and each kernel's registers and shared memory;
 3. holds every kernel against its plain PyTorch version on the card at the
-   shapes of the serving paths (yi-6b for the four of the engine, BERT-base
-   for ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays
-   required) and times the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call;
+   shapes of the serving paths (yi-6b for the four of the engine and the
+   three of its other KV layouts, BERT-base for ``quant_softmax`` and
+   ``int8_bitsplit_matmul``; equal arrays required) and times the kernel,
+   the plain version and, where one PyTorch call computes the same
+   function, that call;
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
    with chunked prefill, which must give the same tokens, reuse a shared
    prefix and launch every kernel of that path;
-5. checks the integer forward's logits (finite, right shape) at full width,
-   and on a small model against the same forward on the CPU;
+5. ``[kv4]``: the same requests on the int4-packed pool (``kv_bits=4``),
+   one-shot and chunked: the packed kernels run 32 times per decode tick
+   and per prefill chunk, a page takes 262,400 bytes against 524,288, and
+   the first token where kv4 leaves the int8 run is printed (not gated);
+   ``[contiguous]``: the same requests on the contiguous stripe, then the
+   ``LockstepEngine`` (8 prompts of 32 tokens, 16 new), through
+   ``decode_qattention`` (32 launches per tick);
+   then checks the integer forward's logits (finite, right shape) at full
+   width, and a small model against the same forward on the CPU on the
+   paged int8 pool, the packed pool and the stripe;
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -220,63 +229,120 @@ def _chains(torch, rows, nb, n_pages, psize):
     return btab.to("cuda")
 
 
-def phase_paged_decode(torch, gen):
-    from repro_torch.kernels import decode_attention as mod
-    from repro_torch.kernels.ref import paged_decode_qattention_ref
+def _pack_pool(torch, gen, n_pages, psize, hkv, d):
+    """A random int4-packed pool (every nibble code) and fp32 page scales as
+    the write path makes them (max(amax, 1) / 7 for amax in 1..127); page 0,
+    the trash page, at the all-zero page's 1/7."""
+    packed = torch.randint(0, 256, (n_pages, psize, hkv, d // 2), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    amax = torch.randint(1, 128, (n_pages,), generator=gen, device="cuda")
+    scales = amax.to(torch.float32) * float(np.float32(1.0 / 7.0))
+    scales[0] = float(np.float32(1.0 / 7.0))
+    return packed, scales
 
+
+def _pool(torch, gen, n_pages, psize, hkv, d, packed):
+    """(pool arguments, KV bytes per pool row of one kv head, bytes per page
+    beyond the rows): int8 K and V, or packed K and V with their scales."""
+    if not packed:
+        return ((_rand_i8(torch, gen, (n_pages, psize, hkv, d)),
+                 _rand_i8(torch, gen, (n_pages, psize, hkv, d))), 2 * d, 0)
+    (kp, ks), (vp, vs) = (_pack_pool(torch, gen, n_pages, psize, hkv, d) for _ in range(2))
+    return (kp, vp, ks, vs), d, 8
+
+
+def phase_paged_decode(torch, gen, packed=False):
+    from repro_torch.kernels import decode_attention as mod
+    from repro_torch.kernels import ref
+
+    fn, plain = (mod.paged_decode_qattention_q4, ref.paged_decode_qattention_q4_ref) \
+        if packed else (mod.paged_decode_qattention, ref.paged_decode_qattention_ref)
     hkv, g, d, psize, nb = 4, 8, 128, 16, 64           # yi-6b, max_len 1024
     lengths = [33, 100, 250, 400, 520, 640, 700, 1000]
     b = len(lengths)
     n_pages = b * nb + 1
-    kp = _rand_i8(torch, gen, (n_pages, psize, hkv, d))
-    vp = _rand_i8(torch, gen, (n_pages, psize, hkv, d))
-    args = (_rand_i8(torch, gen, (b, hkv, g, d)), kp, vp,
+    pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
+    args = (_rand_i8(torch, gen, (b, hkv, g, d)), *pool,
             _chains(torch, lengths, nb, n_pages, psize),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"), *_attn_scalars(torch, d))
-    mism, err = compare(mod.paged_decode_qattention(*args), paged_decode_qattention_ref(*args))
-    row = dict(ms=device_ms(torch, mod.paged_decode_qattention, args),
-               plain_ms=device_ms(torch, paged_decode_qattention_ref, args, cold=False),
+    mism, err = compare(fn(*args), plain(*args))
+    row = dict(ms=device_ms(torch, fn, args), plain_ms=device_ms(torch, plain, args, cold=False),
                library_ms=None, mismatches=mism, max_abs_err=err,
-               shape=f"B=8 Hkv=4 G=8 D=128 P=16 lengths={lengths}")
+               shape=f"B=8 Hkv=4 G=8 D=128 P=16{' packed' if packed else ''} "
+                     f"lengths={lengths}")
     live = sum(lengths)
+    pages = sum(-(-n // psize) for n in lengths)
     row["bound_ms"], row["bound_by"] = bound_ms(
-        2 * b * hkv * g * d + 2 * live * hkv * d + 4 * b * (nb + 1) + 1024,
-        4.0 * hkv * g * d * live)
-    print(f"  paged_decode B={b} lengths={lengths}: kernel {row['ms']:.4f} ms, plain "
+        2 * b * hkv * g * d + live * hkv * row_bytes + page_bytes * pages + 4 * b * (nb + 1)
+        + 1024, 4.0 * hkv * g * d * live)
+    print(f"  {fn.__name__} B={b} lengths={lengths}: kernel {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     return row
 
 
-def phase_paged_prefill(torch, gen):
+def phase_paged_prefill(torch, gen, packed=False):
     from repro_torch.kernels import prefill_attention as mod
-    from repro_torch.kernels.ref import paged_prefill_qattention_ref
+    from repro_torch.kernels import ref
 
+    fn, plain = (mod.paged_prefill_qattention_q4, ref.paged_prefill_qattention_q4_ref) \
+        if packed else (mod.paged_prefill_qattention, ref.paged_prefill_qattention_ref)
     h, hkv, d, psize = 32, 4, 128, 16
     cases = [(512, [0]), (128, [256]), (64, [37, 0])]   # one-shot, chunk, unaligned
     mism, err, main = 0, 0.0, None
     for sq, pos0 in cases:
         nb = -(-(max(pos0) + sq) // psize) + 1
         n_pages = len(pos0) * nb + 1
-        kp = _rand_i8(torch, gen, (n_pages, psize, hkv, d))
-        vp = _rand_i8(torch, gen, (n_pages, psize, hkv, d))
-        args = (_rand_i8(torch, gen, (len(pos0), h, sq, d)), kp, vp,
+        pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
+        args = (_rand_i8(torch, gen, (len(pos0), h, sq, d)), *pool,
                 _chains(torch, [p + sq for p in pos0], nb, n_pages, psize),
                 torch.tensor(pos0, dtype=torch.int32, device="cuda"), *_attn_scalars(torch, d))
-        c, e = compare(mod.paged_prefill_qattention(*args), paged_prefill_qattention_ref(*args))
+        c, e = compare(fn(*args), plain(*args))
         mism, err = mism + c, max(err, e)
-        row = dict(ms=device_ms(torch, mod.paged_prefill_qattention, args),
-                   plain_ms=device_ms(torch, paged_prefill_qattention_ref, args, cold=False),
-                   library_ms=None)
+        row = dict(ms=device_ms(torch, fn, args),
+                   plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None)
         keys = sum(sum(p + i + 1 for i in range(sq)) for p in pos0)
+        rows = sum(p + sq for p in pos0)
         row["bound_ms"], row["bound_by"] = bound_ms(
-            2 * len(pos0) * h * sq * d + 2 * sum(p + sq for p in pos0) * hkv * d
-            + 4 * len(pos0) * nb + 1024, 4.0 * h * d * keys)
-        print(f"  paged_prefill S={sq} pos0={pos0}: kernel {row['ms']:.4f} ms, plain "
+            2 * len(pos0) * h * sq * d + rows * hkv * row_bytes
+            + page_bytes * -(-rows // psize) + 4 * len(pos0) * nb + 1024, 4.0 * h * d * keys)
+        print(f"  {fn.__name__} S={sq} pos0={pos0}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
         if main is None:
             main = row
     return dict(main, mismatches=mism, max_abs_err=err,
-                shape="B=1 H=32 Hkv=4 D=128 P=16 S=512 pos0=0")
+                shape=f"B=1 H=32 Hkv=4 D=128 P=16{' packed' if packed else ''} S=512 pos0=0")
+
+
+def phase_decode_contiguous(torch, gen):
+    from repro_torch.kernels import decode_attention as mod
+    from repro_torch.kernels.ref import decode_qattention_ref
+
+    hkv, g, d, smax, bkv = 4, 8, 128, 1024, 512        # yi-6b, max_len 1024
+    lengths = [33, 100, 250, 400, 520, 640, 700, 1000]
+    b = len(lengths)
+    args = (_rand_i8(torch, gen, (b, hkv, g, d)), _rand_i8(torch, gen, (b, smax, hkv, d)),
+            _rand_i8(torch, gen, (b, smax, hkv, d)),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), *_attn_scalars(torch, d))
+
+    def kernel(*a):
+        return mod.decode_qattention(*a, bkv=bkv)
+
+    def plain(*a):
+        return decode_qattention_ref(*a, bkv)
+
+    mism, err = compare(kernel(*args), plain(*args))
+    row = dict(ms=device_ms(torch, kernel, args),
+               plain_ms=device_ms(torch, plain, args, cold=False),
+               library_ms=None, mismatches=mism, max_abs_err=err,
+               shape=f"B=8 Hkv=4 G=8 D=128 Smax=1024 bkv=512 lengths={lengths}")
+    # the function needs the live rows only: a masked key's numerator is 0
+    rows = sum(lengths)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2 * b * hkv * g * d + 2 * rows * hkv * d + 4 * b + 1024, 4.0 * hkv * g * d * rows)
+    print(f"  decode (contiguous) B={b} Smax={smax} bkv={bkv} lengths={lengths}: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
 
 
 def phase_quant_softmax(torch, gen):
@@ -386,23 +452,24 @@ def profile_steps(torch, step, what: str, n: int = 3):
         print(f"  {what}: {wall_ms:.2f} ms wall; device time not measured "
               "(the profiler recorded none)")
         return
+    launches = sum(r[1] for r in rows) // n
     print(f"  {what}: {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f} %)")
+          f"({100 * busy_ms / wall_ms:.1f} %), {launches} device kernels per call")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {us / n / 1e3:8.3f} ms/call {count // n:5d}x  {key[:80]}")
 
 
-def profile_decode(torch, cfg, folded):
+def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
     """A steady decode tick of the served requests, once every prompt is
     cached (``Engine.poll`` ends in a device-to-host copy)."""
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
-    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024))
+    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024, **extra))
     for p in _prompts(cfg.vocab_size):
         eng.submit(Request(prompt=p, max_new_tokens=32))
     while eng.sched.waiting or eng.sched.prefilling:
         eng.poll()
-    profile_steps(torch, eng.poll, "decode tick (batch 8)")
+    profile_steps(torch, eng.poll, what)
 
 
 def serve(torch, cfg, folded, kernels, **extra):
@@ -441,13 +508,23 @@ def serve(torch, cfg, folded, kernels, **extra):
     return dict(tokens=toks, counters=dict(eng.counters), launches=launches,
                 tick_launches=tick_launches, wall_s=wall, tok_per_s=n_tok / wall,
                 ttft_p50_s=float(np.median(list(first.values()))),
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                bytes_per_page=eng.alloc.bytes_per_page if eng.alloc is not None else None)
 
 
-def phase_serve(torch, kernels):
+def print_run(name, r, kernels):
+    names = [k.__name__ for k in kernels]
+    c = r["counters"]
+    print(f"  {name}: {r['tok_per_s']:.1f} tok/s ({r['wall_s']:.2f} s wall), TTFT p50 "
+          f"{r['ttft_p50_s'] * 1e3:.1f} ms, peak {r['peak_gib']:.2f} GiB")
+    print(f"    counters: { {k: v for k, v in c.items() if v} }")
+    print(f"    launches: {dict(zip(names, r['launches']))}")
+    print(f"    launches in one decode-only tick: {dict(zip(names, r['tick_launches']))}")
+
+
+def load_yi6b(torch):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import calibrated_folded
-    from repro_torch.models import serve_int as S
 
     cfg = get_config("yi-6b")
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
@@ -457,18 +534,17 @@ def phase_serve(torch, kernels):
     torch.cuda.synchronize()
     print(f"  yi-6b: init + calibrate (2, 32) + fold {time.perf_counter() - t0:.1f} s, "
           f"folded {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return cfg, folded
+
+
+def phase_serve(torch, cfg, folded, kernels):
+    from repro_torch.models import serve_int as S
 
     runs = {"one-shot": serve(torch, cfg, folded, kernels),
             "chunked": serve(torch, cfg, folded, kernels, max_prefill_chunk=128,
                              max_batched_tokens=256)}
-    names = [k.__name__ for k in kernels]
     for name, r in runs.items():
-        c = r["counters"]
-        print(f"  {name}: {r['tok_per_s']:.1f} tok/s ({r['wall_s']:.2f} s wall), TTFT p50 "
-              f"{r['ttft_p50_s'] * 1e3:.1f} ms, peak {r['peak_gib']:.2f} GiB")
-        print(f"    counters: { {k: v for k, v in c.items() if v} }")
-        print(f"    launches: {dict(zip(names, r['launches']))}")
-        print(f"    launches in one decode-only tick: {dict(zip(names, r['tick_launches']))}")
+        print_run(name, r, kernels)
         check(all(n > 0 for n in r["launches"]),
               f"{name}: a kernel of the path was never launched: {r['launches']}")
     one, chunked = runs["one-shot"], runs["chunked"]
@@ -482,17 +558,115 @@ def phase_serve(torch, kernels):
     logits, _ = S.serve_forward(cfg, S.prepare_folded(cfg, folded), toks)
     check(tuple(logits.shape) == (1, 32, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"full-width logits: shape {tuple(logits.shape)} or non-finite values")
-    del folded
-    torch.cuda.empty_cache()
     return one
 
 
+def first_divergence(a, b):
+    """(request, token index) of the first token where two runs differ, or
+    None; requests in order, then tokens."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return i, j
+    return None
+
+
+def phase_kv4(torch, cfg, folded, int8_run):
+    """yi-6b at full width on the int4-packed pool: the [serve] requests
+    one-shot and chunked.  The paged int8 attention kernels must stay idle
+    and the packed ones run 32 times (one per layer) per decode tick and
+    per prefill chunk; where kv4's tokens leave the int8 run's is reported,
+    not gated (kv4 is a quality contract in the reference too)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+
+    q4 = [pa.paged_prefill_qattention_q4, da.paged_decode_qattention_q4]
+    int8 = [pa.paged_prefill_qattention, da.paged_decode_qattention]
+    kernels = q4 + int8
+    runs = {"kv4 one-shot": serve(torch, cfg, folded, kernels, kv_bits=4),
+            "kv4 chunked": serve(torch, cfg, folded, kernels, kv_bits=4,
+                                 max_prefill_chunk=128, max_batched_tokens=256)}
+    for name, r in runs.items():
+        print_run(name, r, kernels)
+        c = r["counters"]
+        want = [cfg.n_layers * c["prefill_chunks"], cfg.n_layers * c["decode_steps"], 0, 0]
+        check(r["launches"] == want, f"{name}: launches {r['launches']} != {want} "
+              "(32 per prefill chunk and per decode tick, no int8 attention kernel)")
+        check(r["tick_launches"][1] == cfg.n_layers, f"{name}: q4 decode launches per tick "
+              f"{r['tick_launches'][1]} != {cfg.n_layers}")
+        check(r["bytes_per_page"] == 262_400, f"{name}: bytes per page {r['bytes_per_page']}")
+    one, chunked = runs["kv4 one-shot"], runs["kv4 chunked"]
+    check(chunked["counters"]["chunked_prefills"] >= 1, "kv4: no prompt was chunked")
+    print(f"  bytes per page (16 rows, all layers): kv4 {one['bytes_per_page']:,} vs int8 "
+          f"{int8_run['bytes_per_page']:,} ({int8_run['bytes_per_page'] / one['bytes_per_page']:.3f}x)")
+    for name, r in runs.items():
+        div = first_divergence(int8_run["tokens"], r["tokens"])
+        same = sum(x == y for x, y in zip(int8_run["tokens"], r["tokens"]))
+        print(f"  {name} vs int8 one-shot: first divergence (request, token) {div}, "
+              f"{same} of 8 requests identical (reported, not gated)")
+    print(f"  kv4 chunked vs kv4 one-shot: first divergence "
+          f"{first_divergence(one['tokens'], chunked['tokens'])} (reported, not gated)")
+    profile_decode(torch, cfg, folded, "kv4 decode tick (batch 8)", kv_bits=4)
+    return one
+
+
+def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16):
+    from repro_torch.serve.engine import EngineConfig, LockstepEngine, Request
+
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32),
+                    max_new_tokens=new) for _ in range(n)]
+    eng = LockstepEngine(cfg, folded, EngineConfig(batch_slots=n, max_len=1024))
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = [r.out.tolist() for r in reqs]
+    check(all(len(t) == new and all(0 <= x < cfg.vocab_size for x in t) for t in toks),
+          "lockstep: a request returned the wrong number of tokens or an out-of-vocab token")
+    return dict(tokens=toks, launches=[k.launches for k in kernels], wall_s=wall,
+                tok_per_s=n * new / wall, steps=prompt_len + new - 1)
+
+
+def phase_contiguous(torch, cfg, folded):
+    """yi-6b at full width on the contiguous stripe (8 slots x 1024 rows):
+    the [serve] requests through the continuous engine (one-shot prefill per
+    request, then decode_qattention at bkv=512, 32 launches per tick), then
+    the LockstepEngine on 8 prompts of 32 tokens, 16 new tokens each."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+
+    kernels = [da.decode_qattention, pa.paged_prefill_qattention, da.paged_decode_qattention]
+    r = serve(torch, cfg, folded, kernels, cache_layout="contiguous")
+    print_run("contiguous", r, kernels)
+    c = r["counters"]
+    check(r["launches"] == [cfg.n_layers * c["decode_steps"], 0, 0],
+          f"contiguous: launches {r['launches']} (32 per decode tick, no paged kernel)")
+    check(c["oneshot_prefills"] == 8, f"contiguous: one-shot prefills {c['oneshot_prefills']}")
+    stripe = 2 * cfg.n_layers * 8 * 1024 * cfg.n_kv_heads * cfg.hd
+    print(f"  stripe: 8 x 1024 rows, {stripe / 1e6:.0f} MB for {cfg.n_layers} layers (K + V)")
+    lock = serve_lockstep(torch, cfg, folded, kernels)
+    print(f"  lockstep: {lock['tok_per_s']:.1f} tok/s ({lock['wall_s']:.2f} s wall, "
+          f"{lock['steps']} decode steps at batch 8), launches "
+          f"{dict(zip([k.__name__ for k in kernels], lock['launches']))}")
+    check(lock["launches"] == [cfg.n_layers * lock["steps"], 0, 0],
+          f"lockstep: launches {lock['launches']} (32 per decode step)")
+    profile_decode(torch, cfg, folded, "contiguous decode tick (batch 8)",
+                   cache_layout="contiguous")
+    return r
+
+
 def phase_small_reference(torch):
-    """The same paged prefill + decode of a small yi-6b on the card and on
-    the CPU, both through the gpu backend's wrappers (the CPU computes the
-    plain versions).  Integer stages agree exactly; the fp32 exp of the
-    attention carry may move a code by one, so logits are compared by
-    argmax and the differing count is printed."""
+    """The same prefill + decode of a small yi-6b on the card and on the CPU,
+    both through the gpu backend's wrappers (the CPU computes the plain
+    versions), on the paged int8 pool, the int4-packed pool and the
+    contiguous stripe.  The card replays the CPU's tokens.  The kernels'
+    fp32 carry is the plain versions' own (no fast math, no contraction),
+    so the packed pool and the stripe must give equal logits; the int8 pool
+    is compared by argmax as in earlier runs, with the count printed."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import calibrated_folded
     from repro_torch.models import serve_int as S
@@ -503,36 +677,48 @@ def phase_small_reference(torch):
     rng = np.random.default_rng(SEED)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
     btab = torch.tensor([[3, 5, 1, 0], [2, 7, 4, 0]], dtype=torch.int32)
-    out, fed = {}, []                  # the card replays the CPU's tokens
+
+    def cache_for(layout, dev):
+        if layout == "contiguous":
+            return S.init_cache(cfg, 2, 64, device=dev), None
+        return (S.init_paged_cache(cfg, 9, 16, 4 if layout == "kv4" else 8, device=dev),
+                btab.to(dev))
+
     prev = os.environ.get("REPRO_TORCH_KERNELS")
     os.environ["REPRO_TORCH_KERNELS"] = "gpu"
     try:
-        for dev in ("cpu", "cuda"):
-            folded = tree_map(lambda t, d=dev: t.to(d), folded_cpu)
-            cache = S.init_paged_cache(cfg, 9, 16, device=dev)
-            logits, cache = S.serve_forward(cfg, folded, prompt.to(dev), cache=cache,
-                                            pos_offset=0, block_tables=btab.to(dev))
-            rows = [logits.reshape(-1, cfg.vocab_size).cpu()]
-            for step in range(4):
-                if dev == "cpu":
-                    fed.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
-                logits, cache = S.serve_forward(
-                    cfg, folded, fed[step].to(dev), cache=cache,
-                    pos_offset=torch.full((2,), 32 + step, dtype=torch.int32, device=dev),
-                    mode="decode", block_tables=btab.to(dev))
-                rows.append(logits.reshape(-1, cfg.vocab_size).cpu())
-            out[dev] = torch.cat(rows)
+        for layout in ("int8", "kv4", "contiguous"):
+            out, fed = {}, []
+            for dev in ("cpu", "cuda"):
+                folded = tree_map(lambda t, d=dev: t.to(d), folded_cpu)
+                cache, bt = cache_for(layout, dev)
+                logits, cache = S.serve_forward(cfg, folded, prompt.to(dev), cache=cache,
+                                                pos_offset=0, block_tables=bt)
+                rows = [logits.reshape(-1, cfg.vocab_size).cpu()]
+                for step in range(4):
+                    if dev == "cpu":
+                        fed.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+                    logits, cache = S.serve_forward(
+                        cfg, folded, fed[step].to(dev), cache=cache,
+                        pos_offset=torch.full((2,), 32 + step, dtype=torch.int32, device=dev),
+                        mode="decode", block_tables=bt)
+                    rows.append(logits.reshape(-1, cfg.vocab_size).cpu())
+                out[dev] = torch.cat(rows)
+            a, b = out["cpu"], out["cuda"]
+            check(bool(torch.isfinite(b).all()), f"small model {layout}: non-finite logits")
+            differ = int((a != b).sum())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            print(f"  small yi-6b {layout}, card vs CPU: {differ} of {a.numel()} logits "
+                  f"differ, argmax agrees on {agree:.4f} of {a.shape[0]} rows")
+            if layout == "int8":
+                check(agree >= 0.99, f"small model: card and CPU disagree on {1 - agree:.3f}")
+            else:
+                check(differ == 0, f"small model {layout}: card and CPU logits differ")
     finally:
         if prev is None:
             del os.environ["REPRO_TORCH_KERNELS"]
         else:
             os.environ["REPRO_TORCH_KERNELS"] = prev
-    a, b = out["cpu"], out["cuda"]
-    check(bool(torch.isfinite(b).all()), "small model: non-finite logits on the card")
-    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    print(f"  small yi-6b, card vs CPU: {int((a != b).sum())} of {a.numel()} logits differ, "
-          f"argmax agrees on {agree:.4f} of {a.shape[0]} rows")
-    check(agree >= 0.99, f"small model: card and CPU disagree on {1 - agree:.3f} of rows")
 
 
 BERT_LAUNCHES = {"quant_softmax": 12, "gemm": 72, "quant_layernorm": 25}   # per forward
@@ -665,6 +851,11 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 matmul is on; the lm_head product must stay exact float32")
 
+    start = time.perf_counter()
+
+    def stamp(what):
+        print(f"  [{what} done at {time.perf_counter() - start:.0f} s]")
+
     t0 = time.perf_counter()
     _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {len(_build.KERNELS)} kernels (nvcc "
@@ -683,6 +874,11 @@ def main() -> int:
         (da.paged_decode_qattention, phase_paged_decode, da.SOURCE, da.REPLACES),
         (sm.quant_softmax, phase_quant_softmax, sm.SOURCE, sm.REPLACES),
         (mm.int8_bitsplit_matmul, phase_int8_bitsplit, mm.BITSPLIT_SOURCE, mm.BITSPLIT_REPLACES),
+        (da.paged_decode_qattention_q4, lambda t, g: phase_paged_decode(t, g, packed=True),
+         da.Q4_SOURCE, da.Q4_REPLACES),
+        (pa.paged_prefill_qattention_q4, lambda t, g: phase_paged_prefill(t, g, packed=True),
+         pa.Q4_SOURCE, pa.Q4_REPLACES),
+        (da.decode_qattention, phase_decode_contiguous, da.STRIPE_SOURCE, da.STRIPE_REPLACES),
     ]
     check(len(table) == len(_build.KERNELS), "the kernel table and _build.KERNELS disagree")
     engine_wrappers = [fn for fn, *_ in table[:4]]      # the yi-6b engine's kernels
@@ -694,19 +890,36 @@ def main() -> int:
         check(row["mismatches"] == 0, f"{fn.__name__}: kernel != plain version")
         rows.append(row)
     torch.cuda.empty_cache()
+    stamp("kernel phases")
 
     print("[serve] yi-6b, full width, 8 requests x 32 new tokens")
-    served = phase_serve(torch, engine_wrappers)
+    cfg, folded = load_yi6b(torch)
+    served = phase_serve(torch, cfg, folded, engine_wrappers)
+    stamp("serve")
+    print("[kv4] yi-6b, full width, the int4-packed pool (kv_bits=4), the same requests")
+    kv4 = phase_kv4(torch, cfg, folded, served)
+    stamp("kv4")
+    print("[contiguous] yi-6b, full width, the contiguous stripe and the LockstepEngine")
+    contiguous = phase_contiguous(torch, cfg, folded)
+    stamp("contiguous")
+    del folded
+    torch.cuda.empty_cache()
     print("[check] small model against the CPU")
     phase_small_reference(torch)
     print("[bert] bert-base, full width, W4A8 and W8A8, cache-less integer forward")
     bert = phase_bert(torch)
     print("[check] small bert-base against the CPU")
     phase_small_bert_reference(torch)
+    stamp("all phases")
 
     # launches: each kernel's count on its own main path (yi-6b one-shot
-    # serving for the engine's four; BERT at (1, 128) for the other two)
+    # serving for the engine's four, the kv4 one-shot run for the packed
+    # pool's two, the contiguous engine's run for decode_qattention; BERT
+    # at (1, 128) for the other two)
     launches = dict(zip([fn.__name__ for fn in engine_wrappers], served["launches"]))
+    launches["paged_prefill_qattention_q4"], launches["paged_decode_qattention_q4"] = \
+        kv4["launches"][:2]
+    launches["decode_qattention"] = contiguous["launches"][0]
     launches["quant_softmax"] = bert["POLICY_FQ"]["quant_softmax"]
     launches["int8_bitsplit_matmul"] = bert["POLICY_W8A8"]["int8_bitsplit_matmul"]
     check(all(n > 0 for n in launches.values()), f"a kernel was never launched: {launches}")

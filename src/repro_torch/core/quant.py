@@ -10,6 +10,7 @@ reference's straight-through estimator; rounding is half-to-even as in
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,15 @@ def rdiv(a: float, t: torch.Tensor) -> torch.Tensor:
     ``a`` as ``a * reciprocal(t)``, which rounds twice and lands an ulp away
     from the reference's division on about a quarter of inputs."""
     return torch.div(torch.full_like(t, a), t)
+
+
+def recip_f32(c: float) -> float:
+    """The float32 reciprocal by which XLA replaces a division by the
+    constant ``c`` (its algebraic simplifier rewrites ``x / c`` as
+    ``x * (1 / c)``, so the reference rounds twice where torch rounds once).
+    Wherever the reference divides by a constant inside a jitted graph, the
+    port multiplies by this."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def fake_quant(x: torch.Tensor, max_abs, bits: int) -> torch.Tensor:

@@ -1,4 +1,5 @@
-// The per-page step shared by the paged prefill and paged decode kernels:
+// The per-page step shared by the paged prefill and paged decode kernels,
+// int8 and int4-packed pools alike (only the page loader differs, below):
 // one block holds R query rows of one (slot, kv head) and walks the slot's
 // block-table chain page by page with the reference's exact datapath
 // (kernels/ref.py::paged_*_qattention_ref):
@@ -39,21 +40,91 @@ struct PageSmem {
   int lut[kLutSize];
 };
 
-// Copies one page's K and V rows of kv head h (pool layout
-// (n_pages, P, Hkv, D)) into shared memory, 16 bytes per thread-load.
-template <int NT>
-__device__ __forceinline__ void load_page(PageSmem& sm, const int8_t* kpool,
-                                          const int8_t* vpool, int page, int P,
-                                          int Hkv, int h, int D) {
-  const int vecs = D / 16;
-  for (int e = threadIdx.x; e < P * vecs; e += NT) {
-    const int r = e / vecs;
-    const int c = (e % vecs) * 16;
-    const size_t g = (static_cast<size_t>(page) * P + r) * Hkv * D + static_cast<size_t>(h) * D + c;
-    *reinterpret_cast<int4*>(&sm.k[r * D + c]) = *reinterpret_cast<const int4*>(kpool + g);
-    *reinterpret_cast<int4*>(&sm.v[r * D + c]) = *reinterpret_cast<const int4*>(vpool + g);
+// Page loaders: each copies one pool page's K and V rows of kv head h into
+// sm.k / sm.v as int8 codes, (P, D) row-major.  The kernels are templates
+// on the loader; everything after the load is the same datapath.
+
+// The int8 pool (n_pages, P, Hkv, D): 16 bytes per thread-load.
+struct Int8Pages {
+  const int8_t* k;
+  const int8_t* v;
+
+  template <int NT>
+  __device__ __forceinline__ void load(PageSmem& sm, int page, int P, int Hkv, int h,
+                                       int D) const {
+    const int vecs = D / 16;
+    for (int e = threadIdx.x; e < P * vecs; e += NT) {
+      const int r = e / vecs;
+      const int c = (e % vecs) * 16;
+      const size_t g = (static_cast<size_t>(page) * P + r) * Hkv * D +
+                       static_cast<size_t>(h) * D + c;
+      *reinterpret_cast<int4*>(&sm.k[r * D + c]) = *reinterpret_cast<const int4*>(k + g);
+      *reinterpret_cast<int4*>(&sm.v[r * D + c]) = *reinterpret_cast<const int4*>(v + g);
+    }
   }
+};
+
+// One int4 code under the page's fp32 scale: clip(round(c4 * scale), +-127),
+// the single-rounding product and half-to-even round of core/packing.py::
+// dequant_int4_codes.
+__device__ __forceinline__ unsigned dequant_code(int c4, float scale) {
+  const float y = fminf(fmaxf(rintf(__fmul_rn(static_cast<float>(c4), scale)), -127.0f), 127.0f);
+  return static_cast<unsigned>(static_cast<int>(y)) & 0xffu;
 }
+
+// 16 packed bytes -> 16 low-plane codes at lo[0..16) and 16 high-plane codes
+// at hi[0..16): each nibble sign-extended as ((x & 15) ^ 8) - 8, dequantized.
+__device__ __forceinline__ void dequant16(int8_t* lo, int8_t* hi, int4 w, float scale) {
+  const unsigned in[4] = {static_cast<unsigned>(w.x), static_cast<unsigned>(w.y),
+                          static_cast<unsigned>(w.z), static_cast<unsigned>(w.w)};
+  unsigned lo_w[4], hi_w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo_w[i] = 0;
+    hi_w[i] = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x = static_cast<int>((in[i] >> (8 * j)) & 0xffu);
+      lo_w[i] |= dequant_code(((x & 15) ^ 8) - 8, scale) << (8 * j);
+      hi_w[i] |= dequant_code((((x >> 4) & 15) ^ 8) - 8, scale) << (8 * j);
+    }
+  }
+  *reinterpret_cast<int4*>(lo) = make_int4(static_cast<int>(lo_w[0]), static_cast<int>(lo_w[1]),
+                                           static_cast<int>(lo_w[2]), static_cast<int>(lo_w[3]));
+  *reinterpret_cast<int4*>(hi) = make_int4(static_cast<int>(hi_w[0]), static_cast<int>(hi_w[1]),
+                                           static_cast<int>(hi_w[2]), static_cast<int>(hi_w[3]));
+}
+
+// The int4-packed pool (n_pages, P, Hkv, D/2) uint8, nibble-planar along the
+// head dim (the low nibbles hold columns [0, D/2), the high ones [D/2, D)),
+// with one fp32 scale per page for K (ks) and one for V (vs): the page is
+// read at half the bytes and dequantized on its way into shared memory.
+// 16 packed bytes (32 codes) per thread-load; needs D % 32 == 0.
+struct Int4Pages {
+  const uint8_t* k;
+  const uint8_t* v;
+  const float* ks;
+  const float* vs;
+
+  template <int NT>
+  __device__ __forceinline__ void load(PageSmem& sm, int page, int P, int Hkv, int h,
+                                       int D) const {
+    const int half = D / 2;
+    const int vecs = half / 16;
+    const float sk = ks[page];
+    const float sv = vs[page];
+    for (int e = threadIdx.x; e < P * vecs; e += NT) {
+      const int r = e / vecs;
+      const int c = (e % vecs) * 16;
+      const size_t g = (static_cast<size_t>(page) * P + r) * Hkv * half +
+                       static_cast<size_t>(h) * half + c;
+      dequant16(&sm.k[r * D + c], &sm.k[r * D + half + c],
+                *reinterpret_cast<const int4*>(k + g), sk);
+      dequant16(&sm.v[r * D + c], &sm.v[r * D + half + c],
+                *reinterpret_cast<const int4*>(v + g), sv);
+    }
+  }
+};
 
 template <int NT>
 __device__ __forceinline__ void init_rows(PageSmem& sm, const int* lut, int R) {
@@ -61,6 +132,43 @@ __device__ __forceinline__ void init_rows(PageSmem& sm, const int* lut, int R) {
   for (int r = threadIdx.x; r < R; r += NT) {
     sm.m[r] = kNegInit;
     sm.den[r] = 0.0f;
+  }
+}
+
+// The carry update of one tile of L keys for R rows, with the scores s
+// (R x L, row-major) already written and a barrier passed: the tile's row
+// max m', the rescale factor f, the LUT numerators in place of the scores,
+// then den = den * f + sum num and m = m'.  The order of the operations is
+// the exactness contract with kernels/ref.py; the caller then folds f and
+// the numerators into its accumulator (f and the numerators are final when
+// this returns, without a further barrier).
+template <int NT>
+__device__ __forceinline__ void carry_update(int* s, int R, int L, int* m, int* m_new,
+                                             float* f, float* den, const int* lut, int Mi,
+                                             int shi, float inv) {
+  const int tid = threadIdx.x;
+  for (int r = tid; r < R; r += NT) {
+    int lm = s[r * L];
+    for (int c = 1; c < L; ++c) lm = max(lm, s[r * L + c]);
+    const int m_old = m[r];
+    const int mn = max(m_old, lm);
+    float fr = expf(__fmul_rn(static_cast<float>(wrap_sub(m_old, mn)), inv));
+    if (m_old == kNegInit) fr = 0.0f;
+    m_new[r] = mn;
+    f[r] = fr;
+  }
+  __syncthreads();
+  for (int e = tid; e < R * L; e += NT) {
+    int idx = rescale(wrap_sub(m_new[e / L], s[e]), Mi, shi, 9);
+    idx = min(max(idx, 0), kLutSize - 1);
+    s[e] = lut[idx];
+  }
+  __syncthreads();
+  for (int r = tid; r < R; r += NT) {
+    int den_b = 0;
+    for (int c = 0; c < L; ++c) den_b += s[r * L + c];
+    den[r] = __fadd_rn(__fmul_rn(den[r], f[r]), static_cast<float>(den_b));
+    m[r] = m_new[r];
   }
 }
 
@@ -81,29 +189,7 @@ __device__ __forceinline__ void page_step(PageSmem& sm, int R, int P, int D, int
     sm.s[e] = s;
   }
   __syncthreads();
-  for (int r = tid; r < R; r += NT) {
-    int lm = sm.s[r * P];
-    for (int c = 1; c < P; ++c) lm = max(lm, sm.s[r * P + c]);
-    const int m_old = sm.m[r];
-    const int m_new = max(m_old, lm);
-    float f = expf(__fmul_rn(static_cast<float>(wrap_sub(m_old, m_new)), inv));
-    if (m_old == kNegInit) f = 0.0f;
-    sm.m_new[r] = m_new;
-    sm.f[r] = f;
-  }
-  __syncthreads();
-  for (int e = tid; e < R * P; e += NT) {
-    int idx = rescale(wrap_sub(sm.m_new[e / P], sm.s[e]), Mi, shi, 9);
-    idx = min(max(idx, 0), kLutSize - 1);
-    sm.s[e] = sm.lut[idx];
-  }
-  __syncthreads();
-  for (int r = tid; r < R; r += NT) {
-    int den_b = 0;
-    for (int c = 0; c < P; ++c) den_b += sm.s[r * P + c];
-    sm.den[r] = __fadd_rn(__fmul_rn(sm.den[r], sm.f[r]), static_cast<float>(den_b));
-    sm.m[r] = sm.m_new[r];
-  }
+  carry_update<NT>(sm.s, R, P, sm.m, sm.m_new, sm.f, sm.den, sm.lut, Mi, shi, inv);
 #pragma unroll
   for (int j = 0; j < ACC; ++j) {
     const int e = tid + NT * j;

@@ -22,7 +22,8 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("int4_matmul", "quant_layernorm", "paged_prefill_attention",
-           "paged_decode_attention", "quant_softmax", "int8_bitsplit_matmul")
+           "paged_decode_attention", "quant_softmax", "int8_bitsplit_matmul",
+           "paged_decode_attention_q4", "paged_prefill_attention_q4", "decode_attention")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -108,6 +109,17 @@ def device_scalar(v, dtype, device):
     import torch
 
     return torch.as_tensor(v, dtype=dtype).to(device).reshape(1).contiguous()
+
+
+def attn_scalars(device, M_idx, shift_idx, inv_s_logit, out_scale):
+    """The attention kernels' four scalars (the LUT index multiplier and
+    shift, the logit scale, the output scale) in device memory."""
+    import torch
+
+    return [device_scalar(M_idx, torch.int32, device),
+            device_scalar(shift_idx, torch.int32, device),
+            device_scalar(inv_s_logit, torch.float32, device),
+            device_scalar(out_scale, torch.float32, device)]
 
 
 def check_launch(rc: int, name: str):

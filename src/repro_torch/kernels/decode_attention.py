@@ -1,24 +1,46 @@
-"""Paged continuous-batching decode attention: the CUDA kernel
-``csrc/paged_decode_attention.cu`` and its wrapper.
+"""Decode attention: the CUDA kernels ``csrc/paged_decode_attention.cu``
+(int8 pool), ``csrc/paged_decode_attention_q4.cu`` (int4-packed pool) and
+``csrc/decode_attention.cu`` (contiguous stripe), and their wrappers.
 
-Replaces the TPU kernel
-``repro/kernels/decode_attention.py::paged_decode_qattention``.  On a CUDA
-tensor the wrapper launches the kernel (or raises); on a CPU tensor it
-computes the plain version ``ref.paged_decode_qattention_ref``.
+Replace the TPU kernels ``paged_decode_qattention``,
+``paged_decode_qattention_q4`` and ``decode_qattention`` of
+``repro/kernels/decode_attention.py``.  On a CUDA tensor a wrapper
+launches its kernel (or raises); on a CPU tensor it computes the plain
+version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_decode_qattention_ref
+from repro_torch.kernels.ref import (
+    decode_qattention_ref,
+    paged_decode_qattention_q4_ref,
+    paged_decode_qattention_ref,
+)
 
 SOURCE = "src/repro_torch/csrc/paged_decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:214"
+Q4_SOURCE = "src/repro_torch/csrc/paged_decode_attention_q4.cu"
+Q4_REPLACES = "src/repro/kernels/decode_attention.py:296"
+STRIPE_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+STRIPE_REPLACES = "src/repro/kernels/decode_attention.py:148"
 
 
 def _i32(t: torch.Tensor, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def _check_device(name: str, t: torch.Tensor):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def _aligned(name: str, *ts):
+    ts = [t.contiguous() for t in ts]
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: K/V must be 16-byte aligned")
+    return ts
 
 
 def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
@@ -29,8 +51,7 @@ def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
         return paged_decode_qattention_ref(q_i8, k_pool, v_pool, block_tables, lengths,
                                            M_idx, shift_idx, lut_q7, inv_s_logit,
                                            out_scale)
-    if q_i8.device.type != "cuda":
-        raise ValueError(f"paged_decode_qattention: unsupported device {q_i8.device}")
+    _check_device("paged_decode_qattention", q_i8)
     b, hkv, g, d = q_i8.shape
     _, psize, hkv_p, d_p = k_pool.shape
     nb = block_tables.shape[1]
@@ -43,17 +64,11 @@ def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
                          f"D % 16 == 0, P <= 64)")
     dev = q_i8.device
     q = q_i8.contiguous()
-    kp = k_pool.contiguous()
-    vp = v_pool.contiguous()
-    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
-        raise ValueError("paged_decode_qattention: pools must be 16-byte aligned")
+    kp, vp = _aligned("paged_decode_qattention", k_pool, v_pool)
     btab = _i32(block_tables, dev)
     lens = _i32(lengths, dev)
     lut = _i32(lut_q7, dev)
-    scal = [_build.device_scalar(M_idx, torch.int32, dev),
-            _build.device_scalar(shift_idx, torch.int32, dev),
-            _build.device_scalar(inv_s_logit, torch.float32, dev),
-            _build.device_scalar(out_scale, torch.float32, dev)]
+    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
     out = torch.empty_like(q)
     rc = _build.bind("paged_decode_attention", "paged_decode_attention", 11, 6)(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(), lens.data_ptr(),
@@ -65,3 +80,86 @@ def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
 
 
 paged_decode_qattention.launches = 0
+
+
+def paged_decode_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tables,
+                               lengths, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale):
+    """q int8 (B, Hkv, G, D) x int4-packed pools uint8 (n_pages, P, Hkv, D/2)
+    with fp32 (n_pages,) page scales, through the block table, masked to
+    ``lengths`` -> int8 (B, Hkv, G, D)."""
+    if q_i8.device.type == "cpu":
+        return paged_decode_qattention_q4_ref(q_i8, k_pool, v_pool, k_scale, v_scale,
+                                              block_tables, lengths, M_idx, shift_idx,
+                                              lut_q7, inv_s_logit, out_scale)
+    _check_device("paged_decode_qattention_q4", q_i8)
+    b, hkv, g, d = q_i8.shape
+    n_pages, psize, hkv_p, dh = k_pool.shape
+    nb = block_tables.shape[1]
+    if q_i8.dtype != torch.int8 or k_pool.dtype != torch.uint8 \
+            or v_pool.dtype != torch.uint8:
+        raise TypeError("paged_decode_qattention_q4 wants int8 q and uint8 packed pools")
+    if (hkv_p, 2 * dh) != (hkv, d) or v_pool.shape != k_pool.shape \
+            or tuple(k_scale.shape) != (n_pages,) or tuple(v_scale.shape) != (n_pages,) \
+            or g > 16 or d > 128 or d % 32 or psize > 64:
+        raise ValueError(f"paged_decode_qattention_q4: unsupported shapes q "
+                         f"{tuple(q_i8.shape)}, pool {tuple(k_pool.shape)}, scales "
+                         f"{tuple(k_scale.shape)} (needs G <= 16, D <= 128, D % 32 == 0, "
+                         f"P <= 64, one scale per page)")
+    dev = q_i8.device
+    q = q_i8.contiguous()
+    kp, vp = _aligned("paged_decode_qattention_q4", k_pool, v_pool)
+    ks = k_scale.to(device=dev, dtype=torch.float32).contiguous()
+    vs = v_scale.to(device=dev, dtype=torch.float32).contiguous()
+    btab = _i32(block_tables, dev)
+    lens = _i32(lengths, dev)
+    lut = _i32(lut_q7, dev)
+    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
+    out = torch.empty_like(q)
+    rc = _build.bind("paged_decode_attention_q4", "paged_decode_attention_q4", 13, 6)(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        btab.data_ptr(), lens.data_ptr(), lut.data_ptr(), *(t.data_ptr() for t in scal),
+        out.data_ptr(), b, hkv, g, d, psize, nb, _build.stream_of(dev))
+    _build.check_launch(rc, "paged_decode_qattention_q4")
+    paged_decode_qattention_q4.launches += 1
+    return out
+
+
+paged_decode_qattention_q4.launches = 0
+
+
+def decode_qattention(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
+                      inv_s_logit, out_scale, *, bkv: int):
+    """q int8 (B, Hkv, G, D) x the contiguous stripe int8 (B, Smax, Hkv, D),
+    masked to ``lengths``, the carry updated once per block of ``bkv`` keys
+    (``bkv`` divides Smax) -> int8 (B, Hkv, G, D)."""
+    if q_i8.device.type == "cpu":
+        return decode_qattention_ref(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx,
+                                     lut_q7, inv_s_logit, out_scale, bkv)
+    _check_device("decode_qattention", q_i8)
+    b, hkv, g, d = q_i8.shape
+    b_c, smax, hkv_c, d_c = k_cache.shape
+    if q_i8.dtype != torch.int8 or k_cache.dtype != torch.int8 \
+            or v_cache.dtype != torch.int8:
+        raise TypeError("decode_qattention wants int8 q and caches")
+    if (b_c, hkv_c, d_c) != (b, hkv, d) or v_cache.shape != k_cache.shape \
+            or g > 16 or d > 128 or d % 16 or not 0 < bkv <= 512 or smax % bkv:
+        raise ValueError(f"decode_qattention: unsupported shapes q {tuple(q_i8.shape)}, "
+                         f"cache {tuple(k_cache.shape)}, bkv {bkv} (needs G <= 16, "
+                         f"D <= 128, D % 16 == 0, bkv <= 512 dividing Smax)")
+    dev = q_i8.device
+    q = q_i8.contiguous()
+    kc, vc = _aligned("decode_qattention", k_cache, v_cache)
+    lens = _i32(lengths, dev)
+    lut = _i32(lut_q7, dev)
+    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
+    out = torch.empty_like(q)
+    rc = _build.bind("decode_attention", "decode_attention", 10, 6)(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(), lut.data_ptr(),
+        *(t.data_ptr() for t in scal), out.data_ptr(), b, hkv, g, d, smax, bkv,
+        _build.stream_of(dev))
+    _build.check_launch(rc, "decode_qattention")
+    decode_qattention.launches += 1
+    return out
+
+
+decode_qattention.launches = 0

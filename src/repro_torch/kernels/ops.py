@@ -22,9 +22,16 @@ from repro_torch.core.qlayernorm import QLNParams
 from repro_torch.core.qlinear import FoldedLinear
 from repro_torch.core.qsoftmax import MASK_OFFSET
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.decode_attention import paged_decode_qattention
+from repro_torch.kernels.decode_attention import (
+    decode_qattention,
+    paged_decode_qattention,
+    paged_decode_qattention_q4,
+)
 from repro_torch.kernels.int4_matmul import int4_matmul, int8_bitsplit_matmul
-from repro_torch.kernels.prefill_attention import paged_prefill_qattention
+from repro_torch.kernels.prefill_attention import (
+    paged_prefill_qattention,
+    paged_prefill_qattention_q4,
+)
 from repro_torch.kernels.quant_layernorm import quant_layernorm
 from repro_torch.kernels.quant_softmax import quant_softmax
 
@@ -106,3 +113,39 @@ def paged_prefill_attention_q(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
     if backend(impl, q_i8.device) == "ref":
         return _ref.paged_prefill_qattention_ref(*args)
     return paged_prefill_qattention(*args)
+
+
+def paged_decode_attention_q4(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale, block_tables,
+                              lengths, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,
+                              impl=None):
+    """``paged_decode_attention_q`` over the int4-packed pool: (n_pages, P,
+    Hkv, D/2) uint8 nibble-planar pages with one fp32 scale per page (K and
+    V), dequantized page by page inside the kernel."""
+    args = (q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale, block_tables, lengths, M_idx,
+            shift_idx, lut_q7, inv_s_logit, out_scale)
+    if backend(impl, q_i8.device) == "ref":
+        return _ref.paged_decode_qattention_q4_ref(*args)
+    return paged_decode_qattention_q4(*args)
+
+
+def paged_prefill_attention_q4(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale, block_tables,
+                               pos0, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,
+                               impl=None):
+    """``paged_prefill_attention_q`` over the int4-packed pool."""
+    args = (q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale, block_tables, pos0, M_idx,
+            shift_idx, lut_q7, inv_s_logit, out_scale)
+    if backend(impl, q_i8.device) == "ref":
+        return _ref.paged_prefill_qattention_q4_ref(*args)
+    return paged_prefill_qattention_q4(*args)
+
+
+def decode_attention_q(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
+                       inv_s_logit, out_scale, *, bkv: int, impl=None):
+    """(B, Hkv, G, D) grouped queries x the contiguous (B, Smax, Hkv, D) int8
+    stripe, each slot masked to ``lengths[b]``, blocks of ``bkv`` keys ->
+    (B, Hkv, G, D) int8 context."""
+    args = (q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7, inv_s_logit,
+            out_scale)
+    if backend(impl, q_i8.device) == "ref":
+        return _ref.decode_qattention_ref(*args, bkv)
+    return decode_qattention(*args, bkv=bkv)

@@ -1,21 +1,50 @@
-"""Paged chunked-prefill attention: the CUDA kernel
-``csrc/paged_prefill_attention.cu`` and its wrapper.
+"""Paged chunked-prefill attention: the CUDA kernels
+``csrc/paged_prefill_attention.cu`` (int8 pool) and
+``csrc/paged_prefill_attention_q4.cu`` (int4-packed pool), and their
+wrappers.
 
-Replaces the TPU kernel
-``repro/kernels/prefill_attention.py::paged_prefill_qattention``.  On a
-CUDA tensor the wrapper launches the kernel (or raises); on a CPU tensor it
-computes the plain version ``ref.paged_prefill_qattention_ref``.  The result
-does not depend on the kernel's q-block size ``bq``.
+Replace the TPU kernels ``paged_prefill_qattention`` and
+``paged_prefill_qattention_q4`` of ``repro/kernels/prefill_attention.py``.
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it computes the plain version in ``kernels/ref.py``.  The result does not
+depend on the kernel's q-block size ``bq``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_prefill_qattention_ref
+from repro_torch.kernels.ref import paged_prefill_qattention_q4_ref, paged_prefill_qattention_ref
 
 SOURCE = "src/repro_torch/csrc/paged_prefill_attention.cu"
 REPLACES = "src/repro/kernels/prefill_attention.py:128"
+Q4_SOURCE = "src/repro_torch/csrc/paged_prefill_attention_q4.cu"
+Q4_REPLACES = "src/repro/kernels/prefill_attention.py:214"
+
+
+def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift_idx,
+            inv_s_logit, out_scale, d_pool):
+    """Checks shared by both wrappers; returns the launch's device tensors
+    and ints.  ``d_pool`` is the head dim the pool's last axis stands for."""
+    if q_i8.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q_i8.device}")
+    b, h, sq, d = q_i8.shape
+    _, psize, hkv, _ = k_pool.shape
+    if d_pool != d or h % hkv or v_pool.shape != k_pool.shape or d > 128 or d % 16 \
+            or psize > 64:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q_i8.shape)}, pool "
+                         f"{tuple(k_pool.shape)} (needs D <= 128, D % 16 == 0, P <= 64, "
+                         f"H % Hkv == 0)")
+    dev = q_i8.device
+    kp, vp = k_pool.contiguous(), v_pool.contiguous()
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError(f"{name}: pools must be 16-byte aligned")
+    btab = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+    p0 = torch.as_tensor(pos0, dtype=torch.int32).to(dev).reshape(-1).expand(b).contiguous()
+    lut = lut_q7.to(device=dev, dtype=torch.int32).contiguous()
+    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
+    ints = (b, h, sq, hkv, d, psize, block_tables.shape[1], min(64, 8192 // d))
+    return q_i8.contiguous(), kp, vp, btab, p0, lut, scal, ints
 
 
 def paged_prefill_qattention(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
@@ -26,40 +55,55 @@ def paged_prefill_qattention(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
         return paged_prefill_qattention_ref(q_i8, k_pool, v_pool, block_tables, pos0,
                                             M_idx, shift_idx, lut_q7, inv_s_logit,
                                             out_scale)
-    if q_i8.device.type != "cuda":
-        raise ValueError(f"paged_prefill_qattention: unsupported device {q_i8.device}")
-    b, h, sq, d = q_i8.shape
-    _, psize, hkv, d_p = k_pool.shape
-    nb = block_tables.shape[1]
     if q_i8.dtype != torch.int8 or k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
         raise TypeError("paged_prefill_qattention wants int8 q and pools")
-    if d_p != d or h % hkv or v_pool.shape != k_pool.shape or d > 128 or d % 16 \
-            or psize > 64:
-        raise ValueError(f"paged_prefill_qattention: unsupported shapes q "
-                         f"{tuple(q_i8.shape)}, pool {tuple(k_pool.shape)} (needs "
-                         f"D <= 128, D % 16 == 0, P <= 64, H % Hkv == 0)")
-    dev = q_i8.device
-    q = q_i8.contiguous()
-    kp = k_pool.contiguous()
-    vp = v_pool.contiguous()
-    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
-        raise ValueError("paged_prefill_qattention: pools must be 16-byte aligned")
-    btab = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    p0 = torch.as_tensor(pos0, dtype=torch.int32).to(dev).reshape(-1).expand(b).contiguous()
-    lut = lut_q7.to(device=dev, dtype=torch.int32).contiguous()
-    scal = [_build.device_scalar(M_idx, torch.int32, dev),
-            _build.device_scalar(shift_idx, torch.int32, dev),
-            _build.device_scalar(inv_s_logit, torch.float32, dev),
-            _build.device_scalar(out_scale, torch.float32, dev)]
-    bq = min(64, 8192 // d)
+    q, kp, vp, btab, p0, lut, scal, ints = _common(
+        "paged_prefill_qattention", q_i8, k_pool, v_pool, block_tables, pos0, lut_q7,
+        M_idx, shift_idx, inv_s_logit, out_scale, k_pool.shape[-1])
     out = torch.empty_like(q)
     rc = _build.bind("paged_prefill_attention", "paged_prefill_attention", 11, 8)(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(), p0.data_ptr(),
-        lut.data_ptr(), *(t.data_ptr() for t in scal), out.data_ptr(),
-        b, h, sq, hkv, d, psize, nb, bq, _build.stream_of(dev))
+        lut.data_ptr(), *(t.data_ptr() for t in scal), out.data_ptr(), *ints,
+        _build.stream_of(q.device))
     _build.check_launch(rc, "paged_prefill_qattention")
     paged_prefill_qattention.launches += 1
     return out
 
 
 paged_prefill_qattention.launches = 0
+
+
+def paged_prefill_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tables,
+                                pos0, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale):
+    """q int8 (B, H, S, D) at positions [pos0, pos0+S) x int4-packed pools
+    uint8 (n_pages, P, Hkv, D/2) with fp32 (n_pages,) page scales, through
+    the block table -> int8 (B, H, S, D)."""
+    if q_i8.device.type == "cpu":
+        return paged_prefill_qattention_q4_ref(q_i8, k_pool, v_pool, k_scale, v_scale,
+                                               block_tables, pos0, M_idx, shift_idx,
+                                               lut_q7, inv_s_logit, out_scale)
+    if q_i8.dtype != torch.int8 or k_pool.dtype != torch.uint8 \
+            or v_pool.dtype != torch.uint8:
+        raise TypeError("paged_prefill_qattention_q4 wants int8 q and uint8 packed pools")
+    n_pages = k_pool.shape[0]
+    if q_i8.shape[-1] % 32 or tuple(k_scale.shape) != (n_pages,) \
+            or tuple(v_scale.shape) != (n_pages,):
+        raise ValueError(f"paged_prefill_qattention_q4: unsupported shapes q "
+                         f"{tuple(q_i8.shape)}, scales {tuple(k_scale.shape)} (needs "
+                         f"D % 32 == 0, one scale per page)")
+    q, kp, vp, btab, p0, lut, scal, ints = _common(
+        "paged_prefill_qattention_q4", q_i8, k_pool, v_pool, block_tables, pos0, lut_q7,
+        M_idx, shift_idx, inv_s_logit, out_scale, 2 * k_pool.shape[-1])
+    ks = k_scale.to(device=q.device, dtype=torch.float32).contiguous()
+    vs = v_scale.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty_like(q)
+    rc = _build.bind("paged_prefill_attention_q4", "paged_prefill_attention_q4", 13, 8)(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        btab.data_ptr(), p0.data_ptr(), lut.data_ptr(), *(t.data_ptr() for t in scal),
+        out.data_ptr(), *ints, _build.stream_of(q.device))
+    _build.check_launch(rc, "paged_prefill_qattention_q4")
+    paged_prefill_qattention_q4.launches += 1
+    return out
+
+
+paged_prefill_qattention_q4.launches = 0

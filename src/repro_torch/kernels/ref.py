@@ -140,6 +140,64 @@ def paged_prefill_qattention_ref(q_i8, k_pool, v_pool, block_tables, pos0,
     return _epilogue(acc, den, out_scale)
 
 
+def decode_qattention_ref(q_i8, k_i8, v_i8, lengths, M_idx, shift_idx, lut,
+                          inv_s_logit, out_scale, bkv: int):
+    """Block-online plain version of the contiguous decode kernel: q (B,
+    Hkv, G, D) against the cache-native stripe (B, Smax, Hkv, D), one block
+    of ``bkv`` keys per step (``bkv`` divides Smax).  The fp32 carry updates
+    once per block with the max over the whole block, so the result depends
+    on ``bkv``; blocks at or past ``lengths[b]`` leave the carry untouched.
+    (The reference's ``ref.decode_qattention_ref`` is row-wise and equals
+    this only when one block covers the row.)"""
+    b, hkv, g, d = q_i8.shape
+    dev = q_i8.device
+    smax = k_i8.shape[1]
+    assert smax % bkv == 0, (smax, bkv)
+    m = torch.full((b, hkv, g, 1), NEG_INIT, dtype=torch.int32, device=dev)
+    den = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=dev)
+    lut32 = lut.to(torch.int32)
+    inv = torch.as_tensor(inv_s_logit, dtype=torch.float32, device=dev)
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    for k_i in range(smax // bkv):
+        kb = k_i8[:, k_i * bkv:(k_i + 1) * bkv].permute(0, 2, 1, 3)    # (B,Hkv,bkv,D)
+        vb = v_i8[:, k_i * bkv:(k_i + 1) * bkv].permute(0, 2, 1, 3)
+        s = int_matmul(q_i8, kb.transpose(-1, -2))                     # (B,Hkv,G,bkv)
+        kpos = k_i * bkv + torch.arange(bkv, dtype=torch.int32, device=dev)
+        s = torch.where(kpos[None, None, None, :] < lengths[:, None, None, None],
+                        s, s - qs.MASK_OFFSET)
+        m_new, den_n, acc_n = _online_update(m, den, acc, s, vb, M_idx,
+                                             shift_idx, lut32, inv)
+        live = ((k_i * bkv) < lengths)[:, None, None, None]
+        den = torch.where(live, den_n, den)
+        acc = torch.where(live, acc_n, acc)
+        m = torch.where(live, m_new, m)
+    return _epilogue(acc, den, out_scale)
+
+
+def paged_decode_qattention_q4_ref(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale,
+                                   block_tables, lengths, M_idx, shift_idx, lut,
+                                   inv_s_logit, out_scale):
+    """Plain version of the int4-packed paged decode kernel: the whole pool
+    dequantized with the shared packing formulas, then the int8 paged
+    decode.  Every page the kernel reads dequantizes to the same codes."""
+    return paged_decode_qattention_ref(
+        q_i8, packing.dequantize_kv_pool(k_pool_u8, k_scale),
+        packing.dequantize_kv_pool(v_pool_u8, v_scale), block_tables, lengths,
+        M_idx, shift_idx, lut, inv_s_logit, out_scale)
+
+
+def paged_prefill_qattention_q4_ref(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale,
+                                    block_tables, pos0, M_idx, shift_idx, lut,
+                                    inv_s_logit, out_scale):
+    """Plain version of the int4-packed paged prefill kernel (whole-pool
+    dequant, then the int8 paged prefill)."""
+    return paged_prefill_qattention_ref(
+        q_i8, packing.dequantize_kv_pool(k_pool_u8, k_scale),
+        packing.dequantize_kv_pool(v_pool_u8, v_scale), block_tables, pos0,
+        M_idx, shift_idx, lut, inv_s_logit, out_scale)
+
+
 def make_exp_lut_q7() -> np.ndarray:
     """Q0.7 exp table for the attention kernels (max code 127, fits int8)."""
     i = np.arange(qs.LUT_SIZE, dtype=np.float64)

@@ -5,6 +5,8 @@ batched generation through the continuous-batching engine.
         --prompts 4 --max-new 16             # full width, on the card
 
 ``--device cpu`` runs the plain PyTorch path (use ``--smoke`` there).
+``--kv-bits 4`` packs the paged KV pool to int4; ``--layout contiguous``
+serves from per-slot contiguous stripes instead of the paged pool.
 """
 from __future__ import annotations
 
@@ -52,12 +54,15 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-bits", type=int, choices=(8, 4), default=8)
+    ap.add_argument("--layout", choices=("auto", "paged", "contiguous"), default="auto")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     folded = calibrated_folded(cfg, 0, device=args.device)
     eng = make_engine(cfg, folded, EngineConfig(batch_slots=args.prompts,
-                                                max_len=args.max_len))
+                                                max_len=args.max_len, kv_bits=args.kv_bits,
+                                                cache_layout=args.layout))
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, (args.prompt_len,)
                                         ).astype(np.int32),
@@ -70,7 +75,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out) for r in out)
     print(f"generated {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s "
-          f"batch={args.prompts}, device={eng.device})")
+          f"batch={args.prompts}, device={eng.device}, layout={eng.layout}, "
+          f"kv_bits={eng.kv_bits})")
     for i, r in enumerate(out[:2]):
         print(f"req{i}: {r.out[:12].tolist()}...")
 

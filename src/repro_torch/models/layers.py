@@ -12,7 +12,6 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -103,13 +102,6 @@ def apply_rope(x, pos, theta, partial: float = 1.0):
 
 # --- quantized-softmax simulator -----------------------------------------------
 
-def recip_f32(c: float) -> float:
-    """The float32 reciprocal by which XLA replaces a division by the
-    constant ``c`` (its algebraic simplifier rewrites ``x / c`` as
-    ``x * (1 / c)``, so the reference rounds twice where torch rounds once)."""
-    return float(np.float32(1.0) / np.float32(c))
-
-
 def xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
     """float32 sum over the last axis in the order XLA's CPU backend adds:
     a row longer than ``window`` is zero-padded to a multiple of it (the
@@ -146,8 +138,8 @@ def lut_softmax_qat(logits, s_logit, enabled: bool):
     lf = logits.to(torch.float32)
     lq = torch.round(lf * s_logit) / s_logit
     m = torch.amax(lq, -1, keepdim=True)
-    idx = torch.clamp(torch.round((m - lq) * recip_f32(LUT_DELTA)), 0, 255)
-    num = torch.round(torch.exp(-idx * LUT_DELTA) * 255.0) * recip_f32(255.0)
+    idx = torch.clamp(torch.round((m - lq) * q.recip_f32(LUT_DELTA)), 0, 255)
+    num = torch.round(torch.exp(-idx * LUT_DELTA) * 255.0) * q.recip_f32(255.0)
     num = torch.where(idx >= 255, torch.zeros_like(num), num)
     den = torch.clamp(xla_row_sum(num)[..., None], min=1e-9)
     p = torch.round(num / den * 128.0) / 128.0
@@ -186,7 +178,7 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
     a_q, _ = _amax_or_obs(amax["q"], qh)
     a_k, _ = _amax_or_obs(amax["k"], kh)
     s_logit = math.sqrt(hd) * q.rdiv(127.0, a_q) * q.rdiv(127.0, a_k)
-    lg = torch.einsum("bqhd,bkhd->bhqk", qh, kg) * recip_f32(math.sqrt(hd))
+    lg = torch.einsum("bqhd,bkhd->bhqk", qh, kg) * q.recip_f32(math.sqrt(hd))
     if mask is None and cfg.causal:
         ar = torch.arange(s, device=x.device)
         mask = (ar[None, :] <= ar[:, None])[None, None]

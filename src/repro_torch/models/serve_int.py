@@ -1,5 +1,8 @@
 """Integer serving forward over the folded params: cache-less prefill,
-chunk prefill into the paged int8 KV pool, and single-token paged decode.
+chunk prefill into the paged KV pool (int8, or int4-packed at ``kv_bits=4``)
+and single-token paged decode, and the contiguous per-slot stripe (one-shot
+prefill, single-token decode) that the lockstep engine and
+``cache_layout="contiguous"`` use.
 
 The paper's deployment datapath: int8 activations end to end, packed-int4
 (or int8, ``w_bits=8``) weights, LUT softmax, integer LN, int8 KV pool, with
@@ -10,12 +13,15 @@ other branch raises ``NotImplementedError``.
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
-reference's ``ref`` backend; on ``gpu`` they take the q7 paged kernels, as
-the reference's ``pallas`` backend does.  The cache-less causal prefill
-takes the blocked ``flash_qattention_torch`` on every backend; the
-bidirectional one the row softmax (``ops.softmax_q``), the kernel on ``gpu``.
+reference's ``ref`` backend; on ``gpu`` they take the q7 kernels (paged
+decode and prefill, their int4-packed twins, the contiguous decode), as the
+reference's ``pallas`` backend does.  The kv4 chunk prefill takes the q7
+packed family on every backend, as in the reference.  The cache-less causal
+prefill takes the blocked ``flash_qattention_torch`` on every backend (and
+so does the contiguous one-shot prefill on ``gpu``); the bidirectional one
+the row softmax (``ops.softmax_q``), the kernel on ``gpu``.
 
-Unlike the functional reference, the paged pool is updated IN PLACE (the
+Unlike the functional reference, the caches are updated IN PLACE (the
 returned cache is the same dict of tensors): at full width a copy of the
 pool per layer would cost more than the layer.
 """
@@ -124,13 +130,19 @@ def _qkv_rope(x_i8, f, cfg, pos):
     return qc, kc, vc
 
 
-def _attn_prefill(x_i8, f, cfg, pos):
-    """Cache-less prefill (evaluation path)."""
+def _attn_prefill(x_i8, f, cfg, pos, row_exact: bool = False):
+    """Whole-sequence prefill from position 0: the cache-less evaluation
+    path, and the one-shot prefill into the contiguous stripe, whose rows
+    must continue bit-exactly into decode on ``ref`` (``row_exact``: the
+    decode datapath's q8 rows under a causal mask).  Returns (out, kc, vc)."""
     b, s, _ = x_i8.shape
     nh, hd = cfg.n_heads, cfg.hd
     qc, kc, vc = _qkv_rope(x_i8, f, cfg, pos)
     aq = f["attn_q"]
-    if cfg.causal:
+    if cfg.causal and row_exact:
+        idx = torch.arange(s, device=x_i8.device)
+        ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, idx[None, :] <= idx[:, None])
+    elif cfg.causal:
         lut = _lut("q7", x_i8.device)
         ctx = torch.stack([flash_qattention_torch(
             qc[i].transpose(0, 1), kc[i].transpose(0, 1), vc[i].transpose(0, 1),
@@ -140,7 +152,7 @@ def _attn_prefill(x_i8, f, cfg, pos):
         # bidirectional (BERT): paper-style row LUT softmax, materialized
         ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, None)
     ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
-    return _lin(ctx, f["wo"], cfg.quant.w_bits)
+    return _lin(ctx, f["wo"], cfg.quant.w_bits), kc, vc
 
 
 def _gqa_decode(qg, k_cache, v_cache, lengths, aq):
@@ -155,18 +167,62 @@ def _gqa_decode(qg, k_cache, v_cache, lengths, aq):
     return torch.clamp(fxp.rescale(pv, aq["M_pv"], aq["sh_pv"]), -127, 127).to(torch.int8)
 
 
+def _attn_decode(x_i8, f, cfg, cache, pos_vec):
+    """Decode step over the contiguous stripe: x (B,1,d); cache {'k','v'}:
+    (B, Smax, Hkv, hd) int8.  Each slot appends its row at its own position,
+    then attends over its first ``pos + 1`` rows: on ``gpu`` through the
+    contiguous decode kernel in blocks of ``divisor_tile(512, Smax)`` keys,
+    on ``ref`` through the row-exact q8 rows."""
+    b, s, _ = x_i8.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    smax = cache["k"].shape[1]
+    qc, kc, vc = _qkv_rope(x_i8, f, cfg, pos_vec[:, None])
+    aq = f["attn_q"]
+    slot = torch.arange(b, device=x_i8.device)
+    cache["k"][slot, pos_vec.long()] = kc[:, 0]
+    cache["v"][slot, pos_vec.long()] = vc[:, 0]
+    lengths = pos_vec + 1
+    qg = qc.reshape(b, nkv, nh // nkv, hd)
+    if ops.backend(device=x_i8.device) == "gpu":
+        ctx = ops.decode_attention_q(
+            qg, cache["k"], cache["v"], lengths, aq["M_idx"], aq["sh_idx"],
+            _lut("q7", x_i8.device), aq["inv_s_logit"], aq["out_scale"],
+            bkv=divisor_tile(512, smax))
+    else:
+        ctx = _gqa_decode(qg, cache["k"], cache["v"], lengths, aq)
+    return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
+
+
+def _is_kv4(cslot) -> bool:
+    """Packed int4 pool slots carry per-page scale leaves ('ks'/'vs')."""
+    return "ks" in cslot
+
+
 def _gather_view(pool, block_tables):
     """(B, max_blocks*P, Hkv, hd) slot-major view of the chain (ref path)."""
     b = block_tables.shape[0]
     return pool[block_tables.long()].reshape(b, -1, pool.shape[2], pool.shape[3])
 
 
+def _dequant_paged_view(pool_u8, scales, block_tables):
+    """The slot-major view of a PACKED chain, dequantized: (B, max_blocks*P,
+    Hkv, hd) int8 (ref path; the kernels dequantize page by page)."""
+    idx = block_tables.long().reshape(-1)
+    pages = packing.dequantize_kv_pool(pool_u8[idx], scales[idx])    # (B*nb, P, Hkv, hd)
+    return pages.reshape(block_tables.shape[0], -1, pages.shape[2], pages.shape[3])
+
+
 def _attn_decode_paged(x_i8, f, cfg, cache, pos_vec, block_tables):
-    """Paged decode step: x (B,1,d); cache {'k','v'}: (n_pages, P, Hkv, hd).
-    The token's K/V row is written through the slot's block table (page =
-    table[b, pos // P], row = pos % P; inactive slots, whose table rows are
-    zero, write into the reserved trash page 0), then attention reads the
-    pool through the table."""
+    """Paged decode step: x (B,1,d); cache {'k','v'}: (n_pages, P, Hkv, hd)
+    int8, or (n_pages, P, Hkv, hd/2) uint8 with 'ks'/'vs' (n_pages,) fp32
+    page scales at kv_bits=4.  The token's K/V row is written through the
+    slot's block table (page = table[b, pos // P], row = pos % P; inactive
+    slots, whose table rows are zero, write into the reserved trash page 0),
+    then attention reads the pool through the table.
+
+    kv4: the row that opens a page (row 0) sets the page's scale from its
+    own codes; later rows quantize under the page's existing scale, so rows
+    written earlier keep dequantizing to the same codes."""
     b, s, _ = x_i8.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     psize = cache["k"].shape[1]
@@ -175,14 +231,31 @@ def _attn_decode_paged(x_i8, f, cfg, cache, pos_vec, block_tables):
     pos_l = pos_vec.long()
     pg = torch.gather(block_tables.long(), 1, (pos_l // psize)[:, None])[:, 0]
     row = pos_l % psize
-    cache["k"][pg, row] = kc[:, 0]
-    cache["v"][pg, row] = vc[:, 0]
+    kv4 = _is_kv4(cache)
+    if kv4:
+        for c, sc, rows in (("k", "ks", kc[:, 0]), ("v", "vs", vc[:, 0])):
+            scale = torch.where(row == 0, packing.kv_page_scale(rows, dims=(1, 2)),
+                                cache[sc][pg])
+            cache[c][pg, row] = packing.quantize_kv_page(rows, scale[:, None, None])
+            cache[sc][pg] = scale
+    else:
+        cache["k"][pg, row] = kc[:, 0]
+        cache["v"][pg, row] = vc[:, 0]
     lengths = pos_vec + 1
     qg = qc.reshape(b, nkv, nh // nkv, hd)
+    scal = (aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
+            aq["out_scale"])
     if ops.backend(device=x_i8.device) == "gpu":
-        ctx = ops.paged_decode_attention_q(
-            qg, cache["k"], cache["v"], block_tables, lengths, aq["M_idx"],
-            aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"], aq["out_scale"])
+        if kv4:
+            ctx = ops.paged_decode_attention_q4(qg, cache["k"], cache["v"], cache["ks"],
+                                                cache["vs"], block_tables, lengths, *scal)
+        else:
+            ctx = ops.paged_decode_attention_q(qg, cache["k"], cache["v"], block_tables,
+                                               lengths, *scal)
+    elif kv4:
+        ctx = _gqa_decode(qg, _dequant_paged_view(cache["k"], cache["ks"], block_tables),
+                          _dequant_paged_view(cache["v"], cache["vs"], block_tables),
+                          lengths, aq)
     else:
         ctx = _gqa_decode(qg, _gather_view(cache["k"], block_tables),
                           _gather_view(cache["v"], block_tables), lengths, aq)
@@ -193,14 +266,22 @@ def _attn_decode_paged(x_i8, f, cfg, cache, pos_vec, block_tables):
 def _paged_prefill_write(cache, kc, vc, block_tables):
     """Scatter a chunk's K/V rows (B, S, Hkv, hd) into the pool through the
     block table (S a whole number of pages, every entry a page the request
-    owns; pad rows land inside owned pages and are masked or overwritten)."""
+    owns; pad rows land inside owned pages and are masked or overwritten).
+    kv4: each written page is quantized under ONE scale from its whole
+    (P, Hkv, hd) codes, and the scale leaves update with the payload."""
     psize = cache["k"].shape[1]
     b, s = kc.shape[0], kc.shape[1]
     nb = s // psize
     assert nb * psize == s and block_tables.shape[1] == nb, (s, psize, block_tables.shape)
     idx = block_tables.long()
-    cache["k"][idx] = kc.reshape(b, nb, psize, *kc.shape[2:])
-    cache["v"][idx] = vc.reshape(b, nb, psize, *vc.shape[2:])
+    for c, rows in (("k", kc), ("v", vc)):
+        pages = rows.reshape(b, nb, psize, *rows.shape[2:])
+        if _is_kv4(cache):
+            scale = packing.kv_page_scale(pages, dims=(2, 3, 4))           # (B, nb)
+            cache[c][idx] = packing.quantize_kv_page(pages, scale[:, :, None, None, None])
+            cache[c + "s"][idx] = scale
+        else:
+            cache[c][idx] = pages
 
 
 def _attn_prefill_paged(x_i8, f, cfg, cache, pos, block_tables, pos0: int, pos0_vec,
@@ -216,7 +297,17 @@ def _attn_prefill_paged(x_i8, f, cfg, cache, pos, block_tables, pos0: int, pos0_
     aq = f["attn_q"]
     p0 = pos0 // psize
     _paged_prefill_write(cache, kc, vc, block_tables[:, p0:p0 + s // psize])
-    if row_exact:
+    scal = (aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
+            aq["out_scale"])
+    if _is_kv4(cache):
+        # kv4 takes the q7 packed family on every backend, as the reference
+        # does: a decode-written page's scale comes from its first row, a
+        # prefill-written page's from the whole page, so no row-exact
+        # identity between the two holds anyway
+        ctx = ops.paged_prefill_attention_q4(
+            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], cache["ks"], cache["vs"],
+            block_tables, pos0_vec, *scal).permute(0, 2, 1, 3)
+    elif row_exact:
         k_view = _gather_view(cache["k"], block_tables)
         v_view = _gather_view(cache["v"], block_tables)
         qpos = pos0 + torch.arange(s, device=x_i8.device)[:, None]
@@ -224,9 +315,7 @@ def _attn_prefill_paged(x_i8, f, cfg, cache, pos, block_tables, pos0: int, pos0_
         ctx = _attn_rows_q8(qc, k_view, v_view, aq, cfg, kpos <= qpos).permute(0, 2, 1, 3)
     else:
         ctx = ops.paged_prefill_attention_q(
-            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], block_tables,
-            pos0_vec, aq["M_idx"], aq["sh_idx"],
-            _lut("q7", x_i8.device), aq["inv_s_logit"], aq["out_scale"]
+            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], block_tables, pos0_vec, *scal
         ).permute(0, 2, 1, 3)
     return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
 
@@ -260,12 +349,41 @@ def paged_page_nbytes(cfg: ModelConfig, page_size: int, kv_bits: int = 8) -> int
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, kv_bits: int = 8,
                      device="cuda") -> Dict:
-    """Global paged KV pool, (n_reps, n_pages, P, Hkv, hd) int8 per attn slot."""
+    """Global paged KV pool, (n_reps, n_pages, P, Hkv, hd) int8 per attn slot.
+
+    ``kv_bits=4``: (n_reps, n_pages, P, Hkv, hd/2) uint8, nibble-planar along
+    hd (half the bytes), plus per-page fp32 scale leaves 'ks'/'vs' of shape
+    (n_reps, n_pages), all at the all-zero page's scale float32(1/7) (so the
+    trash page dequantizes to exact zeros)."""
     check_ported(cfg)
-    if kv_bits != 8:
-        raise NotImplementedError("the int4-packed KV pool (kv_bits=4) is not ported: "
-                                  "ROADMAP Open items §1")
-    shape = (cfg.n_reps, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits must be 8 or 4 (got {kv_bits})")
+    hd = cfg.hd // 2 if kv_bits == 4 else cfg.hd
+    dtype = torch.uint8 if kv_bits == 4 else torch.int8
+    shape = (cfg.n_reps, n_pages, page_size, cfg.n_kv_heads, hd)
+    cache = {}
+    for i in range(len(slot_kinds(cfg))):
+        c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if kv_bits == 4:
+            for sc in ("ks", "vs"):
+                c[sc] = torch.full((cfg.n_reps, n_pages), q.recip_f32(packing.KV4_QMAX),
+                                   dtype=torch.float32, device=device)
+        cache[f"slot{i}"] = c
+    return cache
+
+
+def cache_rows(cfg: ModelConfig, max_len: int) -> int:
+    """KV rows per slot of the contiguous stripe (a sliding-window arch
+    would ring-buffer to its window)."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict:
+    """The contiguous stripe: (n_reps, batch, Smax, Hkv, hd) int8 K and V per
+    attention slot."""
+    check_ported(cfg)
+    shape = (cfg.n_reps, batch, cache_rows(cfg, max_len), cfg.n_kv_heads, cfg.hd)
     return {f"slot{i}": {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                          "v": torch.zeros(shape, dtype=torch.int8, device=device)}
             for i in range(len(slot_kinds(cfg)))}
@@ -321,9 +439,11 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     prefill without cache: tokens (B,S) -> logits (B,S,V).  prefill with the
     paged cache (``block_tables`` (B, max_blocks)): also writes the K/V rows
     of positions [pos_offset, pos_offset+S) — ``pos_offset`` a host int,
-    page-aligned — into the pool in place.  decode: tokens (B,1) + cache ->
-    logits; ``pos_offset`` a scalar or per-slot (B,) vector.  Returns
-    (logits, cache).
+    page-aligned — into the pool in place.  prefill with the contiguous
+    stripe (no ``block_tables``): writes rows [0, S) of every slot, from
+    position 0.  decode: tokens (B,1) + either cache -> logits;
+    ``pos_offset`` a scalar or per-slot (B,) vector.  Returns (logits,
+    cache).
     """
     check_ported(cfg)
     if mode not in ("prefill", "decode"):
@@ -333,11 +453,11 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
             or tp_axis is not None:
         raise NotImplementedError("verify rows, extra embeddings, M-RoPE positions and "
                                   "tensor parallelism are not ported: ROADMAP Open items §1")
-    if cache is not None and block_tables is None:
-        raise NotImplementedError("the contiguous KV cache layout is not ported: "
-                                  "ROADMAP Open items §1")
     if mode == "decode" and cache is None:
-        raise ValueError("decode needs the paged cache and block tables")
+        raise ValueError("decode needs a KV cache")
+    if mode == "prefill" and cache is not None and block_tables is None \
+            and int(pos_offset) != 0:
+        raise ValueError("a prefill into the contiguous stripe starts at position 0")
     dev = tokens.device
     x = _embed_int(folded, tokens)
     b, s = x.shape[0], x.shape[1]
@@ -357,13 +477,21 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
             f = f_rep[f"slot{i}"]
             cslot = None if cache is None else \
                 {k: v[r] for k, v in cache[f"slot{i}"].items()}
-            if mode == "decode":
+            if mode == "decode" and block_tables is not None:
                 out = _attn_decode_paged(x, f, cfg, cslot, pos_vec, block_tables)
-            elif cslot is not None:
+            elif mode == "decode":
+                out = _attn_decode(x, f, cfg, cslot, pos_vec)
+            elif cslot is not None and block_tables is not None:
                 out = _attn_prefill_paged(x, f, cfg, cslot, pos, block_tables, pos0,
                                           pos_vec, row_exact)
             else:
-                out = _attn_prefill(x, f, cfg, pos)
+                # cache-less, or the one-shot prefill into the contiguous
+                # stripe (row-exact on ref, so decode continues bit-exactly)
+                out, kc, vc = _attn_prefill(x, f, cfg, pos,
+                                            row_exact=cslot is not None and row_exact)
+                if cslot is not None:
+                    cslot["k"][:, :s] = kc
+                    cslot["v"][:, :s] = vc
             x = _resid_add(x, f["res_a"], out)
             if ffn == "dense":
                 x = _resid_add(x, f["res_m"], _mlp_int(x, f, cfg))

@@ -1,10 +1,13 @@
 """Continuous-batching serving engine over the folded integer model.
 
-The port of the reference ``serve/engine.py`` for its default setup: the
-paged int8 KV pool, ``kv_bits=8``, one device (``tp=1``), no speculative
-decoding, on-demand page growth with preemption (or ``reserve_policy=
-"full"``), prefix sharing through the allocator's registry, chunked
-prefill under a token budget, greedy or sampled decode.
+The port of the reference ``serve/engine.py`` on one device (``tp=1``)
+without speculative decoding: the paged KV pool, int8 or int4-packed
+(``kv_bits=4``), with on-demand page growth and preemption (or
+``reserve_policy="full"``), prefix sharing through the allocator's registry
+and chunked prefill under a token budget; or the contiguous per-slot stripe
+(``cache_layout="contiguous"``) with one-shot prefill per request; greedy
+or sampled decode.  ``LockstepEngine`` is the reference's lockstep
+baseline over the contiguous stripe.
 
 ``poll()`` runs ONE scheduler tick — shed expired → admit → prefill chunks
 under the budget → grow decode pages (preempting when the pool runs dry) →
@@ -16,14 +19,15 @@ engine's greedy tokens and counters equal the reference engine's.
 
 The engine runs where the folded weights live: CUDA weights take the
 ``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
-Options the port does not have yet (contiguous layout, ``kv_bits=4``,
-``tp > 1`` / a mesh, ``spec_k > 0``, a shared prefix tier, the lockstep
-engine) raise ``EngineConfigError`` or ``NotImplementedError``.
+Options the port does not have yet (``tp > 1`` / a mesh, ``spec_k > 0``, a
+shared prefix tier, archs that need MoE/SSM/SWA or a frontend) raise
+``EngineConfigError`` or ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import serve_int as S
-from repro_torch.models.transformer import slot_kinds
+from repro_torch.models.transformer import check_ported, slot_kinds
 from repro_torch.serve import stats as stats_schema
 from repro_torch.serve.scheduler import BlockAllocator, Scheduler, SlotState, pages_needed
 
@@ -177,10 +181,6 @@ class EngineConfig:
         """Refuse, naming the ROADMAP item, what the port does not serve yet."""
         def no(what):
             raise EngineConfigError(f"{what} is not ported yet: {_ROADMAP}")
-        if self.cache_layout == "contiguous":
-            no("cache_layout='contiguous'")
-        if self.kv_bits != 8:
-            no("kv_bits=4 (the int4-packed KV pool)")
         if self.tp != 1 or self.mesh is not None:
             no("tensor parallelism (tp > 1 / mesh)")
         if self.spec_k:
@@ -202,19 +202,76 @@ def supports_continuous(cfg: ModelConfig) -> bool:
 
 
 def make_engine(cfg: ModelConfig, folded, config: Optional[EngineConfig] = None, **kw):
-    """The continuous engine; archs that need the lockstep engine raise."""
+    """The continuous engine.  The reference hands archs with a frontend or
+    several LM heads to the lockstep baseline; the port refuses those archs
+    (``check_ported``)."""
     config = _config_only(config, kw, "make_engine")
-    if not supports_continuous(cfg):
-        raise NotImplementedError(f"arch {cfg.name!r} needs the LockstepEngine, which is "
-                                  f"not ported yet: {_ROADMAP}")
+    check_ported(cfg)
     return Engine(cfg, folded, config)
 
 
 class LockstepEngine:
-    """The reference's lockstep baseline; not ported yet."""
+    """The reference's lockstep baseline: one shared position for every
+    slot, prompts left-padded to the longest and replayed through the
+    decode forward over the contiguous stripe.  Greedy tokens equal the
+    reference's; sampling draws from a ``torch.Generator`` seeded with
+    ``config.seed``, so sampled tokens are not ``jax.random``'s."""
 
-    def __init__(self, *args, **kw):  # noqa: ARG002
-        raise NotImplementedError(f"LockstepEngine is not ported yet: {_ROADMAP}")
+    def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
+                 **kw):
+        config = _config_only(config, kw, "LockstepEngine")
+        check_ported(cfg)
+        self.cfg = cfg
+        self.config = config
+        self.device = folded["embed"]["tokens_i8"].device
+        self.folded = S.prepare_folded(cfg, folded)
+        self.batch = config.batch_slots
+        self.max_len = config.max_len
+        self.reset(config.seed)
+
+    def reset(self, seed: int = 0):
+        self.cache = S.init_cache(self.cfg, self.batch, self.max_len, device=self.device)
+        self.pos = np.zeros(self.batch, np.int32)
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def _step(self, tokens_col: np.ndarray, pos: int) -> np.ndarray:
+        tok = torch.as_tensor(np.asarray(tokens_col, np.int32).reshape(self.batch, 1),
+                              device=self.device)
+        logits, self.cache = S.serve_forward(self.cfg, self.folded, tok, cache=self.cache,
+                                             pos_offset=pos, mode="decode")
+        return logits[:, -1].cpu().numpy()
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Lockstep decode for a batch of same-length-padded prompts."""
+        assert len(requests) <= self.batch
+        max_prompt = max(len(r.prompt) for r in requests)
+        max_new = max(r.max_new_tokens for r in requests)
+        toks = np.zeros((self.batch, max_prompt), np.int32)
+        for i, r in enumerate(requests):
+            toks[i, max_prompt - len(r.prompt):] = r.prompt          # left-pad
+        outs: List[List[int]] = [[] for _ in requests]
+        last = None
+        for t in range(max_prompt):
+            last = self._step(toks[:, t], t)
+        cur = np.argmax(last, -1).astype(np.int32)
+        for i in range(len(requests)):
+            outs[i].append(int(cur[i]))
+        for t in range(max_prompt, max_prompt + max_new - 1):
+            logits = self._step(cur, t)
+            if any(r.temperature > 0 for r in requests):
+                z = torch.from_numpy(logits) / max(requests[0].temperature, 1e-4)
+                u = torch.rand(z.shape, generator=self.gen).clamp_(min=1e-20)
+                cur = torch.argmax(z - torch.log(-torch.log(u)), -1).numpy().astype(np.int32)
+            else:
+                cur = np.argmax(logits, -1).astype(np.int32)
+            for i in range(len(requests)):
+                if len(outs[i]) < requests[i].max_new_tokens:
+                    outs[i].append(int(cur[i]))
+        for r, o in zip(requests, outs, strict=True):
+            r.out = np.asarray(o, np.int32)
+            r.status = RequestStatus.FINISHED
+            r.finish_reason = "length"
+        return requests
 
 
 class Engine:
@@ -226,11 +283,13 @@ class Engine:
         if not supports_continuous(cfg):
             raise EngineConfigError(f"continuous engine serves token-LM archs; arch "
                                     f"{cfg.name!r} needs LockstepEngine")
-        pageable = cfg.causal and not cfg.sliding_window and \
-            all(m == "attn" for m, _ in slot_kinds(cfg))
-        if not pageable:
+        check_ported(cfg)
+        # one-shot prefill needs every mixer to be cache-writing causal
+        # attention; the reference's batch-1 decode-loop prefill serves only
+        # archs the port does not have
+        if not (cfg.causal and all(m == "attn" for m, _ in slot_kinds(cfg))):
             raise NotImplementedError(
-                f"arch {cfg.name!r} needs the contiguous cache layout, which is not "
+                f"arch {cfg.name!r} needs the batch-1 decode-loop prefill, which is not "
                 f"ported yet: {_ROADMAP}")
         self.cfg = cfg
         self.config = config
@@ -238,19 +297,38 @@ class Engine:
         self.folded = S.prepare_folded(cfg, folded)
         self.batch = config.batch_slots
         self.max_len = config.max_len
-        self.smax = config.max_len
-        self.layout = "paged"
+        self.smax = S.cache_rows(cfg, config.max_len)
+        self.prefill_bucket = config.prefill_bucket
+        # 'auto' is paged for every arch the port serves (the reference
+        # resolves it to contiguous for sliding-window archs only)
+        layout = "paged" if config.cache_layout == "auto" else config.cache_layout
+        self.layout = layout
         self.page_size = config.page_size
+        if layout != "paged" and (config.max_batched_tokens is not None
+                                  or config.max_prefill_chunk is not None):
+            raise EngineConfigError(
+                "chunked prefill (max_batched_tokens / max_prefill_chunk) requires the "
+                f"paged cache layout, but cache_layout resolved to {layout!r} for arch "
+                f"{cfg.name!r}")
         self.max_batched_tokens = config.max_batched_tokens
         self.max_prefill_chunk = config.max_prefill_chunk
-        self.reserve_policy = config.reserve_policy or "ondemand"
-        self.kv_bits = 8
+        if layout == "paged":
+            self.reserve_policy = config.reserve_policy or "ondemand"
+        elif config.reserve_policy == "ondemand":
+            raise EngineConfigError(
+                "reserve_policy='ondemand' requires the paged cache layout, but "
+                f"cache_layout resolved to {layout!r} for arch {cfg.name!r}")
+        else:
+            self.reserve_policy = "full"
+        # kv_bits=4 packs the paged pool; validate() refuses it on contiguous
+        self.kv_bits = config.kv_bits
         self.spec_k = 0
         self.tp = 1
-        self.max_blocks = pages_needed(self.smax, self.page_size)
-        # +1: page 0 is the reserved trash page (inactive-slot writes)
-        self.n_pages = config.n_pages if config.n_pages is not None \
-            else self.batch * self.max_blocks + 1
+        if layout == "paged":
+            self.max_blocks = pages_needed(self.smax, self.page_size)
+            # +1: page 0 is the reserved trash page (inactive-slot writes)
+            self.n_pages = config.n_pages if config.n_pages is not None \
+                else self.batch * self.max_blocks + 1
         self._init_state(config.seed)
 
     @staticmethod
@@ -265,16 +343,21 @@ class Engine:
         self.pos = np.zeros(self.batch, np.int32)
         self.rng = np.random.default_rng(seed)
         self.counters = self._zero_counters()
-        self.alloc = BlockAllocator(
-            self.n_pages, self.page_size,
-            bytes_per_page=S.paged_page_nbytes(self.cfg, self.page_size, self.kv_bits))
-        self.sched = Scheduler(self.batch, allocator=self.alloc,
-                               max_batched_tokens=self.max_batched_tokens,
-                               max_prefill_chunk=self.max_prefill_chunk,
-                               reserve=self.reserve_policy)
-        self.cache = S.init_paged_cache(self.cfg, self.n_pages, self.page_size,
-                                        self.kv_bits, device=self.device)
-        self.block_tables = np.zeros((self.batch, self.max_blocks), np.int32)
+        if self.layout == "paged":
+            self.alloc = BlockAllocator(
+                self.n_pages, self.page_size,
+                bytes_per_page=S.paged_page_nbytes(self.cfg, self.page_size, self.kv_bits))
+            self.sched = Scheduler(self.batch, allocator=self.alloc,
+                                   max_batched_tokens=self.max_batched_tokens,
+                                   max_prefill_chunk=self.max_prefill_chunk,
+                                   reserve=self.reserve_policy)
+            self.cache = S.init_paged_cache(self.cfg, self.n_pages, self.page_size,
+                                            self.kv_bits, device=self.device)
+            self.block_tables = np.zeros((self.batch, self.max_blocks), np.int32)
+        else:
+            self.alloc = None
+            self.sched = Scheduler(self.batch)
+            self.cache = S.init_cache(self.cfg, self.batch, self.max_len, device=self.device)
 
     # --- forwards --------------------------------------------------------
 
@@ -282,10 +365,10 @@ class Engine:
         return torch.as_tensor(a, device=self.device)
 
     def _decode(self, toks: np.ndarray) -> np.ndarray:
+        btab = self._tensor(self.block_tables) if self.layout == "paged" else None
         logits, self.cache = S.serve_forward(
             self.cfg, self.folded, self._tensor(toks), cache=self.cache,
-            pos_offset=self._tensor(self.pos), mode="decode",
-            block_tables=self._tensor(self.block_tables))
+            pos_offset=self._tensor(self.pos), mode="decode", block_tables=btab)
         return logits[:, -1].cpu().numpy()
 
     def _prefill(self, toks: np.ndarray, btab: np.ndarray, pos0: int, row: int):
@@ -293,6 +376,30 @@ class Engine:
             self.cfg, self.folded, self._tensor(toks), cache=self.cache,
             pos_offset=pos0, mode="prefill", block_tables=self._tensor(btab))
         return logits[0, row].cpu().numpy()
+
+    def _bucket_len(self, ln: int) -> int:
+        """Padded one-shot prefill length for the contiguous layout: a
+        multiple of prefill_bucket (paged chunks pad to whole pages)."""
+        return min(max(self.prefill_bucket,
+                       math.ceil(ln / self.prefill_bucket) * self.prefill_bucket), self.smax)
+
+    def _prefill_slot(self, b: int, prompt: np.ndarray) -> np.ndarray:
+        """Contiguous layout: the one-shot prefill of a prompt into slot b's
+        stripe (cleared first, as the reference writes a fresh batch-1 cache
+        over it), padded to ``_bucket_len``; a pad row at index r is
+        overwritten by the decode step at pos == r, the step whose mask
+        first admits it.  Returns the last prompt row's logits."""
+        ln = len(prompt)
+        toks = np.zeros((1, self._bucket_len(ln)), np.int32)
+        toks[0, :ln] = prompt
+        stripe = {name: {leaf: t[:, b:b + 1] for leaf, t in c.items()}
+                  for name, c in self.cache.items()}
+        for c in stripe.values():
+            for t in c.values():
+                t.zero_()
+        logits, _ = S.serve_forward(self.cfg, self.folded, self._tensor(toks), cache=stripe,
+                                    pos_offset=0, mode="prefill")
+        return logits[0, ln - 1].cpu().numpy()
 
     # --- prefix sharing ---------------------------------------------------
 
@@ -307,9 +414,6 @@ class Engine:
         pre = [self.sched.slots[b] for b in self.sched.prefilling]
         chunk = self.max_prefill_chunk
         pending = [st.prompt_len - st.prefill_pos for st in pre]
-        al = self.alloc
-        if check:
-            al.check_invariants()
         g = dict(
             schema_version=stats_schema.STATS_SCHEMA_VERSION,
             waiting=len(self.sched.waiting),
@@ -319,14 +423,15 @@ class Engine:
             prefill_tokens_pending=sum(pending),
             prefill_chunks_pending=sum(-(-p // chunk) if chunk else 1 for p in pending),
             spec_k=self.spec_k,
-            pages_in_use=al.live,
-            pages_free=al.free_list_pages,
-            pages_cached_lru=al.lru_pages,
-            pages_capacity=al.capacity,
-            tp=self.tp,
         )
+        if self.layout == "paged":
+            al = self.alloc
+            if check:
+                al.check_invariants()
+            g.update(pages_in_use=al.live, pages_free=al.free_list_pages,
+                     pages_cached_lru=al.lru_pages, pages_capacity=al.capacity, tp=self.tp)
         g["counters"] = dict(self.counters)
-        return stats_schema.validate_stats(g, paged=True)
+        return stats_schema.validate_stats(g, paged=self.layout == "paged")
 
     def _set_table_row(self, b: int, pages: List[int]):
         self.block_tables[b, :] = 0
@@ -343,10 +448,11 @@ class Engine:
         if ln + request.max_new_tokens > self.max_len:
             raise ValueError(f"request needs {ln + request.max_new_tokens} cache rows, "
                              f"engine max_len={self.max_len}")
-        worst = pages_needed(ln + request.max_new_tokens - 1, self.page_size)
-        if worst > self.alloc.capacity:
-            raise ValueError(f"request needs up to {worst} cache pages, pool has "
-                             f"{self.alloc.capacity} (n_pages={self.n_pages})")
+        if self.layout == "paged":
+            worst = pages_needed(ln + request.max_new_tokens - 1, self.page_size)
+            if worst > self.alloc.capacity:
+                raise ValueError(f"request needs up to {worst} cache pages, pool has "
+                                 f"{self.alloc.capacity} (n_pages={self.n_pages})")
         rid = self.sched.submit(request)
         request.rid = rid
         request.status = RequestStatus.WAITING
@@ -366,7 +472,8 @@ class Engine:
             if st is not None and st.rid == rid:
                 st = self.sched.evict(b)
                 self.pos[b] = 0
-                self.block_tables[b, :] = 0
+                if self.layout == "paged":
+                    self.block_tables[b, :] = 0
                 emitted = st.emitted
                 break
         else:
@@ -406,32 +513,37 @@ class Engine:
         return int(np.argmax(logits_row))
 
     def _run_chunk(self, b: int, st: SlotState, pos0: int, ntok: int) -> List[TokenEvent]:
-        """One prefill chunk for slot ``b``: prompt rows [pos0, pos0+ntok),
-        padded to whole pages, written and read through a local block-table
-        row (the shared row stays zero until handoff, so decode ticks cannot
-        scribble on the slot's pages).  The final chunk's last real row hands
-        the request into decode with no extra forward."""
+        """One prefill chunk for slot ``b``: prompt rows [pos0, pos0+ntok).
+        Paged: padded to whole pages, written and read through a local
+        block-table row (the shared row stays zero until handoff, so decode
+        ticks cannot scribble on the slot's pages).  Contiguous: the whole
+        prompt at once into the slot's stripe.  The final chunk's last real
+        row hands the request into decode with no extra forward."""
         req = st.request
         prompt = np.asarray(st.prompt_tokens(), np.int32).reshape(-1)
         ln = len(prompt)
         if pos0 < st.hwm_rows:
             self.counters["recomputed_tokens"] += min(pos0 + ntok, st.hwm_rows) - pos0
         final = pos0 + ntok >= ln
-        pad = pages_needed(ntok, self.page_size) * self.page_size
-        toks = np.zeros((1, pad), np.int32)
-        toks[0, :ntok] = prompt[pos0:pos0 + ntok]
-        btab = np.zeros((1, self.max_blocks), np.int32)
-        btab[0, :len(st.pages)] = st.pages
-        last = self._prefill(toks, btab, pos0, ntok - 1)
+        if self.layout == "paged":
+            pad = pages_needed(ntok, self.page_size) * self.page_size
+            toks = np.zeros((1, pad), np.int32)
+            toks[0, :ntok] = prompt[pos0:pos0 + ntok]
+            btab = np.zeros((1, self.max_blocks), np.int32)
+            btab[0, :len(st.pages)] = st.pages
+            last = self._prefill(toks, btab, pos0, ntok - 1)
+        else:
+            assert pos0 == 0 and final, "contiguous layout prefills in one whole-prompt chunk"
+            last = self._prefill_slot(b, prompt)
         st.prefill_pos = pos0 + ntok
         st.chunks_done += 1
         self.counters["prefill_tokens"] += ntok
         self.counters["prefill_chunks"] += 1
         if not final:
             return []
-        ptoks = [int(t) for t in prompt]
-        self.alloc.register_prefix(ptoks, st.pages)
-        self._set_table_row(b, st.pages)
+        if self.layout == "paged":
+            self.alloc.register_prefix([int(t) for t in prompt], st.pages)
+            self._set_table_row(b, st.pages)
         st.tokens = None
         if st.shared_rows:
             self.counters["prefix_hits"] += 1
@@ -461,7 +573,8 @@ class Engine:
         req.finish_reason = "eos" if (req.eos_token is not None and st.emitted
                                       and st.emitted[-1] == req.eos_token) else "length"
         self.pos[b] = 0
-        self.block_tables[b, :] = 0
+        if self.layout == "paged":
+            self.block_tables[b, :] = 0
         self.counters["completed"] += 1
 
     # --- on-demand growth + preemption -----------------------------------
@@ -517,7 +630,7 @@ class Engine:
             st.request.status = RequestStatus.PREFILL
             if st.preemptions:
                 self.counters["restores"] += 1
-        if self.sched.waiting and self.sched.n_free > 0:
+        if self.layout == "paged" and self.sched.waiting and self.sched.n_free > 0:
             self.counters["pool_wait_ticks"] += 1
         n_decode = len(self.sched.decoding)
         used = 0
@@ -533,10 +646,11 @@ class Engine:
         for b in self.sched.prefilling:
             st = self.sched.slots[b]
             st.starved_ticks = 0 if b in chunked else st.starved_ticks + 1
-        if self.reserve_policy == "ondemand":
+        if self.layout == "paged" and self.reserve_policy == "ondemand":
             self._grow_decode_pages()
         active = self.sched.decoding
-        self.counters["cache_pages_peak"] = self.alloc.peak_live
+        if self.layout == "paged":
+            self.counters["cache_pages_peak"] = self.alloc.peak_live
         if not active:
             return events
         toks = np.zeros((self.batch, 1), np.int32)

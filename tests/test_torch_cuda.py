@@ -19,9 +19,16 @@ from repro_torch.core import packing
 from repro_torch.core import qlayernorm as qln
 from repro_torch.core import qsoftmax as qs
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.decode_attention import paged_decode_qattention
+from repro_torch.kernels.decode_attention import (
+    decode_qattention,
+    paged_decode_qattention,
+    paged_decode_qattention_q4,
+)
 from repro_torch.kernels.int4_matmul import BITSPLIT_MAX_K, int4_matmul, int8_bitsplit_matmul
-from repro_torch.kernels.prefill_attention import paged_prefill_qattention
+from repro_torch.kernels.prefill_attention import (
+    paged_prefill_qattention,
+    paged_prefill_qattention_q4,
+)
 from repro_torch.kernels.quant_layernorm import quant_layernorm
 from repro_torch.kernels.quant_softmax import quant_softmax
 from repro_torch.launch.serve import calibrated_folded
@@ -31,6 +38,7 @@ from repro_torch.serve.engine import Engine, EngineConfig, Request
 ENGINE_KERNELS = (int4_matmul, quant_layernorm, paged_prefill_qattention,
                   paged_decode_qattention)
 KERNELS = ENGINE_KERNELS + (quant_softmax, int8_bitsplit_matmul)
+LAYOUT_KERNELS = (paged_decode_qattention_q4, paged_prefill_qattention_q4, decode_qattention)
 
 
 @pytest.fixture
@@ -130,9 +138,45 @@ def _prefill(h, hkv, d, psize, sq, pos0, device, seed=4):
     return (q.to(device), kp, vp, btab.to(device), p0.to(device), *scal)
 
 
-def _launched_once(fn, *args):
+def _pack(rng, pool, scale_max=127 / 7, fill=None):
+    """A packed pool like ``pool`` (n_pages, P, Hkv, D) int8 -> uint8
+    (n_pages, P, Hkv, D/2) of random bytes (every nibble code), or all
+    ``fill`` bytes, and fp32 page scales; page 0, the trash page, keeps the
+    all-zero page's scale 1/7."""
+    n_pages, psize, hkv, d = pool.shape
+    shape = (n_pages, psize, hkv, d // 2)
+    packed = np.full(shape, fill, np.uint8) if fill is not None else \
+        rng.integers(0, 256, shape).astype(np.uint8)
+    scales = rng.uniform(1 / 7, scale_max, n_pages).astype(np.float32)
+    scales[0] = np.float32(1) / np.float32(7)
+    return torch.from_numpy(packed).to(pool.device), torch.from_numpy(scales).to(pool.device)
+
+
+def _decode_q4(g, d, psize, lengths, device, hkv=4, seed=2, fill=None):
+    q, kp, vp, btab, lens, *scal = _decode(g, d, psize, lengths, device, hkv, seed)
+    rng = np.random.default_rng(seed + 1)
+    (kq, ks), (vq, vs) = _pack(rng, kp, fill=fill), _pack(rng, vp, fill=fill)
+    return (q, kq, vq, ks, vs, btab, lens, *scal)
+
+
+def _prefill_q4(h, hkv, d, psize, sq, pos0, device, seed=4, fill=None):
+    q, kp, vp, btab, p0, *scal = _prefill(h, hkv, d, psize, sq, pos0, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    (kq, ks), (vq, vs) = _pack(rng, kp, fill=fill), _pack(rng, vp, fill=fill)
+    return (q, kq, vq, ks, vs, btab, p0, *scal)
+
+
+def _stripe(g, d, smax, lengths, device, hkv=4, seed=6):
+    rng = np.random.default_rng(seed)
+    kp, vp, scal = _attn_common(rng, len(lengths), smax, hkv, d, device)  # (B, Smax, Hkv, D)
+    q = torch.from_numpy(rng.integers(-127, 128, (len(lengths), hkv, g, d)).astype(np.int8))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return (q.to(device), kp, vp, lens.to(device), *scal)
+
+
+def _launched_once(fn, *args, **kw):
     n0 = fn.launches
-    out = fn(*args)
+    out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
     return out
@@ -153,6 +197,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     args = _mm8(5, 128, 96, 1, "cpu")
     assert torch.equal(int8_bitsplit_matmul(*args), ref.int8_bitsplit_matmul_ref(*args))
     assert [k.launches for k in KERNELS] == before
+
+
+def test_cpu_tensors_take_the_plain_version_for_the_layout_kernels():
+    before = [k.launches for k in LAYOUT_KERNELS]
+    args = _decode_q4(4, 32, 8, [3, 20], "cpu", hkv=2)
+    assert torch.equal(paged_decode_qattention_q4(*args),
+                       ref.paged_decode_qattention_q4_ref(*args))
+    args = _prefill_q4(4, 2, 32, 8, 16, [0, 5], "cpu")
+    assert torch.equal(paged_prefill_qattention_q4(*args),
+                       ref.paged_prefill_qattention_q4_ref(*args))
+    args = _stripe(4, 32, 48, [3, 48], "cpu", hkv=2)
+    assert torch.equal(decode_qattention(*args, bkv=16), ref.decode_qattention_ref(*args, 16))
+    assert [k.launches for k in LAYOUT_KERNELS] == before
 
 
 def test_backend_follows_the_device_unless_overridden(monkeypatch):
@@ -181,6 +238,8 @@ def test_wrappers_refuse_other_devices():
         quant_softmax(*_softmax(2, 8, 1, "meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         int8_bitsplit_matmul(*_mm8(4, 64, 8, 1, "meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_qattention(*_stripe(4, 32, 16, [3], "meta", hkv=1), bkv=16)
 
 
 @pytest.mark.cuda
@@ -321,3 +380,90 @@ def test_small_bert_on_card_equals_cpu(cuda, pol):
     got, _ = S.serve_forward(cfg, tree_map(lambda t: t.to(cuda), folded), toks.to(cuda))
     assert (quant_softmax.launches, gemm.launches, quant_layernorm.launches) == (2, 12, 5)
     assert torch.equal(got.cpu(), want)
+
+
+YI_LENGTHS = [33, 100, 250, 400, 520, 640, 700, 1000]     # chip_smoke's decode batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,psize,lengths,fill", [
+    (8, 128, 16, YI_LENGTHS, None),              # yi-6b, max_len 1024
+    (8, 128, 16, [1, 16, 17, 0], None),          # 1 row, on and past a page end, inactive
+    (4, 32, 8, [5, 17, 40], 0x88),               # every code -8 (clips at the top scales)
+    (4, 64, 64, [64, 3, 1], 0x77),               # every code 7, one 64-row page
+])
+def test_paged_decode_q4_kernel_equals_plain(cuda, g, d, psize, lengths, fill):
+    args = _decode_q4(g, d, psize, lengths, cuda, fill=fill)
+    assert torch.equal(_launched_once(paged_decode_qattention_q4, *args),
+                       ref.paged_decode_qattention_q4_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d,psize,sq,pos0,fill", [
+    (32, 4, 128, 16, 512, [0], None),            # yi-6b one-shot prefill
+    (32, 4, 128, 16, 128, [256], None),          # yi-6b chunk
+    (8, 2, 32, 8, 77, [3, 0], 0x87),             # unaligned pos0, codes 7 (lo) and -8 (hi)
+    (4, 1, 64, 64, 40, [64, 0], None),           # 64-row pages
+])
+def test_paged_prefill_q4_kernel_equals_plain(cuda, h, hkv, d, psize, sq, pos0, fill):
+    args = _prefill_q4(h, hkv, d, psize, sq, pos0, cuda, fill=fill)
+    assert torch.equal(_launched_once(paged_prefill_qattention_q4, *args),
+                       ref.paged_prefill_qattention_q4_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,smax,bkv,lengths", [
+    (8, 128, 1024, 512, YI_LENGTHS),             # yi-6b, max_len 1024
+    (8, 128, 1024, 512, [1, 512, 513, 1024]),    # 1 row, on and past a block end, full
+    (4, 32, 64, 64, [1, 64, 0, 30]),             # the smoke model's stripe, inactive slot
+    (16, 64, 96, 48, [47, 48, 49, 96]),          # G 16, a block of 48 (no multiple of 64)
+])
+def test_contiguous_decode_kernel_equals_plain(cuda, g, d, smax, bkv, lengths):
+    args = _stripe(g, d, smax, lengths, cuda)
+    assert torch.equal(_launched_once(decode_qattention, *args, bkv=bkv),
+                       ref.decode_qattention_ref(*args, bkv))
+
+
+@pytest.mark.cuda
+def test_layout_kernels_refuse_unsupported_shapes(cuda):
+    args = _stripe(4, 32, 96, [5], cuda, hkv=1)
+    with pytest.raises(ValueError, match="bkv"):
+        decode_qattention(*args, bkv=40)                  # does not divide Smax
+    q, kq, vq, ks, vs, *rest = _decode_q4(4, 32, 8, [5], cuda, hkv=1)
+    with pytest.raises(ValueError, match="scale"):
+        paged_decode_qattention_q4(q, kq, vq, ks[:-1], vs, *rest)
+
+
+@pytest.mark.cuda
+def test_kv4_and_contiguous_engines_on_card_equal_cpu(cuda, monkeypatch):
+    """The smoke yi-6b through the kv4 engine (one-shot and chunked), the
+    contiguous engine and the lockstep engine on the card equals the same
+    engines on the CPU under REPRO_TORCH_KERNELS=gpu (the plain versions),
+    and the card launched the three layout kernels."""
+    cfg = smoke_config("yi-6b")
+    folded_cpu = calibrated_folded(cfg, 0, device="cpu")
+    folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to(cuda), folded_cpu)}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (9, 30, 17, 12)]
+
+    def serve(dev, **kw):
+        eng = Engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64, page_size=4,
+                                                    **kw))
+        return [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+
+    def lockstep(dev):
+        from repro_torch.serve.engine import LockstepEngine
+        eng = LockstepEngine(cfg, folded[dev], EngineConfig(batch_slots=4, max_len=64))
+        return [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p[:8], max_new_tokens=6) for p in prompts])]
+
+    runs = [lambda d: serve(d, kv_bits=4),
+            lambda d: serve(d, kv_bits=4, max_prefill_chunk=8, max_batched_tokens=16),
+            lambda d: serve(d, cache_layout="contiguous"), lockstep]
+    for k in LAYOUT_KERNELS:
+        k.launches = 0
+    on_card = [run("cuda") for run in runs]
+    assert all(k.launches > 0 for k in LAYOUT_KERNELS), [k.launches for k in LAYOUT_KERNELS]
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+    assert on_card == [run("cpu") for run in runs]

@@ -153,7 +153,6 @@ def test_stats_schema_keys_match_reference(folded):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(cache_layout="contiguous"), "cache_layout"), (dict(kv_bits=4), "kv_bits"),
     (dict(tp=2), "tensor parallelism"), (dict(spec_k=2), "speculative"),
 ])
 def test_unported_options_raise_naming_the_roadmap(folded, kw, what):
@@ -164,8 +163,14 @@ def test_unported_options_raise_naming_the_roadmap(folded, kw, what):
 def test_keyword_options_raise_type_error(folded):
     with pytest.raises(TypeError, match="EngineConfig"):
         E.Engine(folded[2], folded[3], btach_slots=2)
+    with pytest.raises(TypeError, match="EngineConfig"):
+        E.LockstepEngine(folded[2], folded[3], btach_slots=2)
+
+
+def test_prefix_tier_raises_naming_the_roadmap(folded):
+    eng = E.Engine(folded[2], folded[3], E.EngineConfig(batch_slots=2, max_len=32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.LockstepEngine(folded[2], folded[3])
+        eng.attach_prefix_tier(None)
 
 
 def test_gpu_backend_chunked_equals_oneshot_on_cpu(folded, monkeypatch):
