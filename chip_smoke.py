@@ -7,15 +7,15 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 ``nvcc`` and PyTorch built for CUDA.  It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the nine CUDA kernels of the port (``_build.KERNELS``) from
+2. builds the eleven CUDA kernels of the port (``_build.KERNELS``) from
    ``src/repro_torch/csrc``, one ``nvcc`` each, all at once, and prints the
    build time and each kernel's registers and shared memory;
 3. holds every kernel against its plain PyTorch version on the card at the
-   shapes of the serving paths (yi-6b for the four of the engine and the
-   three of its other KV layouts, BERT-base for ``quant_softmax`` and
-   ``int8_bitsplit_matmul``; equal arrays required) and times the kernel,
-   the plain version and, where one PyTorch call computes the same
-   function, that call;
+   shapes of the serving paths (yi-6b for the four of the engine, the three
+   of its other KV layouts and the two flash kernels, BERT-base for
+   ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required)
+   and times the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call;
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
@@ -25,12 +25,19 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    one-shot and chunked: the packed kernels run 32 times per decode tick
    and per prefill chunk, a page takes 262,400 bytes against 524,288, and
    the first token where kv4 leaves the int8 run is printed (not gated);
-   ``[contiguous]``: the same requests on the contiguous stripe, then the
+   ``[contiguous]``: the same requests on the contiguous stripe (each
+   one-shot prefill through ``flash_qattention``, 32 launches), then the
    ``LockstepEngine`` (8 prompts of 32 tokens, 16 new), through
-   ``decode_qattention`` (32 launches per tick);
-   then checks the integer forward's logits (finite, right shape) at full
-   width, and a small model against the same forward on the CPU on the
-   paged int8 pool, the packed pool and the stripe;
+   ``decode_qattention`` (32 launches per tick); the TTFT p50 of the three
+   layouts side by side;
+   ``[eval]``: the cache-less causal forward at full width at (1, 512) and
+   (2, 1024) (finite logits, 32 ``flash_qattention`` launches per forward,
+   median latency), profiles of a (1, 512) forward and a 704-token stripe
+   prefill, and ``flash_qdecode`` per layer over that stripe's cache, equal
+   to ``decode_qattention`` on it; no served path may run the plain flash
+   on the card (counted);
+   then checks a small model against the same forward on the CPU on the
+   paged int8 pool, the packed pool, the stripe and without a cache;
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -345,6 +352,88 @@ def phase_decode_contiguous(torch, gen):
     return row
 
 
+def phase_flash_qattention(torch, gen):
+    """Row 9 at yi-6b's heads (H 32, Hkv 4, D 128): the (1, 512) cache-less
+    prefill at its serving block, the 700-token prompt's stripe bucket (S
+    704, bkv 352), ``ops.attention_q``'s default block (S 1024, bkv 128)
+    and a q_offset (Sq 128 at 896 over Skv 1024).  q, k and v are (B, S,
+    H, D) tensors seen transposed, as the serving forward hands them over."""
+    from repro_torch.kernels import flash_qattention as mod
+
+    h, hkv, d = 32, 4, 128
+    cases = [(512, 512, 0, 512), (704, 704, 0, 352), (1024, 1024, 0, 128),
+             (128, 1024, 896, 512)]
+    mism, err, main = 0, 0.0, None
+    for sq, skv, q_offset, bkv in cases:
+        q = _rand_i8(torch, gen, (1, sq, h, d)).transpose(1, 2)
+        k, v = (_rand_i8(torch, gen, (1, skv, hkv, d)).transpose(1, 2) for _ in range(2))
+        args = (q, k, v, *_attn_scalars(torch, d))
+
+        def kernel(*a):
+            return mod.flash_qattention(*a, q_offset=q_offset, bkv=bkv)
+
+        def plain(*a):
+            return mod.flash_qattention_torch(*a, q_offset=q_offset, bkv=bkv)
+
+        c, e = compare(kernel(*args), plain(*args))
+        mism, err = mism + c, max(err, e)
+        row = dict(ms=device_ms(torch, kernel, args),
+                   plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None)
+        # the keys up to the last row's frontier, each read once; every live
+        # causal pair costs 2 * D operations in QK^T and 2 * D in P.V
+        keys = min(skv, q_offset + sq)
+        pairs = h * sum(min(skv, q_offset + i + 1) for i in range(sq))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * h * sq * d + 2 * hkv * keys * d + 1024 + 16, 4.0 * d * pairs)
+        print(f"  flash_qattention Sq={sq} Skv={skv} q_offset={q_offset} bkv={bkv}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {c} mismatches")
+        if main is None:
+            main = row
+    print("  library: none (no single PyTorch call computes the q7 LUT flash; "
+          "scaled_dot_product_attention is a float softmax)")
+    return dict(main, mismatches=mism, max_abs_err=err,
+                shape="B=1 H=32 Hkv=4 D=128 S=512 bkv=512 (the (1, 512) prefill)")
+
+
+def phase_flash_qdecode(torch, gen):
+    """Row 10 at yi-6b's group (Hkv 4, G 8, D 128), bkv 512: a 1024-row
+    cache holding 1000 keys and a 4096-row one holding 3000."""
+    from repro_torch.kernels import flash_qattention as mod
+    from repro_torch.kernels.ref import flash_qdecode_ref
+
+    hkv, g, d, bkv = 4, 8, 128, 512
+    mism, err, main = 0, 0.0, None
+    for smax, cache_len in ((1024, 1000), (4096, 3000)):
+        args = (_rand_i8(torch, gen, (hkv, g, d)), _rand_i8(torch, gen, (hkv, smax, d)),
+                _rand_i8(torch, gen, (hkv, smax, d)),
+                torch.tensor(cache_len, dtype=torch.int32, device="cuda"),
+                *_attn_scalars(torch, d))
+
+        def kernel(*a):
+            return mod.flash_qdecode(*a, bkv=bkv)
+
+        def plain(*a):
+            return flash_qdecode_ref(*a, bkv=bkv)
+
+        c, e = compare(kernel(*args), plain(*args))
+        mism, err = mism + c, max(err, e)
+        row = dict(ms=device_ms(torch, kernel, args),
+                   plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None)
+        # the live rows only: a masked key's numerator is 0
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * hkv * g * d + 2 * cache_len * hkv * d + 4 + 1024 + 16,
+            4.0 * hkv * g * d * cache_len)
+        print(f"  flash_qdecode Smax={smax} cache_len={cache_len} bkv={bkv}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {c} mismatches")
+        if main is None:
+            main = row
+    print("  library: none (no single PyTorch call computes the q7 LUT decode)")
+    return dict(main, mismatches=mism, max_abs_err=err,
+                shape="Hkv=4 G=8 D=128 Smax=1024 bkv=512 cache_len=1000")
+
+
 def phase_quant_softmax(torch, gen):
     from repro_torch.core import fixedpoint as fxp
     from repro_torch.core import qsoftmax as qs
@@ -634,39 +723,129 @@ def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16):
 def phase_contiguous(torch, cfg, folded):
     """yi-6b at full width on the contiguous stripe (8 slots x 1024 rows):
     the [serve] requests through the continuous engine (one-shot prefill per
-    request, then decode_qattention at bkv=512, 32 launches per tick), then
-    the LockstepEngine on 8 prompts of 32 tokens, 16 new tokens each."""
+    request through flash_qattention, 32 launches each, then
+    decode_qattention at bkv=512, 32 launches per tick), then the
+    LockstepEngine on 8 prompts of 32 tokens, 16 new tokens each (it
+    prefills through decode steps)."""
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_qattention as fa
     from repro_torch.kernels import prefill_attention as pa
 
-    kernels = [da.decode_qattention, pa.paged_prefill_qattention, da.paged_decode_qattention]
+    kernels = [da.decode_qattention, fa.flash_qattention, pa.paged_prefill_qattention,
+               da.paged_decode_qattention]
     r = serve(torch, cfg, folded, kernels, cache_layout="contiguous")
     print_run("contiguous", r, kernels)
     c = r["counters"]
-    check(r["launches"] == [cfg.n_layers * c["decode_steps"], 0, 0],
-          f"contiguous: launches {r['launches']} (32 per decode tick, no paged kernel)")
     check(c["oneshot_prefills"] == 8, f"contiguous: one-shot prefills {c['oneshot_prefills']}")
+    want = [cfg.n_layers * c["decode_steps"], cfg.n_layers * c["oneshot_prefills"], 0, 0]
+    check(r["launches"] == want, f"contiguous: launches {r['launches']} != {want} (32 "
+          "decode_qattention per tick, 32 flash_qattention per one-shot prefill, no paged "
+          "kernel)")
     stripe = 2 * cfg.n_layers * 8 * 1024 * cfg.n_kv_heads * cfg.hd
     print(f"  stripe: 8 x 1024 rows, {stripe / 1e6:.0f} MB for {cfg.n_layers} layers (K + V)")
     lock = serve_lockstep(torch, cfg, folded, kernels)
     print(f"  lockstep: {lock['tok_per_s']:.1f} tok/s ({lock['wall_s']:.2f} s wall, "
           f"{lock['steps']} decode steps at batch 8), launches "
           f"{dict(zip([k.__name__ for k in kernels], lock['launches']))}")
-    check(lock["launches"] == [cfg.n_layers * lock["steps"], 0, 0],
-          f"lockstep: launches {lock['launches']} (32 per decode step)")
+    check(lock["launches"] == [cfg.n_layers * lock["steps"], 0, 0, 0],
+          f"lockstep: launches {lock['launches']} (32 per decode step; it prefills through "
+          "decode steps)")
     profile_decode(torch, cfg, folded, "contiguous decode tick (batch 8)",
                    cache_layout="contiguous")
     return r
+
+
+def phase_eval(torch, cfg, folded):
+    """yi-6b at full width, the cache-less causal ``serve_forward`` (the
+    evaluation path, and the quickstart's) at (1, 512) and (2, 1024):
+    finite logits of the right shape, 32 ``flash_qattention`` launches per
+    forward (one per layer, the whole batch at once), the median latency;
+    a profile of one (1, 512) forward and of one 704-token one-shot
+    prefill into a contiguous stripe.  Then ``flash_qdecode``, the
+    reference's single-sequence decode (its own public function: no model
+    calls it in either package), once per layer over that stripe's K/V
+    turned to (Hkv, Smax, D), each equal to ``decode_qattention`` on the
+    stripe itself.  Returns the launches of the two flash kernels."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels.ref import make_exp_lut_q7
+    from repro_torch.models import serve_int as S
+
+    prep = S.prepare_folded(cfg, folded)
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    for b, s, n in ((1, 512, 5), (2, 1024, 3)):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+                               device="cuda")
+        torch.cuda.synchronize()
+        fa.flash_qattention.launches = 0
+        logits, _ = S.serve_forward(cfg, prep, toks)
+        torch.cuda.synchronize()
+        n_flash = fa.flash_qattention.launches
+        check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"eval ({b}, {s}): logits shape {tuple(logits.shape)} or non-finite values")
+        check(n_flash == cfg.n_layers, f"eval ({b}, {s}): flash_qattention launches {n_flash}"
+              f" != {cfg.n_layers}")
+        out.setdefault("flash_qattention", n_flash)
+        del logits
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            S.serve_forward(cfg, prep, toks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        lat = float(np.median(walls))
+        print(f"  ({b}, {s}): logits finite, flash_qattention {n_flash} launches per forward;"
+              f" median {lat * 1e3:.2f} ms over {n} forwards ({b * s / lat:.0f} tokens/s; "
+              "host clock)")
+        if (b, s) == (1, 512):
+            profile_steps(torch, lambda: S.serve_forward(cfg, prep, toks), "(1, 512) forward")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 704)).astype(np.int32),
+                           device="cuda")
+    cache = S.init_cache(cfg, 1, 1024, device="cuda")
+    profile_steps(torch, lambda: S.serve_forward(cfg, prep, toks, cache=cache),
+                  "stripe one-shot prefill of 704 tokens")
+    q = torch.randint(-127, 128, (cfg.n_layers, cfg.n_kv_heads,
+                                  cfg.n_heads // cfg.n_kv_heads, cfg.hd),
+                      generator=torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda", dtype=torch.int8)
+    lut = torch.as_tensor(make_exp_lut_q7(), device="cuda")
+    torch.cuda.synchronize()
+    fa.flash_qdecode.launches = 0
+    got = []
+    for layer, f in enumerate(S.layer_views(prep, cfg.n_reps)):
+        aq = f["slot0"]["attn_q"]
+        kc, vc = (cache["slot0"][c][layer, 0].transpose(0, 1) for c in ("k", "v"))
+        got.append(fa.flash_qdecode(q[layer], kc, vc, 704, aq["M_idx"], aq["sh_idx"], lut,
+                                    aq["inv_s_logit"], aq["out_scale"], bkv=512))
+    torch.cuda.synchronize()
+    out["flash_qdecode"] = fa.flash_qdecode.launches
+    check(out["flash_qdecode"] == cfg.n_layers,
+          f"flash_qdecode launches {out['flash_qdecode']} != {cfg.n_layers}")
+    differ = 0
+    for layer, f in enumerate(S.layer_views(prep, cfg.n_reps)):
+        aq = f["slot0"]["attn_q"]
+        want = da.decode_qattention(
+            q[layer][None], cache["slot0"]["k"][layer], cache["slot0"]["v"][layer],
+            torch.tensor([704], dtype=torch.int32, device="cuda"), aq["M_idx"], aq["sh_idx"],
+            lut, aq["inv_s_logit"], aq["out_scale"], bkv=512)
+        differ += int((got[layer] != want[0]).sum())
+    print(f"  flash_qdecode over the 704-token stripe, {out['flash_qdecode']} launches (one per"
+          f" layer): {differ} codes differ from decode_qattention on the same cache")
+    check(differ == 0, "flash_qdecode != decode_qattention on the same cache")
+    return out
 
 
 def phase_small_reference(torch):
     """The same prefill + decode of a small yi-6b on the card and on the CPU,
     both through the gpu backend's wrappers (the CPU computes the plain
     versions), on the paged int8 pool, the int4-packed pool and the
-    contiguous stripe.  The card replays the CPU's tokens.  The kernels'
-    fp32 carry is the plain versions' own (no fast math, no contraction),
-    so the packed pool and the stripe must give equal logits; the int8 pool
-    is compared by argmax as in earlier runs, with the count printed."""
+    contiguous stripe, then its cache-less prefill.  The card replays the
+    CPU's tokens.  The kernels' fp32 carry is the plain versions' own (no
+    fast math, no contraction), so the packed pool, the stripe and the
+    cache-less prefill must give equal logits; the int8 pool is compared by
+    argmax as in earlier runs, with the count printed."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import calibrated_folded
     from repro_torch.models import serve_int as S
@@ -714,6 +893,16 @@ def phase_small_reference(torch):
                 check(agree >= 0.99, f"small model: card and CPU disagree on {1 - agree:.3f}")
             else:
                 check(differ == 0, f"small model {layout}: card and CPU logits differ")
+        # the cache-less causal prefill (flash_qattention on the card) at an
+        # odd length, so its KV block is the whole 37-token row
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 37)).astype(np.int32))
+        out = {dev: S.serve_forward(cfg, tree_map(lambda t, d=dev: t.to(d), folded_cpu),
+                                    toks.to(dev))[0].cpu() for dev in ("cpu", "cuda")}
+        differ = int((out["cpu"] != out["cuda"]).sum())
+        print(f"  small yi-6b cache-less prefill (2, 37), card vs CPU: {differ} of "
+              f"{out['cpu'].numel()} logits differ")
+        check(bool(torch.isfinite(out["cuda"]).all()) and differ == 0,
+              "small model cache-less prefill: card and CPU logits differ")
     finally:
         if prev is None:
             del os.environ["REPRO_TORCH_KERNELS"]
@@ -823,6 +1012,25 @@ def phase_small_bert_reference(torch):
         check(differ == 0, f"small bert {name}: card and CPU logits differ")
 
 
+def guard_plain_flash(torch):
+    """Wrap the plain flash (``flash_qattention_torch``, where the wrapper
+    and ``ops`` call it) so that every call counts by the device of its
+    query; returns the live counts."""
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels import ops
+
+    plain = fa.flash_qattention_torch
+    calls = {"cuda": 0, "cpu": 0}
+
+    def counted(q, *a, **kw):
+        calls[q.device.type] += 1
+        return plain(q, *a, **kw)
+
+    fa.flash_qattention_torch = counted
+    ops.flash_qattention_torch = counted
+    return calls
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -830,6 +1038,7 @@ def main() -> int:
 
         from repro_torch.kernels import _build
         from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_qattention as fa
         from repro_torch.kernels import int4_matmul as mm
         from repro_torch.kernels import prefill_attention as pa
         from repro_torch.kernels import quant_layernorm as ln
@@ -879,6 +1088,8 @@ def main() -> int:
         (pa.paged_prefill_qattention_q4, lambda t, g: phase_paged_prefill(t, g, packed=True),
          pa.Q4_SOURCE, pa.Q4_REPLACES),
         (da.decode_qattention, phase_decode_contiguous, da.STRIPE_SOURCE, da.STRIPE_REPLACES),
+        (fa.flash_qattention, phase_flash_qattention, fa.SOURCE, fa.REPLACES),
+        (fa.flash_qdecode, phase_flash_qdecode, fa.DECODE_SOURCE, fa.DECODE_REPLACES),
     ]
     check(len(table) == len(_build.KERNELS), "the kernel table and _build.KERNELS disagree")
     engine_wrappers = [fn for fn, *_ in table[:4]]      # the yi-6b engine's kernels
@@ -892,6 +1103,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("kernel phases")
 
+    # the served paths must reach the plain flash on no CUDA tensor: every
+    # call of it from here on is counted by the device of its query
+    plain_calls = guard_plain_flash(torch)
     print("[serve] yi-6b, full width, 8 requests x 32 new tokens")
     cfg, folded = load_yi6b(torch)
     served = phase_serve(torch, cfg, folded, engine_wrappers)
@@ -901,7 +1115,16 @@ def main() -> int:
     stamp("kv4")
     print("[contiguous] yi-6b, full width, the contiguous stripe and the LockstepEngine")
     contiguous = phase_contiguous(torch, cfg, folded)
+    print(f"  TTFT p50: paged int8 one-shot {served['ttft_p50_s']:.3f} s, kv4 one-shot "
+          f"{kv4['ttft_p50_s']:.3f} s, contiguous {contiguous['ttft_p50_s']:.3f} s")
     stamp("contiguous")
+    print("[eval] yi-6b, full width, the cache-less causal forward at (1, 512) and (2, 1024)")
+    evals = phase_eval(torch, cfg, folded)
+    stamp("eval")
+    check(plain_calls["cuda"] == 0, f"the plain flash ran on the card {plain_calls['cuda']} "
+          "times on the served paths")
+    print(f"  flash_qattention_torch on a CUDA tensor: {plain_calls['cuda']} calls on the "
+          "served paths")
     del folded
     torch.cuda.empty_cache()
     print("[check] small model against the CPU")
@@ -914,12 +1137,14 @@ def main() -> int:
 
     # launches: each kernel's count on its own main path (yi-6b one-shot
     # serving for the engine's four, the kv4 one-shot run for the packed
-    # pool's two, the contiguous engine's run for decode_qattention; BERT
-    # at (1, 128) for the other two)
+    # pool's two, the contiguous engine's run for decode_qattention and
+    # flash_qattention; the [eval] phase's per-layer calls of the public
+    # flash_qdecode; BERT at (1, 128) for the other two)
     launches = dict(zip([fn.__name__ for fn in engine_wrappers], served["launches"]))
     launches["paged_prefill_qattention_q4"], launches["paged_decode_qattention_q4"] = \
         kv4["launches"][:2]
-    launches["decode_qattention"] = contiguous["launches"][0]
+    launches["decode_qattention"], launches["flash_qattention"] = contiguous["launches"][:2]
+    launches["flash_qdecode"] = evals["flash_qdecode"]
     launches["quant_softmax"] = bert["POLICY_FQ"]["quant_softmax"]
     launches["int8_bitsplit_matmul"] = bert["POLICY_W8A8"]["int8_bitsplit_matmul"]
     check(all(n > 0 for n in launches.values()), f"a kernel was never launched: {launches}")

@@ -136,20 +136,21 @@ __device__ __forceinline__ void init_rows(PageSmem& sm, const int* lut, int R) {
 }
 
 // The carry update of one tile of L keys for R rows, with the scores s
-// (R x L, row-major) already written and a barrier passed: the tile's row
-// max m', the rescale factor f, the LUT numerators in place of the scores,
-// then den = den * f + sum num and m = m'.  The order of the operations is
-// the exactness contract with kernels/ref.py; the caller then folds f and
-// the numerators into its accumulator (f and the numerators are final when
-// this returns, without a further barrier).
+// (R x L, row r at s + r * ld) already written and a barrier passed: the
+// tile's row max m', the rescale factor f, the LUT numerators in place of
+// the scores, then den = den * f + sum num and m = m'.  The order of the
+// operations is the exactness contract with kernels/ref.py; the caller then
+// folds f and the numerators into its accumulator (f and the numerators
+// are final when this returns, without a further barrier).  A row stride
+// ld that is odd modulo 32 keeps the per-row loops free of bank conflicts.
 template <int NT>
-__device__ __forceinline__ void carry_update(int* s, int R, int L, int* m, int* m_new,
+__device__ __forceinline__ void carry_update(int* s, int R, int L, int ld, int* m, int* m_new,
                                              float* f, float* den, const int* lut, int Mi,
                                              int shi, float inv) {
   const int tid = threadIdx.x;
   for (int r = tid; r < R; r += NT) {
-    int lm = s[r * L];
-    for (int c = 1; c < L; ++c) lm = max(lm, s[r * L + c]);
+    int lm = s[r * ld];
+    for (int c = 1; c < L; ++c) lm = max(lm, s[r * ld + c]);
     const int m_old = m[r];
     const int mn = max(m_old, lm);
     float fr = expf(__fmul_rn(static_cast<float>(wrap_sub(m_old, mn)), inv));
@@ -159,14 +160,16 @@ __device__ __forceinline__ void carry_update(int* s, int R, int L, int* m, int* 
   }
   __syncthreads();
   for (int e = tid; e < R * L; e += NT) {
-    int idx = rescale(wrap_sub(m_new[e / L], s[e]), Mi, shi, 9);
+    const int r = e / L;
+    const int c = e % L;
+    int idx = rescale(wrap_sub(m_new[r], s[r * ld + c]), Mi, shi, 9);
     idx = min(max(idx, 0), kLutSize - 1);
-    s[e] = lut[idx];
+    s[r * ld + c] = lut[idx];
   }
   __syncthreads();
   for (int r = tid; r < R; r += NT) {
     int den_b = 0;
-    for (int c = 0; c < L; ++c) den_b += s[r * L + c];
+    for (int c = 0; c < L; ++c) den_b += s[r * ld + c];
     den[r] = __fadd_rn(__fmul_rn(den[r], f[r]), static_cast<float>(den_b));
     m[r] = m_new[r];
   }
@@ -189,7 +192,7 @@ __device__ __forceinline__ void page_step(PageSmem& sm, int R, int P, int D, int
     sm.s[e] = s;
   }
   __syncthreads();
-  carry_update<NT>(sm.s, R, P, sm.m, sm.m_new, sm.f, sm.den, sm.lut, Mi, shi, inv);
+  carry_update<NT>(sm.s, R, P, P, sm.m, sm.m_new, sm.f, sm.den, sm.lut, Mi, shi, inv);
 #pragma unroll
   for (int j = 0; j < ACC; ++j) {
     const int e = tid + NT * j;

@@ -23,7 +23,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("int4_matmul", "quant_layernorm", "paged_prefill_attention",
            "paged_decode_attention", "quant_softmax", "int8_bitsplit_matmul",
-           "paged_decode_attention_q4", "paged_prefill_attention_q4", "decode_attention")
+           "paged_decode_attention_q4", "paged_prefill_attention_q4", "decode_attention",
+           "flash_qattention", "flash_qdecode")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,17 +1,34 @@
-"""Blocked causal integer attention over a contiguous KV view (plain torch).
+"""Causal integer flash attention and the single-sequence decode: the CUDA
+kernels ``csrc/flash_qattention.cu`` and ``csrc/flash_qdecode.cu``, their
+wrappers and the plain version of the first.
 
-Mirror of the reference's pure-JAX ``flash_qattention_jax``: the same
-per-block integer datapath (int8 QK^T -> int32 scores -> q7 LUT numerators
--> int8 P@V) with the fp32 online carry, as a Python loop over KV blocks.
-The cache-less causal prefill takes it on every backend; it has no TPU
-kernel behind it, so it has no CUDA kernel either.
+Replace the TPU kernels ``flash_qattention`` and ``flash_qdecode`` of
+``repro/kernels/flash_qattention.py``.  ``flash_qattention_torch`` mirrors
+the reference's ``flash_qattention_jax``: the per-block integer datapath
+(int8 QK^T -> int32 scores -> q7 LUT numerators -> int8 P@V) with the fp32
+online carry, as a loop over KV blocks.  On a CUDA tensor a wrapper
+launches its kernel (or raises); on a CPU tensor it computes the plain
+version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import qsoftmax as qs
-from repro_torch.kernels.ref import NEG_INIT, _epilogue, _online_update, int_matmul
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import _aligned, _check_device, _i32
+from repro_torch.kernels.ref import (
+    NEG_INIT,
+    _epilogue,
+    _online_update,
+    flash_qdecode_ref,
+    int_matmul,
+)
+
+SOURCE = "src/repro_torch/csrc/flash_qattention.cu"
+REPLACES = "src/repro/kernels/flash_qattention.py:240"
+DECODE_SOURCE = "src/repro_torch/csrc/flash_qdecode.cu"
+DECODE_REPLACES = "src/repro/kernels/flash_qattention.py:129"
 
 
 def divisor_tile(cap: int, n: int) -> int:
@@ -23,27 +40,130 @@ def divisor_tile(cap: int, n: int) -> int:
 
 
 def flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
-                           inv_s_logit, out_scale, *, bkv: int = 512):
-    """q (H, S, D) x k/v (Hkv, S, D) int8 -> (H, S, D) int8, causal from
-    position 0 (no sliding window: SWA archs are not ported)."""
-    h, sq, d = q_i8.shape
-    hkv, skv, _ = k_i8.shape
+                           inv_s_logit, out_scale, *, q_offset: int = 0, bkv: int = 512):
+    """q (..., H, Sq, D) x k/v (..., Hkv, Skv, D) int8 -> (..., H, Sq, D)
+    int8, query row i at position ``q_offset + i`` attending causally (no
+    sliding window: SWA archs are not ported), one carry update per block
+    of ``bkv`` keys (``bkv`` divides Skv).  KV blocks wholly past the last
+    row's frontier are skipped, as the kernels do: such a block would add
+    num = 0 with f = 1 (a masked key's index clips to 255, whose table entry
+    is 0), so the result equals the reference's, which computes them."""
+    h, sq, d = q_i8.shape[-3:]
+    hkv, skv = k_i8.shape[-3], k_i8.shape[-2]
     group = h // hkv
     dev = q_i8.device
     bkv = min(bkv, skv)
-    assert skv % bkv == 0
-    qpos = torch.arange(sq, dtype=torch.int32, device=dev)[:, None]
-    m = torch.full((h, sq, 1), NEG_INIT, dtype=torch.int32, device=dev)
-    den = torch.zeros((h, sq, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((h, sq, d), dtype=torch.float32, device=dev)
+    if skv % bkv:
+        raise ValueError(f"bkv {bkv} does not divide Skv {skv}")
+    lead = q_i8.shape[:-3]
+    qpos = q_offset + torch.arange(sq, dtype=torch.int32, device=dev)[:, None]
+    m = torch.full((*lead, h, sq, 1), NEG_INIT, dtype=torch.int32, device=dev)
+    den = torch.zeros((*lead, h, sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((*lead, h, sq, d), dtype=torch.float32, device=dev)
     lut32 = lut_q7.to(torch.int32)
     inv = torch.as_tensor(inv_s_logit, dtype=torch.float32, device=dev)
-    for k_i in range(skv // bkv):
-        kg = k_i8[:, k_i * bkv:(k_i + 1) * bkv].repeat_interleave(group, dim=0)
-        vg = v_i8[:, k_i * bkv:(k_i + 1) * bkv].repeat_interleave(group, dim=0)
-        s = int_matmul(q_i8, kg.transpose(-1, -2))           # (H, Sq, bkv)
+    for k_i in range(min(skv // bkv, (q_offset + sq - 1) // bkv + 1)):
+        blk = slice(k_i * bkv, (k_i + 1) * bkv)
+        kg = k_i8[..., blk, :].repeat_interleave(group, dim=-3)
+        vg = v_i8[..., blk, :].repeat_interleave(group, dim=-3)
+        s = int_matmul(q_i8, kg.transpose(-1, -2))           # (..., H, Sq, bkv)
         kpos = k_i * bkv + torch.arange(bkv, dtype=torch.int32, device=dev)[None, :]
-        s = torch.where((kpos <= qpos)[None], s, s - qs.MASK_OFFSET)
-        m, den, acc = _online_update(m, den, acc, s, vg, M_idx, shift_idx,
-                                     lut32, inv)
+        s = torch.where(kpos <= qpos, s, s - qs.MASK_OFFSET)
+        m, den, acc = _online_update(m, den, acc, s, vg, M_idx, shift_idx, lut32, inv)
     return _epilogue(acc, den, out_scale)
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel can read it in place (D contiguous,
+    every stride and the base a multiple of 16 bytes, strides below 2^31),
+    else a fresh contiguous copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+        and all(s % 16 == 0 and s < 2**31 for s in t.stride()[:-1])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
+                     *, q_offset: int = 0, bkv: int = 512):
+    """Causal flash attention, q (B, H, Sq, D) x k/v (B, Hkv, Skv, D) int8
+    -> (B, H, Sq, D) int8: the reference's single-sequence kernel with a
+    leading batch dimension.  Query row i sits at position ``q_offset +
+    i``; the carry updates once per block of ``bkv`` keys (clipped to Skv;
+    it must divide Skv).  The inputs may be strided views (the serving
+    forward passes its (B, S, H, D) projections transposed); the output
+    takes q's layout.  The reference's q-block size ``bq`` does not change
+    the result, so the kernel picks its own (32 rows)."""
+    if q_i8.device.type == "cpu":
+        return flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
+                                      inv_s_logit, out_scale, q_offset=q_offset, bkv=bkv)
+    _check_device("flash_qattention", q_i8)
+    if q_i8.dtype != torch.int8 or k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
+        raise TypeError("flash_qattention wants int8 q, k and v")
+    if q_i8.dim() != 4 or k_i8.dim() != 4:
+        raise ValueError(f"flash_qattention: q {tuple(q_i8.shape)} and k {tuple(k_i8.shape)} "
+                         f"must be (B, H, Sq, D) and (B, Hkv, Skv, D)")
+    b, h, sq, d = q_i8.shape
+    b_k, hkv, skv, d_k = k_i8.shape
+    bkv = min(bkv, skv)
+    if (b_k, d_k) != (b, d) or v_i8.shape != k_i8.shape or hkv == 0 \
+            or h % hkv or d > 128 or d % 16 or not 0 < bkv <= 512 or skv % bkv \
+            or q_offset < 0:
+        raise ValueError(f"flash_qattention: unsupported shapes q {tuple(q_i8.shape)}, k/v "
+                         f"{tuple(k_i8.shape)}, bkv {bkv}, q_offset {q_offset} (needs H a "
+                         f"multiple of Hkv, D <= 128, D % 16 == 0, bkv <= 512 dividing Skv, "
+                         f"q_offset >= 0)")
+    dev = q_i8.device
+    q, k, v = (_strided(t) for t in (q_i8, k_i8, v_i8))
+    if k.stride() != v.stride():
+        k, v = k.contiguous(), v.contiguous()
+    lut = _i32(lut_q7, dev)
+    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
+    out = torch.empty_like(q)
+    rc = _build.bind("flash_qattention", "flash_qattention", 9, 17)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
+        *(t.data_ptr() for t in scal), out.data_ptr(), b, h, h // hkv, d, sq, skv, bkv,
+        q_offset, *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], _build.stream_of(dev))
+    _build.check_launch(rc, "flash_qattention")
+    flash_qattention.launches += 1
+    return out
+
+
+flash_qattention.launches = 0
+
+
+def flash_qdecode(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut_q7, inv_s_logit,
+                  out_scale, *, bkv: int = 512):
+    """One token's GQA decode: q (Hkv, G, D) int8 x the cache (Hkv, Smax, D)
+    int8, keys at or past ``cache_len`` (a scalar) masked, one carry update
+    per block of ``bkv`` keys (clipped to Smax; it must divide Smax) ->
+    (Hkv, G, D) int8."""
+    if q_i8.device.type == "cpu":
+        return flash_qdecode_ref(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut_q7,
+                                 inv_s_logit, out_scale, bkv=bkv)
+    _check_device("flash_qdecode", q_i8)
+    if q_i8.dtype != torch.int8 or k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
+        raise TypeError("flash_qdecode wants int8 q and caches")
+    hkv, g, d = q_i8.shape
+    hkv_c, smax, d_c = k_i8.shape
+    bkv = min(bkv, smax)
+    if (hkv_c, d_c) != (hkv, d) or v_i8.shape != k_i8.shape or g > 16 or d > 128 \
+            or d % 16 or not 0 < bkv <= 512 or smax % bkv:
+        raise ValueError(f"flash_qdecode: unsupported shapes q {tuple(q_i8.shape)}, cache "
+                         f"{tuple(k_i8.shape)}, bkv {bkv} (needs G <= 16, D <= 128, "
+                         f"D % 16 == 0, bkv <= 512 dividing Smax)")
+    dev = q_i8.device
+    q = q_i8.contiguous()
+    k, v = _aligned("flash_qdecode", k_i8, v_i8)
+    length = _build.device_scalar(cache_len, torch.int32, dev)
+    lut = _i32(lut_q7, dev)
+    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
+    out = torch.empty_like(q)
+    rc = _build.bind("flash_qdecode", "flash_qdecode", 10, 5)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), lut.data_ptr(),
+        *(t.data_ptr() for t in scal), out.data_ptr(), hkv, g, d, smax, bkv,
+        _build.stream_of(dev))
+    _build.check_launch(rc, "flash_qdecode")
+    flash_qdecode.launches += 1
+    return out
+
+
+flash_qdecode.launches = 0

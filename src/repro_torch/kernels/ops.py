@@ -27,6 +27,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_qattention,
     paged_decode_qattention_q4,
 )
+from repro_torch.kernels.flash_qattention import flash_qattention, flash_qattention_torch
 from repro_torch.kernels.int4_matmul import int4_matmul, int8_bitsplit_matmul
 from repro_torch.kernels.prefill_attention import (
     paged_prefill_qattention,
@@ -149,3 +150,32 @@ def decode_attention_q(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7
     if backend(impl, q_i8.device) == "ref":
         return _ref.decode_qattention_ref(*args, bkv)
     return decode_qattention(*args, bkv=bkv)
+
+
+def flash_attention_q(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,
+                      bkv: int, impl=None):
+    """Causal blocked flash from position 0 over (B, H, S, D) x (B, Hkv, S,
+    D) int8, one fp32 carry update per block of ``bkv`` keys -> (B, H, S,
+    D) int8: the cache-less prefill's attention (the plain version on
+    ``ref``, the kernel on ``gpu``)."""
+    args = (q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale)
+    if backend(impl, q_i8.device) == "ref":
+        return flash_qattention_torch(*args, bkv=bkv)
+    return flash_qattention(*args, bkv=bkv)
+
+
+def attention_q(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,
+                causal: bool = True, q_offset: int = 0, impl=None):
+    """Quantized attention, (B, H, Sq, D) x (B, Hkv, Skv, D) -> (B, H, Sq, D).
+
+    ``ref`` = the paper-style row softmax (exact, causal or not); ``gpu`` =
+    the online flash kernel at the reference's default blocks (128 keys,
+    clipped to Skv), causal only."""
+    if backend(impl, q_i8.device) == "ref":
+        return _ref.qattention_ref(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, out_scale,
+                                   causal=causal, q_offset=q_offset)
+    if not causal:
+        raise ValueError("the flash kernel is causal-only; the bidirectional (BERT) "
+                         "attention uses softmax_q")
+    return flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit,
+                            out_scale, q_offset=q_offset, bkv=128)

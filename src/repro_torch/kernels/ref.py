@@ -75,6 +75,35 @@ def _epilogue(acc, den, out_scale):
     return torch.clamp(torch.round(o), -127, 127).to(torch.int8)
 
 
+def qattention_ref(q_i8, k_i8, v_i8, M_idx, shift_idx, lut, out_scale,
+                   causal: bool = True, q_offset: int = 0):
+    """Row-wise fully-quantized attention oracle (paper-style, non-flash):
+    q (..., H, Sq, D) x k/v (..., Hkv, Skv, D) int8 -> (..., H, Sq, D) int8,
+    query row i at position ``q_offset + i`` when ``causal``.  Integer
+    datapath: int8 QK^T -> int32 scores -> LUT numerators (Q0.7) -> int32
+    P@V; the final division and output projection are the fp32 epilogue
+    shared with the flash kernel.  No exp, so it equals the reference's
+    ``ref.qattention_ref`` bit for bit."""
+    sq = q_i8.shape[-2]
+    group = q_i8.shape[-3] // k_i8.shape[-3]
+    dev = q_i8.device
+    kg = k_i8.repeat_interleave(group, dim=-3)
+    vg = v_i8.repeat_interleave(group, dim=-3)
+    s = int_matmul(q_i8, kg.transpose(-1, -2))
+    if causal:
+        qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+        kpos = torch.arange(k_i8.shape[-2], device=dev)[None, :]
+        s = torch.where(kpos <= qpos, s, s - qs.MASK_OFFSET)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    idx = torch.clamp(fxp.rescale(m - s, M_idx, shift_idx, out_bits=9), 0, 255)
+    num = lut.to(torch.int32)[idx.long()]                      # Q0.7 codes, <= 127
+    den = torch.clamp(torch.sum(num, dim=-1, keepdim=True, dtype=torch.int32), min=1)
+    pv = int_matmul(num, vg)
+    o = pv.to(torch.float32) / den.to(torch.float32)
+    y = torch.round(o * out_scale)
+    return torch.clamp(y, -127, 127).to(torch.int8)
+
+
 def paged_decode_qattention_ref(q_i8, k_pool, v_pool, block_tables, lengths,
                                 M_idx, shift_idx, lut, inv_s_logit, out_scale):
     """Block-online oracle of the paged decode kernel: q (B, Hkv, G, D),
@@ -173,6 +202,21 @@ def decode_qattention_ref(q_i8, k_i8, v_i8, lengths, M_idx, shift_idx, lut,
         acc = torch.where(live, acc_n, acc)
         m = torch.where(live, m_new, m)
     return _epilogue(acc, den, out_scale)
+
+
+def flash_qdecode_ref(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut, inv_s_logit,
+                      out_scale, *, bkv: int = 512):
+    """Plain version of the single-sequence decode kernel: q (Hkv, G, D)
+    against the cache (Hkv, Smax, D), keys at or past ``cache_len`` masked,
+    one carry update per block of ``bkv`` keys (clipped to Smax).  It is
+    ``decode_qattention_ref`` at B = 1 on the cache turned to (1, Smax,
+    Hkv, D): the reference also updates the carry on the blocks past
+    ``cache_len``, where num = 0 and f = 1 leave it as it was."""
+    smax = k_i8.shape[1]
+    lengths = torch.as_tensor(cache_len, dtype=torch.int32).to(q_i8.device).reshape(1)
+    return decode_qattention_ref(q_i8[None], k_i8.transpose(0, 1)[None],
+                                 v_i8.transpose(0, 1)[None], lengths, M_idx, shift_idx, lut,
+                                 inv_s_logit, out_scale, min(bkv, smax))[0]
 
 
 def paged_decode_qattention_q4_ref(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale,

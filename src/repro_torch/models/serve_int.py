@@ -17,9 +17,10 @@ reference's ``ref`` backend; on ``gpu`` they take the q7 kernels (paged
 decode and prefill, their int4-packed twins, the contiguous decode), as the
 reference's ``pallas`` backend does.  The kv4 chunk prefill takes the q7
 packed family on every backend, as in the reference.  The cache-less causal
-prefill takes the blocked ``flash_qattention_torch`` on every backend (and
-so does the contiguous one-shot prefill on ``gpu``); the bidirectional one
-the row softmax (``ops.softmax_q``), the kernel on ``gpu``.
+prefill takes the blocked flash (``ops.flash_attention_q``: its plain
+version on ``ref``, the ``flash_qattention`` kernel on ``gpu``), and so does
+the contiguous one-shot prefill on ``gpu``; the bidirectional one the row
+softmax (``ops.softmax_q``), the kernel on ``gpu``.
 
 Unlike the functional reference, the caches are updated IN PLACE (the
 returned cache is the same dict of tensors): at full width a copy of the
@@ -40,7 +41,7 @@ from repro_torch.core.qlinear import FoldedLinear
 from repro_torch.core.qsoftmax import MASK_OFFSET, make_exp_lut
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.flash_qattention import divisor_tile, flash_qattention_torch
+from repro_torch.kernels.flash_qattention import divisor_tile
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import check_ported, slot_kinds, tree_index
 
@@ -143,11 +144,12 @@ def _attn_prefill(x_i8, f, cfg, pos, row_exact: bool = False):
         idx = torch.arange(s, device=x_i8.device)
         ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, idx[None, :] <= idx[:, None])
     elif cfg.causal:
-        lut = _lut("q7", x_i8.device)
-        ctx = torch.stack([flash_qattention_torch(
-            qc[i].transpose(0, 1), kc[i].transpose(0, 1), vc[i].transpose(0, 1),
-            aq["M_idx"], aq["sh_idx"], lut, aq["inv_s_logit"], aq["out_scale"],
-            bkv=divisor_tile(512, s)) for i in range(b)])          # (B,H,S,D)
+        # the kernel reads the (B, S, H, D) projections in place and writes
+        # ctx in q's layout, so the transposes below are views
+        ctx = ops.flash_attention_q(
+            qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), aq["M_idx"],
+            aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"], aq["out_scale"],
+            bkv=divisor_tile(512, s))                              # (B,H,S,D)
     else:
         # bidirectional (BERT): paper-style row LUT softmax, materialized
         ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, None)

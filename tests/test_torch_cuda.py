@@ -24,6 +24,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_qattention,
     paged_decode_qattention_q4,
 )
+from repro_torch.kernels.flash_qattention import flash_qattention, flash_qdecode
 from repro_torch.kernels.int4_matmul import BITSPLIT_MAX_K, int4_matmul, int8_bitsplit_matmul
 from repro_torch.kernels.prefill_attention import (
     paged_prefill_qattention,
@@ -39,6 +40,7 @@ ENGINE_KERNELS = (int4_matmul, quant_layernorm, paged_prefill_qattention,
                   paged_decode_qattention)
 KERNELS = ENGINE_KERNELS + (quant_softmax, int8_bitsplit_matmul)
 LAYOUT_KERNELS = (paged_decode_qattention_q4, paged_prefill_qattention_q4, decode_qattention)
+FLASH_KERNELS = (flash_qattention, flash_qdecode)
 
 
 @pytest.fixture
@@ -174,6 +176,30 @@ def _stripe(g, d, smax, lengths, device, hkv=4, seed=6):
     return (q.to(device), kp, vp, lens.to(device), *scal)
 
 
+def _flash(b, h, hkv, sq, skv, d, device, seed=8, strided=False):
+    """q (B, H, Sq, D), k/v (B, Hkv, Skv, D) int8 and the scalars; with
+    ``strided`` the three are (B, S, H, D) tensors seen transposed, as the
+    serving forward hands them over."""
+    rng = np.random.default_rng(seed)
+    _, _, scal = _attn_common(rng, 1, 1, 1, d, device)
+    shapes = [(b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)]
+    ts = []
+    for shp in shapes:
+        a = rng.integers(-127, 128, shp).astype(np.int8)
+        t = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)) if strided else a)
+        t = t.to(device)
+        ts.append(t.transpose(1, 2) if strided else t)
+    return (*ts, *scal)
+
+
+def _qdecode(g, d, smax, cache_len, device, hkv=4, seed=10):
+    rng = np.random.default_rng(seed)
+    _, _, scal = _attn_common(rng, 1, 1, 1, d, device)
+    q, k, v = (torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8)).to(device)
+               for shp in ((hkv, g, d), (hkv, smax, d), (hkv, smax, d)))
+    return (q, k, v, cache_len, *scal)
+
+
 def _launched_once(fn, *args, **kw):
     n0 = fn.launches
     out = fn(*args, **kw)
@@ -212,6 +238,18 @@ def test_cpu_tensors_take_the_plain_version_for_the_layout_kernels():
     assert [k.launches for k in LAYOUT_KERNELS] == before
 
 
+def test_cpu_tensors_take_the_plain_version_for_the_flash_kernels():
+    from repro_torch.kernels.flash_qattention import flash_qattention_torch
+
+    before = [k.launches for k in FLASH_KERNELS]
+    args = _flash(2, 4, 2, 24, 40, 32, "cpu", strided=True)
+    assert torch.equal(flash_qattention(*args, q_offset=16, bkv=20),
+                       flash_qattention_torch(*args, q_offset=16, bkv=20))
+    args = _qdecode(4, 32, 48, 30, "cpu", hkv=2)
+    assert torch.equal(flash_qdecode(*args, bkv=16), ref.flash_qdecode_ref(*args, bkv=16))
+    assert [k.launches for k in FLASH_KERNELS] == before
+
+
 def test_backend_follows_the_device_unless_overridden(monkeypatch):
     monkeypatch.delenv("REPRO_TORCH_KERNELS", raising=False)
     assert (ops.backend(device="cuda"), ops.backend(device="cpu")) == ("gpu", "ref")
@@ -240,6 +278,10 @@ def test_wrappers_refuse_other_devices():
         int8_bitsplit_matmul(*_mm8(4, 64, 8, 1, "meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         decode_qattention(*_stripe(4, 32, 16, [3], "meta", hkv=1), bkv=16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_qattention(*_flash(1, 2, 1, 8, 8, 32, "meta"), bkv=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_qdecode(*_qdecode(4, 32, 16, 3, "meta", hkv=1), bkv=16)
 
 
 @pytest.mark.cuda
@@ -461,9 +503,95 @@ def test_kv4_and_contiguous_engines_on_card_equal_cpu(cuda, monkeypatch):
     runs = [lambda d: serve(d, kv_bits=4),
             lambda d: serve(d, kv_bits=4, max_prefill_chunk=8, max_batched_tokens=16),
             lambda d: serve(d, cache_layout="contiguous"), lockstep]
-    for k in LAYOUT_KERNELS:
+    for k in LAYOUT_KERNELS + (flash_qattention,):
         k.launches = 0
     on_card = [run("cuda") for run in runs]
     assert all(k.launches > 0 for k in LAYOUT_KERNELS), [k.launches for k in LAYOUT_KERNELS]
+    assert flash_qattention.launches > 0        # the stripe's one-shot prefills
     monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
     assert on_card == [run("cpu") for run in runs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,bkv,q_offset,strided", [
+    (1, 32, 4, 512, 512, 128, 512, 0, True),     # yi-6b, the (1, 512) prefill, in place
+    (2, 16, 2, 704, 704, 128, 352, 0, True),     # G 8, the 700-token prompt's bucket
+    (1, 4, 4, 592, 592, 64, 296, 0, False),      # G 1, bkv 296
+    (3, 8, 2, 37, 37, 64, 37, 0, True),          # G 4, an odd block, B 3
+    (2, 8, 1, 128, 1024, 128, 128, 896, False),  # G 8, q_offset with Sq < Skv
+    (2, 4, 1, 100, 160, 64, 16, 60, False),      # G 4, bkv 16, ragged q tile
+    (1, 4, 1, 1024, 1024, 128, 128, 0, False),   # attention_q's default block
+])
+def test_flash_qattention_kernel_equals_plain(cuda, b, h, hkv, sq, skv, d, bkv, q_offset,
+                                              strided):
+    from repro_torch.kernels.flash_qattention import flash_qattention_torch
+
+    args = _flash(b, h, hkv, sq, skv, d, cuda, strided=strided)
+    got = _launched_once(flash_qattention, *args, q_offset=q_offset, bkv=bkv)
+    assert got.stride() == args[0].stride()          # the output takes q's layout
+    assert torch.equal(got, flash_qattention_torch(*args, q_offset=q_offset, bkv=bkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,smax,bkv,cache_len", [
+    (8, 128, 1024, 512, 1000),       # chip_smoke.py's shapes
+    (8, 128, 4096, 512, 3000),
+    (8, 128, 1024, 512, 1),          # one key
+    (4, 64, 96, 48, 49),             # a block of 48, one row past its end
+])
+def test_flash_qdecode_kernel_equals_plain(cuda, g, d, smax, bkv, cache_len):
+    args = _qdecode(g, d, smax, cache_len, cuda)
+    assert torch.equal(_launched_once(flash_qdecode, *args, bkv=bkv),
+                       ref.flash_qdecode_ref(*args, bkv=bkv))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_unsupported_shapes(cuda):
+    args = _flash(1, 4, 2, 32, 96, 64, cuda)
+    with pytest.raises(ValueError, match="bkv"):
+        flash_qattention(*args, bkv=40)                  # does not divide Skv
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_qattention(*_flash(1, 3, 2, 32, 32, 64, cuda), bkv=32)
+    with pytest.raises(ValueError, match="D % 16"):
+        flash_qattention(*_flash(1, 2, 1, 8, 8, 40, cuda), bkv=8)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_qattention(*args, q_offset=-1, bkv=32)
+    with pytest.raises(ValueError, match="G <= 16"):
+        flash_qdecode(*_qdecode(32, 64, 64, 5, cuda, hkv=1), bkv=64)
+    with pytest.raises(ValueError, match="bkv"):
+        flash_qdecode(*_qdecode(4, 64, 96, 5, cuda, hkv=1), bkv=64)
+
+
+@pytest.mark.cuda
+def test_cacheless_prefill_on_card_equals_cpu(cuda, monkeypatch):
+    """The smoke yi-6b's cache-less causal prefill at (2, 37) and (1, 80)
+    through flash_qattention on the card (2 launches per forward, one per
+    layer, and no plain flash on a CUDA tensor) equals the CPU's plain
+    versions logit for logit."""
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.models import serve_int as S
+
+    cfg = smoke_config("yi-6b")
+    folded_cpu = calibrated_folded(cfg, 0, device="cpu")
+    folded = tree_map(lambda t: t.to(cuda), folded_cpu)
+    plain = fa.flash_qattention_torch
+    on_card = []
+
+    def guard(q, *a, **kw):
+        on_card.append(q.is_cuda)
+        return plain(q, *a, **kw)
+
+    monkeypatch.setattr(fa, "flash_qattention_torch", guard)
+    monkeypatch.setattr(ops, "flash_qattention_torch", guard)
+    rng = np.random.default_rng(3)
+    for shape in ((2, 37), (1, 80)):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+        n0 = flash_qattention.launches
+        got, _ = S.serve_forward(cfg, folded, toks.to(cuda))
+        torch.cuda.synchronize()
+        assert flash_qattention.launches - n0 == cfg.n_layers
+        monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+        want, _ = S.serve_forward(cfg, folded_cpu, toks)
+        monkeypatch.delenv("REPRO_TORCH_KERNELS")
+        assert torch.equal(got.cpu(), want)
+    assert on_card.count(True) == 0 and on_card.count(False) >= 2
