@@ -15,12 +15,17 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    of its other KV layouts and the two flash kernels, BERT-base for
    ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required)
    and times the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call;
+   computes the same function, that call (the two GEMMs at every served
+   shape beside ``torch._int_mm``, with the path and tile each took, the
+   kernel / ``_int_mm`` factor and the share of the bound);
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
    with chunked prefill, which must give the same tokens, reuse a shared
-   prefix and launch every kernel of that path;
+   prefix and launch every kernel of that path; in every served run,
+   ``[eval]`` and ``[bert]`` the GEMMs of a prefill or cache-less forward
+   must take the tensor-core path and those of a decode tick the decode
+   path (launches counted by path);
 5. ``[kv4]``: the same requests on the int4-packed pool (``kv_bits=4``),
    one-shot and chunked: the packed kernels run 32 times per decode tick
    and per prefill chunk, a page takes 262,400 bytes against 524,288, and
@@ -70,6 +75,7 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM CUDA-core float32 rate (32-bit ops)
 L2_BYTES = 50 << 20            # H100 L2 cache
 SEED = 0
+LINEARS_PER_LAYER = 7          # yi-6b: wq, wk, wv, wo, wg, wu, wd, each an int4_matmul
 
 
 class SmokeFailure(RuntimeError):
@@ -129,51 +135,98 @@ def compare(got, want):
     return int((d > 0).sum()), float(d.max())
 
 
+def reset_gemm_paths():
+    from repro_torch.kernels import int4_matmul as mm
+
+    for f in (mm.int4_matmul, mm.int8_bitsplit_matmul):
+        f.path_launches = dict.fromkeys(mm.PATHS, 0)
+
+
+def gemm_paths(name: str = "int4_matmul") -> dict:
+    """A GEMM wrapper's launches by path since the last reset_gemm_paths()."""
+    from repro_torch.kernels import int4_matmul as mm
+
+    return dict(getattr(mm, name).path_launches)
+
+
+def check_paths(what, got, tc_forwards, decode_forwards, per_forward):
+    """Every GEMM of a prefill (or cache-less) forward took the tensor-core
+    path, every GEMM of a decode forward the decode path."""
+    want = {"tensor_core": per_forward * tc_forwards, "decode": per_forward * decode_forwards}
+    check(got == want, f"{what}: GEMM launches by path {got} != {want} (every prefill GEMM "
+          "on the tensor cores, every decode GEMM on the decode path)")
+
+
 # --- kernel phases -------------------------------------------------------------
 
 def _rand_i8(torch, gen, shape):
     return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
 
 
-def phase_int4_matmul(torch, gen):
+# (K, N) of yi-6b's linears (wq and wo, wk and wv, wg and wu, wd) and of
+# BERT-base's (the four attention projections, w1, w2)
+YI6B_GEMMS = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096))
+BERT_GEMMS = ((768, 768), (768, 3072), (3072, 768))
+
+
+def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
+    """One integer GEMM (``int4_matmul`` if ``w4``, else
+    ``int8_bitsplit_matmul``) at each (M, K, N) of ``shapes``: equal to its
+    plain version, then timed beside the plain version and
+    ``torch._int_mm`` on the same product (int32 accumulator only; it needs
+    more than 16 rows, so a decode batch is padded to 32).  Prints a row per
+    shape with the path and tile ``plan`` chose, the kernel / _int_mm factor
+    and the kernel's share of its bound; returns the ``main_shape`` row."""
     from repro_torch.core import fixedpoint as fxp
     from repro_torch.core import packing
     from repro_torch.kernels import int4_matmul as mod
-    from repro_torch.kernels.ref import int4_matmul_ref
+    from repro_torch.kernels.ref import int4_matmul_ref, int8_bitsplit_matmul_ref
 
-    shapes = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096)]
-    mism, err, rows, main = 0, 0.0, [], None
-    for m in (8, 512):
-        for k, n in shapes:
-            x = _rand_i8(torch, gen, (m, k))
+    fn, plain = ((mod.int4_matmul, int4_matmul_ref) if w4 else
+                 (mod.int8_bitsplit_matmul, int8_bitsplit_matmul_ref))
+    mism, err, rows = 0, 0.0, []
+    for m, k, n in shapes:
+        x = _rand_i8(torch, gen, (m, k))
+        if w4:
             w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
                               dtype=torch.uint8)
-            bias = torch.randint(-(1 << 16), 1 << 16, (n,), generator=gen, device="cuda",
-                                 dtype=torch.int32)
-            M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
-                     fxp.quantize_multiplier(40.0 / (np.sqrt(k) * 73.0 * 4.6)))
-            got = mod.int4_matmul(x, w, bias, M, sh)
-            c, e = compare(got, int4_matmul_ref(x, w, bias, M, sh))
-            mism, err = mism + c, max(err, e)
-            # yardstick: torch._int_mm on pre-unpacked int8 weights (int32
-            # accumulator only; it needs more than 16 rows, so decode pads)
             w8 = packing.unpack_int4_planar(w, axis=0)
-            xl = torch.cat([x, x.new_zeros((32 - m, k))]) if m < 32 else x
-            args = (x, w, bias, M, sh)
-            row = dict(m=m, k=k, n=n, ms=device_ms(torch, mod.int4_matmul, args),
-                       plain_ms=device_ms(torch, int4_matmul_ref, args, cold=False),
-                       library_ms=device_ms(torch, torch._int_mm, (xl, w8)))
-            row["bound_ms"], row["bound_by"] = bound_ms(m * k + k * n // 2 + 4 * n + m * n,
-                                                        2.0 * m * k * n)
-            rows.append(row)
-            if (m, k, n) == (8, 4096, 11008):
-                main = row
-    for r in rows:
-        print(f"  int4_matmul M={r['m']:4d} K={r['k']:5d} N={r['n']:5d}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, _int_mm "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return dict(main, mismatches=mism, max_abs_err=err,
-                shape="M=8 (decode batch) K=4096 N=11008 (wg/wu)")
+        else:
+            w = w8 = _rand_i8(torch, gen, (k, n))
+        bias = torch.randint(-(1 << 16), 1 << 16, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
+                 fxp.quantize_multiplier(40.0 / (np.sqrt(k) * 73.0 * (4.6 if w4 else 73.0))))
+        args = (x, w, bias, M, sh)
+        c, e = compare(fn(*args), plain(*args))
+        mism, err = mism + c, max(err, e)
+        xl = torch.cat([x, x.new_zeros((32 - m, k))]) if m < 32 else x
+        p = mod.plan(m, k, n, 4 if w4 else 8)
+        row = dict(m=m, k=k, n=n, plan=p, ms=device_ms(torch, fn, args),
+                   plain_ms=device_ms(torch, plain, args, cold=False),
+                   library_ms=device_ms(torch, torch._int_mm, (xl, w8)))
+        w_bytes = k * n // 2 if w4 else k * n
+        row["bound_ms"], row["bound_by"] = bound_ms(m * k + w_bytes + 4 * n + m * n,
+                                                    2.0 * m * k * n)
+        rows.append(row)
+        print(f"  {fn.__name__} M={m:4d} K={k:5d} N={n:5d} [{p.path} {p.bm}x{p.bn} split "
+              f"{p.split}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, _int_mm "
+              f"{row['library_ms']:.4f} ms, kernel/_int_mm {row['ms'] / row['library_ms']:.2f}x, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} % of the {row['bound_by']} bound "
+              f"({row['bound_ms']:.5f} ms)", flush=True)
+    big = [r for r in rows if r["m"] >= 128]
+    print(f"  {fn.__name__} faster than torch._int_mm at every shape with M >= 128: "
+          f"{all(r['ms'] < r['library_ms'] for r in big)} "
+          f"({sum(r['ms'] < r['library_ms'] for r in big)} of {len(big)})")
+    main = next(r for r in rows if (r["m"], r["k"], r["n"]) == main_shape)
+    return dict(main, mismatches=mism, max_abs_err=err, shape=shape_text)
+
+
+def phase_int4_matmul(torch, gen):
+    shapes = ([(m, k, n) for m in (8, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
+              + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS])
+    return gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
+                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
 
 
 def phase_quant_layernorm(torch, gen):
@@ -469,36 +522,9 @@ def phase_quant_softmax(torch, gen):
 
 
 def phase_int8_bitsplit(torch, gen):
-    from repro_torch.core import fixedpoint as fxp
-    from repro_torch.kernels import int4_matmul as mod
-    from repro_torch.kernels.ref import int8_bitsplit_matmul_ref
-
-    mism, err, rows, main = 0, 0.0, [], None
-    for m in (128, 4096):                     # B*S at (1, 128) and (8, 512)
-        for k, n in ((768, 768), (768, 3072), (3072, 768)):
-            x = _rand_i8(torch, gen, (m, k))
-            w = _rand_i8(torch, gen, (k, n))
-            bias = torch.randint(-(1 << 16), 1 << 16, (n,), generator=gen, device="cuda",
-                                 dtype=torch.int32)
-            M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
-                     fxp.quantize_multiplier(40.0 / (np.sqrt(k) * 73.0 * 73.0)))
-            args = (x, w, bias, M, sh)
-            c, e = compare(mod.int8_bitsplit_matmul(*args), int8_bitsplit_matmul_ref(*args))
-            mism, err = mism + c, max(err, e)
-            row = dict(m=m, k=k, n=n, ms=device_ms(torch, mod.int8_bitsplit_matmul, args),
-                       plain_ms=device_ms(torch, int8_bitsplit_matmul_ref, args, cold=False),
-                       library_ms=device_ms(torch, torch._int_mm, (x, w)))
-            row["bound_ms"], row["bound_by"] = bound_ms(m * k + k * n + 4 * n + m * n,
-                                                        2.0 * m * k * n)
-            rows.append(row)
-            if (m, k, n) == (128, 768, 3072):
-                main = row
-    for r in rows:
-        print(f"  int8_bitsplit_matmul M={r['m']:4d} K={r['k']:4d} N={r['n']:4d}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, _int_mm "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    return dict(main, mismatches=mism, max_abs_err=err,
-                shape="M=128 (BERT-base at (1, 128)) K=768 N=3072 (w1)")
+    shapes = [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]   # (1, 128), (8, 512)
+    return gemm_phase(torch, gen, False, shapes, (128, 768, 3072),
+                      "M=128 (BERT-base at (1, 128)) K=768 N=3072 (w1)")
 
 
 # --- the served path ---------------------------------------------------------------
@@ -546,6 +572,11 @@ def profile_steps(torch, step, what: str, n: int = 3):
           f"({100 * busy_ms / wall_ms:.1f} %), {launches} device kernels per call")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {us / n / 1e3:8.3f} ms/call {count // n:5d}x  {key[:80]}")
+    gemm = [r for r in rows if "fq::igemm::" in r[2]]
+    if gemm:
+        print(f"    integer GEMMs, every path and the split-K reduce: "
+              f"{sum(r[0] for r in gemm) / n / 1e3:.3f} ms/call, "
+              f"{sum(r[1] for r in gemm) // n} kernels per call")
 
 
 def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
@@ -570,6 +601,7 @@ def serve(torch, cfg, folded, kernels, **extra):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
+    reset_gemm_paths()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -595,7 +627,8 @@ def serve(torch, cfg, folded, kernels, **extra):
           "a request returned the wrong number of tokens or an out-of-vocab token")
     n_tok = sum(len(t) for t in toks)
     return dict(tokens=toks, counters=dict(eng.counters), launches=launches,
-                tick_launches=tick_launches, wall_s=wall, tok_per_s=n_tok / wall,
+                paths=gemm_paths(), tick_launches=tick_launches, wall_s=wall,
+                tok_per_s=n_tok / wall,
                 ttft_p50_s=float(np.median(list(first.values()))),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 bytes_per_page=eng.alloc.bytes_per_page if eng.alloc is not None else None)
@@ -609,6 +642,7 @@ def print_run(name, r, kernels):
     print(f"    counters: { {k: v for k, v in c.items() if v} }")
     print(f"    launches: {dict(zip(names, r['launches']))}")
     print(f"    launches in one decode-only tick: {dict(zip(names, r['tick_launches']))}")
+    print(f"    int4_matmul launches by path: {r['paths']}")
 
 
 def load_yi6b(torch):
@@ -636,6 +670,8 @@ def phase_serve(torch, cfg, folded, kernels):
         print_run(name, r, kernels)
         check(all(n > 0 for n in r["launches"]),
               f"{name}: a kernel of the path was never launched: {r['launches']}")
+        check_paths(name, r["paths"], r["counters"]["prefill_chunks"],
+                    r["counters"]["decode_steps"], LINEARS_PER_LAYER * cfg.n_layers)
     one, chunked = runs["one-shot"], runs["chunked"]
     check(one["tokens"] == chunked["tokens"], "chunked prefill changed the tokens")
     check(one["counters"]["prefix_hits"] >= 1, "the shared prefix was not reused")
@@ -684,6 +720,8 @@ def phase_kv4(torch, cfg, folded, int8_run):
         check(r["tick_launches"][1] == cfg.n_layers, f"{name}: q4 decode launches per tick "
               f"{r['tick_launches'][1]} != {cfg.n_layers}")
         check(r["bytes_per_page"] == 262_400, f"{name}: bytes per page {r['bytes_per_page']}")
+        check_paths(name, r["paths"], c["prefill_chunks"], c["decode_steps"],
+                    LINEARS_PER_LAYER * cfg.n_layers)
     one, chunked = runs["kv4 one-shot"], runs["kv4 chunked"]
     check(chunked["counters"]["chunked_prefills"] >= 1, "kv4: no prompt was chunked")
     print(f"  bytes per page (16 rows, all layers): kv4 {one['bytes_per_page']:,} vs int8 "
@@ -709,6 +747,7 @@ def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16):
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
+    reset_gemm_paths()
     t0 = time.perf_counter()
     eng.generate(reqs)
     torch.cuda.synchronize()
@@ -716,8 +755,8 @@ def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16):
     toks = [r.out.tolist() for r in reqs]
     check(all(len(t) == new and all(0 <= x < cfg.vocab_size for x in t) for t in toks),
           "lockstep: a request returned the wrong number of tokens or an out-of-vocab token")
-    return dict(tokens=toks, launches=[k.launches for k in kernels], wall_s=wall,
-                tok_per_s=n * new / wall, steps=prompt_len + new - 1)
+    return dict(tokens=toks, launches=[k.launches for k in kernels], paths=gemm_paths(),
+                wall_s=wall, tok_per_s=n * new / wall, steps=prompt_len + new - 1)
 
 
 def phase_contiguous(torch, cfg, folded):
@@ -741,6 +780,8 @@ def phase_contiguous(torch, cfg, folded):
     check(r["launches"] == want, f"contiguous: launches {r['launches']} != {want} (32 "
           "decode_qattention per tick, 32 flash_qattention per one-shot prefill, no paged "
           "kernel)")
+    check_paths("contiguous", r["paths"], c["oneshot_prefills"], c["decode_steps"],
+                LINEARS_PER_LAYER * cfg.n_layers)
     stripe = 2 * cfg.n_layers * 8 * 1024 * cfg.n_kv_heads * cfg.hd
     print(f"  stripe: 8 x 1024 rows, {stripe / 1e6:.0f} MB for {cfg.n_layers} layers (K + V)")
     lock = serve_lockstep(torch, cfg, folded, kernels)
@@ -750,6 +791,8 @@ def phase_contiguous(torch, cfg, folded):
     check(lock["launches"] == [cfg.n_layers * lock["steps"], 0, 0, 0],
           f"lockstep: launches {lock['launches']} (32 per decode step; it prefills through "
           "decode steps)")
+    print(f"  lockstep: int4_matmul launches by path {lock['paths']}")
+    check_paths("lockstep", lock["paths"], 0, lock["steps"], LINEARS_PER_LAYER * cfg.n_layers)
     profile_decode(torch, cfg, folded, "contiguous decode tick (batch 8)",
                    cache_layout="contiguous")
     return r
@@ -779,9 +822,12 @@ def phase_eval(torch, cfg, folded):
                                device="cuda")
         torch.cuda.synchronize()
         fa.flash_qattention.launches = 0
+        reset_gemm_paths()
         logits, _ = S.serve_forward(cfg, prep, toks)
         torch.cuda.synchronize()
         n_flash = fa.flash_qattention.launches
+        paths = gemm_paths()
+        check_paths(f"eval ({b}, {s})", paths, 1, 0, LINEARS_PER_LAYER * cfg.n_layers)
         check(tuple(logits.shape) == (b, s, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"eval ({b}, {s}): logits shape {tuple(logits.shape)} or non-finite values")
@@ -796,8 +842,8 @@ def phase_eval(torch, cfg, folded):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         lat = float(np.median(walls))
-        print(f"  ({b}, {s}): logits finite, flash_qattention {n_flash} launches per forward;"
-              f" median {lat * 1e3:.2f} ms over {n} forwards ({b * s / lat:.0f} tokens/s; "
+        print(f"  ({b}, {s}): logits finite, flash_qattention {n_flash} launches per forward,"
+              f" int4_matmul by path {paths}; median {lat * 1e3:.2f} ms over {n} forwards ({b * s / lat:.0f} tokens/s; "
               "host clock)")
         if (b, s) == (1, 512):
             profile_steps(torch, lambda: S.serve_forward(cfg, prep, toks), "(1, 512) forward")
@@ -919,6 +965,7 @@ def bert_forward_once(torch, S, cfg, folded, toks, kernels):
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
+    reset_gemm_paths()
     logits, _ = S.serve_forward(cfg, folded, toks)
     torch.cuda.synchronize()
     return logits, {k.__name__: k.launches for k in kernels}
@@ -964,7 +1011,10 @@ def phase_bert(torch):
                   and bool(torch.isfinite(logits).all()),
                   f"bert {name} ({b}, {s}): logits shape {tuple(logits.shape)} or non-finite")
             check(launches == want, f"bert {name} ({b}, {s}): launches {launches} != {want}")
-            print(f"    ({b}, {s}): logits finite, launches per forward {launches}")
+            paths = gemm_paths(gemm.__name__)
+            check_paths(f"bert {name} ({b}, {s})", paths, 1, 0, BERT_LAUNCHES["gemm"])
+            print(f"    ({b}, {s}): logits finite, launches per forward {launches}, "
+                  f"{gemm.__name__} by path {paths}")
             if (b, s) == (1, 128):
                 out[name] = launches
                 walls = []
@@ -1072,7 +1122,9 @@ def main() -> int:
     for name, info in _build.build_info.items():
         usage = [line.split(":", 1)[1].strip() for line in info["ptxas"].splitlines()
                  if "Used" in line]
-        print(f"  {name}: {'; '.join(usage)}")
+        serial = info["ptxas"].count("C7515")
+        print(f"  {name}: {'; '.join(usage)}"
+              + (f"; {serial} ptxas notes that wgmma is serialized" if serial else ""))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)

@@ -1,13 +1,17 @@
 """The integer GEMMs: W4A8 (``csrc/int4_matmul.cu``) and W8A8
-(``csrc/int8_bitsplit_matmul.cu``), and their wrappers.
+(``csrc/int8_bitsplit_matmul.cu``), both on the core of ``csrc/igemm.cuh``,
+and their wrappers.
 
 Replace the TPU kernels ``repro/kernels/int4_matmul.py::int4_matmul`` and
 ``::int8_bitsplit_matmul``.  On a CUDA tensor a wrapper launches its kernel
 (or raises); on a CPU tensor it computes the plain version
 (``ref.int4_matmul_ref``, ``ref.int8_bitsplit_matmul_ref``).  ``launches``
-counts kernel launches only.
+counts kernel launches only, ``path_launches`` the same launches by the
+path ``plan`` chose.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -22,29 +26,86 @@ BITSPLIT_REPLACES = "src/repro/kernels/int4_matmul.py:141"
 # either side, while K * 128 * 128 < 2^31 (every int8 code has |c| <= 128)
 BITSPLIT_MAX_K = (2**31 - 1) // (128 * 128)
 
+SMS = 132                  # H100 SXM streaming multiprocessors
+WAVE = 0.9 * SMS           # a grid of at least this many blocks fills a wave
+PATHS = ("tensor_core", "decode")
+DECODE_MAX_M = 8           # a decode tick's batch: the weights are the only large operand
+TC_STAGE_K = 128           # k values per stage of the tensor-core ring
+TC_MIN_STAGES = 4          # a K slice keeps the ring full for this many stages
+TC_TILES = ((128, 128), (64, 128), (64, 64))   # (BM, BN), largest first
+DECODE_COLS = 128          # weight columns per decode block
+DECODE_ROWS = 32           # weight rows per decode warp step
+DECODE_WARPS = 8
+DECODE_MAX_X_BYTES = 96 << 10   # the staged x slice of a decode block
 
-def _launch(fn, x_i8, w, bias_i32, M_q, shift_q, n: int) -> torch.Tensor:
+
+class GemmPlan(NamedTuple):
+    """How one GEMM launches: ``path`` ("tensor_core" or "decode"), tile
+    rows ``bm`` (decode: the 8 token rows) and columns ``bn``, the number
+    of K slices ``split`` (partials reduced by a second pass when > 1), and
+    ``vec``, the bytes of one weight copy (16, or 4 where N % 16 != 0)."""
+    path: str
+    bm: int
+    bn: int
+    split: int
+    vec: int
+    blocks: int
+
+
+def plan(m: int, k: int, n: int, w_bits: int = 4) -> GemmPlan:
+    """The variant a (M, K, N) GEMM takes.  M <= 8: the decode path, 128
+    columns a block, K split until the blocks cover the SMs (each slice at
+    least one 32-row step).  Otherwise the tensor-core path: the largest
+    tile whose grid, with K split into slices of at least 4 stages, fills a
+    wave of SMs (90 % of 132: 128 tiles of 128 x 128 at M = 512, N = 4096
+    run unsplit), else the smallest tile with K split as far as it goes."""
+    vec = 16 if n % 16 == 0 else 4
+    rows = k // 2 if w_bits == 4 else k          # weight rows
+    if m <= DECODE_MAX_M:
+        cols = -(-n // DECODE_COLS)
+        steps = rows // DECODE_ROWS
+        split = max(1, min(-(-SMS // cols), steps))
+        planes = 2 if w_bits == 4 else 1
+        while 8 * (planes * -(-steps // split) * DECODE_ROWS + 16) > DECODE_MAX_X_BYTES:
+            split += 1
+        return GemmPlan("decode", 8, DECODE_COLS, split, vec, cols * split)
+    stages = -(-k // TC_STAGE_K)
+    for bm, bn in TC_TILES:
+        tiles = -(-m // bm) * -(-n // bn)
+        split = max(1, min(-(-int(WAVE) // tiles), stages // TC_MIN_STAGES))
+        if tiles * split >= WAVE:
+            return GemmPlan("tensor_core", bm, bn, split, vec, tiles * split)
+    split = max(1, min(-(-int(WAVE) // tiles), stages))
+    return GemmPlan("tensor_core", bm, bn, split, vec, tiles * split)
+
+
+def _launch(fn, x_i8, w, bias_i32, M_q, shift_q, n: int, w_bits: int) -> torch.Tensor:
     """Launch the GEMM kernel named like its wrapper ``fn`` on CUDA operands
     whose types and shapes the wrapper checked -> int8 (M, N); counts the
-    launch on ``fn``."""
+    launch on ``fn`` and on its path."""
     name = fn.__name__
     dev = x_i8.device
     x = x_i8.contiguous()
     w = w.contiguous()
     bias = bias_i32.contiguous()
-    if x.data_ptr() % 4 or w.data_ptr() % 4:
-        raise ValueError(f"{name}: x and w must be 4-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: x and w must be 16-byte aligned (the kernels copy 16 "
+                         "bytes at a time)")
     Mq = _build.device_scalar(M_q, torch.int32, dev)
     shq = _build.device_scalar(shift_q, torch.int32, dev)
     m, k = x.shape
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     if m == 0:
         return out
-    rc = _build.bind(name, name, 6, 3)(
+    p = plan(m, k, n, w_bits)
+    ws = torch.empty((p.split, m, n) if p.split > 1 else (1,), dtype=torch.int32, device=dev)
+    rc = _build.bind(name, name, 7, 8)(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), Mq.data_ptr(), shq.data_ptr(),
-        out.data_ptr(), m, k, n, _build.stream_of(dev))
+        out.data_ptr(), ws.data_ptr(), m, k, n, PATHS.index(p.path), p.bm, p.bn, p.split,
+        p.vec, _build.stream_of(dev))
     _build.check_launch(rc, name)
     fn.launches += 1
+    fn.path_launches[p.path] += 1
     return out
 
 
@@ -63,10 +124,11 @@ def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, bias_i32: torch.Tens
     if k != 2 * k2 or k2 % 32 or n % 4 or bias_i32.shape != (n,):
         raise ValueError(f"int4_matmul: unsupported shapes x {tuple(x_i8.shape)}, "
                          f"w {tuple(w_packed.shape)} (needs K/2 % 32 == 0, N % 4 == 0)")
-    return _launch(int4_matmul, x_i8, w_packed, bias_i32, M_q, shift_q, n)
+    return _launch(int4_matmul, x_i8, w_packed, bias_i32, M_q, shift_q, n, 4)
 
 
 int4_matmul.launches = 0
+int4_matmul.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def int8_bitsplit_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch.Tensor,
@@ -85,7 +147,8 @@ def int8_bitsplit_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch
         raise ValueError(f"int8_bitsplit_matmul: unsupported shapes x {tuple(x_i8.shape)}, "
                          f"w {tuple(w_i8.shape)} (needs K % 64 == 0, K <= {BITSPLIT_MAX_K}, "
                          "N % 4 == 0)")
-    return _launch(int8_bitsplit_matmul, x_i8, w_i8, bias_i32, M_q, shift_q, n)
+    return _launch(int8_bitsplit_matmul, x_i8, w_i8, bias_i32, M_q, shift_q, n, 8)
 
 
 int8_bitsplit_matmul.launches = 0
+int8_bitsplit_matmul.path_launches = dict.fromkeys(PATHS, 0)

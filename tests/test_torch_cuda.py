@@ -25,7 +25,13 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_qattention_q4,
 )
 from repro_torch.kernels.flash_qattention import flash_qattention, flash_qdecode
-from repro_torch.kernels.int4_matmul import BITSPLIT_MAX_K, int4_matmul, int8_bitsplit_matmul
+from repro_torch.kernels.int4_matmul import (
+    BITSPLIT_MAX_K,
+    WAVE,
+    int4_matmul,
+    int8_bitsplit_matmul,
+    plan,
+)
 from repro_torch.kernels.prefill_attention import (
     paged_prefill_qattention,
     paged_prefill_qattention_q4,
@@ -284,12 +290,80 @@ def test_wrappers_refuse_other_devices():
         flash_qdecode(*_qdecode(4, 32, 16, 3, "meta", hkv=1), bkv=16)
 
 
+# (K, N) of the served linears: yi-6b's wq/wo, wk/wv, wg/wu, wd and
+# BERT-base's attention projections, w1, w2
+YI6B_GEMMS = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096)]
+BERT_GEMMS = [(768, 768), (768, 3072), (3072, 768)]
+# M on the served paths: a decode tick (8), prefill chunks and the
+# cache-less forward (32-704 one-shot, up to 256 chunked, 512 and 2048),
+# BERT at (1, 128) and (8, 512)
+SERVED_GEMMS = ([(m, k, n) for m in (8, 32, 128, 256, 512, 704, 2048) for k, n in YI6B_GEMMS]
+                + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS])
+# ragged M on both sides of the decode/tensor-core boundary, N not a
+# multiple of 16 (4-byte weight copies), K that ends in half a stage
+RAGGED_GEMMS = [(1, 128, 12), (5, 256, 100), (9, 4096, 4096), (16, 4096, 4096),
+                (17, 256, 100), (37, 4160, 12), (130, 4096, 100)]
+
+
+def _launched_once_on(fn, path, *args):
+    """One launch, counted on the path ``plan`` chose."""
+    n0 = fn.path_launches[path]
+    out = _launched_once(fn, *args)
+    assert fn.path_launches[path] == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", SERVED_GEMMS)
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_plan_takes_the_tensor_cores_or_the_decode_path_and_fills_a_wave(w_bits, m, k, n):
+    """Every served GEMM shape: the decode path at M <= 8, the tensor-core
+    path above, 16-byte weight copies, K split into no more slices than it
+    has stages (steps), and a grid of at least 90 % of the 132 SMs."""
+    p = plan(m, k, n, w_bits)
+    assert p.path == ("decode" if m <= 8 else "tensor_core")
+    assert p.vec == 16
+    rows = k // 2 if w_bits == 4 else k
+    if p.path == "decode":
+        assert (p.bm, p.bn) == (8, 128) and 1 <= p.split <= rows // 32
+        assert p.blocks == -(-n // 128) * p.split
+    else:
+        assert (p.bm, p.bn) in [(128, 128), (64, 128), (64, 64)]
+        assert 1 <= p.split <= -(-k // 128)
+        assert p.blocks == -(-m // p.bm) * -(-n // p.bn) * p.split
+    assert p.blocks >= WAVE
+
+
+def test_plan_copies_four_bytes_where_n_is_ragged():
+    assert [plan(m, k, n).vec for m, k, n in RAGGED_GEMMS] == [4, 4, 16, 16, 4, 4, 4]
+    assert [plan(m, k, n).path for m, k, n in RAGGED_GEMMS] == \
+        ["decode"] * 2 + ["tensor_core"] * 5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 512), (8, 11008, 4096), (37, 256, 96),
-                                   (130, 4096, 11008)])
+                                   (130, 4096, 11008)] + RAGGED_GEMMS
+                         + [(m, k, n) for m in (8, 128, 512) for k, n in YI6B_GEMMS + BERT_GEMMS
+                            if (m, k, n) not in [(8, 4096, 512), (8, 11008, 4096)]])
 def test_int4_matmul_kernel_equals_plain(cuda, m, k, n):
     args = _mm(m, k, n, 3, cuda)
-    assert torch.equal(_launched_once(int4_matmul, *args), ref.int4_matmul_ref(*args))
+    assert torch.equal(_launched_once_on(int4_matmul, plan(m, k, n).path, *args),
+                       ref.int4_matmul_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 17])
+def test_int4_matmul_holds_its_extreme_codes(cuda, m):
+    """x = -128 against w = -8 at K = 2^20: every partial sum grows to
+    2^30 on the decode path (M = 8) and the tensor-core path (M = 17) alike
+    and the requantize saturates; equal to the plain version."""
+    k, n = 1 << 20, 8
+    x = torch.full((m, k), -128, dtype=torch.int8, device=cuda)
+    w = torch.full((k // 2, n), 0x88, dtype=torch.uint8, device=cuda)   # both nibbles -8
+    b = torch.zeros(n, dtype=torch.int32, device=cuda)
+    args = (x, w, b, 16384, 30)
+    out = _launched_once_on(int4_matmul, plan(m, k, n).path, *args)
+    assert torch.equal(out, ref.int4_matmul_ref(*args))
+    assert bool((out == 127).all())
 
 
 @pytest.mark.cuda
@@ -350,10 +424,13 @@ def test_quant_softmax_kernel_clamps_an_empty_denominator(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(128, 768, 768), (128, 768, 3072), (128, 3072, 768),
-                                   (4096, 768, 3072), (5, 64, 12), (37, 3072, 100)])
+                                   (4096, 768, 3072), (5, 64, 12), (37, 3072, 100)]
+                         + RAGGED_GEMMS
+                         + [(m, k, n) for m in (8, 512) for k, n in BERT_GEMMS + YI6B_GEMMS]
+                         + [(128, k, n) for k, n in YI6B_GEMMS])
 def test_int8_bitsplit_matmul_kernel_equals_plain(cuda, m, k, n):
     args = _mm8(m, k, n, 7, cuda)
-    assert torch.equal(_launched_once(int8_bitsplit_matmul, *args),
+    assert torch.equal(_launched_once_on(int8_bitsplit_matmul, plan(m, k, n, 8).path, *args),
                        ref.int8_bitsplit_matmul_ref(*args))
 
 
@@ -367,7 +444,7 @@ def test_int8_bitsplit_matmul_holds_its_k_bound(cuda):
     w = torch.full((k, 8), -128, dtype=torch.int8, device=cuda)
     b = torch.zeros(8, dtype=torch.int32, device=cuda)
     args = (x, w, b, 16384, 30)
-    assert torch.equal(_launched_once(int8_bitsplit_matmul, *args),
+    assert torch.equal(_launched_once_on(int8_bitsplit_matmul, plan(4, k, 8, 8).path, *args),
                        ref.int8_bitsplit_matmul_ref(*args))
     with pytest.raises(ValueError, match="K"):
         int8_bitsplit_matmul(torch.zeros((4, k + 64), dtype=torch.int8, device=cuda),
