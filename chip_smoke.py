@@ -13,7 +13,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 3. holds every kernel against its plain PyTorch version on the card at the
    shapes of the serving paths (yi-6b for the four of the engine, the three
    of its other KV layouts and the two flash kernels, BERT-base for
-   ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required)
+   ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required;
+   the two paged decode kernels also on one 4,096-row chain)
    and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
@@ -311,33 +312,56 @@ def _pool(torch, gen, n_pages, psize, hkv, d, packed):
     return (kp, vp, ks, vs), d, 8
 
 
-def phase_paged_decode(torch, gen, packed=False):
-    from repro_torch.kernels import decode_attention as mod
-    from repro_torch.kernels import ref
-
-    fn, plain = (mod.paged_decode_qattention_q4, ref.paged_decode_qattention_q4_ref) \
-        if packed else (mod.paged_decode_qattention, ref.paged_decode_qattention_ref)
-    hkv, g, d, psize, nb = 4, 8, 128, 16, 64           # yi-6b, max_len 1024
-    lengths = [33, 100, 250, 400, 520, 640, 700, 1000]
+def _decode_shape(torch, gen, lengths, nb, packed):
+    """Inputs of the paged decode kernels at yi-6b's heads (Hkv=4, G=8,
+    D=128, 16-row pages) for slots of ``lengths`` rows, ``nb`` table
+    entries each, and the bound of one call."""
+    hkv, g, d, psize = 4, 8, 128, 16
     b = len(lengths)
     n_pages = b * nb + 1
     pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
     args = (_rand_i8(torch, gen, (b, hkv, g, d)), *pool,
             _chains(torch, lengths, nb, n_pages, psize),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"), *_attn_scalars(torch, d))
-    mism, err = compare(fn(*args), plain(*args))
-    row = dict(ms=device_ms(torch, fn, args), plain_ms=device_ms(torch, plain, args, cold=False),
-               library_ms=None, mismatches=mism, max_abs_err=err,
-               shape=f"B=8 Hkv=4 G=8 D=128 P=16{' packed' if packed else ''} "
-                     f"lengths={lengths}")
-    live = sum(lengths)
-    pages = sum(-(-n // psize) for n in lengths)
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        2 * b * hkv * g * d + live * hkv * row_bytes + page_bytes * pages + 4 * b * (nb + 1)
-        + 1024, 4.0 * hkv * g * d * live)
-    print(f"  {fn.__name__} B={b} lengths={lengths}: kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
-    return row
+    pages = [-(-n // psize) for n in lengths]
+    bound = bound_ms(2 * b * hkv * g * d + sum(lengths) * hkv * row_bytes
+                     + page_bytes * sum(pages) + 4 * b * (nb + 1) + 1024,
+                     4.0 * hkv * g * d * sum(lengths))
+    return args, pages, bound
+
+
+def phase_paged_decode(torch, gen, packed=False):
+    """The split paged decode at the decode tick's shape (B=8, lengths
+    33-1000) and on one 4,096-row chain: equal to the plain version, the
+    kernel, plain and bound times, and the blocks of each launch."""
+    from repro_torch.kernels import decode_attention as mod
+    from repro_torch.kernels import ref
+
+    fn, plain = (mod.paged_decode_qattention_q4, ref.paged_decode_qattention_q4_ref) \
+        if packed else (mod.paged_decode_qattention, ref.paged_decode_qattention_ref)
+    shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 64),   # yi-6b, max_len 1024
+              "B=1 len=4096": ([4096], 256)}                           # yi-6b's full context
+    rows = {}
+    for label, (lengths, nb) in shapes.items():
+        args, pages, (bnd, bnd_by) = _decode_shape(torch, gen, lengths, nb, packed)
+        mism, err = compare(fn(*args), plain(*args))
+        blocks = -(-nb // mod.SPAN) * 4 * len(lengths)
+        live = sum(4 * -(-n // mod.SPAN) for n in pages)
+        rows[label] = dict(ms=device_ms(torch, fn, args),
+                           plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None,
+                           mismatches=mism, max_abs_err=err, bound_ms=bnd, bound_by=bnd_by,
+                           launches_per_call=3, blocks=blocks, live_blocks=live,
+                           shape=f"{label} Hkv=4 G=8 D=128 P=16{' packed' if packed else ''} "
+                                 f"lengths={lengths}")
+        print(f"  {fn.__name__} {label}: kernel {rows[label]['ms']:.4f} ms, "
+              f"plain {rows[label]['plain_ms']:.4f} ms, "
+              f"bound {bnd:.5f} ms ({bnd_by}); passes A and B {blocks} blocks each, "
+              f"{live} with pages to run, the carry {len(lengths) * 4 * 8} blocks; "
+              f"{mism} mismatching codes")
+    long_row = rows["B=1 len=4096"]
+    check(long_row["mismatches"] == 0,
+          f"{fn.__name__}: kernel != plain version on the 4,096-row chain")
+    return dict(rows["B=8"], long=long_row)
 
 
 def phase_paged_prefill(torch, gen, packed=False):
@@ -572,11 +596,15 @@ def profile_steps(torch, step, what: str, n: int = 3):
           f"({100 * busy_ms / wall_ms:.1f} %), {launches} device kernels per call")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {us / n / 1e3:8.3f} ms/call {count // n:5d}x  {key[:80]}")
-    gemm = [r for r in rows if "fq::igemm::" in r[2]]
-    if gemm:
-        print(f"    integer GEMMs, every path and the split-K reduce: "
-              f"{sum(r[0] for r in gemm) / n / 1e3:.3f} ms/call, "
-              f"{sum(r[1] for r in gemm) // n} kernels per call")
+    for label, picked in (
+            ("integer GEMMs, every path and the split-K reduce",
+             [r for r in rows if "fq::igemm::" in r[2]]),
+            ("paged decode attention, its three passes",
+             [r for r in rows if "fq::split_" in r[2]])):
+        if picked:
+            ms = sum(r[0] for r in picked) / n / 1e3
+            print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
+                  f"time), {sum(r[1] for r in picked) // n} kernels per call")
 
 
 def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
@@ -737,12 +765,12 @@ def phase_kv4(torch, cfg, folded, int8_run):
     return one
 
 
-def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16):
+def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16, temperature=0.0):
     from repro_torch.serve.engine import EngineConfig, LockstepEngine, Request
 
     rng = np.random.default_rng(SEED + 1)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32),
-                    max_new_tokens=new) for _ in range(n)]
+                    max_new_tokens=new, temperature=temperature) for _ in range(n)]
     eng = LockstepEngine(cfg, folded, EngineConfig(batch_slots=n, max_len=1024))
     torch.cuda.synchronize()
     for k in kernels:
@@ -756,7 +784,44 @@ def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16):
     check(all(len(t) == new and all(0 <= x < cfg.vocab_size for x in t) for t in toks),
           "lockstep: a request returned the wrong number of tokens or an out-of-vocab token")
     return dict(tokens=toks, launches=[k.launches for k in kernels], paths=gemm_paths(),
-                wall_s=wall, tok_per_s=n * new / wall, steps=prompt_len + new - 1)
+                wall_s=wall, tok_per_s=n * new / wall, steps=prompt_len + new - 1,
+                sampled_steps=new - 1 if temperature > 0 else 0)
+
+
+def sample_draw_ms(torch, cfg, batch, reps=7):
+    """Host time of one sampled step's draw over (batch, vocab) float32
+    logits, median of ``reps``: ``prng.categorical`` (jax.random's threefry
+    Gumbel draw) beside the torch.Generator Gumbel draw the lockstep engine
+    used before it followed jax.random."""
+    from repro_torch.core import prng
+
+    logits = (np.random.default_rng(SEED + 3).standard_normal((batch, cfg.vocab_size))
+              * 4).astype(np.float32)
+    key, gen = prng.key(SEED), torch.Generator().manual_seed(SEED)
+
+    def threefry():
+        nonlocal key
+        key, sub = prng.split(key)
+        return prng.categorical(sub, logits / np.float32(0.7), -1)
+
+    def generator():
+        z = torch.from_numpy(logits) / 0.7
+        u = torch.rand(z.shape, generator=gen).clamp_(min=1e-20)
+        return torch.argmax(z - torch.log(-torch.log(u)), -1).numpy()
+
+    ms = {}
+    for name, fn in (("threefry", threefry), ("torch.Generator", generator)):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(times))
+    print(f"  sampled draw on the host, ({batch}, {cfg.vocab_size}) logits: threefry "
+          f"categorical {ms['threefry']:.3f} ms, torch.Generator Gumbel {ms['torch.Generator']:.3f}"
+          f" ms (median of {reps}; torch threads {torch.get_num_threads()})")
+    return ms
 
 
 def phase_contiguous(torch, cfg, folded):
@@ -765,7 +830,8 @@ def phase_contiguous(torch, cfg, folded):
     request through flash_qattention, 32 launches each, then
     decode_qattention at bkv=512, 32 launches per tick), then the
     LockstepEngine on 8 prompts of 32 tokens, 16 new tokens each (it
-    prefills through decode steps)."""
+    prefills through decode steps), greedy and sampled at T=0.7, and the
+    host time of one sampled step's draw."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_qattention as fa
     from repro_torch.kernels import prefill_attention as pa
@@ -793,6 +859,13 @@ def phase_contiguous(torch, cfg, folded):
           "decode steps)")
     print(f"  lockstep: int4_matmul launches by path {lock['paths']}")
     check_paths("lockstep", lock["paths"], 0, lock["steps"], LINEARS_PER_LAYER * cfg.n_layers)
+    hot = serve_lockstep(torch, cfg, folded, kernels, temperature=0.7)
+    print(f"  lockstep sampled (T=0.7): {hot['tok_per_s']:.1f} tok/s ({hot['wall_s']:.2f} s "
+          f"wall, {hot['steps']} decode steps, {hot['sampled_steps']} of them sampled); greedy "
+          f"{lock['wall_s'] / lock['steps'] * 1e3:.2f} ms per step, sampled "
+          f"{hot['wall_s'] / hot['steps'] * 1e3:.2f}")
+    check(hot["launches"] == lock["launches"], f"lockstep sampled: launches {hot['launches']}")
+    sample_draw_ms(torch, cfg, 8)
     profile_decode(torch, cfg, folded, "contiguous decode tick (batch 8)",
                    cache_layout="contiguous")
     return r
@@ -1207,7 +1280,10 @@ def main() -> int:
             "launches": launches[fn.__name__], "max_abs_err": row["max_abs_err"],
             "mismatches": row["mismatches"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"]})
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"long": {k: row["long"][k] for k in ("shape", "ms", "plain_ms",
+                                                     "bound_ms", "mismatches")}}
+               if "long" in row else {})})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

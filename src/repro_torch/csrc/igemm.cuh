@@ -35,6 +35,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace fq {
 namespace igemm {
@@ -120,28 +121,6 @@ __device__ __forceinline__ int sw128(int row, int k) {
 // code.
 __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
   return v | ((v & 0x08080808u) * 0x1eu);
-}
-
-// 4 x 4 byte transpose: a[i] holds row i's bytes for columns 0..3; b[c]
-// holds column c's bytes for rows 0..3 (row i in byte i).
-__device__ __forceinline__ void transpose4(const uint32_t (&a)[4], uint32_t (&b)[4]) {
-  const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140);
-  const uint32_t t1 = __byte_perm(a[2], a[3], 0x5140);
-  const uint32_t t2 = __byte_perm(a[0], a[1], 0x7362);
-  const uint32_t t3 = __byte_perm(a[2], a[3], 0x7362);
-  b[0] = __byte_perm(t0, t1, 0x5410);
-  b[1] = __byte_perm(t0, t1, 0x7632);
-  b[2] = __byte_perm(t2, t3, 0x5410);
-  b[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-__device__ __forceinline__ void mma_16832(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma m64nNk32 .s32.s8.s8, every accumulator register spelled out ---
@@ -432,10 +411,6 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 // ---- decode path (M <= 8) -------------------------------------------------
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
 
 // Row stride of the staged x slice: planes * len + 16 bytes, an odd
 // multiple of 16, so the 8 tokens x 4 k-quads of a B-fragment load hit 32

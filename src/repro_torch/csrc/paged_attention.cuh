@@ -1,8 +1,9 @@
-// The per-page step shared by the paged prefill and paged decode kernels,
-// int8 and int4-packed pools alike (only the page loader differs, below):
-// one block holds R query rows of one (slot, kv head) and walks the slot's
-// block-table chain page by page with the reference's exact datapath
-// (kernels/ref.py::paged_*_qattention_ref):
+// The per-page step of the paged prefill kernels, int8 and int4-packed
+// pools alike (only the page loader differs, below), and the page loaders
+// the paged decode kernels share (paged_decode.cuh splits the same datapath
+// into passes): one block holds R query rows of one (slot, kv head) and
+// walks the slot's block-table chain page by page with the reference's
+// exact datapath (kernels/ref.py::paged_*_qattention_ref):
 //
 //   s    = int8 q . int8 k                  (int32, __dp4a)
 //   s    = kpos <= qpos ? s : s - 2^30      (causal / length mask)
@@ -42,7 +43,9 @@ struct PageSmem {
 
 // Page loaders: each copies one pool page's K and V rows of kv head h into
 // sm.k / sm.v as int8 codes, (P, D) row-major.  The kernels are templates
-// on the loader; everything after the load is the same datapath.
+// on the loader; everything after the load is the same datapath.  k16 / v16
+// return the 16 int8 codes of columns [col, col + 16) of one row of a page
+// straight into registers (the split decode kernels, paged_decode.cuh).
 
 // The int8 pool (n_pages, P, Hkv, D): 16 bytes per thread-load.
 struct Int8Pages {
@@ -61,6 +64,20 @@ struct Int8Pages {
       *reinterpret_cast<int4*>(&sm.k[r * D + c]) = *reinterpret_cast<const int4*>(k + g);
       *reinterpret_cast<int4*>(&sm.v[r * D + c]) = *reinterpret_cast<const int4*>(v + g);
     }
+  }
+
+  __device__ __forceinline__ uint4 k16(int page, int row, int h, int Hkv, int D, int P,
+                                       int col) const {
+    return codes16(k, page, row, h, Hkv, D, P, col);
+  }
+  __device__ __forceinline__ uint4 v16(int page, int row, int h, int Hkv, int D, int P,
+                                       int col) const {
+    return codes16(v, page, row, h, Hkv, D, P, col);
+  }
+  static __device__ __forceinline__ uint4 codes16(const int8_t* pool, int page, int row, int h,
+                                                  int Hkv, int D, int P, int col) {
+    return __ldg(reinterpret_cast<const uint4*>(
+        pool + ((static_cast<size_t>(page) * P + row) * Hkv + h) * D + col));
   }
 };
 
@@ -95,6 +112,24 @@ __device__ __forceinline__ void dequant16(int8_t* lo, int8_t* hi, int4 w, float 
                                            static_cast<int>(hi_w[2]), static_cast<int>(hi_w[3]));
 }
 
+// One nibble plane of 16 packed bytes -> 16 codes: the low nibbles (hi
+// false) or the high ones, sign-extended and dequantized per code exactly as
+// dequant16 does.
+__device__ __forceinline__ uint4 dequant_plane16(uint4 w, bool hi, float scale) {
+  const unsigned in[4] = {w.x, w.y, w.z, w.w};
+  unsigned o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x = static_cast<int>((in[i] >> (8 * j + (hi ? 4 : 0))) & 15u);
+      o[i] |= dequant_code((x ^ 8) - 8, scale) << (8 * j);
+    }
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
 // The int4-packed pool (n_pages, P, Hkv, D/2) uint8, nibble-planar along the
 // head dim (the low nibbles hold columns [0, D/2), the high ones [D/2, D)),
 // with one fp32 scale per page for K (ks) and one for V (vs): the page is
@@ -123,6 +158,26 @@ struct Int4Pages {
       dequant16(&sm.v[r * D + c], &sm.v[r * D + half + c],
                 *reinterpret_cast<const int4*>(v + g), sv);
     }
+  }
+
+  // columns [col, col + 16) sit in the low plane of packed bytes [col, +16)
+  // when col < D/2, else in the high plane of bytes [col - D/2, +16)
+  __device__ __forceinline__ uint4 k16(int page, int row, int h, int Hkv, int D, int P,
+                                       int col) const {
+    return codes16(k, ks[page], page, row, h, Hkv, D, P, col);
+  }
+  __device__ __forceinline__ uint4 v16(int page, int row, int h, int Hkv, int D, int P,
+                                       int col) const {
+    return codes16(v, vs[page], page, row, h, Hkv, D, P, col);
+  }
+  static __device__ __forceinline__ uint4 codes16(const uint8_t* pool, float scale, int page,
+                                                  int row, int h, int Hkv, int D, int P,
+                                                  int col) {
+    const int half = D / 2;
+    const bool hi = col >= half;
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+        pool + ((static_cast<size_t>(page) * P + row) * Hkv + h) * half + (hi ? col - half : col)));
+    return dequant_plane16(w, hi, scale);
   }
 };
 

@@ -10,6 +10,8 @@ version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -26,6 +28,11 @@ Q4_REPLACES = "src/repro/kernels/decode_attention.py:296"
 STRIPE_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
 STRIPE_REPLACES = "src/repro/kernels/decode_attention.py:148"
 
+# The paged kernels split each slot's chain into spans of SPAN pages, one
+# block each (csrc/paged_decode.cuh kSpan), and make three launches per
+# call.
+SPAN = 8
+
 
 def _i32(t: torch.Tensor, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.int32).contiguous()
@@ -41,6 +48,22 @@ def _aligned(name: str, *ts):
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: K/V must be 16-byte aligned")
     return ts
+
+
+def _q16(q: torch.Tensor) -> torch.Tensor:
+    """q contiguous at a 16-byte aligned address (a copy only if it is not)."""
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 16 else q
+
+
+def _workspace(name: str, b, hkv, g, psize, nb, dev) -> torch.Tensor:
+    """The split kernels' int32 workspace (page maxima, scores, carry
+    factors and den sums, P.V partials), from the caching allocator; its
+    size comes from the kernel library."""
+    fn = _build.load(name).paged_decode_ws
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return torch.empty(int(fn(b, hkv, g, psize, nb)), dtype=torch.int32, device=dev)
 
 
 def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
@@ -63,16 +86,17 @@ def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
                          f" pool {tuple(k_pool.shape)} (needs G <= 16, D <= 128, "
                          f"D % 16 == 0, P <= 64)")
     dev = q_i8.device
-    q = q_i8.contiguous()
+    q = _q16(q_i8)
     kp, vp = _aligned("paged_decode_qattention", k_pool, v_pool)
     btab = _i32(block_tables, dev)
     lens = _i32(lengths, dev)
     lut = _i32(lut_q7, dev)
     scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
     out = torch.empty_like(q)
-    rc = _build.bind("paged_decode_attention", "paged_decode_attention", 11, 6)(
+    ws = _workspace("paged_decode_attention", b, hkv, g, psize, nb, dev)
+    rc = _build.bind("paged_decode_attention", "paged_decode_attention", 12, 6)(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(), lens.data_ptr(),
-        lut.data_ptr(), *(t.data_ptr() for t in scal), out.data_ptr(),
+        lut.data_ptr(), *(t.data_ptr() for t in scal), out.data_ptr(), ws.data_ptr(),
         b, hkv, g, d, psize, nb, _build.stream_of(dev))
     _build.check_launch(rc, "paged_decode_qattention")
     paged_decode_qattention.launches += 1
@@ -106,7 +130,7 @@ def paged_decode_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tab
                          f"{tuple(k_scale.shape)} (needs G <= 16, D <= 128, D % 32 == 0, "
                          f"P <= 64, one scale per page)")
     dev = q_i8.device
-    q = q_i8.contiguous()
+    q = _q16(q_i8)
     kp, vp = _aligned("paged_decode_qattention_q4", k_pool, v_pool)
     ks = k_scale.to(device=dev, dtype=torch.float32).contiguous()
     vs = v_scale.to(device=dev, dtype=torch.float32).contiguous()
@@ -115,10 +139,11 @@ def paged_decode_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tab
     lut = _i32(lut_q7, dev)
     scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
     out = torch.empty_like(q)
-    rc = _build.bind("paged_decode_attention_q4", "paged_decode_attention_q4", 13, 6)(
+    ws = _workspace("paged_decode_attention_q4", b, hkv, g, psize, nb, dev)
+    rc = _build.bind("paged_decode_attention_q4", "paged_decode_attention_q4", 14, 6)(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         btab.data_ptr(), lens.data_ptr(), lut.data_ptr(), *(t.data_ptr() for t in scal),
-        out.data_ptr(), b, hkv, g, d, psize, nb, _build.stream_of(dev))
+        out.data_ptr(), ws.data_ptr(), b, hkv, g, d, psize, nb, _build.stream_of(dev))
     _build.check_launch(rc, "paged_decode_qattention_q4")
     paged_decode_qattention_q4.launches += 1
     return out

@@ -136,6 +136,69 @@ def paged_decode_qattention_ref(q_i8, k_pool, v_pool, block_tables, lengths,
     return _epilogue(acc, den, out_scale)
 
 
+def paged_decode_split_ref(q_i8, k_pool, v_pool, block_tables, lengths, M_idx, shift_idx,
+                           lut, inv_s_logit, out_scale, span: int = 8):
+    """The paged decode as the CUDA kernels split it (csrc/paged_decode.cuh),
+    for the tests: (A) every page's masked scores and row maxima at once;
+    (B) per page, the running max before it (the maxima of the pages before
+    its span of ``span`` pages, then those of the span up to it) and after
+    it, the factor f, the numerators, den_b and P.V (numerators as int8);
+    (C) the fp32 carry over the pages in order.  Equal to
+    ``paged_decode_qattention_ref`` bit for bit."""
+    b, hkv, g, d = q_i8.shape
+    dev = q_i8.device
+    psize = k_pool.shape[1]
+    nb = block_tables.shape[1]
+    lengths = lengths.to(torch.int32)
+    npages = torch.clamp((lengths + psize - 1) // psize, 0, nb)          # (B,)
+    kb = k_pool[block_tables.long()].permute(0, 3, 1, 2, 4)              # (B,Hkv,nb,P,D)
+    vb = v_pool[block_tables.long()].permute(0, 3, 1, 2, 4)
+    # A
+    s = int_matmul(q_i8[:, :, None], kb.transpose(-1, -2))              # (B,Hkv,nb,G,P)
+    kpos = torch.arange(nb * psize, dtype=torch.int32, device=dev).reshape(nb, 1, psize)
+    s = torch.where(kpos < lengths[:, None, None, None, None], s, s - qs.MASK_OFFSET)
+    pmax = torch.amax(s, dim=-1)                                         # (B,Hkv,nb,G)
+    # B
+    m_old = torch.full_like(pmax, NEG_INIT)
+    for p in range(1, nb):
+        start = p // span * span
+        pre = torch.full_like(pmax[:, :, 0], NEG_INIT)
+        if start:
+            pre = torch.maximum(pre, torch.amax(pmax[:, :, :start], dim=2))
+        if p > start:
+            pre = torch.maximum(pre, torch.amax(pmax[:, :, start:p], dim=2))
+        m_old[:, :, p] = pre
+    m_new = torch.maximum(m_old, pmax)
+    f = torch.exp((m_old - m_new).to(torch.float32)
+                  * torch.as_tensor(inv_s_logit, dtype=torch.float32, device=dev))
+    f = torch.where(m_old == NEG_INIT, torch.zeros_like(f), f)
+    idx = torch.clamp(fxp.rescale(m_new[..., None] - s, M_idx, shift_idx, out_bits=9),
+                      0, qs.LUT_SIZE - 1)
+    num = lut.to(torch.int32)[idx.long()]
+    den_b = torch.sum(num, dim=-1, dtype=torch.int32)                    # (B,Hkv,nb,G)
+    pv = int_matmul(num.to(torch.int8), vb)                              # (B,Hkv,nb,G,D)
+    # C
+    den = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=dev)
+    for p in range(nb):
+        live = (p < npages)[:, None, None, None]
+        fp = f[:, :, p, :, None]
+        den = torch.where(live, den * fp + den_b[:, :, p, :, None].to(torch.float32), den)
+        acc = torch.where(live, acc * fp + pv[:, :, p].to(torch.float32), acc)
+    return _epilogue(acc, den, out_scale)
+
+
+def paged_decode_split_q4_ref(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale, block_tables,
+                              lengths, M_idx, shift_idx, lut, inv_s_logit, out_scale,
+                              span: int = 8):
+    """``paged_decode_split_ref`` over the int4-packed pool (whole-pool
+    dequant first), for the tests."""
+    return paged_decode_split_ref(
+        q_i8, packing.dequantize_kv_pool(k_pool_u8, k_scale),
+        packing.dequantize_kv_pool(v_pool_u8, v_scale), block_tables, lengths,
+        M_idx, shift_idx, lut, inv_s_logit, out_scale, span)
+
+
 def paged_prefill_qattention_ref(q_i8, k_pool, v_pool, block_tables, pos0,
                                  M_idx, shift_idx, lut, inv_s_logit, out_scale):
     """Block-online oracle of the paged chunked-prefill kernel: queries

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.models import serve_int as S
 from repro_torch.models.transformer import check_ported, slot_kinds
 from repro_torch.serve import stats as stats_schema
@@ -214,8 +215,9 @@ class LockstepEngine:
     """The reference's lockstep baseline: one shared position for every
     slot, prompts left-padded to the longest and replayed through the
     decode forward over the contiguous stripe.  Greedy tokens equal the
-    reference's; sampling draws from a ``torch.Generator`` seeded with
-    ``config.seed``, so sampled tokens are not ``jax.random``'s."""
+    reference's, and so do sampled ones: the key is ``jax.random``'s
+    threefry key of ``config.seed``, split once per sampled step, and the
+    draw is its ``categorical`` (``core/prng.py``, numpy on the host)."""
 
     def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
                  **kw):
@@ -232,7 +234,7 @@ class LockstepEngine:
     def reset(self, seed: int = 0):
         self.cache = S.init_cache(self.cfg, self.batch, self.max_len, device=self.device)
         self.pos = np.zeros(self.batch, np.int32)
-        self.gen = torch.Generator().manual_seed(seed)
+        self.key = prng.key(seed)
 
     def _step(self, tokens_col: np.ndarray, pos: int) -> np.ndarray:
         tok = torch.as_tensor(np.asarray(tokens_col, np.int32).reshape(self.batch, 1),
@@ -259,9 +261,9 @@ class LockstepEngine:
         for t in range(max_prompt, max_prompt + max_new - 1):
             logits = self._step(cur, t)
             if any(r.temperature > 0 for r in requests):
-                z = torch.from_numpy(logits) / max(requests[0].temperature, 1e-4)
-                u = torch.rand(z.shape, generator=self.gen).clamp_(min=1e-20)
-                cur = torch.argmax(z - torch.log(-torch.log(u)), -1).numpy().astype(np.int32)
+                self.key, sub = prng.split(self.key)
+                z = logits / np.float32(max(requests[0].temperature, 1e-4))
+                cur = prng.categorical(sub, z, -1).astype(np.int32)
             else:
                 cur = np.argmax(logits, -1).astype(np.int32)
             for i in range(len(requests)):

@@ -9,7 +9,8 @@ Pallas kernel in interpret mode at ``bkv < Smax``, within +-1 code on at
 most 0.1 % of elements (the fp32 ``exp``; the count is printed); at
 ``bkv == Smax`` it equals the reference's row-wise oracle.  On the ``ref``
 backend both engines must equal the reference's: events, tokens, counters
-and stats for the continuous engine, greedy tokens for the lockstep one.
+and stats for the continuous engine, greedy and sampled tokens for the
+lockstep one.
 """
 import jax
 import jax.numpy as jnp
@@ -214,6 +215,24 @@ def test_gpu_backend_contiguous_and_lockstep_on_cpu(folded, monkeypatch):
 
     assert lockstep() == lockstep()
     assert decode_qattention.launches == n0
+
+
+@pytest.mark.parametrize("temperature,seed", [(1.0, 0), (0.7, 3)])
+def test_lockstep_sampling_matches_reference(folded, temperature, seed):
+    """Sampled decode draws the reference's tokens: the same threefry key,
+    split once per sampled step, and the same categorical draw."""
+    jcfg, jfolded, cfg, tfolded = folded
+    prompts = _prompts(cfg.vocab_size, [5, 9, 7], seed=4)
+    kw = dict(batch_slots=3, max_len=40, seed=seed)
+    jreqs = JE.LockstepEngine(jcfg, jfolded, JE.EngineConfig(**kw)).generate(
+        [JE.Request(prompt=p, max_new_tokens=8, temperature=temperature) for p in prompts])
+    treqs = E.LockstepEngine(cfg, tfolded, E.EngineConfig(**kw)).generate(
+        [E.Request(prompt=p, max_new_tokens=8, temperature=temperature) for p in prompts])
+    for j, t in zip(jreqs, treqs):
+        np.testing.assert_array_equal(t.out, j.out)
+    greedy = E.LockstepEngine(cfg, tfolded, E.EngineConfig(**kw)).generate(
+        [E.Request(prompt=p, max_new_tokens=8) for p in prompts])
+    assert any(not np.array_equal(g.out, t.out) for g, t in zip(greedy, treqs))
 
 
 def test_lockstep_sampling_is_seeded(folded):

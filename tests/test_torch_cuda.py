@@ -517,6 +517,58 @@ def test_paged_decode_q4_kernel_equals_plain(cuda, g, d, psize, lengths, fill):
                        ref.paged_decode_qattention_q4_ref(*args))
 
 
+# the split paged decode (csrc/paged_decode.cuh): spans of 8 pages, one
+# block each; (g, d, psize, lengths, hkv)
+SPLIT_CASES = {
+    "one_4096_chain": (8, 128, 16, [4096], 4),                  # yi-6b's full context
+    "span_edges": (8, 128, 16, [128, 129, 127, 256, 257, 384, 16, 0], 4),
+    "g16_d128_p64": (16, 128, 64, [512, 513, 3, 1024], 2),
+    "mqa_p32": (1, 64, 32, [31, 32, 33, 600], 2),
+}
+
+
+def _split_args(kind, case, device):
+    g, d, psize, lengths, hkv = SPLIT_CASES[case]
+    if kind == "int8":
+        return _decode(g, d, psize, lengths, device, hkv, seed=len(lengths))
+    return _decode_q4(g, d, psize, lengths, device, hkv, seed=len(lengths))
+
+
+def _split_pair(kind):
+    return (paged_decode_qattention, ref.paged_decode_qattention_ref) if kind == "int8" else \
+        (paged_decode_qattention_q4, ref.paged_decode_qattention_q4_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_split_paged_decode_equals_plain(cuda, kind, case):
+    fn, plain = _split_pair(kind)
+    args = _split_args(kind, case, cuda)
+    assert torch.equal(_launched_once(fn, *args), plain(*args))
+
+
+@pytest.mark.cuda
+def test_split_paged_decode_int8_takes_d48_and_odd_groups(cuda):
+    args = _decode(3, 48, 8, [7, 8, 9, 130], cuda, hkv=2, seed=9)
+    assert torch.equal(_launched_once(paged_decode_qattention, *args),
+                       ref.paged_decode_qattention_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_split_paged_decode_back_to_back_calls_leave_no_state(cuda, kind):
+    """The workspace is per call: a long batch, a short one of
+    another size, then the long one again, each equal to its plain version."""
+    fn, plain = _split_pair(kind)
+    long_args = _split_args(kind, "span_edges", cuda)
+    short_args = _split_args(kind, "mqa_p32", cuda)
+    outs = [fn(*a) for a in (long_args, short_args, long_args)]
+    torch.cuda.synchronize()
+    for out, a in zip(outs, (long_args, short_args, long_args)):
+        assert torch.equal(out, plain(*a))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d,psize,sq,pos0,fill", [
     (32, 4, 128, 16, 512, [0], None),            # yi-6b one-shot prefill
