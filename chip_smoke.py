@@ -9,12 +9,16 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the eleven CUDA kernels of the port (``_build.KERNELS``) from
    ``src/repro_torch/csrc``, one ``nvcc`` each, all at once, and prints the
-   build time and each kernel's registers and shared memory;
+   build time, each kernel's registers and shared memory and the integer
+   tensor-core instructions in its SASS (the paged prefill kernels must
+   have IMMA and no IDP);
 3. holds every kernel against its plain PyTorch version on the card at the
    shapes of the serving paths (yi-6b for the four of the engine, the three
    of its other KV layouts and the two flash kernels, BERT-base for
    ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required;
-   the two paged decode kernels also on one 4,096-row chain)
+   the two paged decode kernels also on one 4,096-row chain, the two
+   paged prefill kernels also on a 704-row prompt and on the last 16-row
+   chunk of a 1,024-row chain)
    and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
@@ -23,7 +27,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
    with chunked prefill, which must give the same tokens, reuse a shared
-   prefix and launch every kernel of that path; in every served run,
+   prefix and launch every kernel of that path, then profiles a decode
+   tick and a 512-row and a 128-row paged prefill chunk; in every served run,
    ``[eval]`` and ``[bert]`` the GEMMs of a prefill or cache-less forward
    must take the tensor-core path and those of a decode tick the decode
    path (launches counted by path);
@@ -64,6 +69,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +92,18 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def sass_ops(path: str) -> dict:
+    """Counts of the integer tensor-core instructions (IMMA: mma.sync,
+    IGMMA: wgmma) and of IDP (__dp4a) in a built library's SASS
+    (``cuobjdump`` beside ``nvcc``)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IMMA", "IGMMA", "IDP")}
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
@@ -365,15 +383,20 @@ def phase_paged_decode(torch, gen, packed=False):
 
 
 def phase_paged_prefill(torch, gen, packed=False):
+    """The paged prefill at yi-6b's heads: a 512-row one-shot prompt, a
+    128-row chunk at position 256, two unaligned slots, the longest one-shot
+    prompt (704 rows) and the last 16-row chunk of a 1,024-row chain; equal
+    to the plain version, the kernel, plain and bound times of each."""
     from repro_torch.kernels import prefill_attention as mod
     from repro_torch.kernels import ref
 
     fn, plain = (mod.paged_prefill_qattention_q4, ref.paged_prefill_qattention_q4_ref) \
         if packed else (mod.paged_prefill_qattention, ref.paged_prefill_qattention_ref)
     h, hkv, d, psize = 32, 4, 128, 16
-    cases = [(512, [0]), (128, [256]), (64, [37, 0])]   # one-shot, chunk, unaligned
-    mism, err, main = 0, 0.0, None
-    for sq, pos0 in cases:
+    cases = {"main": (512, [0]), "chunk": (128, [256]), "unaligned": (64, [37, 0]),
+             "long": (704, [0]), "last_chunk": (16, [1008])}
+    mism, err, rows_of = 0, 0.0, {}
+    for label, (sq, pos0) in cases.items():
         nb = -(-(max(pos0) + sq) // psize) + 1
         n_pages = len(pos0) * nb + 1
         pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
@@ -383,18 +406,20 @@ def phase_paged_prefill(torch, gen, packed=False):
         c, e = compare(fn(*args), plain(*args))
         mism, err = mism + c, max(err, e)
         row = dict(ms=device_ms(torch, fn, args),
-                   plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None)
+                   plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None,
+                   mismatches=c, shape=f"B={len(pos0)} H=32 Hkv=4 D=128 P=16"
+                                       f"{' packed' if packed else ''} S={sq} pos0={pos0}")
         keys = sum(sum(p + i + 1 for i in range(sq)) for p in pos0)
         rows = sum(p + sq for p in pos0)
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * len(pos0) * h * sq * d + rows * hkv * row_bytes
             + page_bytes * -(-rows // psize) + 4 * len(pos0) * nb + 1024, 4.0 * h * d * keys)
         print(f"  {fn.__name__} S={sq} pos0={pos0}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
-        if main is None:
-            main = row
-    return dict(main, mismatches=mism, max_abs_err=err,
-                shape=f"B=1 H=32 Hkv=4 D=128 P=16{' packed' if packed else ''} S=512 pos0=0")
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
+              f"{c} mismatching codes")
+        rows_of[label] = row
+    return dict(rows_of["main"], mismatches=mism, max_abs_err=err,
+                **{k: rows_of[k] for k in ("chunk", "long", "last_chunk")})
 
 
 def phase_decode_contiguous(torch, gen):
@@ -600,7 +625,9 @@ def profile_steps(torch, step, what: str, n: int = 3):
             ("integer GEMMs, every path and the split-K reduce",
              [r for r in rows if "fq::igemm::" in r[2]]),
             ("paged decode attention, its three passes",
-             [r for r in rows if "fq::split_" in r[2]])):
+             [r for r in rows if "fq::split_" in r[2]]),
+            ("paged prefill attention",
+             [r for r in rows if "paged_prefill_kernel" in r[2]])):
         if picked:
             ms = sum(r[0] for r in picked) / n / 1e3
             print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
@@ -618,6 +645,26 @@ def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
     while eng.sched.waiting or eng.sched.prefilling:
         eng.poll()
     profile_steps(torch, eng.poll, what)
+
+
+def profile_prefill_chunks(torch, cfg, folded):
+    """One paged int8 prefill chunk of 512 rows at position 0 (a one-shot
+    prompt) and one of 128 rows at position 256 (a chunked run's chunk),
+    each a whole-model forward through the paged pool (16-row pages, a
+    64-entry block table): wall and device time, kernels, and the paged
+    prefill attention's share."""
+    from repro_torch.models import serve_int as S
+
+    pf = S.prepare_folded(cfg, folded)
+    nb = 64
+    cache = S.init_paged_cache(cfg, nb + 1, 16, device="cuda")
+    btab = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
+    prompt = torch.as_tensor(_prompts(cfg.vocab_size)[1][None, :512], device="cuda")
+    for rows, pos0 in ((512, 0), (128, 256)):
+        toks = prompt[:, pos0:pos0 + rows]
+        profile_steps(torch, lambda t=toks, p=pos0: S.serve_forward(
+            cfg, pf, t, cache=cache, pos_offset=p, mode="prefill", block_tables=btab),
+            f"paged int8 prefill chunk, {rows} rows at position {pos0}")
 
 
 def serve(torch, cfg, folded, kernels, **extra):
@@ -705,6 +752,7 @@ def phase_serve(torch, cfg, folded, kernels):
     check(one["counters"]["prefix_hits"] >= 1, "the shared prefix was not reused")
     check(chunked["counters"]["chunked_prefills"] >= 1, "no prompt was chunked")
     profile_decode(torch, cfg, folded)
+    profile_prefill_chunks(torch, cfg, folded)
 
     # the integer forward's logits at full width: finite, right shape
     toks = torch.as_tensor(_prompts(cfg.vocab_size)[0][None, :32], device="cuda")
@@ -1196,9 +1244,13 @@ def main() -> int:
         usage = [line.split(":", 1)[1].strip() for line in info["ptxas"].splitlines()
                  if "Used" in line]
         serial = info["ptxas"].count("C7515")
+        ops = sass_ops(info["path"])
         print(f"  {name}: {'; '.join(usage)}"
-              + (f"; {serial} ptxas notes that wgmma is serialized" if serial else ""))
-
+              + (f"; {serial} ptxas notes that wgmma is serialized" if serial else "")
+              + f"; SASS {ops}")
+        if name.startswith("paged_prefill_attention"):
+            check(ops["IMMA"] > 0 and ops["IDP"] == 0,
+                  f"{name}: QK^T and P.V must run on the tensor cores (SASS {ops})")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     table = [  # (wrapper, its kernel phase, source, the TPU kernel it replaces)
@@ -1281,9 +1333,9 @@ def main() -> int:
             "mismatches": row["mismatches"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
-            **({"long": {k: row["long"][k] for k in ("shape", "ms", "plain_ms",
-                                                     "bound_ms", "mismatches")}}
-               if "long" in row else {})})
+            **{case: {k: row[case][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                "mismatches")}
+               for case in ("chunk", "long", "last_chunk") if case in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

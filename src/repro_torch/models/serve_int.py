@@ -301,6 +301,8 @@ def _attn_prefill_paged(x_i8, f, cfg, cache, pos, block_tables, pos0: int, pos0_
     _paged_prefill_write(cache, kc, vc, block_tables[:, p0:p0 + s // psize])
     scal = (aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
             aq["out_scale"])
+    # the paged kernels read the (B, S, H, D) projections in place and write
+    # ctx in q's layout, so on the card the permutes below are views
     if _is_kv4(cache):
         # kv4 takes the q7 packed family on every backend, as the reference
         # does: a decode-written page's scale comes from its first row, a

@@ -244,6 +244,21 @@ def test_cpu_tensors_take_the_plain_version_for_the_layout_kernels():
     assert [k.launches for k in LAYOUT_KERNELS] == before
 
 
+@pytest.mark.parametrize("group,units,sms,want", [
+    (8, 32, 132, 1),      # a 128-row chunk of yi-6b (8 row tiles x 4 kv heads)
+    (8, 128, 132, 4),     # a 512-row chunk
+    (8, 176, 132, 4),     # a 704-row chunk
+    (16, 40, 132, 4),     # G = 16: at most 4 heads a block
+    (6, 10, 132, 3),      # odd divisors stop the halving
+    (1, 4, 132, 1),
+])
+def test_heads_per_block_fills_the_sms(group, units, sms, want):
+    from repro_torch.kernels.prefill_attention import heads_per_block
+
+    gh = heads_per_block(group, units, sms)
+    assert gh == want and group % gh == 0 and gh <= 4
+
+
 def test_cpu_tensors_take_the_plain_version_for_the_flash_kernels():
     from repro_torch.kernels.flash_qattention import flash_qattention_torch
 
@@ -390,13 +405,128 @@ def test_paged_decode_kernel_equals_plain(cuda, g, d, psize, lengths):
                        ref.paged_decode_qattention_ref(*args))
 
 
+# the paged chunked prefill (csrc/paged_prefill.cuh): (h, hkv, d, psize, sq, pos0)
+PREFILL_CASES = [
+    (32, 4, 128, 16, 128, [0, 256]),
+    (8, 2, 32, 8, 77, [3, 0]),
+    (32, 4, 128, 16, 704, [0]),          # yi-6b's longest one-shot prompt
+    (32, 4, 128, 16, 16, [1008]),        # the last chunk on a 1,024-row chain
+    (32, 4, 128, 16, 128, [256]),        # a 128-row chunk
+    (32, 4, 128, 16, 64, [37, 0]),       # two slots, one unaligned
+    (4, 4, 64, 16, 50, [10]),            # G = 1
+    (32, 2, 128, 16, 100, [30]),         # G = 16
+    (8, 2, 32, 16, 40, [5]),             # D = 32
+    (8, 2, 64, 16, 40, [5]),             # D = 64
+    (8, 2, 48, 16, 33, [7]),             # D = 48, a half-empty k step
+    (8, 2, 128, 8, 70, [9]),             # P = 8
+    (8, 2, 128, 64, 70, [100]),          # P = 64
+    (8, 2, 64, 32, 45, [20, 3]),         # P = 32
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,hkv,d,psize,sq,pos0", [(32, 4, 128, 16, 128, [0, 256]),
-                                                   (8, 2, 32, 8, 77, [3, 0])])
+@pytest.mark.parametrize("h,hkv,d,psize,sq,pos0", PREFILL_CASES)
 def test_paged_prefill_kernel_equals_plain(cuda, h, hkv, d, psize, sq, pos0):
     args = _prefill(h, hkv, d, psize, sq, pos0, cuda)
     assert torch.equal(_launched_once(paged_prefill_qattention, *args),
                        ref.paged_prefill_qattention_ref(*args))
+
+
+def _real_scalars(d, device):
+    """chip_smoke's attention scalars: random codes give logits of about
+    +-2, so numerators spread over the LUT and f over (0, 1)."""
+    s_logit = np.sqrt(d) * 73.0 * 73.0 / 2.0
+    M, sh = fxp.quantize_multiplier(1.0 / (s_logit * qs.LUT_DELTA))
+    return (torch.tensor(M, dtype=torch.int32, device=device),
+            torch.tensor(sh, dtype=torch.int32, device=device),
+            torch.from_numpy(ref.make_exp_lut_q7()).to(device),
+            torch.tensor(np.float32(1.0 / s_logit), device=device),
+            torch.tensor(np.float32(1.1), device=device))
+
+
+def _prefill_rising(kind, device, quiet=20):
+    """A 128-row chunk at pos0 = 256 on yi-6b's heads whose keys are small
+    on the first ``quiet`` pages of the chain and full width after: each
+    row's running max rises at page ``quiet``, inside the chunk's own pages
+    (16-23), with f strictly between 0 and 1."""
+    h, hkv, d, psize, sq, pos0 = 32, 4, 128, 16, 128, [256]
+    if kind == "int8":
+        q, kp, vp, btab, p0, *_ = _prefill(h, hkv, d, psize, sq, pos0, device)
+        early = btab[0, :quiet].long()
+        kp = kp.clone()
+        kp[early] = torch.div(kp[early], 6, rounding_mode="trunc")
+        return (q, kp, vp, btab, p0, *_real_scalars(d, device))
+    q, kq, vq, ks, vs, btab, p0, *_ = _prefill_q4(h, hkv, d, psize, sq, pos0, device)
+    early = btab[0, :quiet].long()
+    ks = ks.clone()
+    ks[early] = float(np.float32(2 / 7))
+    ks[btab[0, quiet:].long()] = float(np.float32(127 / 7))
+    return (q, kq, vq, ks, vs, btab, p0, *_real_scalars(d, device))
+
+
+def _prefill_pair(kind):
+    return (paged_prefill_qattention, ref.paged_prefill_qattention_ref) if kind == "int8" \
+        else (paged_prefill_qattention_q4, ref.paged_prefill_qattention_q4_ref)
+
+
+def _prefill_args(kind, case, device):
+    h, hkv, d, psize, sq, pos0 = case
+    return _prefill(h, hkv, d, psize, sq, pos0, device) if kind == "int8" else \
+        _prefill_q4(h, hkv, d, psize, sq, pos0, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_prefill_holds_a_max_that_rises_mid_chunk(cuda, kind):
+    fn, plain = _prefill_pair(kind)
+    args = _prefill_rising(kind, cuda)
+    want = plain(*args)
+    assert torch.equal(_launched_once(fn, *args), want)
+    assert int((want != 0).sum()) > want.numel() // 2     # not a one-hot softmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_prefill_back_to_back_calls_leave_no_state(cuda, kind):
+    """A 704-row prompt, a 16-row G = 16 chunk with 64-row pages, then the
+    prompt again, launched back to back: each equals its plain version."""
+    fn, plain = _prefill_pair(kind)
+    long_args = _prefill_args(kind, (32, 4, 128, 16, 704, [0]), cuda)
+    short_args = _prefill_args(kind, (32, 2, 64, 64, 16, [200]), cuda)
+    outs = [fn(*a) for a in (long_args, short_args, long_args)]
+    torch.cuda.synchronize()
+    for out, a in zip(outs, (long_args, short_args, long_args)):
+        assert torch.equal(out, plain(*a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_prefill_any_heads_per_block_gives_the_same_codes(cuda, kind, monkeypatch):
+    from repro_torch.kernels import prefill_attention as pa
+
+    fn, plain = _prefill_pair(kind)
+    args = _prefill_args(kind, (32, 4, 128, 16, 80, [37]), cuda)
+    want = plain(*args)
+    for gh in (1, 2, 4):
+        monkeypatch.setattr(pa, "heads_per_block", lambda *_, gh=gh: gh)
+        assert torch.equal(fn(*args), want), gh
+    for gh in (3, 8):
+        monkeypatch.setattr(pa, "heads_per_block", lambda *_, gh=gh: gh)
+        with pytest.raises(ValueError, match="heads_per_block"):
+            fn(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_prefill_reads_q_in_place_and_writes_its_layout(cuda, kind):
+    """q as the serving forward hands it over, (B, S, H, D) seen as (B, H,
+    S, D): the output takes that layout, so turning it back is a view."""
+    fn, plain = _prefill_pair(kind)
+    q, *rest = _prefill_args(kind, (32, 4, 128, 16, 96, [16, 48]), cuda)
+    qv = q.transpose(1, 2).contiguous().transpose(1, 2)
+    out = _launched_once(fn, qv, *rest)
+    assert out.stride() == qv.stride() and out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, plain(q, *rest))
 
 
 @pytest.mark.cuda
@@ -575,6 +705,15 @@ def test_split_paged_decode_back_to_back_calls_leave_no_state(cuda, kind):
     (32, 4, 128, 16, 128, [256], None),          # yi-6b chunk
     (8, 2, 32, 8, 77, [3, 0], 0x87),             # unaligned pos0, codes 7 (lo) and -8 (hi)
     (4, 1, 64, 64, 40, [64, 0], None),           # 64-row pages
+    (32, 4, 128, 16, 704, [0], None),            # the longest one-shot prompt
+    (32, 4, 128, 16, 16, [1008], None),          # the last chunk on a 1,024-row chain
+    (32, 4, 128, 16, 64, [37, 0], None),         # two slots, one unaligned
+    (4, 4, 64, 16, 50, [10], None),              # G = 1
+    (32, 2, 128, 16, 100, [30], None),           # G = 16
+    (8, 2, 32, 16, 40, [5], 0x78),               # D = 32, codes -8 (lo) and 7 (hi)
+    (8, 2, 64, 16, 40, [5], None),               # D = 64
+    (8, 2, 128, 8, 70, [9], None),               # P = 8
+    (8, 2, 128, 64, 70, [100], None),            # P = 64
 ])
 def test_paged_prefill_q4_kernel_equals_plain(cuda, h, hkv, d, psize, sq, pos0, fill):
     args = _prefill_q4(h, hkv, d, psize, sq, pos0, cuda, fill=fill)
