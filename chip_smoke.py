@@ -10,15 +10,15 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 2. builds the eleven CUDA kernels of the port (``_build.KERNELS``) from
    ``src/repro_torch/csrc``, one ``nvcc`` each, all at once, and prints the
    build time, each kernel's registers and shared memory and the integer
-   tensor-core instructions in its SASS (the paged prefill kernels must
-   have IMMA and no IDP);
+   tensor-core instructions in its SASS (the paged prefill kernels, the
+   stripe decode kernels and the flash prefill must have IMMA and no IDP);
 3. holds every kernel against its plain PyTorch version on the card at the
    shapes of the serving paths (yi-6b for the four of the engine, the three
    of its other KV layouts and the two flash kernels, BERT-base for
    ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required;
-   the two paged decode kernels also on one 4,096-row chain, the two
-   paged prefill kernels also on a 704-row prompt and on the last 16-row
-   chunk of a 1,024-row chain)
+   the two paged decode kernels and the contiguous decode also on one
+   4,096-row chain or stripe, the two paged prefill kernels also on a
+   704-row prompt and on the last 16-row chunk of a 1,024-row chain)
    and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
@@ -422,36 +422,62 @@ def phase_paged_prefill(torch, gen, packed=False):
                 **{k: rows_of[k] for k in ("chunk", "long", "last_chunk")})
 
 
+def _stripe_blocks(mod, lengths, smax, bkv, hkv=4):
+    """CTAs of passes A and B of the stripe decode at ``lengths``: every
+    span, and those whose first row lies below the slot's length."""
+    subtiles = -(-bkv // mod.STRIPE_ROWS)
+    spb = -(-subtiles // mod.STRIPE_WARPS)
+    starts = [j * bkv + si * mod.STRIPE_WARPS * mod.STRIPE_ROWS
+              for j in range(smax // bkv) for si in range(spb)]
+    live = sum(hkv * sum(r < n for r in starts) for n in lengths)
+    return len(lengths) * hkv * len(starts), live
+
+
 def phase_decode_contiguous(torch, gen):
+    """Row 6 at yi-6b's group (Hkv 4, G 8, D 128), bkv 512: the decode
+    tick's batch (B=8, lengths 33-1000 on 1,024-row stripes) and one slot
+    over yi-6b's full context (B=1, 4,096 rows); equal to the plain
+    version, the kernel, plain and bound times, and the CTAs of each pass."""
     from repro_torch.kernels import decode_attention as mod
     from repro_torch.kernels.ref import decode_qattention_ref
 
-    hkv, g, d, smax, bkv = 4, 8, 128, 1024, 512        # yi-6b, max_len 1024
-    lengths = [33, 100, 250, 400, 520, 640, 700, 1000]
-    b = len(lengths)
-    args = (_rand_i8(torch, gen, (b, hkv, g, d)), _rand_i8(torch, gen, (b, smax, hkv, d)),
-            _rand_i8(torch, gen, (b, smax, hkv, d)),
-            torch.tensor(lengths, dtype=torch.int32, device="cuda"), *_attn_scalars(torch, d))
+    hkv, g, d, bkv = 4, 8, 128, 512
+    shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 1024),   # yi-6b, max_len 1024
+              "B=1 len=4096": ([4096], 4096)}                            # yi-6b's full context
+    rows_of = {}
+    for label, (lengths, smax) in shapes.items():
+        b = len(lengths)
+        args = (_rand_i8(torch, gen, (b, hkv, g, d)), _rand_i8(torch, gen, (b, smax, hkv, d)),
+                _rand_i8(torch, gen, (b, smax, hkv, d)),
+                torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+                *_attn_scalars(torch, d))
 
-    def kernel(*a):
-        return mod.decode_qattention(*a, bkv=bkv)
+        def kernel(*a):
+            return mod.decode_qattention(*a, bkv=bkv)
 
-    def plain(*a):
-        return decode_qattention_ref(*a, bkv)
+        def plain(*a):
+            return decode_qattention_ref(*a, bkv)
 
-    mism, err = compare(kernel(*args), plain(*args))
-    row = dict(ms=device_ms(torch, kernel, args),
-               plain_ms=device_ms(torch, plain, args, cold=False),
-               library_ms=None, mismatches=mism, max_abs_err=err,
-               shape=f"B=8 Hkv=4 G=8 D=128 Smax=1024 bkv=512 lengths={lengths}")
-    # the function needs the live rows only: a masked key's numerator is 0
-    rows = sum(lengths)
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        2 * b * hkv * g * d + 2 * rows * hkv * d + 4 * b + 1024, 4.0 * hkv * g * d * rows)
-    print(f"  decode (contiguous) B={b} Smax={smax} bkv={bkv} lengths={lengths}: kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
-    return row
+        mism, err = compare(kernel(*args), plain(*args))
+        row = dict(ms=device_ms(torch, kernel, args),
+                   plain_ms=device_ms(torch, plain, args, cold=False),
+                   library_ms=None, mismatches=mism, max_abs_err=err, launches_per_call=3,
+                   shape=f"{label} Hkv=4 G=8 D=128 Smax={smax} bkv=512 lengths={lengths}")
+        # the function needs the live rows only: a masked key's numerator is 0
+        rows = sum(lengths)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * b * hkv * g * d + 2 * rows * hkv * d + 4 * b + 1024, 4.0 * hkv * g * d * rows)
+        blocks, live = _stripe_blocks(mod, lengths, smax, bkv, hkv)
+        print(f"  decode (contiguous) {label} Smax={smax} bkv={bkv} lengths={lengths}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}); passes A and B {blocks} CTAs "
+              f"each, {live} with rows to run, the carry "
+              f"{b * hkv * g * d // 4 // 32} CTAs; {mism} mismatching codes")
+        rows_of[label] = row
+    long_row = rows_of["B=1 len=4096"]
+    check(long_row["mismatches"] == 0,
+          "decode_qattention: kernel != plain version on the 4,096-row stripe")
+    return dict(rows_of["B=8"], long=long_row)
 
 
 def phase_flash_qattention(torch, gen):
@@ -627,7 +653,10 @@ def profile_steps(torch, step, what: str, n: int = 3):
             ("paged decode attention, its three passes",
              [r for r in rows if "fq::split_" in r[2]]),
             ("paged prefill attention",
-             [r for r in rows if "paged_prefill_kernel" in r[2]])):
+             [r for r in rows if "paged_prefill_kernel" in r[2]]),
+            ("contiguous decode attention, its three passes",
+             [r for r in rows if "fq::stripe_" in r[2]]),
+            ("flash prefill attention", [r for r in rows if "flash_kernel" in r[2]])):
         if picked:
             ms = sum(r[0] for r in picked) / n / 1e3
             print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
@@ -1248,7 +1277,8 @@ def main() -> int:
         print(f"  {name}: {'; '.join(usage)}"
               + (f"; {serial} ptxas notes that wgmma is serialized" if serial else "")
               + f"; SASS {ops}")
-        if name.startswith("paged_prefill_attention"):
+        if name.startswith("paged_prefill_attention") or name in (
+                "decode_attention", "flash_qdecode", "flash_qattention"):
             check(ops["IMMA"] > 0 and ops["IDP"] == 0,
                   f"{name}: QK^T and P.V must run on the tensor cores (SASS {ops})")
     gen = torch.Generator(device="cuda")

@@ -7,233 +7,349 @@
 // is the reference's (flash_qattention_jax, kernels/flash_qattention.py::
 // flash_qattention_torch):
 //
-//   s    = int8 q . int8 k                       (int32, __dp4a)
+//   s    = int8 q . int8 k                       (int32)
 //   s    = kpos <= qpos ? s : s - 2^30           (qpos = q_offset + row)
 //   m'   = max(m, max_block s);  f = exp((m - m') * inv)  (0 while m unset)
 //   num  = LUT_q7[clip(rescale(m' - s, M_idx, sh_idx, 9), 0, 255)]
 //   den  = den * f + sum num;  acc = acc * f + num . int8 v   (per block)
 //
 // and the epilogue round(acc / max(den, 1) * out_scale) clipped to +-127
-// (paged_attention.cuh's carry_update and attn_out: no fast math, no FMA
-// contraction, so the result equals the plain version's bit for bit).
+// (paged_attention.cuh's attn_out: no fast math, no FMA contraction, so the
+// result equals the plain version's bit for bit).
 //
 // Layout: q and out (B, H, Sq, D), k and v (B, Hkv, Skv, D), each read
 // through its own (batch, head, row) strides with D contiguous — so the
 // serving forward's (B, S, H, D) projections are read in place, and the
 // output is written in the layout of q.  Kv head = h / G.
 //
-// Design: one block of 128 threads holds kRows = 32 query rows of one
-// (batch, head) and walks the KV blocks up to its causal frontier; blocks
-// wholly past it are skipped, as in Pallas (a skipped block would add
-// num = 0 with f = 1: the masked keys' index clips to 255, whose table entry
-// is 0).  A KV block runs in two passes over 64-row tiles: pass 1 streams K
-// and writes the 32 x bkv int32 scores into shared memory (rows padded to a
-// stride odd modulo 32, 64 KB at bkv = 512); then the block's max, the
-// carry's rescale factor and the numerators in place; pass 2 streams V and
-// sums num . v in int32 registers over the whole block (exact: at most
-// 512 * 127 * 128 < 2^31), so f multiplies the carry once per block as in
-// the reference.  Each thread holds a 4-row x 4-key tile of scores in pass
-// 1 and a 4-row x 8-column tile of the output in pass 2; the q and K/V
-// tiles sit in shared memory at a padded row stride of 33 words, so
-// neither pass has bank conflicts.  bkv is the caller's: any divisor of
-// Skv up to 512, odd ones included (37 for a 37-token prefill).
+// Design: PR 17's paged prefill (paged_prefill.cuh) on a contiguous K/V,
+// with the bkv block as the carry's unit.  A CTA serves 16 query rows x gh
+// q heads of one kv head (one warp each, gh dividing G, at most 4; the
+// wrapper picks gh so that the grid covers the SMs), the longest rows
+// first, so the G q heads of a kv head share one staging of K and V.  One
+// more warp, the stager, copies 32-key steps of K (and V) by 16-byte
+// cp.async into a ring of three steps (two in flight), at a row stride that
+// is an odd multiple of 16 bytes.  A row's numerators need the whole
+// block's max first, so every block is walked twice, step by step:
+//
+//   sweep 1  QK^T on mma.sync m16n8k32 (K by ldmatrix), masked, each row's
+//            max over the block's keys;
+//   sweep 2  QK^T again (exact: integers), the LUT numerators against the
+//            block's running max, den_b (an mma against ones) and P.V on
+//            mma.sync m16n8k16, both summed in int32 registers across the
+//            block (at most 512 * 127 * 127 < 2^31, exact);
+//
+// then once per block the fp32 carry, den in registers and acc in shared
+// memory (64 floats a lane, each lane its own, so no barrier), with the
+// reference's roundings.  Keys of a step past the block's end count for
+// neither the max nor the sums; blocks wholly past the tile's causal
+// frontier are skipped, as in Pallas, and so are the steps of the last
+// block past it: for every row of the tile those keys are masked, below any
+// live score, and their index clips to 255, whose table entry is 0 (they
+// would add num = 0 with f = 1).  bkv is the caller's: any divisor of Skv
+// up to 512, odd ones included (37 for a 37-token prefill).
 //
 // What bounds it on the H100: int8 operations for long sequences — the
 // live causal pairs times 4 * D (QK and PV) at the 1,979 TOP/s int8 tensor
-// rate — against the bytes of Q, K, V and the output.  This version
-// multiplies on the CUDA cores (__dp4a and int32 multiply-adds), far from
-// that rate; tensor-core MMA (int8 mma / wgmma) is later work.
+// rate — against the bytes of Q, K, V and the output.  The second sweep
+// adds half the products again; what the CTA cannot go below is the serial
+// walk of its longest rows, two steps per 32 keys.
+#include "mma_sync.cuh"
 #include "paged_attention.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 32;                  // query rows per block
-constexpr int kTile = 64;                  // K/V rows staged at a time
-constexpr int kMaxBkv = 512;
-constexpr int kW = fq::kMaxD / 4 + 1;      // shared row stride in 32-bit words
-constexpr int kRowGroups = 8;              // threads: 8 row groups x 16 column groups
-constexpr int kColGroups = kThreads / kRowGroups;
-constexpr int kRi = kRows / kRowGroups;    // rows per thread
-constexpr int kKj = kTile / kColGroups;    // keys per thread (pass 1)
-constexpr int kCj = fq::kMaxD / 4 / kColGroups;   // 4-column groups per thread (pass 2)
+using namespace fq;
 
-__host__ __device__ constexpr int score_ld(int bkv) { return (bkv + 31) / 32 * 32 + 1; }
+constexpr int kSteps = 3;        // steps in the cp.async ring (two in flight)
+constexpr int kMaxWarps = 4;     // q heads per CTA, one warp each
+constexpr int kRows = 16;        // query rows per CTA (the mma's m16)
+constexpr int kStepKeys = 32;    // keys per step: two 16-key tiles
+constexpr int kLutBytes = kLutSize * 4;
+constexpr int kAccFloats = 64 * 32;   // a warp's fp32 accumulators
 
-__host__ __device__ constexpr int smem_bytes(int bkv) {
-  return 4 * (fq::kLutSize + 4 * kRows + kRows * kW + kTile * kW + kRows * score_ld(bkv));
+// Row stride of a staged K or V step: D rounded up to the QK^T k-step,
+// plus 16 bytes (an odd multiple of 16 bytes in all).
+__host__ __device__ constexpr int row_stride(int D) { return (D + 31) / 32 * 32 + 16; }
+
+__host__ __device__ constexpr int smem_bytes(int D, int gh) {
+  return kLutBytes + kSteps * 2 * kStepKeys * row_stride(D) + gh * kAccFloats * 4;
 }
 
-// Rows [0, rows) of a (row stride, D) int8 matrix into shared memory at a
-// row stride of kW words; rows at or past `valid` are zero.
-__device__ __forceinline__ void load_rows(int* dst, const int8_t* src, long long stride,
-                                          int rows, int valid, int D) {
-  const int vecs = D / 16;
-  for (int e = threadIdx.x; e < rows * vecs; e += kThreads) {
-    const int r = e / vecs;
-    const int c = e % vecs;
-    const int4 w = r < valid ? *reinterpret_cast<const int4*>(src + r * stride + c * 16)
-                             : make_int4(0, 0, 0, 0);
-    int* d = dst + r * kW + c * 4;
-    d[0] = w.x;
-    d[1] = w.y;
-    d[2] = w.z;
-    d[3] = w.w;
+// Block j's keys run [j bkv, j bkv + bkv); its steps start at j bkv + 32 u.
+// Every block but the tile's last walks spb = ceil(bkv / 32) steps a sweep,
+// the last nlast (its keys up to the causal frontier).  Step s of the walk:
+struct Walk {
+  int bkv, spb, nblk, nlast;
+  __device__ __forceinline__ bool at(int s, int& j, int& u) const {
+    j = s / (2 * spb);
+    const int n = j == nblk - 1 ? nlast : spb;
+    const int r = s - j * 2 * spb;
+    u = r < n ? r : r - n;
+    return r >= n;   // the second sweep
   }
-}
+  __device__ __forceinline__ int steps() const { return 2 * ((nblk - 1) * spb + nlast); }
+};
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__((kMaxWarps + 1) * 32, 2)
 flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
              const int8_t* __restrict__ v, const int* __restrict__ lut,
              const int* __restrict__ Mi_p, const int* __restrict__ shi_p,
              const float* __restrict__ inv_p, const float* __restrict__ osc_p,
-             int8_t* __restrict__ out, int G, int D, int Sq, int Skv, int bkv, int q_offset,
-             int qsb, int qsh, int qss, int ksb, int ksh, int kss, int osb, int osh,
-             int oss) {
-  extern __shared__ int smem[];
-  const int ld = score_ld(bkv);
-  int* s_lut = smem;
-  int* s_m = s_lut + fq::kLutSize;
-  int* s_mnew = s_m + kRows;
-  float* s_f = reinterpret_cast<float*>(s_mnew + kRows);
-  float* s_den = s_f + kRows;
-  int* s_q = reinterpret_cast<int*>(s_den + kRows);
-  int* s_kv = s_q + kRows * kW;
-  int* s_s = s_kv + kTile * kW;
+             int8_t* __restrict__ out, int H, int Hkv, int D, int Sq, int Skv, int bkv,
+             int q_offset, int gh, int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+             int osb, int osh, int oss) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_lut = reinterpret_cast<int*>(smem);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + kLutBytes);
+  const int ld = row_stride(D);
+  const int tile = kStepKeys * ld;   // one staged K or V step
+  float* s_acc = reinterpret_cast<float*>(ring + kSteps * 2 * tile);
 
   const int tid = threadIdx.x;
-  const int qt = gridDim.x - 1 - blockIdx.x;     // the longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = qt * kRows;
-  const int nrows = min(kRows, Sq - q0);
-  const int8_t* kb = k + b * static_cast<long long>(ksb) + (h / G) * static_cast<long long>(ksh);
-  const int8_t* vb = v + b * static_cast<long long>(ksb) + (h / G) * static_cast<long long>(ksh);
-  for (int i = tid; i < fq::kLutSize; i += kThreads) s_lut[i] = lut[i];
-  for (int r = tid; r < kRows; r += kThreads) {
-    s_m[r] = fq::kNegInit;
-    s_den[r] = 0.0f;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int G = H / Hkv, groups = G / gh;
+  const int ntiles = (Sq + kRows - 1) / kRows;
+  const int units = gridDim.x / ntiles;
+  const int qt = ntiles - 1 - static_cast<int>(blockIdx.x) / units;
+  const int u0 = static_cast<int>(blockIdx.x) % units;
+  const int b = u0 / (Hkv * groups);
+  const int h = u0 % (Hkv * groups) / groups;
+  const bool stager = warp == gh;   // the last warp stages K and V
+  const int hq = h * G + u0 % groups * gh + warp;
+  const int row0 = qt * kRows;
+  const int last = q_offset + min(row0 + kRows, Sq) - 1;   // the tile's causal frontier
+  Walk walk;
+  walk.bkv = bkv;
+  walk.spb = (bkv + kStepKeys - 1) / kStepKeys;
+  walk.nblk = min(Skv / bkv, last / bkv + 1);
+  walk.nlast = (min(bkv, last + 1 - (walk.nblk - 1) * bkv) + kStepKeys - 1) / kStepKeys;
+  const int nsteps = walk.steps();
+  const int8_t* kb = k + static_cast<long long>(b) * ksb + static_cast<long long>(h) * ksh;
+  const int8_t* vb = v + static_cast<long long>(b) * ksb + static_cast<long long>(h) * ksh;
+
+  // the stager: step s's K rows (and V rows in the second sweep) into ring
+  // slot s % kSteps; rows past the block's end are zero-filled
+  auto issue = [&](int s) {
+    if (s < nsteps) {
+      int j, u;
+      const bool second = walk.at(s, j, u);
+      const int key0 = j * bkv + u * kStepKeys, end = j * bkv + bkv;
+      int8_t* kd = ring + s % kSteps * 2 * tile;
+      for (int e = lane; e < kStepKeys * 8; e += 32) {
+        const int r = e >> 3, c = (e & 7) << 4;
+        if (c < D) {
+          const bool ok = key0 + r < end;
+          const long long off = static_cast<long long>(ok ? key0 + r : 0) * kss + c;
+          cp_async16(smem_u32(kd + r * ld + c), kb + off, ok);
+          if (second) cp_async16(smem_u32(kd + tile + r * ld + c), vb + off, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (stager) {
+    for (int i = lane; i < kLutSize / 4; i += 32)
+      cp_async16(smem_u32(s_lut + 4 * i), lut + 4 * i, true);
+    for (int s = 0; s < kSteps - 1; ++s) issue(s);
   }
-  load_rows(s_q, q + b * static_cast<long long>(qsb) + h * static_cast<long long>(qsh) +
-                     q0 * static_cast<long long>(qss), qss, kRows, nrows, D);
-  const int tr = tid / kColGroups;
-  const int tc = tid % kColGroups;
-  const int ncg = D / 4;
-  float acc[kRi][kCj][4];
+
+  // this lane's q fragments: rows row0 + g (+ 8), bytes 32 ks + 4 t (+ 16)
+  uint32_t qf[4][4];
+  const int8_t* qb = q + static_cast<long long>(b) * qsb + static_cast<long long>(hq) * qsh;
 #pragma unroll
-  for (int i = 0; i < kRi; ++i)
+  for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-    for (int j = 0; j < kCj; ++j)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.0f;
-  const int Mi = *Mi_p;
-  const int shi = *shi_p;
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + 8 * (i & 1), c = 32 * ks + 16 * (i >> 1) + 4 * t;
+      qf[ks][i] = !stager && r < Sq && c < D
+                      ? *reinterpret_cast<const uint32_t*>(qb + static_cast<long long>(r) * qss + c)
+                      : 0u;
+    }
+  const LutIndex li(*Mi_p, *shi_p);
   const float inv = *inv_p;
-  const int last = q_offset + q0 + nrows - 1;    // the block's causal frontier
-  const int nblk = min(Skv / bkv, last / bkv + 1);
-  __syncthreads();
-  for (int blk = 0; blk < nblk; ++blk) {
-    const int base = blk * bkv;
-    // pass 1: the 32 x bkv scores of the block, masked
-    for (int t0 = 0; t0 < bkv; t0 += kTile) {
-      const int rows = min(kTile, bkv - t0);
-      load_rows(s_kv, kb + (base + t0) * static_cast<long long>(kss), kss, rows, rows, D);
-      __syncthreads();
-      int sc[kRi][kKj];
+  const int qpos[2] = {q_offset + row0 + g, q_offset + row0 + g + 8};
+  // acc (j, e) of this lane at acc_l[(4 j + e) * 32]: row g + 8 (e >> 1),
+  // column 32 t + 16 (e & 1) + j
+  float* acc_l = s_acc + warp * kAccFloats + lane;
+  if (!stager)
+    for (int x = 0; x < 64; ++x) acc_l[x * 32] = 0.0f;
+  int m[2] = {kNegInit, kNegInit};   // the running max of rows g, g + 8
+  int mn[2] = {kNegInit, kNegInit};  // ... after the block being walked
+  int mx[2] = {INT_MIN, INT_MIN};    // the block's max so far (sweep 1)
+  float den[2] = {0.0f, 0.0f};
+  int db[4] = {0, 0, 0, 0};          // den_b of rows g (db[0]), g + 8 (db[2])
+  int pv[16][4];                     // P.V of n-tile j, as acc
 #pragma unroll
-      for (int i = 0; i < kRi; ++i)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int j = 0; j < kKj; ++j) sc[i][j] = 0;
-      for (int w = 0; w < ncg; ++w) {
-        int qw[kRi], kw[kKj];
+    for (int e = 0; e < 4; ++e) pv[j][e] = 0;
+  const bool v_live = 16 * g < D;   // this lane's V columns 16 g .. 16 g + 15
+  const int krow = ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 16;
+
+  for (int s = 0; s < nsteps; ++s) {
+    if (stager) cp_async_wait<kSteps - 2>();
+    __syncthreads();
+    if (stager) {
+      issue(s + kSteps - 1);
+      continue;
+    }
+    int j, u;
+    const bool second = walk.at(s, j, u);
+    const int n = j == walk.nblk - 1 ? walk.nlast : walk.spb;
+    const int key0 = j * bkv + u * kStepKeys, end = j * bkv + bkv;
+    const int8_t* kt_s = ring + s % kSteps * 2 * tile;
+
+    // scores of the step's two tiles: tile kt, n-tile nn, element e -> row
+    // g + 8 (e >> 1), key key0 + 16 kt + 8 nn + 2 t + (e & 1), masked (even
+    // and odd k steps into separate sums, two shorter mma chains); a tile
+    // past the block's end or the frontier is not computed
+    int sc[2][2][4];
+    bool tl[2];
 #pragma unroll
-        for (int i = 0; i < kRi; ++i) qw[i] = s_q[(tr + kRowGroups * i) * kW + w];
+    for (int kt = 0; kt < 2; ++kt) {
+      tl[kt] = key0 + 16 * kt < end && key0 + 16 * kt <= last;
+      int odd[2][4];
 #pragma unroll
-        for (int j = 0; j < kKj; ++j) kw[j] = s_kv[(tc + kColGroups * j) * kW + w];
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
-        for (int i = 0; i < kRi; ++i)
+        for (int e = 0; e < 4; ++e) sc[kt][nn][e] = odd[nn][e] = 0;
+      if (tl[kt]) {
 #pragma unroll
-          for (int j = 0; j < kKj; ++j) sc[i][j] = __dp4a(qw[i], kw[j], sc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < kRi; ++i) {
-        const int r = tr + kRowGroups * i;
-        const int qpos = q_offset + q0 + r;
-#pragma unroll
-        for (int j = 0; j < kKj; ++j) {
-          const int c = tc + kColGroups * j;
-          if (c < rows) {
-            int s = sc[i][j];
-            if (base + t0 + c > qpos) s = fq::wrap_sub(s, fq::kMaskOffset);
-            s_s[r * ld + t0 + c] = s;
-          }
+        for (int ks = 0; ks < 4; ++ks) {
+          if (ks > 0 && 32 * ks >= D) break;
+          uint32_t kf[4];
+          ldmatrix_x4(kf, kt_s + krow + 16 * kt * ld + 32 * ks);
+          int (&d0)[4] = ks & 1 ? odd[0] : sc[kt][0];
+          int (&d1)[4] = ks & 1 ? odd[1] : sc[kt][1];
+          mma_16832(d0, qf[ks][0], qf[ks][1], qf[ks][2], qf[ks][3], kf[0], kf[1]);
+          mma_16832(d1, qf[ks][0], qf[ks][1], qf[ks][2], qf[ks][3], kf[2], kf[3]);
         }
       }
-      __syncthreads();
-    }
-    // the block's max, the carry's rescale factor, numerators and den
-    fq::carry_update<kThreads>(s_s, kRows, bkv, ld, s_m, s_mnew, s_f, s_den, s_lut, Mi, shi,
-                               inv);
-    // pass 2: num . v over the whole block in int32
-    int pv[kRi][kCj][4];
 #pragma unroll
-    for (int i = 0; i < kRi; ++i)
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
-      for (int j = 0; j < kCj; ++j)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) pv[i][j][x] = 0;
-    for (int t0 = 0; t0 < bkv; t0 += kTile) {
-      const int rows = min(kTile, bkv - t0);
-      load_rows(s_kv, vb + (base + t0) * static_cast<long long>(kss), kss, rows, rows, D);
-      __syncthreads();
-      for (int c = 0; c < rows; ++c) {
-        int n[kRi];
-#pragma unroll
-        for (int i = 0; i < kRi; ++i) n[i] = s_s[(tr + kRowGroups * i) * ld + t0 + c];
-#pragma unroll
-        for (int j = 0; j < kCj; ++j) {
-          const int cg = tc + kColGroups * j;
-          if (cg < ncg) {
-            const int w = s_kv[c * kW + cg];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) {
-              const int vx = static_cast<int>(static_cast<int8_t>(w >> (8 * x)));
-#pragma unroll
-              for (int i = 0; i < kRi; ++i) pv[i][j][x] += n[i] * vx;
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 16 * kt + 8 * nn + 2 * t + (e & 1);
+          const int x = wrap_add(sc[kt][nn][e], odd[nn][e]);
+          sc[kt][nn][e] = key > qpos[e >> 1] ? wrap_sub(x, kMaskOffset) : x;
         }
+    }
+
+    if (!second) {
+      // sweep 1: the block's row max
+      if (u == 0) mx[0] = mx[1] = INT_MIN;
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 16 * kt + 8 * nn + 2 * t + (e & 1);
+            if (tl[kt] && key < end) mx[e >> 1] = max(mx[e >> 1], sc[kt][nn][e]);
+          }
+      if (u == n - 1)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mn[i] = max(m[i], quad_max(mx[i]));
+      continue;
+    }
+
+    // sweep 2: numerators against mn in place of the scores (every LUT
+    // index, then every load), then the A fragments na[kt][row half],
+    // byte 2 nn + (e & 1)
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[kt][nn][e] = li(wrap_sub(mn[e >> 1], sc[kt][nn][e]));
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[kt][nn][e] = s_lut[sc[kt][nn][e]];
+    uint32_t na[2][2];
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      na[kt][0] = na[kt][1] = 0u;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 16 * kt + 8 * nn + 2 * t + (e & 1);
+          const uint32_t num = key < end ? sc[kt][nn][e] & 0xff : 0u;
+          na[kt][e >> 1] |= num << (8 * (2 * nn + (e & 1)));
+        }
+    }
+    // den_b and P.V in int32 across the block, tile by tile, four n-tiles
+    // (one word of each V row) at a time
+    const int8_t* vt_s = kt_s + tile + 16 * g;
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      if (!tl[kt]) continue;
+      mma_16816(db, na[kt][0], na[kt][1], 0x01010101u);
+      uint4 vr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = 16 * kt + 8 * (i >> 1) + 2 * t + (i & 1);
+        vr[i] = v_live ? *reinterpret_cast<const uint4*>(vt_s + key * ld)
+                       : make_uint4(0u, 0u, 0u, 0u);
       }
-      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const uint32_t rows[4] = {word_of(vr[0], w), word_of(vr[1], w), word_of(vr[2], w),
+                                  word_of(vr[3], w)};
+        uint32_t cols[4];
+        transpose4(rows, cols);    // columns 16 g + 4 w + c, keys in na's byte order
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mma_16816(pv[4 * w + c], na[kt][0], na[kt][1], cols[c]);
+      }
+    }
+    if (u < n - 1) continue;
+
+    // the block's end: the fp32 carry, then a fresh block
+    float f[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      f[i] = m[i] == kNegInit
+                 ? 0.0f
+                 : expf(__fmul_rn(static_cast<float>(wrap_sub(m[i], mn[i])), inv));
+      den[i] = __fadd_rn(__fmul_rn(den[i], f[i]), static_cast<float>(db[2 * i]));
+      m[i] = mn[i];
     }
 #pragma unroll
-    for (int i = 0; i < kRi; ++i) {
-      const float f = s_f[tr + kRowGroups * i];
+    for (int x = 0; x < 16; ++x)
 #pragma unroll
-      for (int j = 0; j < kCj; ++j)
+      for (int e = 0; e < 4; ++e) {
+        float& a = acc_l[(4 * x + e) * 32];
+        a = __fadd_rn(__fmul_rn(a, f[e >> 1]), static_cast<float>(pv[x][e]));
+        pv[x][e] = 0;
+      }
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          acc[i][j][x] = __fadd_rn(__fmul_rn(acc[i][j][x], f), static_cast<float>(pv[i][j][x]));
-    }
+    for (int e = 0; e < 4; ++e) db[e] = 0;
   }
+  cp_async_wait<0>();
+  if (stager) return;
+
   const float osc = *osc_p;
-  int8_t* ob = out + b * static_cast<long long>(osb) + h * static_cast<long long>(osh) +
-               q0 * static_cast<long long>(oss);
+  int8_t* ob = out + static_cast<long long>(b) * osb + static_cast<long long>(hq) * osh;
 #pragma unroll
-  for (int i = 0; i < kRi; ++i) {
-    const int r = tr + kRowGroups * i;
-    if (r >= nrows) continue;
-    const float den = s_den[r];
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < kCj; ++j) {
-      const int cg = tc + kColGroups * j;
-      if (cg >= ncg) continue;
-      unsigned word = 0;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c0 = 32 * t + 16 * hh;
+      if (c0 >= D) continue;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
-        word |= static_cast<unsigned>(static_cast<uint8_t>(fq::attn_out(acc[i][j][x], den, osc)))
-                << (8 * x);
-      *reinterpret_cast<unsigned*>(ob + r * static_cast<long long>(oss) + cg * 4) = word;
+      for (int x = 0; x < 16; ++x)
+        w[x >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                         attn_out(acc_l[(4 * x + 2 * i + hh) * 32], den[i], osc)))
+                     << (8 * (x & 3));
+      *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * oss + c0) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
@@ -242,27 +358,28 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
 
 // q int8 (B, H, Sq, D) and k/v int8 (B, Hkv, Skv, D) through their element
 // strides (batch, head, row; D contiguous, every stride and base a multiple
-// of 16 bytes), lut int32 (256,), M_idx/sh_idx int32 and inv_s_logit/
-// out_scale fp32 scalars in device memory, out int8 (B, H, Sq, D) through
-// its strides.  Needs G = H / Hkv, D <= 128 with D % 16 == 0, bkv <= 512
-// dividing Skv, q_offset >= 0 (the wrapper checks).
+// of 16 bytes), lut int32 (256,) of codes in [0, 127], M_idx/sh_idx int32
+// and inv_s_logit/out_scale fp32 scalars in device memory, out int8
+// (B, H, Sq, D) through its strides; gh q heads per CTA.  Needs H % Hkv ==
+// 0, gh dividing H / Hkv and at most 4, D <= 128 with D % 16 == 0, bkv <=
+// 512 dividing Skv, q_offset >= 0 (the wrapper checks).
 extern "C" int flash_qattention(const void* q, const void* k, const void* v, const void* lut,
                                 const void* Mi, const void* shi, const void* inv,
-                                const void* osc, void* out, int B, int H, int G, int D, int Sq,
-                                int Skv, int bkv, int q_offset, int qsb, int qsh, int qss,
-                                int ksb, int ksh, int kss, int osb, int osh, int oss,
-                                void* stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kMaxBkv));
+                                const void* osc, void* out, int B, int H, int Hkv, int D,
+                                int Sq, int Skv, int bkv, int q_offset, int gh, int qsb,
+                                int qsh, int qss, int ksb, int ksh, int kss, int osb, int osh,
+                                int oss, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
+  const int bytes = smem_bytes(D, gh);
+  const cudaError_t e =
+      cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (B > 0 && H > 0 && Sq > 0)
-    flash_kernel<<<dim3((Sq + kRows - 1) / kRows, H, B), kThreads, smem_bytes(bkv),
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
-        static_cast<const int8_t*>(v), static_cast<const int*>(lut),
-        static_cast<const int*>(Mi), static_cast<const int*>(shi),
-        static_cast<const float*>(inv), static_cast<const float*>(osc),
-        static_cast<int8_t*>(out), G, D, Sq, Skv, bkv, q_offset, qsb, qsh, qss, ksb, ksh, kss,
-        osb, osh, oss);
+  const int blocks = (Sq + kRows - 1) / kRows * B * Hkv * (H / Hkv / gh);
+  flash_kernel<<<blocks, 32 * (gh + 1), bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<const int*>(lut), static_cast<const int*>(Mi),
+      static_cast<const int*>(shi), static_cast<const float*>(inv),
+      static_cast<const float*>(osc), static_cast<int8_t*>(out), H, Hkv, D, Sq, Skv, bkv,
+      q_offset, gh, qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// PTX helpers shared by the integer GEMMs (igemm.cuh), the split paged
-// decode (paged_decode.cuh) and the paged prefill (paged_prefill.cuh): the
+// PTX helpers shared by the integer GEMMs (igemm.cuh), the split paged and
+// stripe decode (paged_decode.cuh, stripe_decode.cuh), the paged prefill
+// (paged_prefill.cuh) and the flash prefill (flash_qattention.cu): the
 // int8 mma.sync products (m16n8k32, m16n8k16), ldmatrix, cp.async, and the
 // 4 x 4 byte transpose that turns row-major int8 tiles into fragments whose
 // k runs down the rows.

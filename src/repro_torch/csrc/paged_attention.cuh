@@ -16,9 +16,12 @@
 // clipped to +-127 with rintf (half to even, as torch.round / jnp.round).
 //
 // Here: the page loaders of the paged kernels (paged_decode.cuh,
-// paged_prefill.cuh), the block carry update of the flash and stripe
-// kernels (carry_update) and the epilogue (attn_out).
+// paged_prefill.cuh), the LUT index and row max of the tensor-core
+// attention kernels (paged_prefill.cuh, flash_qattention.cu) and the
+// epilogue (attn_out).
 #pragma once
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -112,44 +115,35 @@ struct Int4Pages {
   }
 };
 
-// The carry update of one tile of L keys for R rows, with the scores s
-// (R x L, row r at s + r * ld) already written and a barrier passed: the
-// tile's row max m', the rescale factor f, the LUT numerators in place of
-// the scores, then den = den * f + sum num and m = m'.  The order of the
-// operations is the exactness contract with kernels/ref.py; the caller then
-// folds f and the numerators into its accumulator (f and the numerators
-// are final when this returns, without a further barrier).  A row stride
-// ld that is odd modulo 32 keeps the per-row loops free of bank conflicts.
-template <int NT>
-__device__ __forceinline__ void carry_update(int* s, int R, int L, int ld, int* m, int* m_new,
-                                             float* f, float* den, const int* lut, int Mi,
-                                             int shi, float inv) {
-  const int tid = threadIdx.x;
-  for (int r = tid; r < R; r += NT) {
-    int lm = s[r * ld];
-    for (int c = 1; c < L; ++c) lm = max(lm, s[r * ld + c]);
-    const int m_old = m[r];
-    const int mn = max(m_old, lm);
-    float fr = expf(__fmul_rn(static_cast<float>(wrap_sub(m_old, mn)), inv));
-    if (m_old == kNegInit) fr = 0.0f;
-    m_new[r] = mn;
-    f[r] = fr;
+// The LUT index of a numerator, clip(rescale(x, M_idx, sh_idx, 9), 0, 255)
+// (common.cuh), for x = m' - s >= 0: a valid key's score never exceeds the
+// running max and |s| < 2^31 - 2^30, so only the first rounding shift's
+// non-negative branch is taken.  The shifts and biases are computed once:
+// sra(v, n) for n >= 0 is v >> min(n, 31), and sh_idx >= 0 keeps both
+// shifts non-negative.
+struct LutIndex {
+  int M, n1, b1, n2, b2;
+  __device__ __forceinline__ LutIndex(int M_idx, int shift) : M(M_idx) {
+    const int pre = max(shift - 21, 0), post = shift - pre;
+    n1 = min(pre, 31);
+    b1 = pre > 0 ? shl(1, pre - 1) : 0;
+    n2 = min(post, 31);
+    b2 = post > 0 ? shl(1, post - 1) : 0;
   }
-  __syncthreads();
-  for (int e = tid; e < R * L; e += NT) {
-    const int r = e / L;
-    const int c = e % L;
-    int idx = rescale(wrap_sub(m_new[r], s[r * ld + c]), Mi, shi, 9);
-    idx = min(max(idx, 0), kLutSize - 1);
-    s[r * ld + c] = lut[idx];
+  __device__ __forceinline__ int operator()(int x) const {
+    int v = wrap_add(x, b1) >> n1;
+    v = min(max(v, -32768), 32767);
+    const int y = wrap_mul(v, M);
+    const int z =
+        y >= 0 ? wrap_add(y, b2) >> n2 : wrap_sub(0, wrap_add(wrap_sub(0, y), b2) >> n2);
+    return min(max(z, 0), kLutSize - 1);
   }
-  __syncthreads();
-  for (int r = tid; r < R; r += NT) {
-    int den_b = 0;
-    for (int c = 0; c < L; ++c) den_b += s[r * ld + c];
-    den[r] = __fadd_rn(__fmul_rn(den[r], f[r]), static_cast<float>(den_b));
-    m[r] = m_new[r];
-  }
+};
+
+// The max over the four lanes (t) that hold one row of an mma C fragment.
+__device__ __forceinline__ int quad_max(int v) {
+  v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return max(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 __device__ __forceinline__ int8_t attn_out(float acc, float den, float out_scale) {

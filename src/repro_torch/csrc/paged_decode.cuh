@@ -29,7 +29,8 @@
 // Three launches per call, B and C programmatic dependent launches (their
 // blocks start during the previous pass's tail; B reads its V rows before
 // it waits); no host synchronisation; the wrapper takes the workspace from
-// PyTorch's caching allocator (paged_decode_ws ints).
+// PyTorch's caching allocator (paged_decode_ws ints).  stripe_decode.cuh
+// splits the contiguous stripe the same way and reuses page_scores.
 #pragma once
 
 #include <climits>

@@ -164,31 +164,6 @@ __device__ __forceinline__ void unpack_page(const int8_t* kraw, const int8_t* vr
   }
 }
 
-// The LUT index of a numerator, clip(rescale(x, M_idx, sh_idx, 9), 0, 255)
-// (common.cuh), for x = m' - s >= 0: a valid key's score never exceeds the
-// running max and |s| < 2^31 - 2^30, so only the first rounding shift's
-// non-negative branch is taken.  The shifts and biases are computed once:
-// sra(v, n) for n >= 0 is v >> min(n, 31), and sh_idx >= 0 keeps both
-// shifts non-negative.
-struct LutIndex {
-  int M, n1, b1, n2, b2;
-  __device__ __forceinline__ LutIndex(int M_idx, int shift) : M(M_idx) {
-    const int pre = max(shift - 21, 0), post = shift - pre;
-    n1 = min(pre, 31);
-    b1 = pre > 0 ? shl(1, pre - 1) : 0;
-    n2 = min(post, 31);
-    b2 = post > 0 ? shl(1, post - 1) : 0;
-  }
-  __device__ __forceinline__ int operator()(int x) const {
-    int v = wrap_add(x, b1) >> n1;
-    v = min(max(v, -32768), 32767);
-    const int y = wrap_mul(v, M);
-    const int z =
-        y >= 0 ? wrap_add(y, b2) >> n2 : wrap_sub(0, wrap_add(wrap_sub(0, y), b2) >> n2);
-    return min(max(z, 0), kLutSize - 1);
-  }
-};
-
 // P.V leaves the mma biased by kPvBias, the bits of 1.5 * 2^23: for |pv| <
 // 2^22 (at most 64 keys x 127 x 127 here) the biased int32 read as a float
 // is 1.5 * 2^23 + pv exactly, and one exact subtraction gives float(pv).
@@ -196,11 +171,6 @@ constexpr int kPvBias = 0x4B400000;
 
 __device__ __forceinline__ float pv_float(int biased) {
   return __fsub_rn(__int_as_float(biased), 12582912.0f);
-}
-
-__device__ __forceinline__ int quad_max(int v) {
-  v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return max(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // Block i of the 1-D grid: row tile ntiles - 1 - i / units (the longest

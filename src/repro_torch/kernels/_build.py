@@ -11,6 +11,7 @@ or a failed build raises with the compiler's output.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -121,6 +122,21 @@ def attn_scalars(device, M_idx, shift_idx, inv_s_logit, out_scale):
             device_scalar(shift_idx, torch.int32, device),
             device_scalar(inv_s_logit, torch.float32, device),
             device_scalar(out_scale, torch.float32, device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device``'s card (the wrappers size
+    their grids to cover them)."""
+    import torch
+
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def check_launch(rc: int, name: str):

@@ -6,7 +6,12 @@ Replace the TPU kernels ``paged_decode_qattention``,
 ``paged_decode_qattention_q4`` and ``decode_qattention`` of
 ``repro/kernels/decode_attention.py``.  On a CUDA tensor a wrapper
 launches its kernel (or raises); on a CPU tensor it computes the plain
-version in ``kernels/ref.py``.
+version in ``kernels/ref.py``.  All three kernels split each slot's keys
+across the SMs in three passes (``csrc/paged_decode.cuh``,
+``csrc/stripe_decode.cuh``): scores and maxima, then numerators, den and
+P.V on the int8 tensor cores, then the fp32 carry in order, per page for
+the pools and per block of ``bkv`` keys for the stripe, exactly as the
+plain versions carry it.  The wrappers' ``launches`` count calls.
 """
 from __future__ import annotations
 
@@ -32,6 +37,11 @@ STRIPE_REPLACES = "src/repro/kernels/decode_attention.py:148"
 # block each (csrc/paged_decode.cuh kSpan), and make three launches per
 # call.
 SPAN = 8
+# The stripe kernels (csrc/stripe_decode.cuh) cut each bkv block into
+# sub-tiles of STRIPE_ROWS rows, one warp each, up to STRIPE_WARPS of them a
+# span (one CTA), and also make three launches per call.
+STRIPE_ROWS = 16
+STRIPE_WARPS = 8
 
 
 def _i32(t: torch.Tensor, dev) -> torch.Tensor:
@@ -54,6 +64,45 @@ def _q16(q: torch.Tensor) -> torch.Tensor:
     """q contiguous at a 16-byte aligned address (a copy only if it is not)."""
     q = q.contiguous()
     return q.clone() if q.data_ptr() % 16 else q
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when a kernel can read it in place (D contiguous, every
+    stride and the base a multiple of 16 bytes, strides below 2^31), else a
+    fresh contiguous copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+        and all(s % 16 == 0 and s < 2**31 for s in t.stride()[:-1])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _stripe_call(name: str, q_i8, k, v, lengths, lut_q7, scalars, b, hkv, g, d, smax, bkv,
+                 strides, lead=()):
+    """Launch the stripe decode library ``name``: its C entry takes the
+    pointers, the workspace, then ``lead`` (the batch, where it has one), the
+    shape and the K/V ``strides``; returns the output."""
+    dev = q_i8.device
+    q = _q16(q_i8)
+    lut = _i32(lut_q7, dev)
+    scal = _build.attn_scalars(dev, *scalars)
+    out = torch.empty_like(q)
+    size = _build.load(name).stripe_decode_ws
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    ws = torch.empty(int(size(b, hkv, g, smax, bkv)), dtype=torch.int32, device=dev)
+    ints = (*lead, hkv, g, d, smax, bkv, *strides)
+    rc = _build.bind(name, name, 11, len(ints))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), lut.data_ptr(),
+        *(t.data_ptr() for t in scal), out.data_ptr(), ws.data_ptr(), *ints,
+        _build.stream_of(dev))
+    _build.check_launch(rc, name)
+    return out
+
+
+def _same_strides(k: torch.Tensor, v: torch.Tensor):
+    """K and V as the stripe kernels read them: in place where both can be,
+    through one set of strides."""
+    k, v = _strided(k), _strided(v)
+    return (k, v) if k.stride() == v.stride() else (k.contiguous(), v.contiguous())
 
 
 def _workspace(name: str, b, hkv, g, psize, nb, dev) -> torch.Tensor:
@@ -156,7 +205,9 @@ def decode_qattention(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
                       inv_s_logit, out_scale, *, bkv: int):
     """q int8 (B, Hkv, G, D) x the contiguous stripe int8 (B, Smax, Hkv, D),
     masked to ``lengths``, the carry updated once per block of ``bkv`` keys
-    (``bkv`` divides Smax) -> int8 (B, Hkv, G, D)."""
+    (``bkv`` divides Smax) -> int8 (B, Hkv, G, D).  On the card the stripe
+    is read in place through its strides (a copy only where they are not
+    multiples of 16 bytes); three CUDA launches per call."""
     if q_i8.device.type == "cpu":
         return decode_qattention_ref(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx,
                                      lut_q7, inv_s_logit, out_scale, bkv)
@@ -171,18 +222,10 @@ def decode_qattention(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
         raise ValueError(f"decode_qattention: unsupported shapes q {tuple(q_i8.shape)}, "
                          f"cache {tuple(k_cache.shape)}, bkv {bkv} (needs G <= 16, "
                          f"D <= 128, D % 16 == 0, bkv <= 512 dividing Smax)")
-    dev = q_i8.device
-    q = q_i8.contiguous()
-    kc, vc = _aligned("decode_qattention", k_cache, v_cache)
-    lens = _i32(lengths, dev)
-    lut = _i32(lut_q7, dev)
-    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
-    out = torch.empty_like(q)
-    rc = _build.bind("decode_attention", "decode_attention", 10, 6)(
-        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(), lut.data_ptr(),
-        *(t.data_ptr() for t in scal), out.data_ptr(), b, hkv, g, d, smax, bkv,
-        _build.stream_of(dev))
-    _build.check_launch(rc, "decode_qattention")
+    kc, vc = _same_strides(k_cache, v_cache)
+    out = _stripe_call("decode_attention", q_i8, kc, vc, _i32(lengths, q_i8.device), lut_q7,
+                       (M_idx, shift_idx, inv_s_logit, out_scale), b, hkv, g, d, smax, bkv,
+                       (kc.stride(0), kc.stride(2), kc.stride(1)), lead=(b,))
     decode_qattention.launches += 1
     return out
 

@@ -16,7 +16,18 @@ import torch
 
 from repro_torch.core import qsoftmax as qs
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import _aligned, _check_device, _i32
+from repro_torch.kernels.decode_attention import (
+    _check_device,
+    _i32,
+    _same_strides,
+    _strided,
+    _stripe_call,
+)
+from repro_torch.kernels.prefill_attention import (
+    MAX_HEADS_PER_BLOCK,
+    ROWS_PER_BLOCK,
+    heads_per_block,
+)
 from repro_torch.kernels.ref import (
     NEG_INIT,
     _epilogue,
@@ -73,15 +84,6 @@ def flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
     return _epilogue(acc, den, out_scale)
 
 
-def _strided(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it in place (D contiguous,
-    every stride and the base a multiple of 16 bytes, strides below 2^31),
-    else a fresh contiguous copy."""
-    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-        and all(s % 16 == 0 and s < 2**31 for s in t.stride()[:-1])
-    return t if ok else t.clone(memory_format=torch.contiguous_format)
-
-
 def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
                      *, q_offset: int = 0, bkv: int = 512):
     """Causal flash attention, q (B, H, Sq, D) x k/v (B, Hkv, Skv, D) int8
@@ -91,7 +93,9 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
     it must divide Skv).  The inputs may be strided views (the serving
     forward passes its (B, S, H, D) projections transposed); the output
     takes q's layout.  The reference's q-block size ``bq`` does not change
-    the result, so the kernel picks its own (32 rows)."""
+    the result, so the kernel takes its own: a CTA serves 16 query rows of
+    ``heads_per_block`` q heads of one kv head, one staging of K and V for
+    all of them."""
     if q_i8.device.type == "cpu":
         return flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
                                       inv_s_logit, out_scale, q_offset=q_offset, bkv=bkv)
@@ -112,16 +116,21 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
                          f"multiple of Hkv, D <= 128, D % 16 == 0, bkv <= 512 dividing Skv, "
                          f"q_offset >= 0)")
     dev = q_i8.device
-    q, k, v = (_strided(t) for t in (q_i8, k_i8, v_i8))
-    if k.stride() != v.stride():
-        k, v = k.contiguous(), v.contiguous()
+    q = _strided(q_i8)
+    k, v = _same_strides(k_i8, v_i8)
     lut = _i32(lut_q7, dev)
+    if lut.data_ptr() % 16:                 # the kernel copies it in 16-byte pieces
+        lut = lut.clone()
     scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
     out = torch.empty_like(q)
-    rc = _build.bind("flash_qattention", "flash_qattention", 9, 17)(
+    gh = heads_per_block(h // hkv, -(-sq // ROWS_PER_BLOCK) * b * hkv, _build.sm_count(dev))
+    if (h // hkv) % gh or gh > MAX_HEADS_PER_BLOCK:
+        raise ValueError(f"flash_qattention: heads_per_block {gh} must divide H / Hkv = "
+                         f"{h // hkv} and be at most {MAX_HEADS_PER_BLOCK}")
+    rc = _build.bind("flash_qattention", "flash_qattention", 9, 18)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
-        *(t.data_ptr() for t in scal), out.data_ptr(), b, h, h // hkv, d, sq, skv, bkv,
-        q_offset, *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], _build.stream_of(dev))
+        *(t.data_ptr() for t in scal), out.data_ptr(), b, h, hkv, d, sq, skv, bkv, q_offset,
+        gh, *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], _build.stream_of(dev))
     _build.check_launch(rc, "flash_qattention")
     flash_qattention.launches += 1
     return out
@@ -135,7 +144,9 @@ def flash_qdecode(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut_q7, inv_s_l
     """One token's GQA decode: q (Hkv, G, D) int8 x the cache (Hkv, Smax, D)
     int8, keys at or past ``cache_len`` (a scalar) masked, one carry update
     per block of ``bkv`` keys (clipped to Smax; it must divide Smax) ->
-    (Hkv, G, D) int8."""
+    (Hkv, G, D) int8.  On the card the cache is read in place through its
+    strides (a (Smax, Hkv, D) stripe seen transposed needs no copy); it is
+    the contiguous decode's split at B = 1, three CUDA launches per call."""
     if q_i8.device.type == "cpu":
         return flash_qdecode_ref(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut_q7,
                                  inv_s_logit, out_scale, bkv=bkv)
@@ -150,18 +161,11 @@ def flash_qdecode(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut_q7, inv_s_l
         raise ValueError(f"flash_qdecode: unsupported shapes q {tuple(q_i8.shape)}, cache "
                          f"{tuple(k_i8.shape)}, bkv {bkv} (needs G <= 16, D <= 128, "
                          f"D % 16 == 0, bkv <= 512 dividing Smax)")
-    dev = q_i8.device
-    q = q_i8.contiguous()
-    k, v = _aligned("flash_qdecode", k_i8, v_i8)
-    length = _build.device_scalar(cache_len, torch.int32, dev)
-    lut = _i32(lut_q7, dev)
-    scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
-    out = torch.empty_like(q)
-    rc = _build.bind("flash_qdecode", "flash_qdecode", 10, 5)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), lut.data_ptr(),
-        *(t.data_ptr() for t in scal), out.data_ptr(), hkv, g, d, smax, bkv,
-        _build.stream_of(dev))
-    _build.check_launch(rc, "flash_qdecode")
+    k, v = _same_strides(k_i8, v_i8)
+    out = _stripe_call("flash_qdecode", q_i8, k, v,
+                       _build.device_scalar(cache_len, torch.int32, q_i8.device), lut_q7,
+                       (M_idx, shift_idx, inv_s_logit, out_scale), 1, hkv, g, d, smax, bkv,
+                       (k.stride(0), k.stride(1)))
     flash_qdecode.launches += 1
     return out
 

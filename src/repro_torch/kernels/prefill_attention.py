@@ -14,12 +14,10 @@ the result does not depend on that choice.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_qattention import _strided
+from repro_torch.kernels.decode_attention import _strided
 from repro_torch.kernels.ref import paged_prefill_qattention_q4_ref, paged_prefill_qattention_ref
 
 SOURCE = "src/repro_torch/csrc/paged_prefill_attention.cu"
@@ -42,11 +40,6 @@ def heads_per_block(group: int, units: int, sms: int) -> int:
     return gh
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift_idx,
             inv_s_logit, out_scale, d_pool):
     """Checks shared by both wrappers; returns q as the kernel reads it, the
@@ -64,8 +57,7 @@ def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift
     group = h // hkv
     dev = q_i8.device
     units = -(-sq // ROWS_PER_BLOCK) * b * hkv
-    gh = heads_per_block(group, units, _sm_count(
-        dev.index if dev.index is not None else torch.cuda.current_device()))
+    gh = heads_per_block(group, units, _build.sm_count(dev))
     if group % gh or gh > MAX_HEADS_PER_BLOCK:
         raise ValueError(f"{name}: heads_per_block {gh} must divide H / Hkv = {group} "
                          f"and be at most {MAX_HEADS_PER_BLOCK}")

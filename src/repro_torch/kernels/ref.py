@@ -53,6 +53,16 @@ def quant_layernorm_ref(x_int, p: qln.QLNParams, eps_codes: int = 1):
     return qln.quant_layernorm(x_int, p, eps_codes)
 
 
+def _carry(m, den, acc, mb, den_b, pv, inv):
+    """The fp32 carry of one block whose integer row max ``mb``, den_b and
+    P.V are known: the running max, then the rescale of the running
+    denominator and accumulator, in the reference's exact order."""
+    m_new = torch.maximum(m, mb)
+    f = torch.exp((m - m_new).to(torch.float32) * inv)
+    f = torch.where(m == NEG_INIT, torch.zeros_like(f), f)
+    return m_new, den * f + den_b.to(torch.float32), acc * f + pv.to(torch.float32)
+
+
 def _online_update(m, den, acc, s, vb, M_idx, shift_idx, lut32, inv):
     """One page of the fp32 online carry, in the reference's exact order:
     int32 scores (already masked) -> q7 LUT numerators -> int8 P@V -> fp32
@@ -63,10 +73,7 @@ def _online_update(m, den, acc, s, vb, M_idx, shift_idx, lut32, inv):
                       0, qs.LUT_SIZE - 1)
     num = lut32[idx.long()]                                  # Q0.7 numerators
     den_b = torch.sum(num, dim=-1, keepdim=True, dtype=torch.int32)
-    pv = int_matmul(num, vb)
-    f = torch.exp((m - m_new).to(torch.float32) * inv)
-    f = torch.where(m == NEG_INIT, torch.zeros_like(f), f)
-    return m_new, den * f + den_b.to(torch.float32), acc * f + pv.to(torch.float32)
+    return _carry(m, den, acc, lm, den_b, int_matmul(num, vb), inv)
 
 
 def _epilogue(acc, den, out_scale):
@@ -265,6 +272,135 @@ def decode_qattention_ref(q_i8, k_i8, v_i8, lengths, M_idx, shift_idx, lut,
         acc = torch.where(live, acc_n, acc)
         m = torch.where(live, m_new, m)
     return _epilogue(acc, den, out_scale)
+
+
+def stripe_decode_split_ref(q_i8, k_i8, v_i8, lengths, M_idx, shift_idx, lut, inv_s_logit,
+                            out_scale, bkv: int, warps: int = 8, rows: int = 16):
+    """The contiguous decode as the CUDA kernels split it
+    (csrc/stripe_decode.cuh), for the tests.  Each block of ``bkv`` keys is
+    cut into sub-tiles of ``rows`` keys (the last one shorter where ``rows``
+    does not divide ``bkv``), ``warps`` of them a span; a span never crosses
+    a block end.  (A) The masked scores of every live sub-tile (its first
+    row below the slot's length; the others are never read) and each span's
+    row maxima.  (B) Per sub-tile, the numerators against the running max
+    after the whole block (the maxima of every live span of blocks 0..j),
+    as int8, den_b and P.V, summed in int32 over the span.  (C) Per live
+    block in order, the spans' sums and maxima, then the fp32 carry.  Equal
+    to ``decode_qattention_ref`` bit for bit."""
+    b, hkv, g, d = q_i8.shape
+    dev = q_i8.device
+    smax = k_i8.shape[1]
+    assert smax % bkv == 0, (smax, bkv)
+    nst = -(-bkv // rows)
+    spb = -(-nst // warps)
+    lut32 = lut.to(torch.int32)
+    inv = torch.as_tensor(inv_s_logit, dtype=torch.float32, device=dev)
+    outs = []
+    for bb in range(b):
+        ln = int(lengths[bb])
+        # A
+        spans = {}          # (block, span) -> [(t0, scores (Hkv, G, nv))]
+        span_max = {}       # (block, span) -> (Hkv, G)
+        for j in range(smax // bkv):
+            for si in range(spb):
+                subs = []
+                for i in range(si * warps, min((si + 1) * warps, nst)):
+                    t0, nv = j * bkv + i * rows, min(rows, bkv - i * rows)
+                    if t0 >= ln:
+                        break
+                    kb = k_i8[bb, t0:t0 + nv].permute(1, 2, 0)           # (Hkv, D, nv)
+                    s = int_matmul(q_i8[bb], kb)                          # (Hkv, G, nv)
+                    kpos = t0 + torch.arange(nv, dtype=torch.int32, device=dev)
+                    subs.append((t0, torch.where(kpos < ln, s, s - qs.MASK_OFFSET)))
+                if subs:
+                    spans[j, si] = subs
+                    span_max[j, si] = torch.stack([s.amax(-1) for _, s in subs]).amax(0)
+        # B
+        part = {}
+        for (j, si), subs in spans.items():
+            m_new = torch.full((hkv, g), NEG_INIT, dtype=torch.int32, device=dev)
+            for (j2, _), mx in span_max.items():
+                if j2 <= j:
+                    m_new = torch.maximum(m_new, mx)
+            den_b = torch.zeros((hkv, g), dtype=torch.int32, device=dev)
+            pv = torch.zeros((hkv, g, d), dtype=torch.int32, device=dev)
+            for t0, s in subs:
+                idx = torch.clamp(fxp.rescale(m_new[..., None] - s, M_idx, shift_idx,
+                                              out_bits=9), 0, qs.LUT_SIZE - 1)
+                num = lut32[idx.long()]
+                den_b = den_b + torch.sum(num, dim=-1, dtype=torch.int32)
+                vb = v_i8[bb, t0:t0 + s.shape[-1]].permute(1, 0, 2)      # (Hkv, nv, D)
+                pv = pv + int_matmul(num.to(torch.int8), vb)
+            part[j, si] = (den_b, pv)
+        # C
+        m = torch.full((hkv, g, 1), NEG_INIT, dtype=torch.int32, device=dev)
+        den = torch.zeros((hkv, g, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((hkv, g, d), dtype=torch.float32, device=dev)
+        for j in range(smax // bkv):
+            live = [si for si in range(spb) if (j, si) in spans]
+            if not live:
+                break
+            mb = torch.stack([span_max[j, si] for si in live]).amax(0)[..., None]
+            den_b = torch.stack([part[j, si][0] for si in live]).sum(0, dtype=torch.int32)
+            pv = torch.stack([part[j, si][1] for si in live]).sum(0, dtype=torch.int32)
+            m, den, acc = _carry(m, den, acc, mb, den_b[..., None], pv, inv)
+        outs.append(_epilogue(acc, den, out_scale))
+    return torch.stack(outs)
+
+
+def flash_qattention_tiled_ref(q_i8, k_i8, v_i8, M_idx, shift_idx, lut, inv_s_logit,
+                               out_scale, *, q_offset: int = 0, bkv: int = 512,
+                               rows: int = 16, keys: int = 32):
+    """The causal flash as the CUDA kernel tiles it (csrc/flash_qattention.cu),
+    for the tests: q (..., H, Sq, D) x k/v (..., Hkv, Skv, D) in tiles of
+    ``rows`` query rows.  Per block of ``bkv`` keys up to the tile's causal
+    frontier: a first sweep over key steps of ``keys`` keys (counted from the
+    block's start, the last one cut at the block end and at the frontier)
+    takes the block's row max; a second sweep recomputes the integer scores
+    for the numerators and sums den_b and P.V in int32 across the block;
+    then the fp32 carry once per block.  Equal to ``flash_qattention_torch``
+    bit for bit."""
+    h, sq, d = q_i8.shape[-3:]
+    hkv, skv = k_i8.shape[-3], k_i8.shape[-2]
+    group = h // hkv
+    dev = q_i8.device
+    bkv = min(bkv, skv)
+    lead = q_i8.shape[:-3]
+    lut32 = lut.to(torch.int32)
+    inv = torch.as_tensor(inv_s_logit, dtype=torch.float32, device=dev)
+    kg = k_i8.repeat_interleave(group, dim=-3)
+    vg = v_i8.repeat_interleave(group, dim=-3)
+    out = torch.empty_like(q_i8)
+    for r0 in range(0, sq, rows):
+        qt = q_i8[..., r0:r0 + rows, :]
+        nr = qt.shape[-2]
+        last = q_offset + r0 + nr - 1
+        qpos = q_offset + r0 + torch.arange(nr, dtype=torch.int32, device=dev)[:, None]
+        m = torch.full((*lead, h, nr, 1), NEG_INIT, dtype=torch.int32, device=dev)
+        den = torch.zeros((*lead, h, nr, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((*lead, h, nr, d), dtype=torch.float32, device=dev)
+
+        def scores(t, e):
+            s = int_matmul(qt, kg[..., t:e, :].transpose(-1, -2))
+            kpos = torch.arange(t, e, dtype=torch.int32, device=dev)[None, :]
+            return torch.where(kpos <= qpos, s, s - qs.MASK_OFFSET)
+
+        for j in range(min(skv // bkv, last // bkv + 1)):
+            end = min((j + 1) * bkv, last + 1)
+            steps = [(t, min(t + keys, end)) for t in range(j * bkv, end, keys)]
+            mb = torch.stack([scores(t, e).amax(-1) for t, e in steps]).amax(0)[..., None]
+            m_new = torch.maximum(m, mb)
+            den_b = torch.zeros_like(m)
+            pv = torch.zeros((*lead, h, nr, d), dtype=torch.int32, device=dev)
+            for t, e in steps:
+                idx = torch.clamp(fxp.rescale(m_new - scores(t, e), M_idx, shift_idx,
+                                              out_bits=9), 0, qs.LUT_SIZE - 1)
+                num = lut32[idx.long()]
+                den_b = den_b + torch.sum(num, dim=-1, keepdim=True, dtype=torch.int32)
+                pv = pv + int_matmul(num.to(torch.int8), vg[..., t:e, :])
+            m, den, acc = _carry(m, den, acc, mb, den_b, pv, inv)
+        out[..., r0:r0 + nr, :] = _epilogue(acc, den, out_scale)
+    return out
 
 
 def flash_qdecode_ref(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut, inv_s_logit,

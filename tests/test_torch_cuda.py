@@ -735,6 +735,81 @@ def test_contiguous_decode_kernel_equals_plain(cuda, g, d, smax, bkv, lengths):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,d,smax,bkv,lengths", [
+    (8, 128, 4096, 512, [4096]),                 # B = 1 over yi-6b's full context
+    (8, 128, 4096, 512, [3000]),
+    (16, 128, 592, 296, [295, 296, 297, 592]),   # G 16, D 128, blocks of 296 (18.5 tiles)
+    (4, 64, 111, 37, [0, 1, 37, 38, 111]),       # blocks of 37: a 5-row sub-tile each
+    (1, 48, 1024, 512, [1000, 17]),              # MQA, D 48, 1,000 rows in 512-row blocks
+])
+def test_split_contiguous_decode_equals_plain(cuda, g, d, smax, bkv, lengths):
+    """The split over sub-tiles of 16 rows: one slot's whole stripe, sub-tiles
+    straddling a block end (bkv 296 and 37), lengths 0, 1, on and past a
+    block end and full."""
+    args = _stripe(g, d, smax, lengths, cuda, seed=len(lengths) + g)
+    assert torch.equal(_launched_once(decode_qattention, *args, bkv=bkv),
+                       ref.decode_qattention_ref(*args, bkv))
+
+
+def _rise_per_block(k, q0, lengths, bkv, row_axis):
+    """K with the last live row of every live block of slot b set to
+    sign(q0[b]) * c, c growing from block to block: each row's running max
+    rises in the last sub-tile (key tile) of every block.  ``k`` is indexed
+    [b, row] (row_axis 1) or [b, :, row] (row_axis 2)."""
+    k = k.clone()
+    for b, ln in enumerate(lengths):
+        nblk = -(-ln // bkv)
+        for j in range(nblk):
+            row = min(ln, (j + 1) * bkv) - 1
+            top = torch.where(q0[b] >= 0, 1, -1) * (40 + 87 * (j + 1) // nblk)
+            if row_axis == 1:
+                k[b, row] = top.to(torch.int8)
+            else:
+                k[b, :, row] = top.to(torch.int8)
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,smax,bkv,lengths", [
+    (8, 128, 1024, 512, YI_LENGTHS),
+    (16, 128, 592, 296, [296, 297, 592, 100]),
+    (4, 64, 111, 37, [37, 74, 111, 50]),
+])
+def test_split_contiguous_decode_holds_a_max_that_rises_in_each_blocks_last_tile(
+        cuda, g, d, smax, bkv, lengths):
+    q, kc, vc, lens, *_ = _stripe(g, d, smax, lengths, cuda, seed=7)
+    kc = _rise_per_block(kc, q[:, :, 0], lengths, bkv, row_axis=1)
+    args = (q, kc, vc, lens, *_real_scalars(d, cuda))
+    want = ref.decode_qattention_ref(*args, bkv)
+    assert torch.equal(_launched_once(decode_qattention, *args, bkv=bkv), want)
+    assert int((want != 0).sum()) > want.numel() // 2     # not a one-hot softmax
+
+
+@pytest.mark.cuda
+def test_split_contiguous_decode_back_to_back_calls_leave_no_state(cuda):
+    """The workspace is per call: yi-6b's batch, one 4,080-row slot at G 16
+    and blocks of 48, then the batch again, each equal to its plain version."""
+    long_args = _stripe(8, 128, 1024, YI_LENGTHS, cuda)
+    short_args = _stripe(16, 64, 4080, [4000], cuda, hkv=1)
+    calls = ((long_args, 512), (short_args, 48), (long_args, 512))
+    outs = [decode_qattention(*a, bkv=bkv) for a, bkv in calls]
+    torch.cuda.synchronize()
+    for out, (a, bkv) in zip(outs, calls):
+        assert torch.equal(out, ref.decode_qattention_ref(*a, bkv))
+
+
+@pytest.mark.cuda
+def test_split_contiguous_decode_reads_the_stripe_in_place(cuda):
+    """The engine's (Smax, Hkv, D) stripe of one slot seen as (Hkv, Smax, D)
+    goes to flash_qdecode through its strides, with decode_qattention's
+    codes."""
+    q, kc, vc, lens, *scal = _stripe(8, 128, 1024, [700], cuda)
+    got = _launched_once(flash_qdecode, q[0], kc[0].transpose(0, 1), vc[0].transpose(0, 1),
+                         700, *scal, bkv=512)
+    assert torch.equal(got, decode_qattention(q, kc, vc, lens, *scal, bkv=512)[0])
+
+
+@pytest.mark.cuda
 def test_layout_kernels_refuse_unsupported_shapes(cuda):
     args = _stripe(4, 32, 96, [5], cuda, hkv=1)
     with pytest.raises(ValueError, match="bkv"):
@@ -811,6 +886,106 @@ def test_flash_qdecode_kernel_equals_plain(cuda, g, d, smax, bkv, cache_len):
     args = _qdecode(g, d, smax, cache_len, cuda)
     assert torch.equal(_launched_once(flash_qdecode, *args, bkv=bkv),
                        ref.flash_qdecode_ref(*args, bkv=bkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,smax,bkv,cache_len", [
+    (8, 128, 4096, 512, 3000),
+    (16, 128, 592, 296, 297),        # G 16, one row past a 296-row block
+    (4, 64, 111, 37, 111),           # blocks of 37, full
+])
+def test_flash_qdecode_holds_a_max_that_rises_in_each_blocks_last_tile(cuda, g, d, smax, bkv,
+                                                                       cache_len):
+    q, k, v, n, *_ = _qdecode(g, d, smax, cache_len, cuda)
+    k = _rise_per_block(k.transpose(0, 1)[None], q[None, :, 0], [cache_len], bkv,
+                        row_axis=1)[0].transpose(0, 1).contiguous()
+    args = (q, k, v, n, *_real_scalars(d, cuda))
+    want = ref.flash_qdecode_ref(*args, bkv=bkv)
+    assert torch.equal(_launched_once(flash_qdecode, *args, bkv=bkv), want)
+    assert int((want != 0).sum()) > want.numel() // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,bkv,q_offset", [
+    (1, 32, 4, 512, 512, 128, 128, 0),           # yi-6b heads, four 128-key blocks
+    (2, 16, 1, 592, 592, 128, 296, 0),           # G 16, blocks of 296
+    (1, 8, 2, 111, 111, 64, 37, 0),              # blocks of 37, a ragged q tile
+    (1, 8, 2, 100, 1024, 128, 512, 924),         # q_offset, Sq = 100 < Skv
+])
+def test_flash_qattention_holds_a_max_that_rises_in_each_blocks_last_tile(
+        cuda, b, h, hkv, sq, skv, d, bkv, q_offset):
+    from repro_torch.kernels.flash_qattention import flash_qattention_torch
+
+    q, k, v, *_ = _flash(b, h, hkv, sq, skv, d, cuda)
+    k = _rise_per_block(k, q[:, ::h // hkv, 0], [skv] * b, bkv, row_axis=2)
+    args = (q, k, v, *_real_scalars(d, cuda))
+    want = flash_qattention_torch(*args, q_offset=q_offset, bkv=bkv)
+    assert torch.equal(_launched_once(flash_qattention, *args, q_offset=q_offset, bkv=bkv),
+                       want)
+    assert int((want != 0).sum()) > want.numel() // 2
+
+
+@pytest.mark.cuda
+def test_flash_qattention_back_to_back_calls_leave_no_state(cuda):
+    from repro_torch.kernels.flash_qattention import flash_qattention_torch
+
+    calls = [(_flash(1, 32, 4, 704, 704, 128, cuda, strided=True), 352, 0),
+             (_flash(3, 8, 2, 37, 37, 64, cuda), 37, 0),
+             (_flash(2, 8, 1, 128, 1024, 128, cuda), 128, 896)]
+    calls.append(calls[0])
+    outs = [flash_qattention(*a, q_offset=o, bkv=bkv) for a, bkv, o in calls]
+    torch.cuda.synchronize()
+    for out, (a, bkv, o) in zip(outs, calls):
+        assert torch.equal(out, flash_qattention_torch(*a, q_offset=o, bkv=bkv))
+
+
+@pytest.mark.cuda
+def test_flash_qattention_any_heads_per_block_gives_the_same_codes(cuda, monkeypatch):
+    from repro_torch.kernels import flash_qattention as fa
+
+    args = _flash(1, 32, 4, 80, 80, 128, cuda, strided=True)
+    want = fa.flash_qattention_torch(*args, q_offset=0, bkv=40)
+    for gh in (1, 2, 4):
+        monkeypatch.setattr(fa, "heads_per_block", lambda *_, gh=gh: gh)
+        assert torch.equal(fa.flash_qattention(*args, q_offset=0, bkv=40), want), gh
+    for gh in (3, 8):
+        monkeypatch.setattr(fa, "heads_per_block", lambda *_, gh=gh: gh)
+        with pytest.raises(ValueError, match="heads_per_block"):
+            fa.flash_qattention(*args, q_offset=0, bkv=40)
+
+
+def _sass_functions(name):
+    """A built kernel library's SASS, function by function (``cuobjdump``
+    beside ``nvcc``)."""
+    import os
+    import re
+    import subprocess
+
+    path = _build.build_all()[name]
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    return dict(chunk.split("\n", 1) for chunk in re.split(r"\n\s*Function : ", sass)[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,products", [
+    ("decode_attention", ("stripe_scores_kernel", "stripe_pv_kernel")),
+    ("flash_qdecode", ("stripe_scores_kernel", "stripe_pv_kernel")),
+    ("flash_qattention", ("flash_kernel",)),
+])
+def test_stripe_and_flash_products_run_on_the_tensor_cores(cuda, name, products):
+    """QK^T and P.V of the stripe decode and the flash prefill are IMMA
+    (mma.sync) in every kernel that computes them; no IDP (__dp4a) and no
+    serial stripe kernel is left."""
+    import re
+
+    funcs = _sass_functions(name)
+    assert not any("stripe_decode_kernel" in f for f in funcs)
+    assert not any(re.search(r"\bIDP\b", body) for body in funcs.values())
+    for kernel in products:
+        bodies = [body for f, body in funcs.items() if kernel in f]
+        assert bodies and all(re.search(r"\bIMMA\b", body) for body in bodies), kernel
 
 
 @pytest.mark.cuda
