@@ -22,7 +22,11 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
-   kernel / ``_int_mm`` factor and the share of the bound);
+   kernel / ``_int_mm`` factor and the share of the bound; ``quant_layernorm``
+   at every (R, N) a served path runs, yi-6b's 8, 512 and 704 rows and
+   BERT-base's 128 and 4,096; ``quant_layernorm`` and ``quant_softmax``
+   beside the launch floor, a one-element ``torch.neg`` in the same
+   timing loop);
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
@@ -248,36 +252,65 @@ def phase_int4_matmul(torch, gen):
                       "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
 
 
-def phase_quant_layernorm(torch, gen):
+def launch_floor_ms(torch) -> float:
+    """Device time per call of a one-element PyTorch op (``torch.neg``),
+    timed by the same loop as the kernels: the least time a launch takes."""
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return device_ms(torch, torch.neg, (one,))
+
+
+# (subtract_mean, R, N) of the served LN/RMSNorm calls: yi-6b's RMSNorm at a
+# decode tick, a 512-row chunk and the longest one-shot prefill chunk; LN at
+# yi-6b's width; BERT-base's LN at (1, 128) and (8, 512)
+LN_SHAPES = ((False, 8, 4096), (False, 512, 4096), (False, 704, 4096), (True, 8, 4096),
+             (True, 512, 4096), (True, 128, 768), (True, 4096, 768))
+
+
+def ln_cases(torch, gen):
+    """(label, x, params) at every LN_SHAPES entry, each batch with a
+    zero-variance row."""
     from repro_torch.core import fixedpoint as fxp
     from repro_torch.core.qlayernorm import QLNParams
+
+    params = {}
+    for sub_mean, r, n in LN_SHAPES:
+        if (sub_mean, n) not in params:
+            gamma = _rand_i8(torch, gen, (n,))
+            beta = torch.randint(-(1 << 20), 1 << 20, (n,), generator=gen, device="cuda",
+                                 dtype=torch.int32) if sub_mean else \
+                torch.zeros(n, dtype=torch.int32, device="cuda")
+            M, sh = fxp.quantize_multiplier(3.3e-5)
+            params[sub_mean, n] = QLNParams(
+                gamma, beta, torch.tensor(M, dtype=torch.int32, device="cuda"),
+                torch.tensor(sh, dtype=torch.int32, device="cuda"), sub_mean)
+        x = _rand_i8(torch, gen, (r, n))
+        x[0] = 3                                  # a zero-variance row
+        yield f"R={r} N={n} {'LN' if sub_mean else 'RMS'}", x, params[sub_mean, n]
+
+
+def phase_quant_layernorm(torch, gen):
     from repro_torch.kernels import quant_layernorm as mod
     from repro_torch.kernels.ref import quant_layernorm_ref
 
-    n = 4096
+    floor = launch_floor_ms(torch)
+    print(f"  launch floor (torch.neg on one element, the same timing loop): {floor:.4f} ms")
     mism, err, main = 0, 0.0, None
-    for sub_mean in (False, True):               # RMSNorm (yi-6b), LayerNorm
-        gamma = _rand_i8(torch, gen, (n,))
-        beta = torch.randint(-(1 << 20), 1 << 20, (n,), generator=gen, device="cuda",
-                             dtype=torch.int32) if sub_mean else \
-            torch.zeros(n, dtype=torch.int32, device="cuda")
-        M, sh = fxp.quantize_multiplier(3.3e-5)
-        p = QLNParams(gamma, beta, torch.tensor(M, dtype=torch.int32, device="cuda"),
-                      torch.tensor(sh, dtype=torch.int32, device="cuda"), sub_mean)
-        for r in (8, 512):
-            x = _rand_i8(torch, gen, (r, n))
-            x[0] = 3                              # a zero-variance row
-            c, e = compare(mod.quant_layernorm(x, p), quant_layernorm_ref(x, p))
-            mism, err = mism + c, max(err, e)
-            row = dict(ms=device_ms(torch, mod.quant_layernorm, (x, p)),
-                       plain_ms=device_ms(torch, quant_layernorm_ref, (x, p), cold=False),
-                       library_ms=None)
-            row["bound_ms"], row["bound_by"] = bound_ms(2 * r * n + 5 * n, 2.0 * r * n)
-            print(f"  quant_layernorm R={r:4d} N={n} {'LN ' if sub_mean else 'RMS'}: kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
-            if r == 512 and not sub_mean:
-                main = row
+    for label, x, p in ln_cases(torch, gen):
+        r, n = x.shape
+        c, e = compare(mod.quant_layernorm(x, p), quant_layernorm_ref(x, p))
+        mism, err = mism + c, max(err, e)
+        row = dict(ms=device_ms(torch, mod.quant_layernorm, (x, p)),
+                   plain_ms=device_ms(torch, quant_layernorm_ref, (x, p), cold=False),
+                   library_ms=None, launch_floor_ms=floor)
+        # x in, codes out, gamma and beta once; ~15 32-bit integer operations per code
+        # on the merged path (counted in csrc/quant_layernorm.cu's header)
+        row["bound_ms"], row["bound_by"] = bound_ms(2 * r * n + 5 * n, 15.0 * r * n,
+                                                    F32_OPS_PER_S)
+        print(f"  quant_layernorm {label}: kernel {row['ms']:.4f} ms ({row['ms'] - floor:+.4f} "
+              f"over the floor), plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {c} mismatches")
+        if label == "R=512 N=4096 RMS":
+            main = row
     return dict(main, mismatches=mism, max_abs_err=err,
                 shape="R=512 (prefill rows) N=4096 RMSNorm")
 
@@ -562,34 +595,45 @@ def phase_flash_qdecode(torch, gen):
                 shape="Hkv=4 G=8 D=128 Smax=1024 bkv=512 cache_len=1000")
 
 
-def phase_quant_softmax(torch, gen):
+def softmax_cases(torch, gen):
+    """(label, args) of BERT's softmax rows: B * 12 heads * S queries of S
+    keys at (1, 128) and (8, 512), and a ragged S = 77 with the tail of every
+    third row masked."""
     from repro_torch.core import fixedpoint as fxp
     from repro_torch.core import qsoftmax as qs
-    from repro_torch.kernels import quant_softmax as mod
-    from repro_torch.kernels.ref import quant_softmax_ref
 
     lut = torch.as_tensor(qs.make_exp_lut(), dtype=torch.int32, device="cuda")
     M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
              fxp.quantize_multiplier(1.0 / (40.0 * qs.LUT_DELTA)))
-    # BERT's rows: B * 12 heads * S queries of S keys, at (1, 128), (8, 512)
-    # and a ragged S = 77 with the tail of every third row masked
-    mism, err, main = 0, 0.0, None
     for r, s in ((1536, 128), (49152, 512), (7392, 77)):
         x = torch.randint(-400_000, 400_000, (r, s), generator=gen, device="cuda",
                           dtype=torch.int32)
         if s == 77:
             x[::3, 50:] -= qs.MASK_OFFSET
-        args = (x, M, sh, lut)
+        yield f"R={r} S={s}", (x, M, sh, lut)
+
+
+def phase_quant_softmax(torch, gen):
+    from repro_torch.kernels import quant_softmax as mod
+    from repro_torch.kernels.ref import quant_softmax_ref
+
+    floor = launch_floor_ms(torch)
+    print(f"  launch floor (torch.neg on one element, the same timing loop): {floor:.4f} ms")
+    mism, err, main = 0, 0.0, None
+    for label, args in softmax_cases(torch, gen):
+        r, s = args[0].shape
         c, e = compare(mod.quant_softmax(*args), quant_softmax_ref(*args))
         mism, err = mism + c, max(err, e)
         row = dict(ms=device_ms(torch, mod.quant_softmax, args),
                    plain_ms=device_ms(torch, quant_softmax_ref, args, cold=False),
-                   library_ms=None)
+                   library_ms=None, launch_floor_ms=floor)
         # 4 bytes in and 1 out per code; ~16 32-bit integer operations per code
         row["bound_ms"], row["bound_by"] = bound_ms(5 * r * s + 4 * 256 + 8, 16.0 * r * s,
                                                     F32_OPS_PER_S)
-        print(f"  quant_softmax R={r:5d} S={s}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+        print(f"  quant_softmax {label}: kernel {row['ms']:.4f} ms ({row['ms'] - floor:+.4f} "
+              f"over the floor), plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} % of it, {c} mismatches")
         if main is None:
             main = row
     return dict(main, mismatches=mism, max_abs_err=err,
@@ -656,7 +700,9 @@ def profile_steps(torch, step, what: str, n: int = 3):
              [r for r in rows if "paged_prefill_kernel" in r[2]]),
             ("contiguous decode attention, its three passes",
              [r for r in rows if "fq::stripe_" in r[2]]),
-            ("flash prefill attention", [r for r in rows if "flash_kernel" in r[2]])):
+            ("flash prefill attention", [r for r in rows if "flash_kernel" in r[2]]),
+            ("integer LayerNorm", [r for r in rows if "quant_layernorm_kernel" in r[2]]),
+            ("LUT softmax", [r for r in rows if "quant_softmax_kernel" in r[2]])):
         if picked:
             ms = sum(r[0] for r in picked) / n / 1e3
             print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
@@ -1363,6 +1409,7 @@ def main() -> int:
             "mismatches": row["mismatches"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"launch_floor_ms": row["launch_floor_ms"]} if "launch_floor_ms" in row else {}),
             **{case: {k: row[case][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                 "mismatches")}
                for case in ("chunk", "long", "last_chunk") if case in row}})

@@ -36,9 +36,10 @@ def quant_layernorm(x_i8: torch.Tensor, p: QLNParams, eps_codes: int = 1) -> tor
     Mq = _build.device_scalar(p.M_out, torch.int32, dev)
     shq = _build.device_scalar(p.shift_out, torch.int32, dev)
     out = torch.empty_like(x)
-    rc = _build.bind("quant_layernorm", "quant_layernorm", 6, 4)(
+    rc = _build.bind("quant_layernorm", "quant_layernorm", 6, 5)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), Mq.data_ptr(), shq.data_ptr(),
-        out.data_ptr(), r, n, int(p.subtract_mean), int(eps_codes), _build.stream_of(dev))
+        out.data_ptr(), r, n, int(p.subtract_mean), int(eps_codes), _build.sm_count(dev),
+        _build.stream_of(dev))
     _build.check_launch(rc, "quant_layernorm")
     quant_layernorm.launches += 1
     return out

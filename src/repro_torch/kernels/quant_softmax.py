@@ -37,9 +37,9 @@ def quant_softmax(x_int: torch.Tensor, M_idx, shift_idx, lut: torch.Tensor) -> t
     Mq = _build.device_scalar(M_idx, torch.int32, dev)
     shq = _build.device_scalar(shift_idx, torch.int32, dev)
     out = torch.empty((r, s), dtype=torch.int8, device=dev)
-    rc = _build.bind("quant_softmax", "quant_softmax", 5, 2)(
+    rc = _build.bind("quant_softmax", "quant_softmax", 5, 3)(
         x.data_ptr(), table.data_ptr(), Mq.data_ptr(), shq.data_ptr(), out.data_ptr(),
-        r, s, _build.stream_of(dev))
+        r, s, _build.sm_count(dev), _build.stream_of(dev))
     _build.check_launch(rc, "quant_softmax")
     quant_softmax.launches += 1
     return out

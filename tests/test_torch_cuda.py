@@ -390,9 +390,59 @@ def test_int4_matmul_rejects_unsupported_shapes(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("subtract_mean", [True, False])
-@pytest.mark.parametrize("r,n", [(33, 4096), (8, 128)])
+@pytest.mark.parametrize("r,n", [(33, 4096), (8, 128), (5, 100), (9, 1000), (3, 16384),
+                                 (1, 4096), (4096, 768), (704, 4096), (2, 1)])
 def test_quant_layernorm_kernel_equals_plain(cuda, subtract_mean, r, n):
-    x, p = _ln(r, n, 5, subtract_mean, cuda)
+    """yi-6b's and BERT's rows, N not a multiple of 16 (byte-wise chunks),
+    the widest row (four chunks a thread), one row (the largest variance),
+    one code."""
+    x, p = _ln(max(r, 2), n, 5, subtract_mean, cuda)
+    x = x[1:] if r == 1 else x
+    assert torch.equal(_launched_once(quant_layernorm, x, p), ref.quant_layernorm_ref(x, p))
+
+
+def _offset_rows(x, offset):
+    """x's values in a contiguous tensor whose base lies ``offset`` elements
+    into a larger buffer (an unaligned base, as an offset row slice has)."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subtract_mean", [True, False])
+@pytest.mark.parametrize("n,offset", [(100, 0), (4096, 3), (768, 8)])
+def test_quant_layernorm_kernel_reads_an_unaligned_base(cuda, subtract_mean, n, offset):
+    """An offset row slice (x[1:] of 100-code rows) and buffers offset by a
+    few bytes take the byte-wise chunks of the same kernel."""
+    x, p = _ln(9, n, 6, subtract_mean, cuda)
+    x = x[1:] if offset == 0 else _offset_rows(x, offset)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert torch.equal(_launched_once(quant_layernorm, x, p), ref.quant_layernorm_ref(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subtract_mean", [True, False])
+@pytest.mark.parametrize("params", ["served", "wide_beta", "small_shift"])
+def test_quant_layernorm_kernel_holds_extreme_rows(cuda, subtract_mean, params):
+    """Rows of all -128, all 127 and one constant (zero variance) beside
+    seeded ones; ``wide_beta``: beta at the int32 extremes and a large M,
+    ``small_shift``: an output shift of 19, both outside the merged clamp,
+    where the warps take the reference's wrapping rescale."""
+    x, p = _ln(16, 4096, 7, subtract_mean, cuda)
+    x[2], x[3], x[4] = -128, 127, -7
+    if params == "wide_beta":
+        rng = np.random.default_rng(8)
+        beta = torch.from_numpy(rng.integers(-2**31, 2**31, 4096).astype(np.int32))
+        p = qln.QLNParams(p.gamma_i, beta.to(cuda), torch.tensor(30000, dtype=torch.int32,
+                          device=cuda), torch.tensor(24, dtype=torch.int32, device=cuda),
+                          subtract_mean)
+    elif params == "small_shift":
+        M, sh = fxp.quantize_multiplier(0.05)
+        p = qln.QLNParams(p.gamma_i, p.beta_aligned, torch.tensor(M, dtype=torch.int32,
+                          device=cuda), torch.tensor(sh, dtype=torch.int32, device=cuda),
+                          subtract_mean)
     assert torch.equal(_launched_once(quant_layernorm, x, p), ref.quant_layernorm_ref(x, p))
 
 
@@ -530,13 +580,47 @@ def test_paged_prefill_reads_q_in_place_and_writes_its_layout(cuda, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,s", [(1536, 128), (3000, 512), (77 * 12, 77), (9, 1), (3, 1500)])
+@pytest.mark.parametrize("r,s", [(1536, 128), (3000, 512), (77 * 12, 77), (9, 1), (3, 1500),
+                                 (6144, 512), (40, 256), (33, 4), (17, 516)])
 def test_quant_softmax_kernel_equals_plain(cuda, r, s):
-    """BERT's (B*12*S, S) rows, a ragged S, one key, a row longer than a
-    block; every third row masked after 2/3 of its keys, row 0 wholly
-    masked (it keeps its own max, so it is an ordinary row 2^30 lower)."""
+    """BERT's (B*12*S, S) rows (at (8, 512) cut to 6,144 rows), a ragged S,
+    one key, rows longer than the registers hold; every third row masked
+    after 2/3 of its keys, row 0 wholly masked too (its tail 2^31 below its
+    head, so it wraps and takes the reference's helpers)."""
     args = _softmax(r, s, r + s, cuda)
     assert torch.equal(_launched_once(quant_softmax, *args), ref.quant_softmax_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,offset", [(100, 77, 0), (64, 128, 1), (64, 512, 2)])
+def test_quant_softmax_kernel_reads_an_unaligned_base(cuda, r, s, offset):
+    """An offset row slice (x[1:] of 77-key rows) and buffers offset by one
+    or two codes take the scalar passes of the same kernel."""
+    x, M, sh, lut = _softmax(r + 1, s, 11, cuda)
+    x = x[1:] if offset == 0 else _offset_rows(x[1:], offset)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out = _launched_once(quant_softmax, x, M, sh, lut)
+    assert torch.equal(out, ref.quant_softmax_ref(x, M, sh, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [128, 77])
+def test_quant_softmax_kernel_holds_wrapping_rows_and_tables(cuda, s):
+    """Rows spanning the whole int32 range (m - x wraps), a negative M, and
+    a table with negative and large entries (the sums wrap, the division
+    floors): every check of the one-pass path fails over to the
+    reference's arithmetic."""
+    x, M, sh, lut = _softmax(64, s, 12, cuda)
+    x[::2, 0] = 2**31 - 1
+    x[::2, -1] = -(2**31)
+    assert torch.equal(_launched_once(quant_softmax, x, M, sh, lut),
+                       ref.quant_softmax_ref(x, M, sh, lut))
+    assert torch.equal(_launched_once(quant_softmax, x, -M, sh, lut),
+                       ref.quant_softmax_ref(x, -M, sh, lut))
+    wild = torch.from_numpy(np.random.default_rng(13).integers(-2**20, 2**28, 256)
+                            .astype(np.int32)).to(cuda)
+    assert torch.equal(_launched_once(quant_softmax, x, M, sh, wild),
+                       ref.quant_softmax_ref(x, M, sh, wild))
 
 
 @pytest.mark.cuda

@@ -32,7 +32,9 @@ from repro.kernels.prefill_attention import paged_prefill_qattention as j_prefil
 from repro.kernels.quant_layernorm import quant_layernorm as j_ln
 from repro.kernels.quant_softmax import quant_softmax as j_softmax
 from repro.models import layers as j_layers
+from repro_torch.core import fixedpoint as tfx
 from repro_torch.core import qlayernorm as tln
+from repro_torch.core import qsoftmax as tqs
 from repro_torch.core.qlinear import FoldedLinear
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -300,3 +302,217 @@ def test_lut_softmax_qat_matches_xla(s):
     else:
         assert flips <= 5e-4 * got.size
         assert set(np.unique(np.abs(got - want))) <= {0.0, 1.0 / 128}
+
+
+# --- numpy mirrors of the row kernels' arithmetic (csrc/quant_layernorm.cu,
+# csrc/quant_softmax.cu): every identity the CUDA code relies on, held
+# against the plain versions on the CPU -----------------------------------
+
+I32_MAX = 2**31 - 1
+
+
+def _wrap32(a):
+    """int64 values modulo 2^32 as int32 (two's complement)."""
+    return (np.asarray(a, np.int64) + 2**31) % 2**32 - 2**31
+
+
+def _div_recip(a, n):
+    """floor(a / n) for 0 <= a < 2^32 as the kernels take it: the high word
+    of a * floor((2^32 - 1) / n), plus one correction step."""
+    a = np.asarray(a, np.int64)
+    n = np.asarray(n, np.int64)
+    q = (a * ((2**32 - 1) // n)) >> 32
+    return q + (a - q * n >= n)
+
+
+def _ln_shifts(sh):
+    """fixedpoint.rescale's two rounding shifts and their biases at out_bits 8."""
+    pre = max(sh - 22, 0)
+    n2 = sh - pre
+    return pre, n2, (1 << (pre - 1)) if pre > 0 else 0, (1 << (n2 - 1)) if n2 > 0 else 0
+
+
+def _ln_merged_clamp(M, sh):
+    """The LN kernel's out_consts: whether the merged clamp may be taken at
+    (M, sh), and its bound ahi (M a scalar or an int64 array)."""
+    pre, n2, b1, b2 = _ln_shifts(sh)
+    M = np.asarray(M, np.int64)
+    if not (1 <= pre <= 30 and 1 <= n2 <= 30):
+        return np.zeros(M.shape, bool), np.zeros(M.shape, np.int64)
+    ok = (M > 0) & (32768 * M + b2 <= I32_MAX)
+    vhi = np.minimum(((128 << n2) - b2 - 1) // np.maximum(M, 1), 32767)
+    merge = ok & ((vhi * M + b2) >> n2 == 127)
+    ahi = np.minimum((vhi + 1) * 2**pre - b1 - 1, I32_MAX)
+    return merge, np.where(ok, ahi, 0)
+
+
+def _ln_merged_out(acc, M, sh, ahi):
+    """The merged path: one clamp of acc to +-ahi, then both rounding shifts
+    as (v + b - [v < 0]) >> n."""
+    pre, n2, b1, b2 = _ln_shifts(sh)
+    acc = np.clip(np.asarray(acc, np.int64), -ahi, ahi)
+    s = (acc < 0).astype(np.int64)
+    out = (((acc + b1 - s) >> pre) * M + b2 - s) >> n2
+    assert np.abs(out).max() <= 127
+    return out
+
+
+@pytest.mark.parametrize("sh", range(23, 53))
+def test_ln_merged_clamp_equals_rescale_and_clip(sh):
+    """At every output shift the merged clamp serves (23..52) and every Q15
+    multiplier M in [2^14, 2^15), the kernel's one clamp of acc to +-ahi
+    and its two sign-folded rounding shifts give clip(rescale(acc, M, sh),
+    -127, 127): at the clamp's edges, at the first shift's rounding
+    boundaries, at the accumulator's extremes and at seeded values."""
+    M = np.arange(1 << 14, 1 << 15, dtype=np.int64)[:, None]
+    merge, ahi = _ln_merged_clamp(M, sh)
+    assert merge.all()
+    pre, _, b1, _ = _ln_shifts(sh)
+    hi = I32_MAX - b1 - (1 << 30)                 # |beta| the warps' check lets through
+    rng = np.random.default_rng(sh)
+    d = np.arange(-3, 4)
+    k = (ahi + b1) >> pre                          # rounding boundaries k * 2^pre - b1 near ahi
+    acc = np.concatenate([
+        ahi + d, -ahi + d, (k << pre) - b1 + d, -((k << pre) - b1) + d,
+        np.broadcast_to(d, (M.shape[0], d.size)),
+        np.broadcast_to(np.array([hi + (1 << 30), -(hi + (1 << 30))]), (M.shape[0], 2)),
+        rng.integers(-(hi + (1 << 30)), hi + (1 << 30), (M.shape[0], 8), endpoint=True),
+        rng.integers(-4 * ahi.max(), 4 * ahi.max(), (M.shape[0], 8), endpoint=True)], axis=1)
+    acc = np.clip(acc, -(hi + (1 << 30)), hi + (1 << 30))
+    got = _ln_merged_out(acc, M, sh, ahi)
+    want = torch.clamp(tfx.rescale(torch.from_numpy(acc.astype(np.int32)),
+                                   torch.from_numpy(M.astype(np.int32)), sh), -127, 127)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _ln_kernel_mirror(x, gamma, beta, M, sh, sub_mean, eps=1):
+    """quant_layernorm.cu in numpy: the one-reduction moments, the clz
+    exponent, and the rounding shifts with one merged clamp where the
+    output scale and |beta| allow them (|beta| over every column here, a
+    warp's columns in the kernel).  Returns (out, ss, var, fast)."""
+    x64 = x.astype(np.int64)
+    n = x.shape[-1]
+    sx = x64.sum(-1, keepdims=True)
+    sq = (x64 * x64).sum(-1, keepdims=True)
+    half = n // 2
+    if sub_mean:
+        q = _div_recip(np.abs(sx) + half, n)
+        mean = np.where(sx >= 0, q, -q)
+        ss = _wrap32(sq - 2 * mean * sx + n * mean * mean)   # modulo 2^32, as uint32
+    else:
+        mean, ss = np.zeros_like(sx), sq
+    var = np.maximum(_div_recip(ss + half, n), eps)
+    xv = np.maximum(var, 1)
+    e = np.vectorize(lambda v: int(v).bit_length() - 1)(xv)  # 31 - clz(var)
+    se = e >> 1
+    shv = 14 - 2 * se
+    m14 = np.where(shv >= 0, xv << np.maximum(shv, 0), xv >> np.maximum(-shv, 0))
+    y = np.where(m14 < (1 << 15), 27853, 19661).astype(np.int64)
+    for _ in range(3):
+        y = (y * ((3 << 14) - ((m14 * ((y * y) >> 15)) >> 15))) >> 15
+    prod = x64 * y - mean * y
+    assert np.abs(prod).max() < 2**23
+    nq = (prod + (1 << se) + (prod >> 63)) >> (se + 1)
+    g = gamma.astype(np.int64)
+    assert np.abs(nq * g).max() < 2**30            # the bound the kernel's check uses
+    merge, ahi = _ln_merged_clamp(M, sh)
+    b1 = (1 << (sh - 23)) if sh > 22 else 0
+    fast = merge and int(np.abs(beta.astype(np.int64)).max()) + 2**30 + b1 <= I32_MAX
+    if fast:
+        out = _ln_merged_out(nq * g + beta, M, sh, ahi)
+    else:
+        acc = torch.from_numpy(_wrap32(nq * g + beta).astype(np.int32))
+        out = tfx.rescale(acc, M, sh).numpy()
+    return np.clip(out, -127, 127).astype(np.int8), ss, var, fast
+
+
+LN_ROWS = ("seeded", "all_min", "all_max", "alternating", "single", "wide_beta",
+           "small_shift")
+
+
+@pytest.mark.parametrize("sub_mean", [True, False])
+@pytest.mark.parametrize("n", [1, 7, 768, 4096, 16384])
+@pytest.mark.parametrize("kind", LN_ROWS)
+def test_ln_one_reduction_moments_are_exact(kind, n, sub_mean):
+    """The LN kernel's centred sum of squares, sum x^2 - 2 m sum x + N m^2
+    in int32 with the rounded mean m, equals the reference's sum (x - m)^2,
+    and so its var and quant_layernorm_ref's codes, on seeded rows and the
+    extremes; ``wide_beta`` (|beta| near 2^31) and ``small_shift`` (an
+    output shift of 19, below the merged clamp's range) take the wrapping
+    path."""
+    rng = np.random.default_rng(n * 7 + LN_ROWS.index(kind) * 2 + sub_mean)
+    x = {"seeded": lambda: rng.integers(-128, 128, (3, n)),
+         "all_min": lambda: np.full((1, n), -128),
+         "all_max": lambda: np.full((1, n), 127),
+         "alternating": lambda: np.where(np.arange(n) % 2 == 0, 127, -127)[None],
+         "single": lambda: np.eye(1, n, n // 3) * 91,
+         "wide_beta": lambda: rng.integers(-128, 128, (3, n)),
+         "small_shift": lambda: rng.integers(-128, 128, (3, n))}[kind]().astype(np.int8)
+    gamma = rng.integers(-128, 128, n).astype(np.int8)
+    lim = 2**31 - 1 if kind == "wide_beta" else 2**20
+    beta = rng.integers(-lim, lim, n, endpoint=True).astype(np.int32)
+    if kind == "wide_beta":
+        beta[0] = -(2**31)
+    M, sh = tfx.quantize_multiplier({"wide_beta": 3.3e-5, "small_shift": 0.05}.get(kind, 0.0021))
+    got, ss, var, fast = _ln_kernel_mirror(x, gamma, beta, M, sh, sub_mean)
+    assert fast == (kind not in ("wide_beta", "small_shift"))
+    x64 = x.astype(np.int64)
+    half = n // 2
+    if sub_mean:
+        s = x64.sum(-1, keepdims=True)
+        mean = np.where(s >= 0, (s + half) // n, -((-s + half) // n))
+    else:
+        mean = 0
+    ss_ref = ((x64 - mean) ** 2).sum(-1, keepdims=True)
+    np.testing.assert_array_equal(ss, ss_ref)
+    np.testing.assert_array_equal(var, np.maximum((ss_ref + half) // n, 1))
+    p = tln.QLNParams(_t(gamma), _t(beta), torch.tensor(M, dtype=torch.int32),
+                      torch.tensor(sh, dtype=torch.int32), sub_mean)
+    np.testing.assert_array_equal(got, tref.quant_layernorm_ref(_t(x), p).numpy())
+
+
+def _softmax_kernel_mirror(x, M, sh, lut):
+    """quant_softmax.cu in numpy: the one-pass index where the block's and
+    the row's checks allow it, the reciprocal division by den."""
+    lut64 = lut.astype(np.int64)
+    x64 = x.astype(np.int64)
+    pre = max(sh - 21, 0)
+    n2 = sh - pre
+    b1 = (1 << (pre - 1)) if pre > 0 else 0
+    b2 = (1 << (n2 - 1)) if n2 > 0 else 0
+    fast_idx = pre <= 30 and n2 <= 30 and M >= 0 and 32767 * M + b2 <= I32_MAX
+    fast_out = bool(((lut64 >= 0) & (lut64 < 32768)).all()) and x.shape[-1] <= 65536
+    m = x64.max(-1, keepdims=True)
+    fast = fast_idx & (m - x64.min(-1, keepdims=True) + b1 <= I32_MAX)
+    v = np.minimum((m + b1 - x64) >> pre, 32767)
+    idx_fast = np.minimum((v * M + b2) >> n2, 255)
+    d = torch.from_numpy(_wrap32(m - x64).astype(np.int32))
+    idx_ref = torch.clamp(tfx.rescale(d, M, sh, out_bits=9), 0, 255).numpy()
+    num = lut64[np.where(fast, idx_fast, idx_ref)]
+    den = np.maximum(_wrap32(num.sum(-1, keepdims=True)), 1)
+    assert fast_out
+    p = _div_recip(num * 128 + den // 2, den)
+    return np.minimum(p, 127).astype(np.int8), fast
+
+
+@pytest.mark.parametrize("s", [1, 77, 128, 512])
+@pytest.mark.parametrize("rows", ["bert", "masked", "wrapping"])
+def test_softmax_one_pass_index_and_reciprocal_are_exact(rows, s):
+    """The softmax kernel's index min(min((m + b - x) >> pre, 2^15 - 1) * M
+    + b' >> n, 255) on rows whose range cannot wrap, and floor((num * 128
+    + den / 2) / den) through den's reciprocal, equal quant_softmax_ref;
+    ``wrapping`` rows span more than 2^31 and take the reference's helpers."""
+    rng = np.random.default_rng(s * 3 + len(rows))
+    x = rng.integers(-400_000, 400_000, (24, s)).astype(np.int64)
+    if rows == "masked":
+        x[::3, (2 * s) // 3:] -= tqs.MASK_OFFSET
+        x[1] -= tqs.MASK_OFFSET
+    if rows == "wrapping":
+        x[::2, 0] = I32_MAX
+        x[::2, -1] = -(2**31)
+    x = x.astype(np.int32)
+    M, sh = tfx.quantize_multiplier(1.0 / (rng.uniform(20, 60) * jqs.LUT_DELTA))
+    lut = jqs.make_exp_lut()
+    got, fast = _softmax_kernel_mirror(x, M, sh, lut)
+    assert fast.all() == (rows != "wrapping" or s == 1)
+    np.testing.assert_array_equal(got, tref.quant_softmax_ref(_t(x), M, sh, _t(lut)).numpy())
