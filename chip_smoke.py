@@ -18,12 +18,15 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    ``quant_softmax`` and ``int8_bitsplit_matmul``; equal arrays required;
    the two paged decode kernels and the contiguous decode also on one
    4,096-row chain or stripe, the two paged prefill kernels also on a
-   704-row prompt and on the last 16-row chunk of a 1,024-row chain)
+   704-row prompt and on the last 16-row chunk of a 1,024-row chain, the
+   int8 one also at the speculative verify forward's shape: 8 slots of
+   4 rows at ragged, unaligned cursors 33-1000 on 1,024-row chains)
    and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
-   kernel / ``_int_mm`` factor and the share of the bound; ``quant_layernorm``
-   at every (R, N) a served path runs, yi-6b's 8, 512 and 704 rows and
+   kernel / ``_int_mm`` factor and the share of the bound, yi-6b's at
+   M = 32 too, the verify forward's rows; ``quant_layernorm`` at every
+   (R, N) a served path runs, yi-6b's 8, 32, 512 and 704 rows and
    BERT-base's 128 and 4,096; ``quant_layernorm`` and ``quant_softmax``
    beside the launch floor, a one-element ``torch.neg`` in the same
    timing loop);
@@ -36,6 +39,20 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    ``[eval]`` and ``[bert]`` the GEMMs of a prefill or cache-less forward
    must take the tensor-core path and those of a decode tick the decode
    path (launches counted by path);
+   ``[spec]``: the same requests with speculative decoding (``spec_k=3``)
+   on the paged int8 pool, once with ``PromptLookupDraft`` and once with a
+   ``SequenceDraft`` of the one-shot run's tokens (the oracle): both must
+   give the one-shot tokens with ``drafted == accepted + rejected``, every
+   verify forward must launch ``paged_prefill_qattention`` 32 times (its
+   GEMMs on the tensor cores, M = 32), and the oracle must reject nothing
+   with fewer decode forwards than the plain run's; decode forwards,
+   acceptance and tok/s printed, then a profile of one verify forward;
+   ``[router]``: two ``Engine`` replicas over the one folded model behind a
+   ``ReplicaRouter`` with prefix affinity and the shared prefix tier: the
+   same requests must give the one-shot tokens and publish pages to the
+   tier (prefix hits and adopted pages per replica printed, not gated),
+   then an ``AsyncServer`` over the router streams 4 of them, its streams
+   equal to the returned tokens;
 5. ``[kv4]``: the same requests on the int4-packed pool (``kv_bits=4``),
    one-shot and chunked: the packed kernels run 32 times per decode tick
    and per prefill chunk, a page takes 262,400 bytes against 524,288, and
@@ -52,7 +69,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    to ``decode_qattention`` on it; no served path may run the plain flash
    on the card (counted);
    then checks a small model against the same forward on the CPU on the
-   paged int8 pool, the packed pool, the stripe and without a cache;
+   paged int8 pool, the packed pool, the stripe, the verify forward and
+   without a cache;
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -225,7 +243,7 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
         mism, err = mism + c, max(err, e)
         xl = torch.cat([x, x.new_zeros((32 - m, k))]) if m < 32 else x
         p = mod.plan(m, k, n, 4 if w4 else 8)
-        row = dict(m=m, k=k, n=n, plan=p, ms=device_ms(torch, fn, args),
+        row = dict(m=m, k=k, n=n, plan=p, mismatches=c, ms=device_ms(torch, fn, args),
                    plain_ms=device_ms(torch, plain, args, cold=False),
                    library_ms=device_ms(torch, torch._int_mm, (xl, w8)))
         w_bytes = k * n // 2 if w4 else k * n
@@ -242,14 +260,19 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
           f"{all(r['ms'] < r['library_ms'] for r in big)} "
           f"({sum(r['ms'] < r['library_ms'] for r in big)} of {len(big)})")
     main = next(r for r in rows if (r["m"], r["k"], r["n"]) == main_shape)
-    return dict(main, mismatches=mism, max_abs_err=err, shape=shape_text)
+    return dict(main, mismatches=mism, max_abs_err=err, shape=shape_text,
+                rows={(r["m"], r["k"], r["n"]): r for r in rows})
 
 
 def phase_int4_matmul(torch, gen):
-    shapes = ([(m, k, n) for m in (8, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
+    # M = 32: a verify forward's rows (8 slots x spec_k + 1 = 4)
+    shapes = ([(m, k, n) for m in (8, 32, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
               + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS])
-    return gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
-                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
+    row = gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
+                     "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
+    row["verify"] = dict(row["rows"][(32, 4096, 11008)],
+                         shape="M=32 (verify: 8 slots x 4 rows) K=4096 N=11008 (wg/wu)")
+    return row
 
 
 def launch_floor_ms(torch) -> float:
@@ -260,10 +283,11 @@ def launch_floor_ms(torch) -> float:
 
 
 # (subtract_mean, R, N) of the served LN/RMSNorm calls: yi-6b's RMSNorm at a
-# decode tick, a 512-row chunk and the longest one-shot prefill chunk; LN at
-# yi-6b's width; BERT-base's LN at (1, 128) and (8, 512)
-LN_SHAPES = ((False, 8, 4096), (False, 512, 4096), (False, 704, 4096), (True, 8, 4096),
-             (True, 512, 4096), (True, 128, 768), (True, 4096, 768))
+# decode tick, a verify forward (8 slots x 4 rows), a 512-row chunk and the
+# longest one-shot prefill chunk; LN at yi-6b's width; BERT-base's LN at
+# (1, 128) and (8, 512)
+LN_SHAPES = ((False, 8, 4096), (False, 32, 4096), (False, 512, 4096), (False, 704, 4096),
+             (True, 8, 4096), (True, 512, 4096), (True, 128, 768), (True, 4096, 768))
 
 
 def ln_cases(torch, gen):
@@ -294,7 +318,7 @@ def phase_quant_layernorm(torch, gen):
 
     floor = launch_floor_ms(torch)
     print(f"  launch floor (torch.neg on one element, the same timing loop): {floor:.4f} ms")
-    mism, err, main = 0, 0.0, None
+    mism, err, main, verify = 0, 0.0, None, None
     for label, x, p in ln_cases(torch, gen):
         r, n = x.shape
         c, e = compare(mod.quant_layernorm(x, p), quant_layernorm_ref(x, p))
@@ -311,8 +335,10 @@ def phase_quant_layernorm(torch, gen):
               f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {c} mismatches")
         if label == "R=512 N=4096 RMS":
             main = row
+        if label == "R=32 N=4096 RMS":
+            verify = dict(row, mismatches=c, shape="R=32 (verify rows) N=4096 RMSNorm")
     return dict(main, mismatches=mism, max_abs_err=err,
-                shape="R=512 (prefill rows) N=4096 RMSNorm")
+                shape="R=512 (prefill rows) N=4096 RMSNorm", verify=verify)
 
 
 def _attn_scalars(torch, d):
@@ -428,9 +454,11 @@ def phase_paged_prefill(torch, gen, packed=False):
     h, hkv, d, psize = 32, 4, 128, 16
     cases = {"main": (512, [0]), "chunk": (128, [256]), "unaligned": (64, [37, 0]),
              "long": (704, [0]), "last_chunk": (16, [1008])}
+    if not packed:      # the speculative verify forward (int8 pool only): S = spec_k + 1
+        cases["verify"] = (4, VERIFY_POS0)
     mism, err, rows_of = 0, 0.0, {}
     for label, (sq, pos0) in cases.items():
-        nb = -(-(max(pos0) + sq) // psize) + 1
+        nb = 64 if label == "verify" else -(-(max(pos0) + sq) // psize) + 1  # 1,024-row chains
         n_pages = len(pos0) * nb + 1
         pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
         args = (_rand_i8(torch, gen, (len(pos0), h, sq, d)), *pool,
@@ -452,7 +480,13 @@ def phase_paged_prefill(torch, gen, packed=False):
               f"{c} mismatching codes")
         rows_of[label] = row
     return dict(rows_of["main"], mismatches=mism, max_abs_err=err,
-                **{k: rows_of[k] for k in ("chunk", "long", "last_chunk")})
+                **{k: rows_of[k] for k in ("chunk", "long", "last_chunk", "verify")
+                   if k in rows_of})
+
+
+# the verify case of row 3: 8 slots' decode cursors (the decode tick's
+# lengths 33-1000, most not on a page boundary), 4 rows each
+VERIFY_POS0 = [33, 100, 250, 400, 520, 640, 700, 1000]
 
 
 def _stripe_blocks(mod, lengths, smax, bkv, hkv=4):
@@ -742,10 +776,15 @@ def profile_prefill_chunks(torch, cfg, folded):
             f"paged int8 prefill chunk, {rows} rows at position {pos0}")
 
 
-def serve(torch, cfg, folded, kernels, **extra):
+def serve(torch, cfg, folded, kernels, on_engine=None, **extra):
+    """The 8 requests through one ``Engine`` (``extra``: EngineConfig fields;
+    ``on_engine(eng)`` runs on the engine before the first submit), with
+    the counts of ``kernels`` set to 0 just before."""
     from repro_torch.serve.engine import Engine, EngineConfig, Request, RequestStatus
 
     eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024, **extra))
+    if on_engine is not None:
+        on_engine(eng)
     reqs = [Request(prompt=p, max_new_tokens=32) for p in _prompts(cfg.vocab_size)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -835,6 +874,163 @@ def phase_serve(torch, cfg, folded, kernels):
     check(tuple(logits.shape) == (1, 32, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"full-width logits: shape {tuple(logits.shape)} or non-finite values")
     return one
+
+
+SPEC_K = 3
+
+
+def count_verify(eng, per_forward: list):
+    """Wrap ``eng._verify`` (the speculative verify forward) so each call
+    appends the ``paged_prefill_qattention`` launches it made to
+    ``per_forward``; the engine's own counters stay the reference's (a
+    verify forward counts as one ``decode_steps``)."""
+    from repro_torch.kernels import prefill_attention as pa
+
+    inner = eng._verify
+
+    def verify(toks, nrows):
+        before = pa.paged_prefill_qattention.launches
+        out = inner(toks, nrows)
+        per_forward.append(pa.paged_prefill_qattention.launches - before)
+        return out
+
+    eng._verify = verify
+
+
+def profile_verify(torch, cfg, folded):
+    """One verify forward of 8 slots x (spec_k + 1) rows, once every prompt
+    of the served requests is cached: wall and device time, kernels, the
+    paged prefill attention's share."""
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024, spec_k=SPEC_K))
+    for p in _prompts(cfg.vocab_size):
+        eng.submit(Request(prompt=p, max_new_tokens=32))
+    while eng.sched.waiting or eng.sched.prefilling:
+        eng.poll()
+    rng = np.random.default_rng(SEED + 4)
+    toks = rng.integers(0, cfg.vocab_size, (8, SPEC_K + 1)).astype(np.int32)
+    for b in eng.sched.decoding:
+        toks[b, 0] = eng.sched.slots[b].last_token
+    nrows = np.full(8, SPEC_K + 1, np.int32)
+    print(f"  cursors {eng.pos.tolist()}")
+    profile_steps(torch, lambda: eng._verify(toks, nrows),
+                  f"verify forward (8 slots x {SPEC_K + 1} rows)")
+
+
+def phase_spec(torch, cfg, folded, kernels, plain):
+    """yi-6b at full width on the paged int8 pool with speculative decoding
+    (spec_k = 3), the [serve] requests twice: with ``PromptLookupDraft`` and
+    with a ``SequenceDraft`` of the one-shot run's tokens (the oracle).
+    Both must give the one-shot run's tokens; every verify forward launches
+    ``paged_prefill_qattention`` once per layer (its GEMMs take the tensor
+    cores: M = 32); the oracle rejects nothing and needs fewer decode
+    forwards than the plain run.  Returns the oracle run."""
+    from repro_torch.serve.draft import PromptLookupDraft, SequenceDraft
+
+    seqs = [list(p) + t for p, t in zip(_prompts(cfg.vocab_size), plain["tokens"])]
+    plain_steps = plain["counters"]["decode_steps"]
+    runs, total = {}, [0] * len(kernels)
+    for name, draft in (("prompt lookup", PromptLookupDraft()), ("oracle", SequenceDraft(seqs))):
+        per_fwd = []
+        r = serve(torch, cfg, folded, kernels, on_engine=lambda e, f=per_fwd: count_verify(e, f),
+                  spec_k=SPEC_K, draft=draft)
+        c = r["counters"]
+        nv = len(per_fwd)
+        print_run(f"spec {name}", r, kernels)
+        print(f"    decode forwards {c['decode_steps']} ({nv} verify, {c['decode_steps'] - nv} "
+              f"plain) against {plain_steps} in the plain run; accepted {c['accepted']} of "
+              f"{c['drafted']} drafted ({c['rejected']} rejected), accept_len_hist "
+              f"{dict(sorted(c['accept_len_hist'].items()))}; paged_prefill_qattention "
+              f"launches per verify forward {sorted(set(per_fwd))}")
+        check(r["tokens"] == plain["tokens"], f"spec {name}: tokens differ from plain decode "
+              f"(first divergence {first_divergence(plain['tokens'], r['tokens'])})")
+        check(c["drafted"] == c["accepted"] + c["rejected"],
+              f"spec {name}: drafted {c['drafted']} != accepted + rejected")
+        check(all(n == cfg.n_layers for n in per_fwd),
+              f"spec {name}: paged_prefill_qattention launches per verify forward {per_fwd}")
+        check(r["launches"][2] == cfg.n_layers * (c["prefill_chunks"] + nv),
+              f"spec {name}: paged_prefill_qattention launches {r['launches'][2]}")
+        check_paths(f"spec {name}", r["paths"], c["prefill_chunks"] + nv, c["decode_steps"] - nv,
+                    LINEARS_PER_LAYER * cfg.n_layers)
+        total = [a + b for a, b in zip(total, r["launches"])]
+        runs[name] = dict(r, verify_forwards=nv)
+    oracle = runs["oracle"]
+    c = oracle["counters"]
+    check(oracle["verify_forwards"] > 0 and c["rejected"] == 0 and c["decode_steps"] < plain_steps,
+          f"spec oracle: rejected {c['rejected']}, decode forwards {c['decode_steps']} (plain "
+          f"{plain_steps})")
+    check(all(n > 0 for n in total), f"spec: a kernel of the path was never launched: {total}")
+    profile_verify(torch, cfg, folded)
+    return oracle
+
+
+def phase_router(torch, cfg, folded, kernels, plain):
+    """Two ``Engine`` replicas over the one folded yi-6b behind a
+    ``ReplicaRouter`` with prefix affinity and the shared prefix tier: the
+    [serve] requests must give the one-shot run's tokens and publish pages
+    to the tier (every paged handoff publishes); where the requests landed,
+    prefix hits and adopted pages are printed, not gated (they follow the
+    dispatch order).  Then an ``AsyncServer`` over the router streams the
+    first 4 requests again: the streamed tokens must equal the returned
+    ones and the one-shot run's."""
+    import asyncio
+
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.router import ReplicaRouter, RouterConfig
+    from repro_torch.serve.server import AsyncServer
+
+    reps = [Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024)) for _ in range(2)]
+    router = ReplicaRouter(reps, RouterConfig(affinity=True, shared_tier=True))
+    prompts = _prompts(cfg.vocab_size)
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        router.submit(r)
+    ticks = 0
+    while router.has_work:
+        router.poll()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = [r.result().tolist() for r in reqs]
+    launches = [k.launches for k in kernels]
+    print(f"  router (2 replicas, affinity, shared tier): {sum(map(len, toks)) / wall:.1f} tok/s "
+          f"({wall:.2f} s wall, {ticks} router ticks), launches "
+          f"{dict(zip([k.__name__ for k in kernels], launches))}")
+    for i, rep in enumerate(reps):
+        c = rep.counters
+        print(f"    replica {i}: completed {c['completed']}, prefix_hits {c['prefix_hits']}, "
+              f"published_pages {c['published_pages']}, adopted_pages {c['adopted_pages']}, "
+              f"decode_steps {c['decode_steps']}")
+    print(f"    router counters {router.counters}, tier pages {router.prefix_tier.n_pages}")
+    check(toks == plain["tokens"], "router: tokens differ from the single-engine one-shot run "
+          f"(first divergence {first_divergence(plain['tokens'], toks)})")
+    check(sum(rep.counters["published_pages"] for rep in reps) > 0,
+          "router: no page was published to the shared tier")
+    check(all(n > 0 for n in launches), f"router: a kernel was never launched: {launches}")
+
+    async def stream():
+        server = AsyncServer(router)
+        task = asyncio.ensure_future(server.serve_forever())
+        try:
+            handles = [await server.submit(Request(prompt=p, max_new_tokens=32))
+                       for p in prompts[:4]]
+            return [await h.tokens() for h in handles], [h.result().tolist() for h in handles]
+        finally:
+            server.stop()
+            await task
+
+    t0 = time.perf_counter()
+    streams, results = asyncio.run(asyncio.wait_for(stream(), 600))
+    print(f"  AsyncServer over the router: 4 requests streamed in {time.perf_counter() - t0:.2f} s"
+          f", {sum(map(len, streams))} tokens, streams equal the returned tokens: "
+          f"{streams == results}")
+    check(streams == results == plain["tokens"][:4],
+          "AsyncServer: streamed tokens differ from the returned or the one-shot tokens")
 
 
 def first_divergence(a, b):
@@ -1135,6 +1331,26 @@ def phase_small_reference(torch):
                 check(agree >= 0.99, f"small model: card and CPU disagree on {1 - agree:.3f}")
             else:
                 check(differ == 0, f"small model {layout}: card and CPU logits differ")
+        # the verify forward on the int8 pool (the paged prefill kernel at the
+        # per-slot cursors 32 and 27), after the same prompt's prefill; the
+        # real rows (4 and 2) compared
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int32))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            folded = tree_map(lambda t, d=dev: t.to(d), folded_cpu)
+            cache, bt = cache_for("int8", dev)
+            S.serve_forward(cfg, folded, prompt.to(dev), cache=cache, pos_offset=0,
+                            block_tables=bt)
+            logits, _ = S.serve_forward(
+                cfg, folded, toks.to(dev), cache=cache, mode="verify", block_tables=bt,
+                pos_offset=torch.tensor([32, 27], dtype=torch.int32, device=dev),
+                verify_rows=torch.tensor([4, 2], dtype=torch.int32, device=dev))
+            out[dev] = torch.cat([logits[0, :4], logits[1, :2]]).cpu()
+        differ = int((out["cpu"] != out["cuda"]).sum())
+        print(f"  small yi-6b verify forward (2 slots, 4 and 2 rows), card vs CPU: {differ} of "
+              f"{out['cpu'].numel()} logits differ")
+        check(bool(torch.isfinite(out["cuda"]).all()) and differ == 0,
+              "small model verify forward: card and CPU logits differ")
         # the cache-less causal prefill (flash_qattention on the card) at an
         # odd length, so its KV block is the whole 37-token row
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 37)).astype(np.int32))
@@ -1363,6 +1579,14 @@ def main() -> int:
     cfg, folded = load_yi6b(torch)
     served = phase_serve(torch, cfg, folded, engine_wrappers)
     stamp("serve")
+    print(f"[spec] yi-6b, full width, speculative decoding (spec_k={SPEC_K}) on the paged int8 "
+          "pool, the same requests")
+    spec = phase_spec(torch, cfg, folded, engine_wrappers, served)
+    stamp("spec")
+    print("[router] yi-6b, full width, two replicas, prefix affinity and the shared tier, the "
+          "same requests; then an AsyncServer")
+    phase_router(torch, cfg, folded, engine_wrappers, served)
+    stamp("router")
     print("[kv4] yi-6b, full width, the int4-packed pool (kv_bits=4), the same requests")
     kv4 = phase_kv4(torch, cfg, folded, served)
     stamp("kv4")
@@ -1394,6 +1618,7 @@ def main() -> int:
     # flash_qattention; the [eval] phase's per-layer calls of the public
     # flash_qdecode; BERT at (1, 128) for the other two)
     launches = dict(zip([fn.__name__ for fn in engine_wrappers], served["launches"]))
+    rows[2]["verify"].update(launches_per_forward=cfg.n_layers, forwards=spec["verify_forwards"])
     launches["paged_prefill_qattention_q4"], launches["paged_decode_qattention_q4"] = \
         kv4["launches"][:2]
     launches["decode_qattention"], launches["flash_qattention"] = contiguous["launches"][:2]
@@ -1411,8 +1636,10 @@ def main() -> int:
             "library_ms": row["library_ms"], "shape": row["shape"],
             **({"launch_floor_ms": row["launch_floor_ms"]} if "launch_floor_ms" in row else {}),
             **{case: {k: row[case][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                "mismatches")}
-               for case in ("chunk", "long", "last_chunk") if case in row}})
+                                                "bound_by", "library_ms", "mismatches",
+                                                "launches_per_forward", "forwards")
+                      if k in row[case]}
+               for case in ("chunk", "long", "last_chunk", "verify") if case in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """Integer serving forward over the folded params: cache-less prefill,
-chunk prefill into the paged KV pool (int8, or int4-packed at ``kv_bits=4``)
-and single-token paged decode, and the contiguous per-slot stripe (one-shot
+chunk prefill into the paged KV pool (int8, or int4-packed at ``kv_bits=4``),
+single-token paged decode and the speculative verify forward (``mode=
+"verify"``, int8 pool), and the contiguous per-slot stripe (one-shot
 prefill, single-token decode) that the lockstep engine and
 ``cache_layout="contiguous"`` use.
 
@@ -14,7 +15,8 @@ other branch raises ``NotImplementedError``.
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
 reference's ``ref`` backend; on ``gpu`` they take the q7 kernels (paged
-decode and prefill, their int4-packed twins, the contiguous decode), as the
+decode and prefill, their int4-packed twins, the contiguous decode; the
+verify forward is the paged prefill kernel at a per-slot ``pos0``), as the
 reference's ``pallas`` backend does.  The kv4 chunk prefill takes the q7
 packed family on every backend, as in the reference.  The cache-less causal
 prefill takes the blocked flash (``ops.flash_attention_q``: its plain
@@ -103,13 +105,15 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
 def _attn_rows_q8(qc, kc, vc, aq, cfg, mask):
     """Materialized row attention through the decode-identical integer
     datapath (q8 LUT softmax + M_pv requant) -> (B, H, S, hd) int8.
-    ``mask`` is bool or None: (S, Skv) shared across the batch."""
+    ``mask`` is bool or None: (S, Skv) shared across the batch, or (B, S,
+    Skv) per slot (the verify forward's per-slot causal frontiers)."""
     group = cfg.n_heads // cfg.n_kv_heads
     kg = kc.repeat_interleave(group, dim=2)
     vg = vc.repeat_interleave(group, dim=2)
     scores = kref.int_matmul(qc.permute(0, 2, 1, 3), kg.permute(0, 2, 3, 1))  # (B,H,S,Skv)
     if mask is not None:
-        scores = torch.where(mask[None, None], scores, scores - MASK_OFFSET)
+        mask = mask[:, None] if mask.dim() == 3 else mask[None, None]
+        scores = torch.where(mask, scores, scores - MASK_OFFSET)
     probs = ops.softmax_q(scores, aq["M_idx"], aq["sh_idx"], _lut("q8", qc.device))
     pv = kref.int_matmul(probs, vg.permute(0, 2, 1, 3))
     return torch.clamp(fxp.rescale(pv, aq["M_pv"], aq["sh_pv"]), -127, 127).to(torch.int8)
@@ -324,6 +328,61 @@ def _attn_prefill_paged(x_i8, f, cfg, cache, pos, block_tables, pos0: int, pos0_
     return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
 
 
+def _verify_index(pos_vec, n_rows, block_tables, psize: int, s: int):
+    """Where the verify forward's columns sit: per slot ``b`` and column
+    ``j``, the position ``pos_vec[b] + j`` and the (page, row) its K/V row
+    is written to, (B, S) each.  Columns at or past ``n_rows[b]`` are
+    padding and go to row 0 of the trash page 0.  A padding column's
+    position may lie past the block table: the reference's gather fills such
+    entries and its ``where`` then discards them, torch's gather would
+    raise, so the table index is clamped first."""
+    cols = torch.arange(s, dtype=torch.int32, device=pos_vec.device)
+    positions = pos_vec[:, None] + cols[None, :]
+    valid = cols[None, :] < n_rows[:, None]
+    blk = torch.clamp(positions.long() // psize, max=block_tables.shape[1] - 1)
+    pg = torch.where(valid, torch.gather(block_tables.long(), 1, blk), 0)
+    row = torch.where(valid, positions.long() % psize, 0)
+    return positions, pg, row
+
+
+def _attn_verify_paged(x_i8, f, cfg, cache, pos_vec, positions, pg, row, block_tables,
+                       row_exact):
+    """Speculative verify: S = k+1 candidate rows per slot in one forward,
+    row 0 the slot's last committed token at its decode cursor
+    ``pos_vec[b]``, rows 1..k its draft proposals (``_verify_index`` gives
+    ``positions`` and the (``pg``, ``row``) write targets).  The K/V rows
+    scatter per (page, row) like the decode step's (the positions are not
+    page-aligned); real columns past the slot's accepted prefix leave rows
+    above its cursor that the causal masks hide until the cursor reaches
+    them and the owner rewrites them.  Attention reads the slot's whole
+    chain, row i of slot b up to position ``pos_vec[b] + i``: on ``ref``
+    the row-exact q8 rows under a per-slot causal mask (row i equals the
+    decode step at that position bit for bit), on ``gpu`` the paged prefill
+    kernel with ``pos_vec`` as its per-slot ``pos0``.  The int8 pool only,
+    as in the reference (M-RoPE archs are refused by ``check_ported``)."""
+    if _is_kv4(cache):
+        raise NotImplementedError("speculative verify serves the int8 pool only (spec x kv4: "
+                                  "not in the reference either)")
+    b, s, _ = x_i8.shape
+    nh, hd = cfg.n_heads, cfg.hd
+    qc, kc, vc = _qkv_rope(x_i8, f, cfg, positions)
+    aq = f["attn_q"]
+    cache["k"][pg, row] = kc
+    cache["v"][pg, row] = vc
+    if row_exact:
+        k_view = _gather_view(cache["k"], block_tables)
+        v_view = _gather_view(cache["v"], block_tables)
+        kpos = torch.arange(k_view.shape[1], device=x_i8.device)
+        ctx = _attn_rows_q8(qc, k_view, v_view, aq, cfg,
+                            kpos[None, None, :] <= positions[:, :, None]).permute(0, 2, 1, 3)
+    else:
+        ctx = ops.paged_prefill_attention_q(
+            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], block_tables, pos_vec,
+            aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
+            aq["out_scale"]).permute(0, 2, 1, 3)
+    return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
+
+
 # --- ffn slot -----------------------------------------------------------------
 
 def _mlp_int(x_i8, f, cfg):
@@ -446,19 +505,24 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     page-aligned — into the pool in place.  prefill with the contiguous
     stripe (no ``block_tables``): writes rows [0, S) of every slot, from
     position 0.  decode: tokens (B,1) + either cache -> logits;
-    ``pos_offset`` a scalar or per-slot (B,) vector.  Returns (logits,
-    cache).
+    ``pos_offset`` a scalar or per-slot (B,) vector.  verify (the paged
+    int8 pool only): tokens (B, k+1), each slot's last committed token and
+    its draft proposals; ``pos_offset`` the per-slot (B,) decode cursor and
+    ``verify_rows`` (B,) each slot's real row count (the rest is padding);
+    logits for every row, (B, k+1, V), row i what the decode step at
+    position ``pos_offset[b] + i`` gives (``_attn_verify_paged``).  Returns
+    (logits, cache).
     """
     check_ported(cfg)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode={mode!r} (speculative verify) is not ported: "
-                                  "ROADMAP Open items §1")
-    if verify_rows is not None or extra_embeds_i8 is not None or pos3 is not None \
-            or tp_axis is not None:
-        raise NotImplementedError("verify rows, extra embeddings, M-RoPE positions and "
-                                  "tensor parallelism are not ported: ROADMAP Open items §1")
+    if mode not in ("prefill", "decode", "verify"):
+        raise ValueError(f"mode must be prefill|decode|verify (got {mode!r})")
+    if extra_embeds_i8 is not None or pos3 is not None or tp_axis is not None:
+        raise NotImplementedError("extra embeddings, M-RoPE positions and tensor parallelism "
+                                  "are not ported: ROADMAP Open items §1")
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a KV cache")
+    if mode == "verify" and (cache is None or block_tables is None or verify_rows is None):
+        raise ValueError("verify mode needs a paged cache, block tables and verify_rows")
     if mode == "prefill" and cache is not None and block_tables is None \
             and int(pos_offset) != 0:
         raise ValueError("a prefill into the contiguous stripe starts at position 0")
@@ -467,12 +531,18 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     b, s = x.shape[0], x.shape[1]
     pos_vec = _pos_vector(pos_offset, b, dev)
     pos0 = int(pos_offset) if mode == "prefill" else None
+    if mode == "verify":
+        vidx = _verify_index(pos_vec, _pos_vector(verify_rows, b, dev), block_tables,
+                             cache["slot0"]["k"].shape[2], s)
     if cfg.learned_pos:
         pos_i8 = folded["embed"]["pos_i8"]
-        posrow = pos_i8[pos_vec.long()][:, None] if mode == "decode" \
-            else pos_i8[pos0:pos0 + s][None]
+        if mode == "prefill":
+            posrow = pos_i8[pos0:pos0 + s][None]
+        else:   # a padding verify column may sit past the table: clamped, then unused
+            grid = pos_vec[:, None] + torch.arange(s, dtype=torch.int32, device=dev)
+            posrow = pos_i8[torch.clamp(grid.long(), max=pos_i8.shape[0] - 1)]
         x = torch.clamp(x.to(torch.int32) + posrow.to(torch.int32), -127, 127).to(torch.int8)
-    pos = None if mode == "decode" else \
+    pos = None if mode != "prefill" else \
         (pos0 + torch.arange(s, dtype=torch.int32, device=dev)).expand(b, s)
     kinds = slot_kinds(cfg)
     row_exact = ops.backend(device=dev) != "gpu"
@@ -481,7 +551,10 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
             f = f_rep[f"slot{i}"]
             cslot = None if cache is None else \
                 {k: v[r] for k, v in cache[f"slot{i}"].items()}
-            if mode == "decode" and block_tables is not None:
+            if mode == "verify":
+                out = _attn_verify_paged(x, f, cfg, cslot, pos_vec, *vidx, block_tables,
+                                         row_exact)
+            elif mode == "decode" and block_tables is not None:
                 out = _attn_decode_paged(x, f, cfg, cslot, pos_vec, block_tables)
             elif mode == "decode":
                 out = _attn_decode(x, f, cfg, cslot, pos_vec)

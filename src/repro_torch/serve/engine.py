@@ -1,27 +1,30 @@
 """Continuous-batching serving engine over the folded integer model.
 
-The port of the reference ``serve/engine.py`` on one device (``tp=1``)
-without speculative decoding: the paged KV pool, int8 or int4-packed
-(``kv_bits=4``), with on-demand page growth and preemption (or
-``reserve_policy="full"``), prefix sharing through the allocator's registry
-and chunked prefill under a token budget; or the contiguous per-slot stripe
-(``cache_layout="contiguous"``) with one-shot prefill per request; greedy
-or sampled decode.  ``LockstepEngine`` is the reference's lockstep
-baseline over the contiguous stripe.
+The port of the reference ``serve/engine.py`` on one device (``tp=1``): the
+paged KV pool, int8 or int4-packed (``kv_bits=4``), with on-demand page
+growth and preemption (or ``reserve_policy="full"``), prefix sharing through
+the allocator's registry and, across replicas, a shared prefix tier
+(``attach_prefix_tier``), chunked prefill under a token budget and greedy
+speculative decoding (``spec_k > 0``, int8 pool); or the contiguous
+per-slot stripe (``cache_layout="contiguous"``) with one-shot prefill per
+request; greedy or sampled decode.  ``LockstepEngine`` is the reference's
+lockstep baseline over the contiguous stripe.
 
-``poll()`` runs ONE scheduler tick — shed expired → admit → prefill chunks
-under the budget → grow decode pages (preempting when the pool runs dry) →
-one decode forward for every slot whose prompt is cached — and returns the
-tick's ``TokenEvent`` stream; ``step()``, ``run()`` and ``generate()`` wrap
-it.  The host-side bookkeeping (``serve/scheduler.py``, ``serve/prefix.py``,
-``serve/stats.py``) is the reference's, so on the ``ref`` kernel backend the
-engine's greedy tokens and counters equal the reference engine's.
+``poll()`` runs ONE scheduler tick — shed expired → adopt tier pages →
+admit → prefill chunks under the budget → grow decode pages (preempting
+when the pool runs dry) → one decode forward for every slot whose prompt is
+cached, or one verify forward when a draft source proposed tokens — and
+returns the tick's ``TokenEvent`` stream; ``step()``, ``run()`` and
+``generate()`` wrap it.  The host-side bookkeeping (``serve/scheduler.py``,
+``serve/prefix.py``, ``serve/stats.py``, ``serve/draft.py``) is the
+reference's, so on the ``ref`` kernel backend the engine's greedy tokens and
+counters equal the reference engine's.
 
 The engine runs where the folded weights live: CUDA weights take the
 ``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
-Options the port does not have yet (``tp > 1`` / a mesh, ``spec_k > 0``, a
-shared prefix tier, archs that need MoE/SSM/SWA or a frontend) raise
-``EngineConfigError`` or ``NotImplementedError``.
+Options the port does not have yet (``tp > 1`` / a mesh, archs that need
+MoE/SSM/SWA or a frontend) raise ``EngineConfigError`` or
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ from repro_torch.core import prng
 from repro_torch.models import serve_int as S
 from repro_torch.models.transformer import check_ported, slot_kinds
 from repro_torch.serve import stats as stats_schema
+from repro_torch.serve.draft import make_draft_source
+from repro_torch.serve.prefix import SealedChain
 from repro_torch.serve.scheduler import BlockAllocator, Scheduler, SlotState, pages_needed
 
 _ROADMAP = "ROADMAP Open items §1"
@@ -184,8 +189,6 @@ class EngineConfig:
             raise EngineConfigError(f"{what} is not ported yet: {_ROADMAP}")
         if self.tp != 1 or self.mesh is not None:
             no("tensor parallelism (tp > 1 / mesh)")
-        if self.spec_k:
-            no("speculative decoding (spec_k > 0)")
         return self
 
 
@@ -324,13 +327,17 @@ class Engine:
             self.reserve_policy = "full"
         # kv_bits=4 packs the paged pool; validate() refuses it on contiguous
         self.kv_bits = config.kv_bits
-        self.spec_k = 0
+        # speculative decoding: validate() refuses it on the stripe and on kv4
+        self.spec_k = config.spec_k
+        self.draft = make_draft_source(config.draft) if self.spec_k else None
         self.tp = 1
         if layout == "paged":
             self.max_blocks = pages_needed(self.smax, self.page_size)
             # +1: page 0 is the reserved trash page (inactive-slot writes)
             self.n_pages = config.n_pages if config.n_pages is not None \
                 else self.batch * self.max_blocks + 1
+        # the cross-replica shared prefix tier (attach_prefix_tier)
+        self.prefix_tier = None
         self._init_state(config.seed)
 
     @staticmethod
@@ -373,6 +380,16 @@ class Engine:
             pos_offset=self._tensor(self.pos), mode="decode", block_tables=btab)
         return logits[:, -1].cpu().numpy()
 
+    def _verify(self, toks: np.ndarray, nrows: np.ndarray) -> np.ndarray:
+        """The speculative verify forward: (B, spec_k+1) tokens at each
+        slot's decode cursor, ``nrows`` real rows per slot; every row's
+        logits (B, spec_k+1, V)."""
+        logits, self.cache = S.serve_forward(
+            self.cfg, self.folded, self._tensor(toks), cache=self.cache,
+            pos_offset=self._tensor(self.pos), mode="verify",
+            block_tables=self._tensor(self.block_tables), verify_rows=self._tensor(nrows))
+        return logits.cpu().numpy()
+
     def _prefill(self, toks: np.ndarray, btab: np.ndarray, pos0: int, row: int):
         logits, self.cache = S.serve_forward(
             self.cfg, self.folded, self._tensor(toks), cache=self.cache,
@@ -405,8 +422,89 @@ class Engine:
 
     # --- prefix sharing ---------------------------------------------------
 
-    def attach_prefix_tier(self, tier):  # noqa: ARG002
-        raise NotImplementedError(f"the shared prefix tier is not ported yet: {_ROADMAP}")
+    @property
+    def prefix_store(self):
+        """The allocator-owned prefix registry (``serve/prefix.py``'s
+        ``PrefixStore``), or None on the contiguous layout: what the
+        router's affinity probe and the tier adoption read."""
+        return self.alloc.prefix if self.layout == "paged" else None
+
+    def attach_prefix_tier(self, tier):
+        """Wire a ``SharedPrefixTier`` into this engine: prefill handoffs
+        publish their sealed chains, and waiting prompts adopt matching
+        chains before admission (the payload lands in freshly allocated
+        pages that are registered and parked, so admission sees an ordinary
+        prefix hit).  Needs the paged pool at the tier's page size."""
+        if self.layout != "paged":
+            raise EngineConfigError("a shared prefix tier needs the paged cache layout; this "
+                                    f"engine resolved to {self.layout!r}")
+        if tier.page_size != self.page_size:
+            raise EngineConfigError(f"tier page_size={tier.page_size} != engine "
+                                    f"page_size={self.page_size}")
+        self.prefix_tier = tier
+
+    def _pool_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """The paged pool as ``[("<layer>.<leaf>", tensor)]``, the key space
+        of a ``SealedChain``'s payload.  Every leaf (int8 or packed rows,
+        kv4's page scales) has the page axis at axis 1."""
+        return [(f"{name}.{leaf}", t) for name, c in self.cache.items()
+                for leaf, t in c.items()]
+
+    def _publish_prefix(self, prompt: List[int]):
+        """Export the just-registered chain's pages the tier does not hold
+        yet, as host copies of every pool leaf."""
+        tier = self.prefix_tier
+        chain = self.alloc.prefix.seal(prompt, (len(prompt) - 1) // self.page_size)
+        if chain.n_pages == 0:
+            return
+        held = tier.match(chain.tokens(), chain.n_pages).n_pages
+        if held >= chain.n_pages:
+            return
+        idx = torch.as_tensor(chain.pages[held:], dtype=torch.long, device=self.device)
+        payload = {name: t[:, idx].cpu().numpy() for name, t in self._pool_leaves()}
+        self.counters["published_pages"] += tier.publish(
+            SealedChain(self.page_size, chain.keys[held:], chain.segs[held:], payload))
+
+    def _install_pages(self, sealed: SealedChain, pages: List[int]):
+        """Copy a sealed chain's payload into this pool at ``pages``: exact
+        copies of the pages an identical engine computed for the same
+        prefix, so what reads them later is as if they were prefilled here."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for name, t in self._pool_leaves():
+            pay = sealed.payload[name]
+            if pay.shape[1] != len(pages) or pay.shape[2:] != tuple(t.shape[2:]):
+                raise ValueError(f"sealed payload {name} {pay.shape} does not fit the pool "
+                                 f"leaf {tuple(t.shape)} at {len(pages)} pages")
+            t[:, idx] = torch.as_tensor(pay, device=self.device)
+
+    def _adopt_from_tier(self):
+        """Before admission: for each waiting prompt whose local registry
+        match is shorter than what the tier holds, install the missing pages
+        and register the chain.  Never preempts: with the pool dry the prompt
+        recomputes as if the tier did not exist."""
+        al = self.alloc
+        ps = self.page_size
+        for _rid, item in list(self.sched.waiting):
+            tokens = item.prompt_tokens() if isinstance(item, SlotState) else item.prompt
+            prompt = [int(t) for t in np.asarray(tokens).reshape(-1)]
+            want = (len(prompt) - 1) // ps
+            if want <= 0 or al.prefix.match(prompt, want).n_pages >= want:
+                continue
+            sealed = self.prefix_tier.adopt(prompt, want)
+            if sealed is None:
+                continue
+            held = al.match_prefix(prompt, want)     # refs pin the head
+            if sealed.n_pages <= len(held):
+                al.free_pages(held[::-1])
+                continue
+            fresh = al.alloc(sealed.n_pages - len(held))
+            if fresh is None:                        # pool dry: recompute
+                al.free_pages(held[::-1])
+                continue
+            self._install_pages(sealed.slice(len(held), sealed.n_pages), fresh)
+            al.prefix.register(prompt[:sealed.n_pages * ps], held + fresh)
+            al.free_pages((held + fresh)[::-1])      # park on the LRU
+            self.counters["adopted_pages"] += len(fresh)
 
     # --- observability ---------------------------------------------------
 
@@ -544,7 +642,10 @@ class Engine:
         if not final:
             return []
         if self.layout == "paged":
-            self.alloc.register_prefix([int(t) for t in prompt], st.pages)
+            ptoks = [int(t) for t in prompt]
+            self.alloc.register_prefix(ptoks, st.pages)
+            if self.prefix_tier is not None:
+                self._publish_prefix(ptoks)
             self._set_table_row(b, st.pages)
         st.tokens = None
         if st.shared_rows:
@@ -620,6 +721,107 @@ class Engine:
         return req.eos_token is not None and bool(st.emitted) and \
             st.emitted[-1] == req.eos_token
 
+    # --- speculative decode (draft-then-verify) --------------------------
+
+    def _spec_tick(self) -> Optional[List[TokenEvent]]:
+        """One speculative decode tick (the reference's): propose, grow,
+        verify, greedily accept.  Returns None when no slot has proposals
+        (the plain decode forward runs instead).
+
+        1. propose: up to ``k_b = min(spec_k, max_new - emitted - 1)``
+           tokens per greedy decoding slot (the bonus token fills the
+           budget, so the furthest verify row stays at plain decode's worst
+           case); sampled slots are never drafted for.
+        2. grow (on-demand): each proposing slot's chain to cover its verify
+           rows, in rid order, preempting like ``_grow_decode_pages``; a slot
+           preempted by an earlier grower drops its proposals.
+        3. verify: one (B, spec_k+1) forward; slots without proposals ride
+           along with one real row (their plain decode step).
+        4. accept: per slot, walk the rows while the proposals match the
+           argmax chain; emit the accepted tokens and the first divergent
+           (or bonus) one, cut by ``max_new_tokens``/EOS as plain decode
+           would.  The write cursor advances over committed tokens only;
+           rejected rows above it are rewritten before they are read.  The
+           forward counts one ``decode_steps``."""
+        active = self.sched.decoding
+        props: Dict[int, List[int]] = {}
+        for b in active:
+            st = self.sched.slots[b]
+            req = st.request
+            if req.temperature > 0:
+                continue                    # greedy acceptance only
+            k_b = min(self.spec_k, req.max_new_tokens - len(st.emitted) - 1)
+            if k_b <= 0:
+                continue
+            ctx = np.concatenate([np.asarray(req.prompt, np.int64).reshape(-1),
+                                  np.asarray(st.emitted, np.int64)])
+            p = [int(t) for t in self.draft.propose(ctx, k_b)[:k_b]]
+            if p:
+                props[b] = p
+        if not props:
+            return None
+        if self.reserve_policy == "ondemand":
+            for b in sorted(props, key=lambda i: self.sched.slots[i].rid
+                            if self.sched.slots[i] is not None else -1):
+                st = self.sched.slots[b]
+                if st is None:              # preempted by an earlier grower
+                    continue
+                self._grow_rows(b, st, st.pos + 1 + len(props[b]))
+        active = self.sched.decoding        # growth may have preempted
+        live = set(active)
+        props = {b: p for b, p in props.items() if b in live}
+        if not props:
+            return None
+        toks = np.zeros((self.batch, self.spec_k + 1), np.int32)
+        nrows = np.ones((self.batch,), np.int32)
+        for b in active:
+            toks[b, 0] = self.sched.slots[b].last_token
+        for b, p in props.items():
+            toks[b, 1:1 + len(p)] = p
+            nrows[b] = 1 + len(p)
+        rows = self._verify(toks, nrows)    # (B, spec_k+1, V)
+        events: List[TokenEvent] = []
+        n_emitted = 0
+        for b in active:
+            st = self.sched.slots[b]
+            req = st.request
+            p = props.get(b, [])
+            emit: List[int] = []
+            j = 0
+            while True:
+                tok = self._pick_token(rows[b, j], req)
+                emit.append(tok)
+                if len(st.emitted) + len(emit) >= req.max_new_tokens or (
+                        req.eos_token is not None and tok == req.eos_token):
+                    break                   # the request finishes on this token
+                if j < len(p) and p[j] == tok:
+                    j += 1                  # proposal matched: next row
+                    continue
+                break                       # divergence: tok is the repair
+            if p:
+                n_acc = sum(1 for i in range(min(len(emit), len(p))) if p[i] == emit[i])
+                self.counters["drafted"] += len(p)
+                self.counters["accepted"] += n_acc
+                self.counters["rejected"] += len(p) - n_acc
+                h = self.counters["accept_len_hist"]
+                h[n_acc] = h.get(n_acc, 0) + 1
+            for tok in emit:
+                st.last_token = tok
+                st.emitted.append(tok)
+                self.pos[b] += 1
+                st.pos += 1
+                done = self._done(st)
+                if done:
+                    self._finish(b)
+                events.append(TokenEvent(st.rid, tok, len(st.emitted) - 1,
+                                         req.status.terminal, req.finish_reason))
+                if done:
+                    break
+            n_emitted += len(emit)
+        self.counters["decode_steps"] += 1
+        self.counters["decode_tokens"] += n_emitted
+        return events
+
     # --- the engine loop ------------------------------------------------
 
     def poll(self) -> List[TokenEvent]:
@@ -628,6 +830,8 @@ class Engine:
         self._shed_expired()
         events = self._events
         self._events = []
+        if self.prefix_tier is not None and self.sched.waiting:
+            self._adopt_from_tier()     # adopted pages surface as ordinary prefix hits
         for _b, st in self.sched.admit():
             st.request.status = RequestStatus.PREFILL
             if st.preemptions:
@@ -655,6 +859,12 @@ class Engine:
             self.counters["cache_pages_peak"] = self.alloc.peak_live
         if not active:
             return events
+        if self.draft is not None:
+            spec = self._spec_tick()
+            if spec is not None:            # the verify forward ran this tick
+                events.extend(spec)
+                self.counters["cache_pages_peak"] = self.alloc.peak_live
+                return events
         toks = np.zeros((self.batch, 1), np.int32)
         for b in active:
             toks[b, 0] = self.sched.slots[b].last_token

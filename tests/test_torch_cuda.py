@@ -1122,3 +1122,97 @@ def test_cacheless_prefill_on_card_equals_cpu(cuda, monkeypatch):
         monkeypatch.delenv("REPRO_TORCH_KERNELS")
         assert torch.equal(got.cpu(), want)
     assert on_card.count(True) == 0 and on_card.count(False) >= 2
+
+
+# --- the speculative verify forward ------------------------------------------------
+
+VERIFY_CASES = [
+    (32, 4, 128, 16, 4, [33, 100, 250, 400, 520, 640, 700, 1000]),   # yi-6b, spec_k = 3
+    (32, 4, 128, 16, 9, [7, 1014]),                                  # spec_k = 8, a chain's end
+    (8, 2, 32, 4, 4, [5, 33, 0, 18]),                                # the smoke model's pages
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d,psize,sq,pos0", VERIFY_CASES)
+def test_paged_prefill_at_the_verify_shape_equals_plain_and_decode(cuda, h, hkv, d, psize, sq,
+                                                                   pos0):
+    """Row 3 at S = spec_k + 1 rows and a ragged, unaligned per-slot pos0:
+    equal to its plain version, and row i equal to the paged decode kernel
+    (row 4) at length pos0 + i + 1 (the identity speculative decoding on
+    the card leans on)."""
+    q, kp, vp, btab, p0, *scal = _prefill(h, hkv, d, psize, sq, pos0, cuda)
+    out = _launched_once(paged_prefill_qattention, q, kp, vp, btab, p0, *scal)
+    assert torch.equal(out, ref.paged_prefill_qattention_ref(q, kp, vp, btab, p0, *scal))
+    b = len(pos0)
+    for i in range(sq):
+        qd = q[:, :, i].reshape(b, hkv, h // hkv, d)
+        dec = paged_decode_qattention(qd, kp, vp, btab, p0 + i + 1, *scal)
+        assert torch.equal(dec.reshape(b, h, d), out[:, :, i]), i
+
+
+def _smoke_folded(device):
+    cfg = smoke_config("yi-6b")
+    return cfg, tree_map(lambda t: t.to(device), calibrated_folded(cfg, 0, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_verify_forward_on_card_equals_cpu(cuda, monkeypatch):
+    """The smoke yi-6b's verify forward (two slots at cursors 21 and 14, 4
+    and 2 real rows, after a prefill of their prompts) on the card equals
+    the gpu backend's control flow on the CPU, logit for logit on the real
+    rows, and updates the pool the same way."""
+    from repro_torch.models import serve_int as S
+
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+    rng = np.random.default_rng(6)
+    cfg = smoke_config("yi-6b")
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int32))
+    btab = torch.tensor([[3, 5, 1, 8, 0, 0, 0, 0], [2, 7, 4, 6, 0, 0, 0, 0]], dtype=torch.int32)
+    out = []
+    for dev in ("cpu", cuda):
+        _, folded = _smoke_folded(dev)
+        cache = S.init_paged_cache(cfg, 9, 8, device=dev)
+        S.serve_forward(cfg, folded, prompt.to(dev), cache=cache, pos_offset=0,
+                        block_tables=btab.to(dev))
+        logits, cache = S.serve_forward(
+            cfg, folded, toks.to(dev), cache=cache, mode="verify", block_tables=btab.to(dev),
+            pos_offset=torch.tensor([21, 14], dtype=torch.int32, device=dev),
+            verify_rows=torch.tensor([4, 2], dtype=torch.int32, device=dev))
+        out.append((torch.cat([logits[0, :4], logits[1, :2]]).cpu(),
+                    [c[leaf][:, 1:].cpu() for c in cache.values() for leaf in ("k", "v")]))
+    (cpu_logits, cpu_pool), (card_logits, card_pool) = out
+    assert torch.equal(cpu_logits, card_logits)
+    assert all(torch.equal(a, b) for a, b in zip(cpu_pool, card_pool))
+
+
+@pytest.mark.cuda
+def test_engine_on_card_spec_equals_plain(cuda):
+    """The smoke yi-6b through the engine on the card with spec_k = 3:
+    prompt lookup and the oracle give the plain-decode tokens, the oracle
+    rejects nothing with fewer decode forwards, and each verify forward
+    launches the paged prefill kernel once per layer."""
+    from repro_torch.serve.draft import SequenceDraft
+
+    cfg, folded = _smoke_folded(cuda)
+    rng = np.random.default_rng(1)
+    pats = [rng.integers(0, cfg.vocab_size, 3) for _ in range(4)]
+    prompts = [np.tile(p, n)[:m].astype(np.int32) for p, n, m in zip(pats, (3, 5, 2, 7),
+                                                                       (9, 14, 5, 20))]
+
+    def run(**kw):
+        eng = Engine(cfg, folded, EngineConfig(batch_slots=3, max_len=64, page_size=4, **kw))
+        reqs = [Request(prompt=p, max_new_tokens=9) for p in prompts]
+        n0 = paged_prefill_qattention.launches
+        eng.generate(reqs)
+        return [r.out.tolist() for r in reqs], eng.counters, paged_prefill_qattention.launches - n0
+
+    plain, c0, _ = run()
+    seqs = [list(p) + o for p, o in zip(prompts, plain)]
+    for draft in ("prompt_lookup", SequenceDraft(seqs)):
+        toks, c, launches = run(spec_k=3, draft=draft)
+        assert toks == plain
+        assert c["drafted"] == c["accepted"] + c["rejected"]
+        assert launches % cfg.n_layers == 0 and launches > cfg.n_layers * c["prefill_chunks"]
+    assert c["rejected"] == 0 and c["decode_steps"] < c0["decode_steps"]

@@ -153,7 +153,7 @@ def test_stats_schema_keys_match_reference(folded):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(tp=2), "tensor parallelism"), (dict(spec_k=2), "speculative"),
+    (dict(tp=2), "tensor parallelism"), (dict(mesh=object()), "tensor parallelism"),
 ])
 def test_unported_options_raise_naming_the_roadmap(folded, kw, what):
     with pytest.raises(E.EngineConfigError, match=f"(?s){what}.*ROADMAP"):
@@ -165,12 +165,6 @@ def test_keyword_options_raise_type_error(folded):
         E.Engine(folded[2], folded[3], btach_slots=2)
     with pytest.raises(TypeError, match="EngineConfig"):
         E.LockstepEngine(folded[2], folded[3], btach_slots=2)
-
-
-def test_prefix_tier_raises_naming_the_roadmap(folded):
-    eng = E.Engine(folded[2], folded[3], E.EngineConfig(batch_slots=2, max_len=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.attach_prefix_tier(None)
 
 
 def test_gpu_backend_chunked_equals_oneshot_on_cpu(folded, monkeypatch):
