@@ -25,20 +25,24 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
    kernel / ``_int_mm`` factor and the share of the bound, yi-6b's at
-   M = 32 too, the verify forward's rows; ``quant_layernorm`` at every
-   (R, N) a served path runs, yi-6b's 8, 32, 512 and 704 rows and
-   BERT-base's 128 and 4,096; ``quant_layernorm`` and ``quant_softmax``
-   beside the launch floor, a one-element ``torch.neg`` in the same
-   timing loop);
+   M = 32 too, the verify forward's rows, qwen3-4b's linears at M = 8 and
+   512 and qwen2-moe-a2.7b's experts at M = 4, 8 and 43; ``quant_layernorm``
+   at every (R, N) a served path runs, yi-6b's 8, 32, 512 and 704 rows,
+   BERT-base's 128 and 4,096, qwen3-4b's and qwen2-moe's widths 2560 and
+   2048 and stablelm's LN at 2048; ``quant_layernorm`` and
+   ``quant_softmax`` beside the launch floor, a one-element ``torch.neg``
+   in the same timing loop; the paged decode and prefill kernels, int8 and
+   packed, also at G = 1: qwen2-moe's 16 heads of 128 and stablelm's 32
+   heads of 64);
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
    with chunked prefill, which must give the same tokens, reuse a shared
    prefix and launch every kernel of that path, then profiles a decode
    tick and a 512-row and a 128-row paged prefill chunk; in every served run,
-   ``[eval]`` and ``[bert]`` the GEMMs of a prefill or cache-less forward
-   must take the tensor-core path and those of a decode tick the decode
-   path (launches counted by path);
+   ``[eval]`` and ``[bert]`` every GEMM must take the path its M implies,
+   the decode path at M <= 8 and the tensor cores above (launches counted
+   by path against the shapes of the recorded forwards);
    ``[spec]``: the same requests with speculative decoding (``spec_k=3``)
    on the paged int8 pool, once with ``PromptLookupDraft`` and once with a
    ``SequenceDraft`` of the one-shot run's tokens (the oracle): both must
@@ -68,9 +72,22 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    prefill, and ``flash_qdecode`` per layer over that stripe's cache, equal
    to ``decode_qattention`` on it; no served path may run the plain flash
    on the card (counted);
+   ``[qwen3]`` and ``[moe]``: qwen3-4b (36 layers, qk-norm) and
+   qwen2-moe-a2.7b (24 layers, 60 routed experts top-4 and 4 shared, one
+   ``int4_matmul`` launch per expert and linear) at full size, each
+   calibrated and folded on the card (time and GiB printed), the 8
+   requests one-shot and chunked through the Engine on the paged int8 pool
+   (equal tokens unless the MoE router dropped a choice at capacity, which
+   couples a forward's rows: then the drops and the first divergence are
+   printed), every GEMM on the path its M implies (a MoE's experts at M =
+   capacity), the launches of a decode forward and of a chunk, profiles of
+   a decode tick and a 512-row chunk with the experts' share of the GEMM
+   time;
    then checks a small model against the same forward on the CPU on the
    paged int8 pool, the packed pool, the stripe, the verify forward and
-   without a cache;
+   without a cache, and small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b
+   through the Engine (equal greedy tokens, the differing logits of a
+   prefill and 4 decode steps counted);
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -104,7 +121,6 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM CUDA-core float32 rate (32-bit ops)
 L2_BYTES = 50 << 20            # H100 L2 cache
 SEED = 0
-LINEARS_PER_LAYER = 7          # yi-6b: wq, wk, wv, wo, wg, wu, wd, each an int4_matmul
 
 
 class SmokeFailure(RuntimeError):
@@ -176,11 +192,42 @@ def compare(got, want):
     return int((d > 0).sum()), float(d.max())
 
 
+# (B, S, mode, launches by counter) of every serve_forward call since the
+# last reset_gemm_paths(); filled by record_forwards()
+FORWARDS: list = []
+
+
+def record_forwards(kernels):
+    """Wrap ``serve_int.serve_forward`` (the engines and this script call it
+    through the module) so that each call appends its token shape, its mode
+    and the launches it made: each wrapper of ``kernels`` by name and the
+    W4A8 GEMM by path."""
+    from repro_torch.kernels import int4_matmul as mm
+    from repro_torch.models import serve_int as S
+
+    inner = S.serve_forward
+
+    def counts():
+        return dict({k.__name__: k.launches for k in kernels},
+                    **{f"gemm {p}": n for p, n in mm.int4_matmul.path_launches.items()})
+
+    def recorded(cfg, folded, tokens, **kw):
+        before = counts()
+        out = inner(cfg, folded, tokens, **kw)
+        after = counts()
+        FORWARDS.append((int(tokens.shape[0]), int(tokens.shape[1]), kw.get("mode", "prefill"),
+                         {k: after[k] - before[k] for k in after}))
+        return out
+
+    S.serve_forward = recorded
+
+
 def reset_gemm_paths():
     from repro_torch.kernels import int4_matmul as mm
 
     for f in (mm.int4_matmul, mm.int8_bitsplit_matmul):
         f.path_launches = dict.fromkeys(mm.PATHS, 0)
+    FORWARDS.clear()
 
 
 def gemm_paths(name: str = "int4_matmul") -> dict:
@@ -190,12 +237,34 @@ def gemm_paths(name: str = "int4_matmul") -> dict:
     return dict(getattr(mm, name).path_launches)
 
 
-def check_paths(what, got, tc_forwards, decode_forwards, per_forward):
-    """Every GEMM of a prefill (or cache-less) forward took the tensor-core
-    path, every GEMM of a decode forward the decode path."""
-    want = {"tensor_core": per_forward * tc_forwards, "decode": per_forward * decode_forwards}
-    check(got == want, f"{what}: GEMM launches by path {got} != {want} (every prefill GEMM "
-          "on the tensor cores, every decode GEMM on the decode path)")
+def forward_gemm_ms(cfg, t: int) -> list:
+    """The M of every integer GEMM of one layer of a forward over t = B * S
+    rows: the four attention projections and a dense FFN's linears at M = t;
+    a MoE slot's shared experts (three linears each) at M = t and its routed
+    experts (three each) at M = capacity(t)."""
+    from repro_torch.models.moe import capacity
+
+    ms = [t] * 4
+    if cfg.n_experts:
+        ms += [t] * 3 * cfg.n_shared_experts
+        ms += [capacity(t, cfg.n_experts, cfg.top_k)] * 3 * cfg.n_experts
+    else:
+        ms += [t] * (3 if cfg.act == "swiglu" else 2)
+    return ms
+
+
+def check_paths(what, cfg, got, forwards):
+    """Every GEMM of the recorded ``forwards`` took the path its M implies:
+    the decode path at M <= 8 (a decode tick, or experts at their capacity
+    of 4-8 rows), the tensor cores above."""
+    from repro_torch.kernels.int4_matmul import DECODE_MAX_M
+
+    want = {"tensor_core": 0, "decode": 0}
+    for b, s, _, _ in forwards:
+        for m in forward_gemm_ms(cfg, b * s):
+            want["decode" if m <= DECODE_MAX_M else "tensor_core"] += cfg.n_layers
+    check(got == want, f"{what}: GEMM launches by path {got} != {want} (each GEMM on the "
+          "path its M implies)")
 
 
 # --- kernel phases -------------------------------------------------------------
@@ -208,6 +277,11 @@ def _rand_i8(torch, gen, shape):
 # BERT-base's (the four attention projections, w1, w2)
 YI6B_GEMMS = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096))
 BERT_GEMMS = ((768, 768), (768, 3072), (3072, 768))
+# qwen3-4b's (wq, wk and wv, wg and wu, wo, wd) and qwen2-moe-a2.7b's
+# experts' (wg and wu, wd); the experts run at M = capacity: 4 at a decode
+# tick or a chunk of up to 48 rows, 8 at 96 rows, 43 at a 512-row chunk
+QWEN3_GEMMS = ((2560, 4096), (2560, 1024), (2560, 9728), (4096, 2560), (9728, 2560))
+EXPERT_GEMMS = ((2048, 1408), (1408, 2048))
 
 
 def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
@@ -267,11 +341,19 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
 def phase_int4_matmul(torch, gen):
     # M = 32: a verify forward's rows (8 slots x spec_k + 1 = 4)
     shapes = ([(m, k, n) for m in (8, 32, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
-              + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS])
+              + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]
+              + [(m, k, n) for m in (8, 512) for k, n in QWEN3_GEMMS]
+              + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS])
     row = gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
     row["verify"] = dict(row["rows"][(32, 4096, 11008)],
                          shape="M=32 (verify: 8 slots x 4 rows) K=4096 N=11008 (wg/wu)")
+    row["qwen3"] = dict(row["rows"][(8, 2560, 9728)],
+                        shape="M=8 (qwen3-4b decode batch) K=2560 N=9728 (wg/wu)")
+    row["expert"] = dict(row["rows"][(4, 2048, 1408)],
+                         shape="M=4 (qwen2-moe expert at a decode tick) K=2048 N=1408 (wg/wu)")
+    row["expert_chunk"] = dict(row["rows"][(43, 2048, 1408)],
+                               shape="M=43 (qwen2-moe expert, 512-row chunk) K=2048 N=1408")
     return row
 
 
@@ -285,9 +367,12 @@ def launch_floor_ms(torch) -> float:
 # (subtract_mean, R, N) of the served LN/RMSNorm calls: yi-6b's RMSNorm at a
 # decode tick, a verify forward (8 slots x 4 rows), a 512-row chunk and the
 # longest one-shot prefill chunk; LN at yi-6b's width; BERT-base's LN at
-# (1, 128) and (8, 512)
+# (1, 128) and (8, 512); qwen3-4b's (2560) and qwen2-moe's (2048) RMSNorm
+# and stablelm's LN (2048) at a decode tick and a 512-row chunk
 LN_SHAPES = ((False, 8, 4096), (False, 32, 4096), (False, 512, 4096), (False, 704, 4096),
-             (True, 8, 4096), (True, 512, 4096), (True, 128, 768), (True, 4096, 768))
+             (True, 8, 4096), (True, 512, 4096), (True, 128, 768), (True, 4096, 768),
+             (False, 8, 2560), (False, 512, 2560), (False, 8, 2048), (False, 512, 2048),
+             (True, 8, 2048), (True, 512, 2048))
 
 
 def ln_cases(torch, gen):
@@ -389,11 +474,17 @@ def _pool(torch, gen, n_pages, psize, hkv, d, packed):
     return (kp, vp, ks, vs), d, 8
 
 
-def _decode_shape(torch, gen, lengths, nb, packed):
-    """Inputs of the paged decode kernels at yi-6b's heads (Hkv=4, G=8,
-    D=128, 16-row pages) for slots of ``lengths`` rows, ``nb`` table
-    entries each, and the bound of one call."""
-    hkv, g, d, psize = 4, 8, 128, 16
+# (Hkv, G, D) of the served archs' attention: yi-6b's GQA, and G = 1 at
+# qwen2-moe-a2.7b's 16 heads of 128 and stablelm-1.6b's 32 heads of 64
+YI6B_HEADS = (4, 8, 128)
+G1_HEADS = {"qwen2-moe G=1": (16, 1, 128), "stablelm G=1": (32, 1, 64)}
+
+
+def _decode_shape(torch, gen, lengths, nb, packed, heads=YI6B_HEADS):
+    """Inputs of the paged decode kernels at ``heads`` (Hkv, G, D; 16-row
+    pages) for slots of ``lengths`` rows, ``nb`` table entries each, and
+    the bound of one call."""
+    (hkv, g, d), psize = heads, 16
     b = len(lengths)
     n_pages = b * nb + 1
     pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
@@ -416,29 +507,32 @@ def phase_paged_decode(torch, gen, packed=False):
 
     fn, plain = (mod.paged_decode_qattention_q4, ref.paged_decode_qattention_q4_ref) \
         if packed else (mod.paged_decode_qattention, ref.paged_decode_qattention_ref)
-    shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 64),   # yi-6b, max_len 1024
-              "B=1 len=4096": ([4096], 256)}                           # yi-6b's full context
+    tick = [33, 100, 250, 400, 520, 640, 700, 1000]                   # max_len 1024
+    shapes = {"B=8": (tick, 64, YI6B_HEADS),
+              "B=1 len=4096": ([4096], 256, YI6B_HEADS),                # yi-6b's full context
+              **{label: (tick, 64, heads) for label, heads in G1_HEADS.items()}}
     rows = {}
-    for label, (lengths, nb) in shapes.items():
-        args, pages, (bnd, bnd_by) = _decode_shape(torch, gen, lengths, nb, packed)
+    for label, (lengths, nb, heads) in shapes.items():
+        hkv, g, d = heads
+        args, pages, (bnd, bnd_by) = _decode_shape(torch, gen, lengths, nb, packed, heads)
         mism, err = compare(fn(*args), plain(*args))
-        blocks = -(-nb // mod.SPAN) * 4 * len(lengths)
-        live = sum(4 * -(-n // mod.SPAN) for n in pages)
+        blocks = -(-nb // mod.SPAN) * hkv * len(lengths)
+        live = sum(hkv * -(-n // mod.SPAN) for n in pages)
         rows[label] = dict(ms=device_ms(torch, fn, args),
                            plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None,
                            mismatches=mism, max_abs_err=err, bound_ms=bnd, bound_by=bnd_by,
                            launches_per_call=3, blocks=blocks, live_blocks=live,
-                           shape=f"{label} Hkv=4 G=8 D=128 P=16{' packed' if packed else ''} "
-                                 f"lengths={lengths}")
-        print(f"  {fn.__name__} {label}: kernel {rows[label]['ms']:.4f} ms, "
-              f"plain {rows[label]['plain_ms']:.4f} ms, "
+                           shape=f"{label} Hkv={hkv} G={g} D={d} P=16"
+                                 f"{' packed' if packed else ''} lengths={lengths}")
+        print(f"  {fn.__name__} {label} (Hkv={hkv} G={g} D={d}): kernel "
+              f"{rows[label]['ms']:.4f} ms, plain {rows[label]['plain_ms']:.4f} ms, "
               f"bound {bnd:.5f} ms ({bnd_by}); passes A and B {blocks} blocks each, "
-              f"{live} with pages to run, the carry {len(lengths) * 4 * 8} blocks; "
-              f"{mism} mismatching codes")
-    long_row = rows["B=1 len=4096"]
-    check(long_row["mismatches"] == 0,
-          f"{fn.__name__}: kernel != plain version on the 4,096-row chain")
-    return dict(rows["B=8"], long=long_row)
+              f"{live} with pages to run, the carry {len(lengths) * hkv * g * d // 128} "
+              f"blocks; {mism} mismatching codes")
+    for label, row in rows.items():
+        check(row["mismatches"] == 0, f"{fn.__name__}: kernel != plain version at {label}")
+    return dict(rows["B=8"], long=rows["B=1 len=4096"],
+                g1_moe=rows["qwen2-moe G=1"], g1_stablelm=rows["stablelm G=1"])
 
 
 def phase_paged_prefill(torch, gen, packed=False):
@@ -451,13 +545,16 @@ def phase_paged_prefill(torch, gen, packed=False):
 
     fn, plain = (mod.paged_prefill_qattention_q4, ref.paged_prefill_qattention_q4_ref) \
         if packed else (mod.paged_prefill_qattention, ref.paged_prefill_qattention_ref)
-    h, hkv, d, psize = 32, 4, 128, 16
-    cases = {"main": (512, [0]), "chunk": (128, [256]), "unaligned": (64, [37, 0]),
-             "long": (704, [0]), "last_chunk": (16, [1008])}
+    yi = (32, 4, 128)                   # (H, Hkv, D)
+    psize = 16
+    cases = {"main": (512, [0], yi), "chunk": (128, [256], yi), "unaligned": (64, [37, 0], yi),
+             "long": (704, [0], yi), "last_chunk": (16, [1008], yi)}
     if not packed:      # the speculative verify forward (int8 pool only): S = spec_k + 1
-        cases["verify"] = (4, VERIFY_POS0)
+        cases["verify"] = (4, VERIFY_POS0, yi)
+    for label, (hkv, _, d) in G1_HEADS.items():          # G = 1: a one-shot 512-row prompt
+        cases[label] = (512, [0], (hkv, hkv, d))
     mism, err, rows_of = 0, 0.0, {}
-    for label, (sq, pos0) in cases.items():
+    for label, (sq, pos0, (h, hkv, d)) in cases.items():
         nb = 64 if label == "verify" else -(-(max(pos0) + sq) // psize) + 1  # 1,024-row chains
         n_pages = len(pos0) * nb + 1
         pool, row_bytes, page_bytes = _pool(torch, gen, n_pages, psize, hkv, d, packed)
@@ -468,18 +565,20 @@ def phase_paged_prefill(torch, gen, packed=False):
         mism, err = mism + c, max(err, e)
         row = dict(ms=device_ms(torch, fn, args),
                    plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None,
-                   mismatches=c, shape=f"B={len(pos0)} H=32 Hkv=4 D=128 P=16"
+                   mismatches=c, shape=f"B={len(pos0)} H={h} Hkv={hkv} D={d} P=16"
                                        f"{' packed' if packed else ''} S={sq} pos0={pos0}")
         keys = sum(sum(p + i + 1 for i in range(sq)) for p in pos0)
         rows = sum(p + sq for p in pos0)
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * len(pos0) * h * sq * d + rows * hkv * row_bytes
             + page_bytes * -(-rows // psize) + 4 * len(pos0) * nb + 1024, 4.0 * h * d * keys)
-        print(f"  {fn.__name__} S={sq} pos0={pos0}: kernel {row['ms']:.4f} ms, plain "
+        print(f"  {fn.__name__} H={h} Hkv={hkv} D={d} S={sq} pos0={pos0}: kernel "
+              f"{row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
               f"{c} mismatching codes")
         rows_of[label] = row
     return dict(rows_of["main"], mismatches=mism, max_abs_err=err,
+                g1_moe=rows_of["qwen2-moe G=1"], g1_stablelm=rows_of["stablelm G=1"],
                 **{k: rows_of[k] for k in ("chunk", "long", "last_chunk", "verify")
                    if k in rows_of})
 
@@ -695,11 +794,13 @@ def _prompts(vocab: int):
     return out
 
 
-def profile_steps(torch, step, what: str, n: int = 3):
+def profile_steps(torch, step, what: str, n: int = 3, experts: bool = False):
     """Where the time of ``step()`` goes: ``n`` calls on the host clock
     (each ending in a synchronise) and ``n`` under torch.profiler (device
     activity only); prints the device's busy share of an unprofiled call
-    and device time by kernel."""
+    and device time by kernel.  ``experts``: then the routed and shared
+    experts' share of the integer GEMMs' device time
+    (``expert_gemm_share``)."""
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -741,11 +842,61 @@ def profile_steps(torch, step, what: str, n: int = 3):
             ms = sum(r[0] for r in picked) / n / 1e3
             print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
                   f"time), {sum(r[1] for r in picked) // n} kernels per call")
+    if experts:
+        expert_gemm_share(torch, step)
+
+
+def expert_gemm_share(torch, step):
+    """The experts' share of the W4A8 GEMMs' device time in ``step()``:
+    one call records every ``ops.linear_w4a8`` call's operands and whether
+    it came from inside ``serve_int._experts_int``; then the recorded GEMMs
+    are replayed under torch.profiler, all of them and the experts' alone,
+    and each replay's GEMM kernels (the split-K reduces included) summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import serve_int as S
+
+    saved = ops.linear_w4a8, S._experts_int
+    calls, depth = [], [0]
+
+    def gemm(x, fl):
+        calls.append((x, fl, depth[0] > 0))
+        return saved[0](x, fl)
+
+    def experts(*a, **kw):
+        depth[0] += 1
+        try:
+            return saved[1](*a, **kw)
+        finally:
+            depth[0] -= 1
+
+    ops.linear_w4a8, S._experts_int = gemm, experts
+    try:
+        step()
+    finally:
+        ops.linear_w4a8, S._experts_int = saved
+
+    def replay_ms(picked):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x, fl, _ in picked:
+                ops.linear_w4a8(x, fl)
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if "fq::igemm::" in e.key) / 1e3
+
+    mine = [c for c in calls if c[2]]
+    total, ms = replay_ms(calls), replay_ms(mine)
+    print(f"    experts' GEMMs (routed and shared), replayed under the profiler: {len(mine)} "
+          f"launches {ms:.3f} ms of all {len(calls)} W4A8 GEMMs' {total:.3f} ms "
+          f"({100 * ms / total:.1f} %)")
 
 
 def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
     """A steady decode tick of the served requests, once every prompt is
-    cached (``Engine.poll`` ends in a device-to-host copy)."""
+    cached (``Engine.poll`` ends in a device-to-host copy); a MoE arch's
+    experts' share of the GEMM time too."""
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
     eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024, **extra))
@@ -753,15 +904,15 @@ def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
         eng.submit(Request(prompt=p, max_new_tokens=32))
     while eng.sched.waiting or eng.sched.prefilling:
         eng.poll()
-    profile_steps(torch, eng.poll, what)
+    profile_steps(torch, eng.poll, what, experts=bool(cfg.n_experts))
 
 
-def profile_prefill_chunks(torch, cfg, folded):
-    """One paged int8 prefill chunk of 512 rows at position 0 (a one-shot
-    prompt) and one of 128 rows at position 256 (a chunked run's chunk),
-    each a whole-model forward through the paged pool (16-row pages, a
-    64-entry block table): wall and device time, kernels, and the paged
-    prefill attention's share."""
+def profile_prefill_chunks(torch, cfg, folded, chunks=((512, 0), (128, 256))):
+    """Paged int8 prefill chunks of (rows, position): by default one of 512
+    rows at 0 (a one-shot prompt) and one of 128 rows at 256 (a chunked
+    run's chunk), each a whole-model forward through the paged pool
+    (16-row pages, a 64-entry block table): wall and device time, kernels,
+    the paged prefill attention's share (and a MoE arch's experts')."""
     from repro_torch.models import serve_int as S
 
     pf = S.prepare_folded(cfg, folded)
@@ -769,11 +920,12 @@ def profile_prefill_chunks(torch, cfg, folded):
     cache = S.init_paged_cache(cfg, nb + 1, 16, device="cuda")
     btab = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
     prompt = torch.as_tensor(_prompts(cfg.vocab_size)[1][None, :512], device="cuda")
-    for rows, pos0 in ((512, 0), (128, 256)):
+    for rows, pos0 in chunks:
         toks = prompt[:, pos0:pos0 + rows]
         profile_steps(torch, lambda t=toks, p=pos0: S.serve_forward(
             cfg, pf, t, cache=cache, pos_offset=p, mode="prefill", block_tables=btab),
-            f"paged int8 prefill chunk, {rows} rows at position {pos0}")
+            f"paged int8 prefill chunk, {rows} rows at position {pos0}",
+            experts=bool(cfg.n_experts))
 
 
 def serve(torch, cfg, folded, kernels, on_engine=None, **extra):
@@ -816,7 +968,8 @@ def serve(torch, cfg, folded, kernels, on_engine=None, **extra):
           "a request returned the wrong number of tokens or an out-of-vocab token")
     n_tok = sum(len(t) for t in toks)
     return dict(tokens=toks, counters=dict(eng.counters), launches=launches,
-                paths=gemm_paths(), tick_launches=tick_launches, wall_s=wall,
+                paths=gemm_paths(), forwards=list(FORWARDS), tick_launches=tick_launches,
+                wall_s=wall,
                 tok_per_s=n_tok / wall,
                 ttft_p50_s=float(np.median(list(first.values()))),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -859,8 +1012,7 @@ def phase_serve(torch, cfg, folded, kernels):
         print_run(name, r, kernels)
         check(all(n > 0 for n in r["launches"]),
               f"{name}: a kernel of the path was never launched: {r['launches']}")
-        check_paths(name, r["paths"], r["counters"]["prefill_chunks"],
-                    r["counters"]["decode_steps"], LINEARS_PER_LAYER * cfg.n_layers)
+        check_paths(name, cfg, r["paths"], r["forwards"])
     one, chunked = runs["one-shot"], runs["chunked"]
     check(one["tokens"] == chunked["tokens"], "chunked prefill changed the tokens")
     check(one["counters"]["prefix_hits"] >= 1, "the shared prefix was not reused")
@@ -951,8 +1103,7 @@ def phase_spec(torch, cfg, folded, kernels, plain):
               f"spec {name}: paged_prefill_qattention launches per verify forward {per_fwd}")
         check(r["launches"][2] == cfg.n_layers * (c["prefill_chunks"] + nv),
               f"spec {name}: paged_prefill_qattention launches {r['launches'][2]}")
-        check_paths(f"spec {name}", r["paths"], c["prefill_chunks"] + nv, c["decode_steps"] - nv,
-                    LINEARS_PER_LAYER * cfg.n_layers)
+        check_paths(f"spec {name}", cfg, r["paths"], r["forwards"])
         total = [a + b for a, b in zip(total, r["launches"])]
         runs[name] = dict(r, verify_forwards=nv)
     oracle = runs["oracle"]
@@ -1067,8 +1218,7 @@ def phase_kv4(torch, cfg, folded, int8_run):
         check(r["tick_launches"][1] == cfg.n_layers, f"{name}: q4 decode launches per tick "
               f"{r['tick_launches'][1]} != {cfg.n_layers}")
         check(r["bytes_per_page"] == 262_400, f"{name}: bytes per page {r['bytes_per_page']}")
-        check_paths(name, r["paths"], c["prefill_chunks"], c["decode_steps"],
-                    LINEARS_PER_LAYER * cfg.n_layers)
+        check_paths(name, cfg, r["paths"], r["forwards"])
     one, chunked = runs["kv4 one-shot"], runs["kv4 chunked"]
     check(chunked["counters"]["chunked_prefills"] >= 1, "kv4: no prompt was chunked")
     print(f"  bytes per page (16 rows, all layers): kv4 {one['bytes_per_page']:,} vs int8 "
@@ -1103,6 +1253,7 @@ def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16, temp
     check(all(len(t) == new and all(0 <= x < cfg.vocab_size for x in t) for t in toks),
           "lockstep: a request returned the wrong number of tokens or an out-of-vocab token")
     return dict(tokens=toks, launches=[k.launches for k in kernels], paths=gemm_paths(),
+                forwards=list(FORWARDS),
                 wall_s=wall, tok_per_s=n * new / wall, steps=prompt_len + new - 1,
                 sampled_steps=new - 1 if temperature > 0 else 0)
 
@@ -1165,8 +1316,7 @@ def phase_contiguous(torch, cfg, folded):
     check(r["launches"] == want, f"contiguous: launches {r['launches']} != {want} (32 "
           "decode_qattention per tick, 32 flash_qattention per one-shot prefill, no paged "
           "kernel)")
-    check_paths("contiguous", r["paths"], c["oneshot_prefills"], c["decode_steps"],
-                LINEARS_PER_LAYER * cfg.n_layers)
+    check_paths("contiguous", cfg, r["paths"], r["forwards"])
     stripe = 2 * cfg.n_layers * 8 * 1024 * cfg.n_kv_heads * cfg.hd
     print(f"  stripe: 8 x 1024 rows, {stripe / 1e6:.0f} MB for {cfg.n_layers} layers (K + V)")
     lock = serve_lockstep(torch, cfg, folded, kernels)
@@ -1177,7 +1327,7 @@ def phase_contiguous(torch, cfg, folded):
           f"lockstep: launches {lock['launches']} (32 per decode step; it prefills through "
           "decode steps)")
     print(f"  lockstep: int4_matmul launches by path {lock['paths']}")
-    check_paths("lockstep", lock["paths"], 0, lock["steps"], LINEARS_PER_LAYER * cfg.n_layers)
+    check_paths("lockstep", cfg, lock["paths"], lock["forwards"])
     hot = serve_lockstep(torch, cfg, folded, kernels, temperature=0.7)
     print(f"  lockstep sampled (T=0.7): {hot['tok_per_s']:.1f} tok/s ({hot['wall_s']:.2f} s "
           f"wall, {hot['steps']} decode steps, {hot['sampled_steps']} of them sampled); greedy "
@@ -1219,7 +1369,7 @@ def phase_eval(torch, cfg, folded):
         torch.cuda.synchronize()
         n_flash = fa.flash_qattention.launches
         paths = gemm_paths()
-        check_paths(f"eval ({b}, {s})", paths, 1, 0, LINEARS_PER_LAYER * cfg.n_layers)
+        check_paths(f"eval ({b}, {s})", cfg, paths, FORWARDS)
         check(tuple(logits.shape) == (b, s, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"eval ({b}, {s}): logits shape {tuple(logits.shape)} or non-finite values")
@@ -1273,6 +1423,194 @@ def phase_eval(torch, cfg, folded):
           f" layer): {differ} codes differ from decode_qattention on the same cache")
     check(differ == 0, "flash_qdecode != decode_qattention on the same cache")
     return out
+
+
+# name -> (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab), at
+# full size; qwen2-moe's d_ff is its experts' (moe_d_ff)
+ARCHS = {"qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
+         "qwen2-moe-a2.7b": (24, 2048, 16, 16, 128, 1408, 151936)}
+
+
+def load_arch(torch, name):
+    """One of ``ARCHS`` at full size and depth: random weights from SEED,
+    calibrated on (2, 32) and folded on the card (the float weights freed
+    by ``calibrated_folded``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import calibrated_folded
+
+    cfg = get_config(name)
+    dims = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.moe_d_ff or cfg.d_ff, cfg.vocab_size)
+    check(dims == ARCHS[name], f"{name} is not full size: {dims}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    folded = calibrated_folded(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {name}: init + calibrate (2, 32) + fold {time.perf_counter() - t0:.1f} s, "
+          f"folded {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)"
+          + (f"; {cfg.n_experts} routed experts top-{cfg.top_k} and {cfg.n_shared_experts} "
+             f"shared a layer" if cfg.n_experts else "; qk-norm" if cfg.qk_norm else ""))
+    return cfg, folded
+
+
+def print_forward_launches(r):
+    """The launches of the first decode forward and of the shortest and the
+    longest prefill chunk of a served run (``record_forwards``)."""
+    chunks = sorted((s, i) for i, (_, s, mode, _) in enumerate(r["forwards"])
+                    if mode == "prefill")
+    picks = [i for i, f in enumerate(r["forwards"]) if f[2] == "decode"][:1]
+    picks += sorted({chunks[0][1], chunks[-1][1]}) if chunks else []
+    for i in picks:
+        b, s, mode, launches = r["forwards"][i]
+        what = f"decode forward ({b} slots)" if mode == "decode" else f"{s}-row chunk"
+        print(f"    {what}: { {k: v for k, v in launches.items() if v} }")
+
+
+class DroppedChoices:
+    """While open, counts the routing choices ``models.moe.topk_routing``
+    drops (its expert's capacity full) on the device; ``n`` after close, of
+    ``choices`` made."""
+
+    def __init__(self):
+        self.n = self.choices = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.inner = moe.topk_routing
+        self.total = 0          # a device tensor after the first call: no sync per call
+        self.choices = 0
+
+        def counted(gate_logits, top_k, cap):
+            dest, gates, aux = self.inner(gate_logits, top_k, cap)
+            self.total = self.total + (dest == gate_logits.shape[1] * cap).sum()
+            self.choices += dest.numel()
+            return dest, gates, aux
+
+        moe.topk_routing = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.topk_routing = self.inner
+        self.n = int(self.total)
+
+
+def phase_arch(torch, name, kernels):
+    """An arch of ``ARCHS`` at full size through the Engine on the paged int8
+    pool: the 8 requests one-shot and chunked (128-row chunks), every
+    kernel of the path launched, every GEMM on the path its M implies (a
+    MoE's experts at M = capacity); the launches of a decode forward and of
+    each chunk length; profiles of a decode tick and a 512-row chunk.  The
+    two runs must give equal tokens unless a MoE router dropped a routing
+    choice (capacity couples the rows of a forward, so a dropped choice
+    depends on the forward's other rows and legitimately moves tokens:
+    then the first divergence is printed, not gated).  The weights are
+    freed before it returns."""
+    cfg, folded = load_arch(torch, name)
+    runs, drops = {}, {}
+    for label, extra in (("one-shot", {}),
+                         ("chunked", dict(max_prefill_chunk=128, max_batched_tokens=256))):
+        with DroppedChoices() as dropped:
+            runs[label] = serve(torch, cfg, folded, kernels, **extra)
+        drops[label] = dropped.n
+        if cfg.n_experts:
+            print(f"  {name} {label}: {dropped.n} of {dropped.choices} routing choices dropped "
+                  f"at capacity ({100 * dropped.n / dropped.choices:.1f} %)")
+        r = runs[label]
+        print_run(f"{name} {label}", r, kernels)
+        print_forward_launches(r)
+        check(all(n > 0 for n in r["launches"]),
+              f"{name} {label}: a kernel of the path was never launched: {r['launches']}")
+        check_paths(f"{name} {label}", cfg, r["paths"], r["forwards"])
+    one, chunked = runs["one-shot"], runs["chunked"]
+    div = first_divergence(one["tokens"], chunked["tokens"])
+    if cfg.n_experts:
+        print(f"  one-shot vs chunked first divergence (request, token): {div}")
+    if drops["one-shot"] == drops["chunked"] == 0:
+        check(div is None, f"{name}: chunked prefill changed the tokens (first divergence {div})")
+    else:
+        print(f"  {name}: one-shot vs chunked tokens not gated (dropped choices depend on each "
+              f"forward's rows); {sum(a == b for a, b in zip(one['tokens'], chunked['tokens']))} "
+              "of 8 requests identical")
+    check(chunked["counters"]["chunked_prefills"] >= 1, f"{name}: no prompt was chunked")
+    profile_decode(torch, cfg, folded, f"{name} decode tick (batch 8)")
+    profile_prefill_chunks(torch, cfg, folded, chunks=((512, 0),))
+    del folded
+    torch.cuda.empty_cache()
+    return one
+
+
+def phase_small_archs(torch):
+    """Small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b: the same Engine
+    requests on the card (the kernels) and on the CPU (their plain versions,
+    REPRO_TORCH_KERNELS=gpu), one-shot and chunked, must give equal greedy
+    tokens; then a paged prefill and 4 decode steps fed the CPU's tokens,
+    with the logits that differ counted (the router's and the qk-norm
+    RoPE island's float steps may move a code between the devices)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import calibrated_folded
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    prev = os.environ.get("REPRO_TORCH_KERNELS")
+    os.environ["REPRO_TORCH_KERNELS"] = "gpu"
+    try:
+        for name in ("stablelm-1.6b", "qwen3-4b", "qwen2-moe-a2.7b"):
+            cfg = smoke_config(name)
+            folded_cpu = calibrated_folded(cfg, SEED, device="cpu")
+            folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to("cuda"), folded_cpu)}
+            rng = np.random.default_rng(SEED)
+            prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                       for n in (9, 30, 17, 12)]
+            toks = {}
+            for dev in ("cpu", "cuda"):
+                for chunk in (None, 8):
+                    kw = dict(max_prefill_chunk=8, max_batched_tokens=16) if chunk else {}
+                    eng = Engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64,
+                                                                 page_size=4, **kw))
+                    toks[dev, chunk] = [r.out.tolist() for r in eng.generate(
+                        [Request(prompt=p, max_new_tokens=8) for p in prompts])]
+            btab = torch.tensor([[3, 5, 1, 0], [2, 7, 4, 0]], dtype=torch.int32)
+            prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
+            out, fed = {}, []
+            for dev in ("cpu", "cuda"):
+                cache = S.init_paged_cache(cfg, 9, 16, device=dev)
+                bt = btab.to(dev)
+                logits, cache = S.serve_forward(cfg, folded[dev], prompt.to(dev), cache=cache,
+                                                pos_offset=0, block_tables=bt)
+                rows = [logits.reshape(-1, cfg.vocab_size).cpu()]
+                for step in range(4):
+                    if dev == "cpu":
+                        fed.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+                    logits, cache = S.serve_forward(
+                        cfg, folded[dev], fed[step].to(dev), cache=cache,
+                        pos_offset=torch.full((2,), 32 + step, dtype=torch.int32, device=dev),
+                        mode="decode", block_tables=bt)
+                    rows.append(logits.reshape(-1, cfg.vocab_size).cpu())
+                out[dev] = torch.cat(rows)
+            a, b = out["cpu"], out["cuda"]
+            differ = int((a != b).sum())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            print(f"  small {name}, card vs CPU: Engine tokens equal one-shot "
+                  f"{toks['cuda', None] == toks['cpu', None]}, chunked "
+                  f"{toks['cuda', 8] == toks['cpu', 8]}; paged prefill + 4 decode steps: "
+                  f"{differ} of {a.numel()} logits differ, argmax agrees on {agree:.4f} of "
+                  f"{a.shape[0]} rows")
+            check(bool(torch.isfinite(b).all()), f"small {name}: non-finite logits on the card")
+            check(toks["cuda", None] == toks["cpu", None] and toks["cuda", 8] == toks["cpu", 8],
+                  f"small {name}: the card's greedy tokens differ from the CPU's")
+            if not cfg.n_experts:       # a MoE's dropped choices follow its chunking
+                check(toks["cuda", None] == toks["cuda", 8],
+                      f"small {name}: chunked prefill changed the card's tokens")
+    finally:
+        if prev is None:
+            del os.environ["REPRO_TORCH_KERNELS"]
+        else:
+            os.environ["REPRO_TORCH_KERNELS"] = prev
 
 
 def phase_small_reference(torch):
@@ -1424,7 +1762,7 @@ def phase_bert(torch):
                   f"bert {name} ({b}, {s}): logits shape {tuple(logits.shape)} or non-finite")
             check(launches == want, f"bert {name} ({b}, {s}): launches {launches} != {want}")
             paths = gemm_paths(gemm.__name__)
-            check_paths(f"bert {name} ({b}, {s})", paths, 1, 0, BERT_LAUNCHES["gemm"])
+            check_paths(f"bert {name} ({b}, {s})", cfg, paths, FORWARDS)
             print(f"    ({b}, {s}): logits finite, launches per forward {launches}, "
                   f"{gemm.__name__} by path {paths}")
             if (b, s) == (1, 128):
@@ -1561,7 +1899,8 @@ def main() -> int:
         (fa.flash_qdecode, phase_flash_qdecode, fa.DECODE_SOURCE, fa.DECODE_REPLACES),
     ]
     check(len(table) == len(_build.KERNELS), "the kernel table and _build.KERNELS disagree")
-    engine_wrappers = [fn for fn, *_ in table[:4]]      # the yi-6b engine's kernels
+    engine_wrappers = [fn for fn, *_ in table[:4]]      # the engine's kernels
+    record_forwards(engine_wrappers)
     rows = []
     for fn, phase, *_ in table:
         print(f"[kernel] {fn.__name__}")
@@ -1598,14 +1937,24 @@ def main() -> int:
     print("[eval] yi-6b, full width, the cache-less causal forward at (1, 512) and (2, 1024)")
     evals = phase_eval(torch, cfg, folded)
     stamp("eval")
+    del folded
+    torch.cuda.empty_cache()
+    print("[qwen3] qwen3-4b, full size (36 layers, qk-norm), 8 requests x 32 new tokens, "
+          "one-shot and chunked")
+    phase_arch(torch, "qwen3-4b", engine_wrappers)
+    stamp("qwen3")
+    print("[moe] qwen2-moe-a2.7b, full size (24 layers, 60 routed experts top-4 + 4 shared), "
+          "8 requests x 32 new tokens, one-shot and chunked")
+    phase_arch(torch, "qwen2-moe-a2.7b", engine_wrappers)
+    stamp("moe")
     check(plain_calls["cuda"] == 0, f"the plain flash ran on the card {plain_calls['cuda']} "
           "times on the served paths")
     print(f"  flash_qattention_torch on a CUDA tensor: {plain_calls['cuda']} calls on the "
           "served paths")
-    del folded
-    torch.cuda.empty_cache()
     print("[check] small model against the CPU")
     phase_small_reference(torch)
+    print("[check] small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b against the CPU")
+    phase_small_archs(torch)
     print("[bert] bert-base, full width, W4A8 and W8A8, cache-less integer forward")
     bert = phase_bert(torch)
     print("[check] small bert-base against the CPU")
@@ -1639,7 +1988,8 @@ def main() -> int:
                                                 "bound_by", "library_ms", "mismatches",
                                                 "launches_per_forward", "forwards")
                       if k in row[case]}
-               for case in ("chunk", "long", "last_chunk", "verify") if case in row}})
+               for case in ("chunk", "long", "last_chunk", "verify", "qwen3", "expert",
+                            "expert_chunk", "g1_moe", "g1_stablelm") if case in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

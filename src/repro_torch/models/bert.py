@@ -84,4 +84,5 @@ def forward_hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Ten
                    mask: torch.Tensor):
     """Backbone forward that returns the final hidden states (pre-LM-head)
     and the observations."""
-    return T.hidden(cfg, params, amax, tokens, mask=mask)
+    x, obs, _ = T.hidden(cfg, params, amax, tokens, mask=mask)
+    return x, obs

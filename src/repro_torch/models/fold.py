@@ -45,21 +45,27 @@ def site_scale(amax_val, policy: QuantPolicy):
 
 
 def _weight_codes(codes: torch.Tensor, w_bits: int) -> torch.Tensor:
-    """Serving layout of (K, N) weight codes: plain int8 at ``w_bits=8`` (the
-    Q8BERT point, served by the bit-split W8A8 kernel), K-planar packed
+    """Serving layout of (..., K, N) weight codes: plain int8 at ``w_bits=8``
+    (the Q8BERT point, served by the bit-split W8A8 kernel), K-planar packed
     int4 otherwise."""
-    return codes if w_bits == 8 else packing.pack_int4_planar(codes, axis=0)
+    return codes if w_bits == 8 else packing.pack_int4_planar(codes, axis=-2)
 
 
 def fold_linear_t(w, b, s_a, s_y, policy: QuantPolicy) -> Dict:
-    """Fold y = x@w + b into {w codes (``_weight_codes``), int32 b, M, sh}."""
+    """Fold y = x@w + b into {w codes (``_weight_codes``), int32 b, M, sh}.
+    ``w`` (K, N), or (E, K, N): E stacked linears (a MoE slot's experts),
+    each folded under its own weight scale as the reference's ``vmap`` does,
+    every leaf with the leading E axis."""
     w = w.to(F32)
     qm = q.qmax(policy.w_bits)
-    s_w = _scale8(q.rdiv(qm, torch.clamp(q.per_tensor_max(w), min=1e-8)), policy)
-    codes = torch.clamp(torch.round(w * s_w), -qm, qm).to(torch.int8)
-    bias = torch.zeros((w.shape[1],), dtype=F32, device=w.device) if b is None else b.to(F32)
-    bias_i = torch.clamp(torch.round(bias * (s_a * s_w)), -(2.0**31 - 1),
+    w_max = torch.amax(torch.abs(w), dim=(-2, -1))
+    s_w = _scale8(q.rdiv(qm, torch.clamp(w_max, min=1e-8)), policy)
+    codes = torch.clamp(torch.round(w * s_w[..., None, None]), -qm, qm).to(torch.int8)
+    bias = torch.zeros(w.shape[:-2] + w.shape[-1:], dtype=F32, device=w.device) \
+        if b is None else b.to(F32)
+    bias_i = torch.clamp(torch.round(bias * (s_a * s_w)[..., None]), -(2.0**31 - 1),
                          2.0**31 - 1).to(torch.int32)
+    s_y = torch.as_tensor(s_y, dtype=F32, device=w.device)
     M, sh = fxp.quantize_multiplier_array(s_y / (s_a * s_w))
     return {"w": _weight_codes(codes, policy.w_bits), "b": bias_i, "M": M, "sh": sh}
 
@@ -101,10 +107,28 @@ def make_gelu_lut(s_in, s_out) -> torch.Tensor:
     return torch.clamp(torch.round(y * s_out), -127, 127).to(torch.int8)
 
 
+EXPERT_OUT_SCALE = 128.0   # an expert's output grid: fixed, Q1.7-like
+
+
+def fold_expert_group(grp: Dict, a: Dict, prefix: str, s_mi, policy: QuantPolicy) -> Dict:
+    """Fold a group of stacked SwiGLU experts ((E, d, f) / (E, f, d)
+    weights; ``prefix`` "exp" routed, "shr" shared) into stacked linears
+    (every leaf with the leading E axis) and the group's SiLU LUT and
+    product rescale; the outputs land on the fixed ``EXPERT_OUT_SCALE``
+    grid."""
+    s_g, s_u, s_h = (site_scale(a[f"{prefix}_{k}"], policy) for k in ("g", "u", "h"))
+    return {"wg": fold_linear_t(grp["wg"], None, s_mi, s_g, policy),
+            "wu": fold_linear_t(grp["wu"], None, s_mi, s_u, policy),
+            "silu_lut": make_silu_lut(s_g, s_g),
+            "prod": fold_rescale(s_g * s_u, s_h),
+            "wd": fold_linear_t(grp["wd"], None, s_h, EXPERT_OUT_SCALE, policy),
+            "inv_s_out": torch.tensor(1.0 / EXPERT_OUT_SCALE, dtype=F32, device=s_mi.device)}
+
+
 def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in):
-    """Fold one attention + dense super-block slot of one rep.  Returns
-    (folded dict, scale of the outgoing residual grid)."""
-    if mixer != "attn" or ffn not in ("dense", "none"):
+    """Fold one attention + dense / MoE super-block slot of one rep.
+    Returns (folded dict, scale of the outgoing residual grid)."""
+    if mixer != "attn" or ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(f"folding {mixer}/{ffn} slots is not ported: "
                                   "ROADMAP Open items §1")
     pol = cfg.quant
@@ -130,6 +154,9 @@ def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in
         "inv_s_qp": 1.0 / s_qp, "inv_s_kp": 1.0 / s_kp,  # rope island in
         "s_q": s_q, "s_k": s_k,                          # rope island out
     }
+    if cfg.qk_norm:
+        f["attn_q"]["qn"] = pa["qn"].to(F32)
+        f["attn_q"]["kn"] = pa["kn"].to(F32)
     f["res_a"] = fold_rescale(s_res_in, s_ra)
     s_res = s_ra
     if ffn == "dense":
@@ -149,6 +176,17 @@ def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in
             f["gelu_lut"] = make_gelu_lut(s_hp, s_g)
             f["gelu_rescale"] = fold_rescale(s_g, s_h)
             f["w2"] = fold_linear_t(pm["w2"], pm.get("b2"), s_h, s_rm, pol)
+        f["res_m"] = fold_rescale(s_res, s_rm)
+        s_res = s_rm
+    elif ffn == "moe":
+        s_mi, s_rm = s("exp_in"), s("resid_m")
+        f["ln2"] = fold_norm_t(p["norm2"], s_mi)
+        f["router"] = p["moe"]["router"].to(F32)
+        f["inv_s_mi"] = 1.0 / s_mi
+        f["experts"] = fold_expert_group(p["moe"]["experts"], a, "exp", s_mi, pol)
+        if cfg.n_shared_experts:
+            f["shared"] = fold_expert_group(p["moe"]["shared"], a, "shr", s_mi, pol)
+        f["s_rm"] = s_rm
         f["res_m"] = fold_rescale(s_res, s_rm)
         s_res = s_rm
     return f, s_res

@@ -1,5 +1,5 @@
-"""QAT building blocks (calibration forward) for the dense attention/MLP
-subset of the reference ``models/layers.py``.
+"""QAT building blocks (calibration forward) for the attention (qk-norm
+included) and dense MLP subset of the reference ``models/layers.py``.
 
 Conventions as in the reference: params are nested dicts of tensors; every
 activation the integer path quantizes has a *site* whose EMA max arrives in
@@ -51,6 +51,19 @@ def qdense(x, w, b, amax_in, policy: QuantPolicy):
 def rmsnorm(x, gamma, eps=1e-6):
     x32 = x.to(torch.float32)
     n = x32 * torch.rsqrt(torch.mean(x32 * x32, -1, keepdim=True) + eps)
+    return (n * gamma.to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_xla(x, gamma, eps=1e-6):
+    """``rmsnorm`` with the mean square summed in XLA's order
+    (``xla_row_sum``: equal to the reference's sum for rows longer than 32)
+    and scaled by the float32 reciprocal of the row length, as the jitted
+    ``jnp.mean``: qk-norm's, in the calibration forward and in the serving
+    RoPE island.  ``rsqrt`` is torch's, an ulp from XLA's on some inputs
+    (the qk-norm island, ROADMAP §3)."""
+    x32 = x.to(torch.float32)
+    ms = xla_row_sum(x32 * x32) * q.recip_f32(x.shape[-1])
+    n = x32 * torch.rsqrt(ms + eps)[..., None]
     return (n * gamma.to(torch.float32)).to(x.dtype)
 
 
@@ -151,10 +164,9 @@ def lut_softmax_qat(logits, s_logit, enabled: bool):
 def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
                   mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Obs]:
     """Materialized-score QAT attention.  x (B, S, d); pos (B, S)."""
-    if cfg.qk_norm or cfg.mrope_sections is not None or cfg.sliding_window:
+    if cfg.mrope_sections is not None or cfg.sliding_window:
         raise NotImplementedError(
-            "qk_norm / M-RoPE / sliding-window attention is not ported: "
-            "ROADMAP Open items §1")
+            "M-RoPE / sliding-window attention is not ported: ROADMAP Open items §1")
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     obs: Obs = {}
@@ -166,6 +178,9 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
     vh = vp.reshape(b, s, nkv, hd)
     qh, obs["q_pre"] = fake_quant_act(qh, amax["q_pre"], policy.a_bits, policy.quantize_wa)
     kh, obs["k_pre"] = fake_quant_act(kh, amax["k_pre"], policy.a_bits, policy.quantize_wa)
+    if cfg.qk_norm:
+        qh = rmsnorm_xla(qh, p["qn"])
+        kh = rmsnorm_xla(kh, p["kn"])
     if not cfg.learned_pos:
         qh = apply_rope(qh, pos, cfg.rope_theta, cfg.partial_rotary)
         kh = apply_rope(kh, pos, cfg.rope_theta, cfg.partial_rotary)

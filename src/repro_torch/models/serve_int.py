@@ -7,10 +7,13 @@ prefill, single-token decode) that the lockstep engine and
 
 The paper's deployment datapath: int8 activations end to end, packed-int4
 (or int8, ``w_bits=8``) weights, LUT softmax, integer LN, int8 KV pool, with
-one float island (the RoPE rotation) and the fp32 ``lm_head`` scale.
-Mirrors the reference ``models/serve_int.py`` for all-attention dense archs,
-causal (yi-6b) and bidirectional (BERT, cache-less prefill only); every
-other branch raises ``NotImplementedError``.
+float islands: the RoPE rotation (with qk-norm's RMSNorm before it), the
+MoE router and combine, and the fp32 ``lm_head`` scale.  Mirrors the
+reference ``models/serve_int.py`` for all-attention archs with a dense or
+MoE feed-forward, causal (yi-6b, qwen3-4b, qwen2-moe-a2.7b, ...) and
+bidirectional (BERT, cache-less prefill only); every other branch raises
+``NotImplementedError``.  A MoE slot makes one ``int4_matmul`` launch per
+expert and linear (the reference ``vmap``s them).
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
@@ -30,7 +33,7 @@ pool per layer would cost more than the layer.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -45,6 +48,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_qattention import divisor_tile
 from repro_torch.models import layers as L
+from repro_torch.models import moe as Moe
 from repro_torch.models.transformer import check_ported, slot_kinds, tree_index
 
 _LUTS: Dict = {}
@@ -87,9 +91,35 @@ def _lut8(x_i8, lut_i8):
     return lut_i8[(x_i8.to(torch.int64) + 128)]
 
 
-def _rope_island(h_i8, inv_s_in, s_out, pos, cfg):
-    """dequant -> rotate -> requant.  (B,S,H,D) int8."""
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32 (or float64) whatever the process-wide
+    matmul precision: on the card TF32 is turned off for this product and
+    the caller's setting restored afterwards.  The lm_head's product is
+    exact only so (every partial sum an integer below 2^24)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a, b)
+    mm = torch.backends.cuda.matmul
+    if hasattr(mm, "fp32_precision"):
+        prev = mm.fp32_precision
+        mm.fp32_precision = "ieee"
+        try:
+            return torch.matmul(a, b)
+        finally:
+            mm.fp32_precision = prev
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _rope_island(h_i8, inv_s_in, s_out, pos, cfg, qn=None):
+    """dequant -> (qk-norm: RMSNorm with gamma ``qn``) -> rotate -> requant.
+    (B,S,H,D) int8."""
     hf = h_i8.to(torch.float32) * inv_s_in
+    if qn is not None:
+        hf = L.rmsnorm_xla(hf, qn)
     if not cfg.learned_pos:
         hf = L.apply_rope(hf, pos, cfg.rope_theta, cfg.partial_rotary)
     return torch.clamp(torch.round(hf * s_out), -127, 127).to(torch.int8)
@@ -130,8 +160,8 @@ def _qkv_rope(x_i8, f, cfg, pos):
     kc = _lin(h, f["wk"], wb).reshape(b, s, nkv, hd)
     vc = _lin(h, f["wv"], wb).reshape(b, s, nkv, hd)
     aq = f["attn_q"]
-    qc = _rope_island(qc, aq["inv_s_qp"], aq["s_q"], pos, cfg)
-    kc = _rope_island(kc, aq["inv_s_kp"], aq["s_k"], pos, cfg)
+    qc = _rope_island(qc, aq["inv_s_qp"], aq["s_q"], pos, cfg, aq.get("qn"))
+    kc = _rope_island(kc, aq["inv_s_kp"], aq["s_k"], pos, cfg, aq.get("kn"))
     return qc, kc, vc
 
 
@@ -399,6 +429,74 @@ def _mlp_int(x_i8, f, cfg):
     return _lin(_rescale_i8(g, f["gelu_rescale"]), f["w2"], wb)
 
 
+def _expert_linears(grp: Dict) -> List[Dict]:
+    """Per-expert views of a stacked expert group's linears: [{wg, wu, wd}]."""
+    return [{k: tree_index(grp[k], e) for k in ("wg", "wu", "wd")}
+            for e in range(grp["wg"]["w"].shape[0])]
+
+
+def _experts_int(xe_i8, grp, cfg):
+    """SwiGLU experts, expert e on rows xe_i8[e]: (E, C, d) int8 -> (E, C, d)
+    int8 on the group's output grid (``grp`` as ``layer_views`` gives it).
+    One GEMM launch per expert and linear; the SiLU LUT and the product
+    rescale are the group's, so they run once over every expert's rows."""
+    wb = cfg.quant.w_bits
+    lins = grp["linears"]
+    g = torch.stack([_lin(x, lin["wg"], wb) for x, lin in zip(xe_i8, lins)])
+    u = torch.stack([_lin(x, lin["wu"], wb) for x, lin in zip(xe_i8, lins)])
+    prod = _lut8(g, grp["silu_lut"]).to(torch.int32) * u.to(torch.int32)
+    hh = torch.clamp(fxp.rescale(prod, grp["prod"]["M"], grp["prod"]["sh"]),
+                     -127, 127).to(torch.int8)
+    return torch.stack([_lin(x, lin["wd"], wb) for x, lin in zip(hh, lins)])
+
+
+def router_logits(hf: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """The MoE router's float32 logits ``hf @ router``.  On the CPU a
+    float32 product (XLA's order at the served widths); on the card a
+    float64 product rounded to float32, which TF32 cannot touch and whose
+    rows do not depend on the forward's other rows (cuBLAS picks its
+    float32 summation order by shape, so a token's gates would otherwise
+    move with its batch)."""
+    if hf.device.type != "cuda":
+        return torch.matmul(hf, router)
+    return torch.matmul(hf.to(torch.float64), router.to(torch.float64)).to(torch.float32)
+
+
+def _moe_route(h_i8, f, cfg):
+    """The router island of a MoE slot over ``h_i8`` (T, d), the slot's
+    ln2 output: float32 logits (``router_logits``), softmax, top-k under
+    the capacity of T rows.  Returns (dest, gates, cap)."""
+    t = h_i8.shape[0]
+    gate_logits = router_logits(h_i8.to(torch.float32) * f["inv_s_mi"], f["router"])
+    cap = Moe.capacity(t, cfg.n_experts, cfg.top_k)
+    dest, gates, _ = Moe.topk_routing(gate_logits, cfg.top_k, cap)
+    return dest, gates, cap
+
+
+def _moe_experts(h_i8, f, cfg, dest, gates, cap):
+    """A MoE slot after routing: dispatch ``h_i8`` (T, d) by ``dest``, the
+    integer experts, the float32 combine by ``gates`` (then the shared
+    experts, in order), requantized onto the slot's residual grid ->
+    (T, d) int8."""
+    t, d = h_i8.shape
+    fe = f["experts"]
+    xe = Moe.scatter_dispatch(h_i8, dest, cfg.n_experts, cap).reshape(cfg.n_experts, cap, d)
+    yf = _experts_int(xe, fe, cfg).to(torch.float32) * fe["inv_s_out"]
+    yt = Moe.gather_combine(yf.reshape(cfg.n_experts * cap, d), dest, gates, torch.float32)
+    if "shared" in f:
+        sh = f["shared"]
+        ys = _experts_int(h_i8[None].expand(cfg.n_shared_experts, t, d), sh, cfg)
+        yt = yt + torch.sum(ys.to(torch.float32) * sh["inv_s_out"], 0)
+    return torch.clamp(torch.round(yt * f["s_rm"]), -127, 127).to(torch.int8)
+
+
+def _moe_int(x_i8, f, cfg):
+    """Integer experts behind a float32 router and combine (the islands)."""
+    b, s, d = x_i8.shape
+    h = _ln(x_i8, f["ln2"], cfg).reshape(b * s, d)
+    return _moe_experts(h, f, cfg, *_moe_route(h, f, cfg)).reshape(b, s, d)
+
+
 # --- whole-model serving forward -----------------------------------------------
 
 def paged_page_nbytes(cfg: ModelConfig, page_size: int, kv_bits: int = 8) -> int:
@@ -452,9 +550,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dic
             for i in range(len(slot_kinds(cfg)))}
 
 
+def _rep_view(f_rep: Dict) -> Dict:
+    """One rep's params with each expert group's per-expert linears listed
+    under ``"linears"``."""
+    out = dict(f_rep)
+    for name, f in f_rep.items():
+        if isinstance(f, dict) and "experts" in f:
+            out[name] = dict(f, **{g: dict(f[g], linears=_expert_linears(f[g]))
+                                   for g in ("experts", "shared") if g in f})
+    return out
+
+
 def layer_views(folded: Dict, n_reps: int):
-    """Per-rep views of the stacked block params (cached by the engine)."""
-    return folded.get("layers") or [tree_index(folded["blocks"], r) for r in range(n_reps)]
+    """Per-rep views of the stacked block params, the expert linears
+    indexed per expert (cached by the engine)."""
+    return folded.get("layers") or [_rep_view(tree_index(folded["blocks"], r))
+                                    for r in range(n_reps)]
 
 
 def head_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -572,11 +683,13 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
             x = _resid_add(x, f["res_a"], out)
             if ffn == "dense":
                 x = _resid_add(x, f["res_m"], _mlp_int(x, f, cfg))
+            elif ffn == "moe":
+                x = _resid_add(x, f["res_m"], _moe_int(x, f, cfg))
         x = _rescale_i8(x, f_rep["block_out_rescale"])
     x = _ln(x, folded["final_norm"], cfg)
-    # lm_head: the only product outside a kernel, exact in head_dtype (TF32
-    # must stay off on the card); then the reference's int32 -> float32
+    # lm_head: the only product outside a kernel, exact in head_dtype with
+    # TF32 off (exact_matmul); then the reference's int32 -> float32
     # accumulator times the float32 scale.
     w = head_weights(cfg, folded)
-    acc = torch.matmul(x.to(w.dtype), w).to(torch.float32)
+    acc = exact_matmul(x.to(w.dtype), w).to(torch.float32)
     return acc * folded["lm_head"]["inv_acc"], cache

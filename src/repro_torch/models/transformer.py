@@ -1,5 +1,6 @@
 """Config-driven model stack for calibration: embeddings -> super-blocks ->
-final norm -> LM head, for the all-attention dense architectures.
+final norm -> LM head, for the all-attention architectures with a dense or
+MoE feed-forward (qk-norm included).
 
 Params and amax state keep the reference's stacked layout, (n_reps, ...)
 on the leading axis, so the fold and the tests see the same trees; depth
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as Moe
 
 ATTN_SITES = ("attn_in", "q_pre", "k_pre", "q", "k", "v", "attn_out_in", "resid_a")
 MLP_SITES_SWIGLU = ("mlp_in", "g_pre", "g_out", "u_out", "h_in", "resid_m")
@@ -37,13 +39,13 @@ def slot_kinds(cfg: ModelConfig):
 
 
 def check_ported(cfg: ModelConfig):
-    """The port serves all-attention dense archs with token frontends."""
+    """The port serves all-attention archs (dense or MoE feed-forward,
+    qk-norm or not) with token frontends and one LM head."""
     kinds = slot_kinds(cfg)
-    if any(m != "attn" or f not in ("dense", "none") for m, f in kinds) \
-            or cfg.frontend != "none" or cfg.n_lm_heads != 1 \
-            or cfg.mrope_sections is not None or cfg.qk_norm or cfg.sliding_window:
+    if any(m != "attn" for m, _ in kinds) or cfg.frontend != "none" \
+            or cfg.n_lm_heads != 1 or cfg.mrope_sections is not None or cfg.sliding_window:
         raise NotImplementedError(
-            f"arch {cfg.name!r} needs MoE/SSM/SWA/M-RoPE/qk-norm/frontend support, "
+            f"arch {cfg.name!r} needs SSM/SWA/M-RoPE/frontend/multi-head support, "
             "which is not ported yet: ROADMAP Open items §1")
 
 
@@ -80,8 +82,14 @@ def _dense(gen, din, dout, cfg, scale=0.02):
     return (w * scale).to(cfg.dtype)
 
 
+def _stacked(gen, n, din, dout, cfg):
+    """``n`` (din, dout) matrices drawn as one (n * din, dout) block, as the
+    reference draws its stacked experts."""
+    return _dense(gen, n * din, dout, cfg).reshape(n, din, dout)
+
+
 def init_slot_params(cfg: ModelConfig, ffn: str, gen) -> Dict:
-    """Float params of one attention slot with ``ffn`` in {dense, none}."""
+    """Float params of one attention slot with ``ffn`` in {dense, moe, none}."""
     d, hd = cfg.d_model, cfg.hd
     zeros = lambda n: torch.zeros((n,), dtype=cfg.dtype, device=gen.device)  # noqa: E731
     p: Dict = {"norm1": _norm_params(cfg, gen)}
@@ -94,8 +102,12 @@ def init_slot_params(cfg: ModelConfig, ffn: str, gen) -> Dict:
     if cfg.learned_pos:  # BERT uses biases everywhere
         p["attn"].update(bq=zeros(cfg.n_heads * hd), bk=zeros(cfg.n_kv_heads * hd),
                          bv=zeros(cfg.n_kv_heads * hd), bo=zeros(d))
-    if ffn == "dense":
+    if cfg.qk_norm:
+        p["attn"]["qn"] = torch.ones((hd,), dtype=cfg.dtype, device=gen.device)
+        p["attn"]["kn"] = torch.ones((hd,), dtype=cfg.dtype, device=gen.device)
+    if ffn != "none":
         p["norm2"] = _norm_params(cfg, gen)
+    if ffn == "dense":
         if cfg.act == "swiglu":
             p["mlp"] = {"wg": _dense(gen, d, cfg.d_ff, cfg),
                         "wu": _dense(gen, d, cfg.d_ff, cfg),
@@ -103,6 +115,16 @@ def init_slot_params(cfg: ModelConfig, ffn: str, gen) -> Dict:
         else:
             p["mlp"] = {"w1": _dense(gen, d, cfg.d_ff, cfg), "b1": zeros(cfg.d_ff),
                         "w2": _dense(gen, cfg.d_ff, d, cfg), "b2": zeros(d)}
+    elif ffn == "moe":
+        fe = cfg.moe_d_ff or cfg.d_ff
+        groups = [("experts", cfg.n_experts)]
+        if cfg.n_shared_experts:
+            groups.append(("shared", cfg.n_shared_experts))
+        p["moe"] = {"router": _dense(gen, d, cfg.n_experts, cfg)}
+        for name, n in groups:
+            p["moe"][name] = {"wg": _stacked(gen, n, d, fe, cfg),
+                              "wu": _stacked(gen, n, d, fe, cfg),
+                              "wd": _stacked(gen, n, fe, d, cfg)}
     return p
 
 
@@ -110,6 +132,10 @@ def slot_sites(cfg: ModelConfig, ffn: str):
     sites = list(ATTN_SITES)
     if ffn == "dense":
         sites += list(MLP_SITES_SWIGLU if cfg.act == "swiglu" else MLP_SITES_GELU)
+    elif ffn == "moe":
+        sites += list(Moe.MOE_SITES) + ["resid_m"]
+        if cfg.n_shared_experts:
+            sites += list(Moe.MOE_SHARED_SITES)
     return sites
 
 
@@ -140,36 +166,41 @@ def init_amax(cfg: ModelConfig, device="cuda") -> Dict:
 # --- forward -------------------------------------------------------------------
 
 def _apply_slot(cfg, ffn, x, p, amax, pos, mask):
+    """One slot -> (x, obs, aux loss of its MoE, 0 without one)."""
     policy = cfg.quant
     obs: Dict = {}
     h = L.qnorm(x, p["norm1"], policy, cfg.norm_type)
     out, o = L.attention_qat(h, p["attn"], amax, policy, cfg, pos, mask)
     obs.update(o)
     x, obs["resid_a"] = L.residual_add(x, out, amax["resid_a"], policy)
-    if ffn == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn != "none":
         h = L.qnorm(x, p["norm2"], policy, cfg.norm_type)
-        out, o = L.mlp_qat(h, p["mlp"], amax, policy, cfg.act)
+        if ffn == "dense":
+            out, o = L.mlp_qat(h, p["mlp"], amax, policy, cfg.act)
+        else:
+            out, o, aux = Moe.moe_qat(h, p["moe"], amax, policy, cfg)
         obs.update(o)
         x, obs["resid_m"] = L.residual_add(x, out, amax["resid_m"], policy)
-    return x, obs
+    return x, obs, aux
 
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
             mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None):
     """QAT (calibration) forward.  Returns (logits, obs tree matching
-    ``init_amax``, aux_loss)."""
-    x, obs = hidden(cfg, params, amax, tokens, mask=mask, pos=pos)
+    ``init_amax``, aux_loss summed over the MoE slots)."""
+    x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos)
     w = params["embed"]["tokens"].T if cfg.tied_embeddings else params["lm_head"]
     logits = x @ w
-    return logits.to(torch.float32), obs, torch.zeros((), device=x.device)
+    return logits.to(torch.float32), obs, aux
 
 
 @torch.no_grad()
 def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
            mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None):
     """The backbone of ``forward``: embeddings -> blocks -> final norm ->
-    the fake-quantized head input.  Returns (hidden (B, S, d), obs)."""
+    the fake-quantized head input.  Returns (hidden (B, S, d), obs, aux)."""
     check_ported(cfg)
     policy = cfg.quant
     x = params["embed"]["tokens"][tokens.long()]
@@ -183,13 +214,16 @@ def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
         mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=x.device)
     kinds = slot_kinds(cfg)
     per_rep = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_reps):
         obs_rep = {}
         for i, (_, ffn) in enumerate(kinds):
-            x, obs_rep[f"slot{i}"] = _apply_slot(
+            x, obs_rep[f"slot{i}"], aux = _apply_slot(
                 cfg, ffn, x, tree_index(params["blocks"][f"slot{i}"], r),
                 tree_index(amax["blocks"][f"slot{i}"], r), pos, mask)
+            aux_total = aux_total + aux
         per_rep.append(obs_rep)
     x = L.qnorm(x, params["final_norm"], policy, cfg.norm_type)
     x, obs_head = L.fake_quant_act(x, amax["head_in"], policy.a_bits, policy.quantize_wa)
-    return x, {"blocks": tree_stack(per_rep), "embed_out": obs_embed, "head_in": obs_head}
+    return x, {"blocks": tree_stack(per_rep), "embed_out": obs_embed,
+               "head_in": obs_head}, aux_total

@@ -1216,3 +1216,123 @@ def test_engine_on_card_spec_equals_plain(cuda):
         assert c["drafted"] == c["accepted"] + c["rejected"]
         assert launches % cfg.n_layers == 0 and launches > cfg.n_layers * c["prefill_chunks"]
     assert c["rejected"] == 0 and c["decode_steps"] < c0["decode_steps"]
+
+
+# --- the archs of port slice 11: qwen3-4b (qk-norm), qwen2-moe-a2.7b (MoE),
+# stablelm-1.6b (MHA at head_dim 64) ---------------------------------------
+
+# (K, N) of qwen3-4b's linears (wq, wk/wv, wg/wu, wo, wd) and of qwen2-moe's
+# experts (wg/wu, wd), at the M the served paths give them: a decode tick
+# (8), the experts' capacity at a tick or a short chunk (4), at 96 rows (8)
+# and at a 512-row chunk (43)
+QWEN3_GEMMS = [(2560, 4096), (2560, 1024), (2560, 9728), (4096, 2560), (9728, 2560)]
+EXPERT_GEMMS = [(2048, 1408), (1408, 2048)]
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 512) for k, n in QWEN3_GEMMS]
+                         + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS])
+def test_plan_fills_a_wave_at_the_qwen_shapes(m, k, n):
+    p = plan(m, k, n)
+    assert p.path == ("decode" if m <= 8 else "tensor_core")
+    assert p.vec == 16 and p.blocks >= WAVE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 512) for k, n in QWEN3_GEMMS]
+                         + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS])
+def test_int4_matmul_kernel_equals_plain_at_the_qwen_shapes(cuda, m, k, n):
+    args = _mm(m, k, n, m + n, cuda)
+    assert torch.equal(_launched_once_on(int4_matmul, plan(m, k, n).path, *args),
+                       ref.int4_matmul_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(8, 2560), (512, 2560), (8, 2048), (512, 2048)])
+@pytest.mark.parametrize("subtract_mean", [True, False])
+def test_quant_layernorm_kernel_equals_plain_at_the_new_widths(cuda, subtract_mean, r, n):
+    x, p = _ln(r, n, r + n, subtract_mean, cuda)
+    assert torch.equal(_launched_once(quant_layernorm, x, p), ref.quant_layernorm_ref(x, p))
+
+
+# G = 1: qwen2-moe (16 heads of 128) and stablelm (32 heads of 64)
+G1_HEADS = [(16, 128), (32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv,d", G1_HEADS)
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_decode_kernels_equal_plain_at_g1(cuda, kind, hkv, d):
+    fn, plain = _split_pair(kind)
+    maker = _decode if kind == "int8" else _decode_q4
+    args = maker(1, d, 16, YI_LENGTHS, cuda, hkv=hkv, seed=hkv + d)
+    assert torch.equal(_launched_once(fn, *args), plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv,d", G1_HEADS)
+@pytest.mark.parametrize("sq,pos0", [(512, [0]), (128, [256]), (4, [33, 100, 700, 1000])])
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_prefill_kernels_equal_plain_at_g1(cuda, kind, hkv, d, sq, pos0):
+    fn, plain = _prefill_pair(kind)
+    args = _prefill_args(kind, (hkv, hkv, d, 16, sq, pos0), cuda)
+    assert torch.equal(_launched_once(fn, *args), plain(*args))
+
+
+@pytest.mark.cuda
+def test_lm_head_is_exact_when_the_caller_turns_tf32_on(cuda):
+    """``torch.set_float32_matmul_precision("high")`` lets cuBLAS round a
+    float32 product's inputs to TF32; the serving forward's lm_head (and
+    the MoE router) turn it off for their own product: the logits equal
+    those at "highest", and the caller's setting is in force afterwards."""
+    from repro_torch.models import serve_int as S
+
+    cfg = smoke_config("qwen2-moe-a2.7b")
+    folded = S.prepare_folded(cfg, tree_map(lambda t: t.to(cuda),
+                                            calibrated_folded(cfg, 0, device="cpu")))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24))
+                            .astype(np.int32)).to(cuda)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want, _ = S.serve_forward(cfg, folded, toks)
+        torch.set_float32_matmul_precision("high")
+        got, _ = S.serve_forward(cfg, folded, toks)
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-4b", "stablelm-1.6b"])
+def test_small_arch_engine_on_card_gives_the_cpu_tokens(cuda, arch, monkeypatch):
+    """The smoke arch through the engine on the card (the kernels) and on
+    the CPU under REPRO_TORCH_KERNELS=gpu (their plain versions), one-shot
+    and chunked: equal greedy tokens.  The float islands (the router's and
+    the RoPE island's exp, rsqrt and sums) may move a code between the two
+    devices; the tokens must not move.  One-shot equals chunked for the
+    dense archs only: a MoE forward's capacity couples its rows, so where
+    the router drops a choice the chunking moves tokens, as in the
+    reference."""
+    cfg = smoke_config(arch)
+    folded_cpu = calibrated_folded(cfg, 0, device="cpu")
+    folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to(cuda), folded_cpu)}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (9, 30, 17, 12)]
+
+    def serve(dev, **kw):
+        eng = Engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64, page_size=4,
+                                                    **kw))
+        return [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=8) for p in prompts])]
+
+    runs = [lambda d: serve(d), lambda d: serve(d, max_prefill_chunk=8, max_batched_tokens=16)]
+    for k in ENGINE_KERNELS:
+        k.launches = 0
+    on_card = [run("cuda") for run in runs]
+    assert all(k.launches > 0 for k in ENGINE_KERNELS), [k.launches for k in ENGINE_KERNELS]
+    if not cfg.n_experts:
+        assert on_card[0] == on_card[1]
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+    assert on_card == [run("cpu") for run in runs]
