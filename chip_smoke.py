@@ -33,7 +33,15 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    ``quant_softmax`` beside the launch floor, a one-element ``torch.neg``
    in the same timing loop; the paged decode and prefill kernels, int8 and
    packed, also at G = 1: qwen2-moe's 16 heads of 128 and stablelm's 32
-   heads of 64);
+   heads of 64; with mixtral-8x22b's shapes: ``flash_qattention`` with its
+   4,096-token window at S = 8,192, 8,064, 4,160, 4,032 and 4,000 and at
+   q_offset 8,064 (the skip branch and its margin printed, the time beside
+   the unwindowed call; S = 8,192 also in the branch that walks from block
+   0), ``decode_qattention`` at G = 6 over 4,096-row rings, the GEMMs at
+   K = 6144 / 16384 for M = 4 and 1,250, the attention's at M = 8 and
+   4,000, the experts' at 1,300 and 2,560, and the LN at N = 6144 for R =
+   8, 4,000, 4,032, 4,160 and 8,192; the [mixtral] phase then holds every
+   shape its forwards gave rows 1, 2, 6 and 9 again);
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
@@ -70,8 +78,7 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    (2, 1024) (finite logits, 32 ``flash_qattention`` launches per forward,
    median latency), profiles of a (1, 512) forward and a 704-token stripe
    prefill, and ``flash_qdecode`` per layer over that stripe's cache, equal
-   to ``decode_qattention`` on it; no served path may run the plain flash
-   on the card (counted);
+   to ``decode_qattention`` on it;
    ``[qwen3]`` and ``[moe]``: qwen3-4b (36 layers, qk-norm) and
    qwen2-moe-a2.7b (24 layers, 60 routed experts top-4 and 4 shared, one
    ``int4_matmul`` launch per expert and linear) at full size, each
@@ -83,11 +90,31 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    capacity), the launches of a decode forward and of a chunk, profiles of
    a decode tick and a 512-row chunk with the experts' share of the GEMM
    time;
+   ``[mixtral]``: mixtral-8x22b at its published widths at 4 of 56 layers
+   (``phase_mixtral``): 9 requests on the 4,096-row contiguous ring, one of
+   4,000 prompt tokens and 160 new that wraps it, gated on the launches (4
+   ``flash_qattention`` per one-shot prefill, 4 ``decode_qattention`` per
+   tick, no paged kernel), the GEMM paths and the ring; at the first
+   layer, before any router, the ring decode equal bit for bit to the
+   plain decode over a ring rebuilt from the cache-less forward's K and V
+   over the same 4,160 tokens (and the served q, K and V to that
+   forward's), the windowed flash equal to its plain version on that
+   forward's inputs, and the ring's and the prefill's codes against the
+   flash's counted beside the flash against itself at half the block
+   (printed); the logits against the cache-less forward (KL and argmax,
+   printed, not gated); the (1, 8,192) forward timed and profiled, a tick
+   profiled; every shape the phase's forwards gave rows 1, 2, 6 and 9 held
+   against the plain versions;
+   no served phase may run a plain version or the ``ref`` datapath's
+   attention on the card (``PlainGuard``, counted from ``[serve]`` to
+   ``[mixtral]``);
    then checks a small model against the same forward on the CPU on the
    paged int8 pool, the packed pool, the stripe, the verify forward and
    without a cache, and small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b
    through the Engine (equal greedy tokens, the differing logits of a
-   prefill and 4 decode steps counted);
+   prefill and 4 decode steps counted), and the small mixtral (window 16):
+   one-shot and decode-loop prefills, the LockstepEngine, decode past the
+   window, equal greedy tokens;
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -105,6 +132,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -237,20 +265,23 @@ def gemm_paths(name: str = "int4_matmul") -> dict:
     return dict(getattr(mm, name).path_launches)
 
 
-def forward_gemm_ms(cfg, t: int) -> list:
-    """The M of every integer GEMM of one layer of a forward over t = B * S
-    rows: the four attention projections and a dense FFN's linears at M = t;
-    a MoE slot's shared experts (three linears each) at M = t and its routed
-    experts (three each) at M = capacity(t)."""
+def forward_gemms(cfg, t: int) -> list:
+    """(M, K, N) of every integer GEMM of one layer of a forward over t = B
+    * S rows: the four attention projections and a dense FFN's linears at M
+    = t; a MoE slot's shared experts (three linears each) at M = t and its
+    routed experts (three each) at M = capacity(t)."""
     from repro_torch.models.moe import capacity
 
-    ms = [t] * 4
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    out = [(t, d, q), (t, d, kv), (t, d, kv), (t, q, d)]
     if cfg.n_experts:
-        ms += [t] * 3 * cfg.n_shared_experts
-        ms += [capacity(t, cfg.n_experts, cfg.top_k)] * 3 * cfg.n_experts
+        ffn = [(d, cfg.moe_d_ff), (d, cfg.moe_d_ff), (cfg.moe_d_ff, d)]
+        out += [(t, k, n) for k, n in ffn] * cfg.n_shared_experts
+        out += [(capacity(t, cfg.n_experts, cfg.top_k), k, n) for k, n in ffn] * cfg.n_experts
     else:
-        ms += [t] * (3 if cfg.act == "swiglu" else 2)
-    return ms
+        ffn = [(d, cfg.d_ff)] * (2 if cfg.act == "swiglu" else 1) + [(cfg.d_ff, d)]
+        out += [(t, k, n) for k, n in ffn]
+    return out
 
 
 def check_paths(what, cfg, got, forwards):
@@ -261,7 +292,7 @@ def check_paths(what, cfg, got, forwards):
 
     want = {"tensor_core": 0, "decode": 0}
     for b, s, _, _ in forwards:
-        for m in forward_gemm_ms(cfg, b * s):
+        for m, _, _ in forward_gemms(cfg, b * s):
             want["decode" if m <= DECODE_MAX_M else "tensor_core"] += cfg.n_layers
     check(got == want, f"{what}: GEMM launches by path {got} != {want} (each GEMM on the "
           "path its M implies)")
@@ -282,6 +313,33 @@ BERT_GEMMS = ((768, 768), (768, 3072), (3072, 768))
 # tick or a chunk of up to 48 rows, 8 at 96 rows, 43 at a 512-row chunk
 QWEN3_GEMMS = ((2560, 4096), (2560, 1024), (2560, 9728), (4096, 2560), (9728, 2560))
 EXPERT_GEMMS = ((2048, 1408), (1408, 2048))
+# mixtral-8x22b's: the attention's (wq and wo, wk and wv) and the experts'
+# (wg and wu, wd); each at M = 4 and 1,250, the attention's at a decode tick
+# (M = 8) and the long request's 4,000-row one-shot prefill, the experts' at
+# their capacity in the 4,160- and 8,192-row cache-less forwards (1,300 and
+# 2,560; 4 at a tick, 1,250 at the 4,000-row prefill)
+MIXTRAL_ATTN_GEMMS = ((6144, 6144), (6144, 1024))
+MIXTRAL_EXPERT_GEMMS = ((6144, 16384), (16384, 6144))
+
+
+def _gemm_args(torch, gen, m, k, n, w4: bool):
+    """Random inputs of one (M, K, N) GEMM, ``int4_matmul``'s (packed int4
+    weights) if ``w4``, else ``int8_bitsplit_matmul``'s: (args, the int8
+    weights)."""
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.core import packing
+
+    x = _rand_i8(torch, gen, (m, k))
+    if w4:
+        w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda", dtype=torch.uint8)
+        w8 = packing.unpack_int4_planar(w, axis=0)
+    else:
+        w = w8 = _rand_i8(torch, gen, (k, n))
+    bias = torch.randint(-(1 << 16), 1 << 16, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
+             fxp.quantize_multiplier(40.0 / (np.sqrt(k) * 73.0 * (4.6 if w4 else 73.0))))
+    return (x, w, bias, M, sh), w8
 
 
 def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
@@ -292,8 +350,6 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
     more than 16 rows, so a decode batch is padded to 32).  Prints a row per
     shape with the path and tile ``plan`` chose, the kernel / _int_mm factor
     and the kernel's share of its bound; returns the ``main_shape`` row."""
-    from repro_torch.core import fixedpoint as fxp
-    from repro_torch.core import packing
     from repro_torch.kernels import int4_matmul as mod
     from repro_torch.kernels.ref import int4_matmul_ref, int8_bitsplit_matmul_ref
 
@@ -301,18 +357,8 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
                  (mod.int8_bitsplit_matmul, int8_bitsplit_matmul_ref))
     mism, err, rows = 0, 0.0, []
     for m, k, n in shapes:
-        x = _rand_i8(torch, gen, (m, k))
-        if w4:
-            w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
-                              dtype=torch.uint8)
-            w8 = packing.unpack_int4_planar(w, axis=0)
-        else:
-            w = w8 = _rand_i8(torch, gen, (k, n))
-        bias = torch.randint(-(1 << 16), 1 << 16, (n,), generator=gen, device="cuda",
-                             dtype=torch.int32)
-        M, sh = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in
-                 fxp.quantize_multiplier(40.0 / (np.sqrt(k) * 73.0 * (4.6 if w4 else 73.0))))
-        args = (x, w, bias, M, sh)
+        args, w8 = _gemm_args(torch, gen, m, k, n, w4)
+        x = args[0]
         c, e = compare(fn(*args), plain(*args))
         mism, err = mism + c, max(err, e)
         xl = torch.cat([x, x.new_zeros((32 - m, k))]) if m < 32 else x
@@ -343,7 +389,11 @@ def phase_int4_matmul(torch, gen):
     shapes = ([(m, k, n) for m in (8, 32, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
               + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]
               + [(m, k, n) for m in (8, 512) for k, n in QWEN3_GEMMS]
-              + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS])
+              + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS]
+              + [(m, k, n) for m in (4, 1250)
+                 for k, n in MIXTRAL_ATTN_GEMMS + MIXTRAL_EXPERT_GEMMS]
+              + [(m, k, n) for m in (8, 4000) for k, n in MIXTRAL_ATTN_GEMMS]
+              + [(m, k, n) for m in (1300, 2560) for k, n in MIXTRAL_EXPERT_GEMMS])
     row = gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
     row["verify"] = dict(row["rows"][(32, 4096, 11008)],
@@ -354,6 +404,16 @@ def phase_int4_matmul(torch, gen):
                          shape="M=4 (qwen2-moe expert at a decode tick) K=2048 N=1408 (wg/wu)")
     row["expert_chunk"] = dict(row["rows"][(43, 2048, 1408)],
                                shape="M=43 (qwen2-moe expert, 512-row chunk) K=2048 N=1408")
+    row["mixtral"] = dict(row["rows"][(4, 6144, 16384)],
+                          shape="M=4 (mixtral expert at a decode tick) K=6144 N=16384 (wg/wu)")
+    row["mixtral_prefill"] = dict(row["rows"][(1250, 6144, 16384)],
+                                  shape="M=1250 (mixtral expert, 4,000-row prefill) K=6144 "
+                                        "N=16384 (wg/wu)")
+    row["mixtral_attn"] = dict(row["rows"][(8, 6144, 6144)],
+                               shape="M=8 (mixtral decode tick) K=6144 N=6144 (wq/wo)")
+    row["mixtral_attn_prefill"] = dict(row["rows"][(4000, 6144, 6144)],
+                                       shape="M=4000 (mixtral 4,000-row prefill) K=6144 "
+                                             "N=6144 (wq/wo)")
     return row
 
 
@@ -368,33 +428,47 @@ def launch_floor_ms(torch) -> float:
 # decode tick, a verify forward (8 slots x 4 rows), a 512-row chunk and the
 # longest one-shot prefill chunk; LN at yi-6b's width; BERT-base's LN at
 # (1, 128) and (8, 512); qwen3-4b's (2560) and qwen2-moe's (2048) RMSNorm
-# and stablelm's LN (2048) at a decode tick and a 512-row chunk
+# and stablelm's LN (2048) at a decode tick and a 512-row chunk; mixtral's
+# RMSNorm (6144) at a decode tick, the long request's 4,000-row one-shot
+# prefill, the 4,160- and 8,192-row cache-less forwards, and a 4,032-row
+# stripe bucket
 LN_SHAPES = ((False, 8, 4096), (False, 32, 4096), (False, 512, 4096), (False, 704, 4096),
              (True, 8, 4096), (True, 512, 4096), (True, 128, 768), (True, 4096, 768),
              (False, 8, 2560), (False, 512, 2560), (False, 8, 2048), (False, 512, 2048),
-             (True, 8, 2048), (True, 512, 2048))
+             (True, 8, 2048), (True, 512, 2048), (False, 8, 6144), (False, 4000, 6144),
+             (False, 4032, 6144), (False, 4160, 6144), (False, 8192, 6144))
+
+
+def _ln_params(torch, gen, sub_mean: bool, n: int):
+    """Random LN (``sub_mean``) or RMSNorm parameters of width ``n``."""
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.core.qlayernorm import QLNParams
+
+    gamma = _rand_i8(torch, gen, (n,))
+    beta = torch.randint(-(1 << 20), 1 << 20, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32) if sub_mean else \
+        torch.zeros(n, dtype=torch.int32, device="cuda")
+    M, sh = fxp.quantize_multiplier(3.3e-5)
+    return QLNParams(gamma, beta, torch.tensor(M, dtype=torch.int32, device="cuda"),
+                     torch.tensor(sh, dtype=torch.int32, device="cuda"), sub_mean)
+
+
+def _ln_input(torch, gen, r: int, n: int):
+    """Random (r, n) codes, the first row of zero variance."""
+    x = _rand_i8(torch, gen, (r, n))
+    x[0] = 3
+    return x
 
 
 def ln_cases(torch, gen):
     """(label, x, params) at every LN_SHAPES entry, each batch with a
     zero-variance row."""
-    from repro_torch.core import fixedpoint as fxp
-    from repro_torch.core.qlayernorm import QLNParams
-
     params = {}
     for sub_mean, r, n in LN_SHAPES:
         if (sub_mean, n) not in params:
-            gamma = _rand_i8(torch, gen, (n,))
-            beta = torch.randint(-(1 << 20), 1 << 20, (n,), generator=gen, device="cuda",
-                                 dtype=torch.int32) if sub_mean else \
-                torch.zeros(n, dtype=torch.int32, device="cuda")
-            M, sh = fxp.quantize_multiplier(3.3e-5)
-            params[sub_mean, n] = QLNParams(
-                gamma, beta, torch.tensor(M, dtype=torch.int32, device="cuda"),
-                torch.tensor(sh, dtype=torch.int32, device="cuda"), sub_mean)
-        x = _rand_i8(torch, gen, (r, n))
-        x[0] = 3                                  # a zero-variance row
-        yield f"R={r} N={n} {'LN' if sub_mean else 'RMS'}", x, params[sub_mean, n]
+            params[sub_mean, n] = _ln_params(torch, gen, sub_mean, n)
+        yield (f"R={r} N={n} {'LN' if sub_mean else 'RMS'}", _ln_input(torch, gen, r, n),
+               params[sub_mean, n])
 
 
 def phase_quant_layernorm(torch, gen):
@@ -403,7 +477,15 @@ def phase_quant_layernorm(torch, gen):
 
     floor = launch_floor_ms(torch)
     print(f"  launch floor (torch.neg on one element, the same timing loop): {floor:.4f} ms")
-    mism, err, main, verify = 0, 0.0, None, None
+    mism, err, picked = 0, 0.0, {}
+    wanted = {"R=512 N=4096 RMS": ("main", "R=512 (prefill rows) N=4096 RMSNorm"),
+              "R=32 N=4096 RMS": ("verify", "R=32 (verify rows) N=4096 RMSNorm"),
+              "R=8 N=6144 RMS": ("mixtral", "R=8 (mixtral decode tick) N=6144 RMSNorm"),
+              "R=4000 N=6144 RMS": ("mixtral_prefill",
+                                    "R=4000 (mixtral 4,000-row one-shot prefill) N=6144 "
+                                    "RMSNorm"),
+              "R=8192 N=6144 RMS": ("mixtral_forward",
+                                    "R=8192 (mixtral (1, 8192) forward) N=6144 RMSNorm")}
     for label, x, p in ln_cases(torch, gen):
         r, n = x.shape
         c, e = compare(mod.quant_layernorm(x, p), quant_layernorm_ref(x, p))
@@ -418,12 +500,10 @@ def phase_quant_layernorm(torch, gen):
         print(f"  quant_layernorm {label}: kernel {row['ms']:.4f} ms ({row['ms'] - floor:+.4f} "
               f"over the floor), plain {row['plain_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {c} mismatches")
-        if label == "R=512 N=4096 RMS":
-            main = row
-        if label == "R=32 N=4096 RMS":
-            verify = dict(row, mismatches=c, shape="R=32 (verify rows) N=4096 RMSNorm")
-    return dict(main, mismatches=mism, max_abs_err=err,
-                shape="R=512 (prefill rows) N=4096 RMSNorm", verify=verify)
+        if label in wanted:
+            key, shape = wanted[label]
+            picked[key] = dict(row, mismatches=c, shape=shape)
+    return dict(picked.pop("main"), mismatches=mism, max_abs_err=err, **picked)
 
 
 def _attn_scalars(torch, d):
@@ -600,18 +680,22 @@ def _stripe_blocks(mod, lengths, smax, bkv, hkv=4):
 
 
 def phase_decode_contiguous(torch, gen):
-    """Row 6 at yi-6b's group (Hkv 4, G 8, D 128), bkv 512: the decode
+    """Row 6 at bkv 512: yi-6b's group (Hkv 4, G 8, D 128) at the decode
     tick's batch (B=8, lengths 33-1000 on 1,024-row stripes) and one slot
-    over yi-6b's full context (B=1, 4,096 rows); equal to the plain
-    version, the kernel, plain and bound times, and the CTAs of each pass."""
+    over yi-6b's full context (B=1, 4,096 rows); mixtral's (Hkv 8, G 6) at
+    a tick of 8 slots over its 4,096-row rings, lengths 33 to 4,096 (full
+    rings among them: a wrapped ring holds positions out of order, which
+    the kernel does not see); equal to the plain version, the kernel,
+    plain and bound times, and the CTAs of each pass."""
     from repro_torch.kernels import decode_attention as mod
     from repro_torch.kernels.ref import decode_qattention_ref
 
-    hkv, g, d, bkv = 4, 8, 128, 512
-    shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 1024),   # yi-6b, max_len 1024
-              "B=1 len=4096": ([4096], 4096)}                            # yi-6b's full context
+    d, bkv = 128, 512
+    shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 1024, 4, 8),  # yi-6b, 1024
+              "B=1 len=4096": ([4096], 4096, 4, 8),                      # yi-6b's context
+              "mixtral B=8": ([33, 600, 1024, 2047, 2048, 3000, 4095, 4096], 4096, 8, 6)}
     rows_of = {}
-    for label, (lengths, smax) in shapes.items():
+    for label, (lengths, smax, hkv, g) in shapes.items():
         b = len(lengths)
         args = (_rand_i8(torch, gen, (b, hkv, g, d)), _rand_i8(torch, gen, (b, smax, hkv, d)),
                 _rand_i8(torch, gen, (b, smax, hkv, d)),
@@ -628,66 +712,137 @@ def phase_decode_contiguous(torch, gen):
         row = dict(ms=device_ms(torch, kernel, args),
                    plain_ms=device_ms(torch, plain, args, cold=False),
                    library_ms=None, mismatches=mism, max_abs_err=err, launches_per_call=3,
-                   shape=f"{label} Hkv=4 G=8 D=128 Smax={smax} bkv=512 lengths={lengths}")
+                   shape=f"{label} Hkv={hkv} G={g} D=128 Smax={smax} bkv=512 "
+                         f"lengths={lengths}")
         # the function needs the live rows only: a masked key's numerator is 0
         rows = sum(lengths)
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * b * hkv * g * d + 2 * rows * hkv * d + 4 * b + 1024, 4.0 * hkv * g * d * rows)
         blocks, live = _stripe_blocks(mod, lengths, smax, bkv, hkv)
-        print(f"  decode (contiguous) {label} Smax={smax} bkv={bkv} lengths={lengths}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}); passes A and B {blocks} CTAs "
-              f"each, {live} with rows to run, the carry "
+        print(f"  decode (contiguous) {label} Hkv={hkv} G={g} Smax={smax} bkv={bkv} "
+              f"lengths={lengths}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); passes A and B {blocks} "
+              f"CTAs each, {live} with rows to run, the carry "
               f"{b * hkv * g * d // 4 // 32} CTAs; {mism} mismatching codes")
         rows_of[label] = row
-    long_row = rows_of["B=1 len=4096"]
-    check(long_row["mismatches"] == 0,
-          "decode_qattention: kernel != plain version on the 4,096-row stripe")
-    return dict(rows_of["B=8"], long=long_row)
+    for label, row in rows_of.items():
+        check(row["mismatches"] == 0, f"decode_qattention: kernel != plain version at {label}")
+    return dict(rows_of["B=8"], long=rows_of["B=1 len=4096"], g6_ring=rows_of["mixtral B=8"],
+                mismatches=sum(r["mismatches"] for r in rows_of.values()),
+                max_abs_err=max(r["max_abs_err"] for r in rows_of.values()))
+
+
+def _flash_bound(h, hkv, d, sq, skv, q_offset, window):
+    """Bytes (q and the output once, the K and V rows some row sees) and
+    operations (2 * D in QK^T and 2 * D in P.V per live pair) of a causal,
+    maybe windowed, flash call, as (ms, "bytes" | "operations")."""
+    lo = [0 if window is None else max(0, q_offset + i - window + 1) for i in range(sq)]
+    hi = [min(skv, q_offset + i + 1) for i in range(sq)]
+    pairs = h * sum(b - a for a, b in zip(lo, hi))
+    keys = max(hi) - min(lo)
+    return bound_ms(2 * h * sq * d + 2 * hkv * keys * d + 1024 + 16, 4.0 * d * pairs)
+
+
+def _small_inv_scalars(torch, d):
+    """``_attn_scalars`` at a logit scale 600 times larger: masked keys still
+    clip to the table's zero entry, but ``window_skip_margin`` is below 1,
+    so a windowed tile walks from block 0."""
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.core.qsoftmax import LUT_DELTA
+
+    M, sh, lut, _, osc = _attn_scalars(torch, d)
+    s_logit = 600.0 / (2.0 / (np.sqrt(d) * 73.0 * 73.0))
+    M, sh = fxp.quantize_multiplier(1.0 / (s_logit * LUT_DELTA))
+    return (torch.tensor(M, dtype=torch.int32, device="cuda"),
+            torch.tensor(sh, dtype=torch.int32, device="cuda"), lut,
+            torch.tensor(np.float32(1.0 / s_logit), device="cuda"), osc)
+
+
+# mixtral-8x22b's attention (H 48, Hkv 8, D 128) and window (4,096), and the
+# windowed cases of row 9: (label, Sq, Skv, q_offset, bkv); the (1, 8,192)
+# forward, the long request's 4,000-row one-shot prefill and the 4,160-row
+# cache-less forward over it are the [mixtral] phase's
+MIXTRAL_HEADS = (48, 8, 128)
+MIXTRAL_WINDOW = 4096
+WINDOW_CASES = (("window_s8192", 8192, 8192, 0, 512),
+                ("window_q_offset", 128, 8192, 8064, 512),
+                ("window_bkv504", 8064, 8064, 0, 504),
+                ("window_never_bites", 4032, 4032, 0, 504),
+                ("window_s4000", 4000, 4000, 0, 500),
+                ("window_s4160", 4160, 4160, 0, 416))
 
 
 def phase_flash_qattention(torch, gen):
     """Row 9 at yi-6b's heads (H 32, Hkv 4, D 128): the (1, 512) cache-less
     prefill at its serving block, the 700-token prompt's stripe bucket (S
     704, bkv 352), ``ops.attention_q``'s default block (S 1024, bkv 128)
-    and a q_offset (Sq 128 at 896 over Skv 1024).  q, k and v are (B, S,
-    H, D) tensors seen transposed, as the serving forward hands them over."""
+    and a q_offset (Sq 128 at 896 over Skv 1024).  Then with mixtral's
+    heads and window (4,096): S 8,192 at bkv 512 (the window bites), Sq 128
+    at q_offset 8,064 over 8,192, S 8,064 at bkv 504 (no divisor of the
+    window), S 4,032 at bkv 504 (the window never bites), S 4,000 at bkv
+    500 and S 4,160 at bkv 416 (the [mixtral] phase's long request: its
+    one-shot prefill and the cache-less forward over it), each beside the
+    same call without a window, the skip branch and its margin
+    printed; S 8,192 also in the branch that walks from block 0.  q, k and
+    v are (B, S, H, D) tensors seen transposed, as the serving forward
+    hands them over."""
     from repro_torch.kernels import flash_qattention as mod
+    from repro_torch.kernels.ref import window_skip_margin
 
-    h, hkv, d = 32, 4, 128
-    cases = [(512, 512, 0, 512), (704, 704, 0, 352), (1024, 1024, 0, 128),
-             (128, 1024, 896, 512)]
-    mism, err, main = 0, 0.0, None
-    for sq, skv, q_offset, bkv in cases:
+    cases = [(None, (32, 4, 128), 512, 512, 0, 512, None),
+             (None, (32, 4, 128), 704, 704, 0, 352, None),
+             (None, (32, 4, 128), 1024, 1024, 0, 128, None),
+             (None, (32, 4, 128), 128, 1024, 896, 512, None)]
+    cases += [(label, MIXTRAL_HEADS, sq, skv, q_offset, bkv, MIXTRAL_WINDOW)
+              for label, sq, skv, q_offset, bkv in WINDOW_CASES]
+    mism, err, main, windowed = 0, 0.0, None, {}
+    for label, (h, hkv, d), sq, skv, q_offset, bkv, window in cases:
         q = _rand_i8(torch, gen, (1, sq, h, d)).transpose(1, 2)
         k, v = (_rand_i8(torch, gen, (1, skv, hkv, d)).transpose(1, 2) for _ in range(2))
         args = (q, k, v, *_attn_scalars(torch, d))
 
-        def kernel(*a):
-            return mod.flash_qattention(*a, q_offset=q_offset, bkv=bkv)
+        def kernel(*a, w=window):
+            return mod.flash_qattention(*a, q_offset=q_offset, bkv=bkv, window=w)
 
         def plain(*a):
-            return mod.flash_qattention_torch(*a, q_offset=q_offset, bkv=bkv)
+            return mod.flash_qattention_torch(*a, q_offset=q_offset, bkv=bkv, window=window)
 
         c, e = compare(kernel(*args), plain(*args))
         mism, err = mism + c, max(err, e)
         row = dict(ms=device_ms(torch, kernel, args),
-                   plain_ms=device_ms(torch, plain, args, cold=False), library_ms=None)
-        # the keys up to the last row's frontier, each read once; every live
-        # causal pair costs 2 * D operations in QK^T and 2 * D in P.V
-        keys = min(skv, q_offset + sq)
-        pairs = h * sum(min(skv, q_offset + i + 1) for i in range(sq))
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            2 * h * sq * d + 2 * hkv * keys * d + 1024 + 16, 4.0 * d * pairs)
-        print(f"  flash_qattention Sq={sq} Skv={skv} q_offset={q_offset} bkv={bkv}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), {c} mismatches")
+                   plain_ms=device_ms(torch, plain, args, cold=False,
+                                      batches=1 if window else 3),
+                   library_ms=None, mismatches=c)
+        row["bound_ms"], row["bound_by"] = _flash_bound(h, hkv, d, sq, skv, q_offset, window)
+        text = (f"H={h} Hkv={hkv} D={d} Sq={sq} Skv={skv} q_offset={q_offset} bkv={bkv}"
+                + (f" window={window}" if window else ""))
+        extra = ""
+        if window:
+            margin = window_skip_margin(float(args[6]), d)
+            row.update(shape=text, skip_margin=margin, ms_no_window=device_ms(
+                torch, lambda *a: kernel(*a, w=None), args))
+            branch = "starts each tile at its first live block" if margin > 1 else \
+                "walks from block 0"
+            extra = (f"; skip branch {branch} (window_skip_margin {margin:.1f}); without the "
+                     f"window {row['ms_no_window']:.4f} ms")
+            if label == "window_s8192":
+                small = (q, k, v, *_small_inv_scalars(torch, d))
+                cs, es = compare(kernel(*small), plain(*small))
+                mism, err = mism + cs, max(err, es)
+                row["ms_from_block_0"] = device_ms(torch, kernel, small)
+                extra += (f"; at a logit scale 600x larger (margin "
+                          f"{window_skip_margin(float(small[6]), d):.2f}) the tiles walk from "
+                          f"block 0: {row['ms_from_block_0']:.4f} ms, {cs} mismatches")
+            windowed[label] = row
+        print(f"  flash_qattention {text}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}, "
+              f"the live pairs), {c} mismatches{extra}", flush=True)
         if main is None:
             main = row
     print("  library: none (no single PyTorch call computes the q7 LUT flash; "
           "scaled_dot_product_attention is a float softmax)")
     return dict(main, mismatches=mism, max_abs_err=err,
-                shape="B=1 H=32 Hkv=4 D=128 S=512 bkv=512 (the (1, 512) prefill)")
+                shape="B=1 H=32 Hkv=4 D=128 S=512 bkv=512 (the (1, 512) prefill)", **windowed)
 
 
 def phase_flash_qdecode(torch, gen):
@@ -893,13 +1048,13 @@ def expert_gemm_share(torch, step):
           f"({100 * ms / total:.1f} %)")
 
 
-def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", **extra):
+def profile_decode(torch, cfg, folded, what="decode tick (batch 8)", max_len=1024, **extra):
     """A steady decode tick of the served requests, once every prompt is
     cached (``Engine.poll`` ends in a device-to-host copy); a MoE arch's
     experts' share of the GEMM time too."""
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
-    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024, **extra))
+    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=max_len, **extra))
     for p in _prompts(cfg.vocab_size):
         eng.submit(Request(prompt=p, max_new_tokens=32))
     while eng.sched.waiting or eng.sched.prefilling:
@@ -1426,15 +1581,18 @@ def phase_eval(torch, cfg, folded):
 
 
 # name -> (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab), at
-# full size; qwen2-moe's d_ff is its experts' (moe_d_ff)
+# full size; a MoE's d_ff is its experts' (moe_d_ff)
 ARCHS = {"qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
-         "qwen2-moe-a2.7b": (24, 2048, 16, 16, 128, 1408, 151936)}
+         "qwen2-moe-a2.7b": (24, 2048, 16, 16, 128, 1408, 151936),
+         "mixtral-8x22b": (56, 6144, 48, 8, 128, 16384, 32768)}
 
 
-def load_arch(torch, name):
-    """One of ``ARCHS`` at full size and depth: random weights from SEED,
-    calibrated on (2, 32) and folded on the card (the float weights freed
-    by ``calibrated_folded``)."""
+def load_arch(torch, name, n_layers=None):
+    """One of ``ARCHS`` at full size, at its full depth or ``n_layers``:
+    random weights from SEED, calibrated on (2, 32) and folded on the card
+    (the float weights freed by ``calibrated_folded``)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import calibrated_folded
 
@@ -1442,11 +1600,14 @@ def load_arch(torch, name):
     dims = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             cfg.moe_d_ff or cfg.d_ff, cfg.vocab_size)
     check(dims == ARCHS[name], f"{name} is not full size: {dims}")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     folded = calibrated_folded(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
-    print(f"  {name}: init + calibrate (2, 32) + fold {time.perf_counter() - t0:.1f} s, "
+    print(f"  {name} ({cfg.n_layers} layers): init + calibrate (2, 32) + fold "
+          f"{time.perf_counter() - t0:.1f} s, "
           f"folded {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card (peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)"
           + (f"; {cfg.n_experts} routed experts top-{cfg.top_k} and {cfg.n_shared_experts} "
@@ -1606,6 +1767,463 @@ def phase_small_archs(torch):
             if not cfg.n_experts:       # a MoE's dropped choices follow its chunking
                 check(toks["cuda", None] == toks["cuda", 8],
                       f"small {name}: chunked prefill changed the card's tokens")
+    finally:
+        if prev is None:
+            del os.environ["REPRO_TORCH_KERNELS"]
+        else:
+            os.environ["REPRO_TORCH_KERNELS"] = prev
+
+
+MIXTRAL_DEPTH = 4      # of 56 layers: see phase_mixtral
+MIXTRAL_LONG = (4000, 160)   # the long request: prompt tokens, new tokens
+
+
+class PlainGuard:
+    """Counts, by name, the calls on CUDA tensors of every plain version a
+    kernel wrapper or ``ops`` could fall into instead of its kernel, and of
+    the ``ref`` datapath's attention (``serve_int._gqa_decode`` and
+    ``_attn_rows_q8``), wherever the wrappers, ``ops`` and ``serve_int``
+    reach them.  Installed once; ``paused()`` lets a phase hold a kernel
+    against its plain version on the card without counting."""
+
+    PLAIN = ("int4_matmul_ref", "int8_bitsplit_matmul_ref", "quant_layernorm_ref",
+             "quant_softmax_ref", "decode_qattention_ref", "paged_decode_qattention_ref",
+             "paged_decode_qattention_q4_ref", "paged_prefill_qattention_ref",
+             "paged_prefill_qattention_q4_ref", "flash_qdecode_ref", "flash_qattention_torch",
+             "_gqa_decode", "_attn_rows_q8")
+    MODULES = ("ref", "int4_matmul", "quant_layernorm", "quant_softmax", "decode_attention",
+               "prefill_attention", "flash_qattention", "ops")
+
+    def __init__(self):
+        import importlib
+
+        self.n = dict.fromkeys(self.PLAIN, 0)
+        self.on = True
+        mods = [importlib.import_module(f"repro_torch.kernels.{m}") for m in self.MODULES]
+        for mod in mods + [importlib.import_module("repro_torch.models.serve_int")]:
+            for attr in self.PLAIN:
+                if hasattr(mod, attr):
+                    setattr(mod, attr, self._counted(attr, getattr(mod, attr)))
+
+    def _counted(self, attr, inner):
+        def counted(x, *a, **kw):
+            if self.on and getattr(x, "is_cuda", False):
+                self.n[attr] += 1
+            return inner(x, *a, **kw)
+
+        return counted
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.on = False
+        try:
+            yield
+        finally:
+            self.on = True
+
+    def ran(self) -> dict:
+        return {k: v for k, v in self.n.items() if v}
+
+
+class Captured:
+    """While open, the served path's contiguous decode and flash
+    (``ops.decode_qattention``, ``ops.flash_qattention``) append (args,
+    output) of each call to ``calls[name]``, in call order: a forward's
+    first call of either is its first layer's."""
+
+    NAMES = ("decode_qattention", "flash_qattention")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.calls = {name: [] for name in self.NAMES}
+        self.saved = {name: getattr(ops, name) for name in self.NAMES}
+        for name, inner in self.saved.items():
+            def kept(*a, _inner=inner, _name=name, **kw):
+                out = _inner(*a, **kw)
+                self.calls[_name].append((a, out))
+                return out
+
+            setattr(ops, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for name, inner in self.saved.items():
+            setattr(ops, name, inner)
+
+
+def _kl_argmax(want, got):
+    """Mean KL(softmax(want) || softmax(got)) over rows, in float64, and the
+    share of rows whose argmax agrees."""
+    def log_softmax(x):
+        x = np.asarray(x, np.float64)
+        x = x - x.max(-1, keepdims=True)
+        return x - np.log(np.exp(x).sum(-1, keepdims=True))
+
+    lw, lg = log_softmax(want), log_softmax(got)
+    kl = float(np.mean(np.sum(np.exp(lw) * (lw - lg), axis=-1)))
+    return kl, float(np.mean(want.argmax(-1) == got.argmax(-1)))
+
+
+def _codes_differ(a, b) -> str:
+    d = (a.long() - b.long()).abs()
+    n = int((d > 0).sum())
+    return f"{n} of {d.numel()} codes differ ({100 * n / d.numel():.3f} %), max {int(d.max())}"
+
+
+def check_layer0(torch, guard, window, n_prompt, steps, dscal, prefill, full):
+    """The first layer of the long request, where a row's q, K and V depend
+    on its token and position only, so every path sees the same codes.
+    ``steps``: (position, q, K ring, V ring, length, output) of each ring
+    decode step, ``dscal`` the decode's scalars; ``prefill`` and ``full``:
+    (args, output) of the first flash call of its one-shot prefill (its
+    ``n_prompt`` rows, then the bucket's padding) and of the cache-less
+    forward over all its tokens.  Gated, bit for bit: the
+    prefill's and the decode's q, K and V are the forward's rows; each
+    step's ring holds the forward's K and V of exactly the positions inside
+    the window, at ``position % Smax``, with length ``min(position + 1,
+    Smax)``; the ring decode's output equals the plain decode over rings
+    rebuilt from the forward's K and V; the forward's windowed flash equals
+    its plain version on its own inputs.  Printed: the ring's and the
+    prefill's codes against the forward's flash (a q7 carry's integer
+    numerators follow its running max, so two block partitions differ in
+    codes), beside the forward's flash at half its block."""
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels.ref import decode_qattention_ref
+
+    (q, k, v, *fscal), fout = full                   # (1, H | Hkv, S, D) views
+    (pq, pk, pv, *_), pout = prefill
+    smax = steps[0][2].shape[0]
+    hkv, s, d = k.shape[1:]
+    g = q.shape[1] // hkv
+    kf, vf = k[0].transpose(0, 1), v[0].transpose(0, 1)             # (S, Hkv, D)
+    check(bool((pq[:, :, :n_prompt] == q[:, :, :n_prompt]).all()
+               and (pk[:, :, :n_prompt] == k[:, :, :n_prompt]).all()
+               and (pv[:, :, :n_prompt] == v[:, :, :n_prompt]).all()),
+          "mixtral layer 0: the one-shot prefill's q, K, V differ from the cache-less "
+          "forward's")
+    pos = torch.tensor([p for p, *_ in steps], device="cuda")
+    qd = torch.stack([st[1] for st in steps])                        # (T, Hkv, G, D)
+    check(bool((qd == q[0, :, pos].transpose(0, 1).reshape(-1, hkv, g, d)).all()),
+          "mixtral layer 0: the decode's q differs from the cache-less forward's")
+    lengths = torch.tensor([st[4] for st in steps], dtype=torch.int32, device="cuda")
+    check(bool((lengths == torch.clamp(pos + 1, max=smax)).all()),
+          f"mixtral layer 0: ring lengths {lengths.tolist()[:4]}... (want min(pos + 1, "
+          f"{smax}))")
+    # the position ring row r holds at step p: the one of p - smax < x <= p
+    # with x % smax == r (none yet where x < 0)
+    rows = torch.arange(smax, device="cuda")
+    src = pos[:, None] - (pos[:, None] - rows[None, :]) % smax
+    live = (src >= 0)[..., None, None]
+    kr = torch.where(live, kf[src.clamp(min=0)], 0)
+    vr = torch.where(live, vf[src.clamp(min=0)], 0)
+    ks, vs = torch.stack([st[2] for st in steps]), torch.stack([st[3] for st in steps])
+    bad = int((((ks != kr) | (vs != vr)) & live).sum())
+    check(bad == 0, f"mixtral layer 0: {bad} live ring codes differ from the cache-less "
+          "forward's K and V at their positions")
+    out = torch.stack([st[5] for st in steps])
+    with guard.paused():
+        want = decode_qattention_ref(qd, kr, vr, lengths, *dscal, fa.divisor_tile(512, smax))
+        flash_plain = fa.flash_qattention_torch(q, k, v, *fscal, bkv=fa.divisor_tile(512, s),
+                                                window=window)
+    ring_bad, _ = compare(out, want)
+    flash_bad, _ = compare(fout, flash_plain)
+    print(f"  layer 0, positions {int(pos[0])}-{int(pos[-1])}: the ring's q, K and V are the "
+          f"cache-less forward's; the ring decode against the plain decode over the rebuilt "
+          f"rings: {ring_bad} mismatching codes; the forward's windowed flash (S {s}, bkv "
+          f"{fa.divisor_tile(512, s)}) against its plain version: {flash_bad}")
+    check(ring_bad == 0 and flash_bad == 0,
+          f"mixtral layer 0: ring decode {ring_bad}, windowed flash {flash_bad} codes differ "
+          "from the plain versions on the served inputs")
+    half = fa.flash_qattention(q, k, v, *fscal, bkv=fa.divisor_tile(512, s) // 2,
+                               window=window)
+    flash_rows = fout[0, :, pos].transpose(0, 1).reshape(-1, hkv, g, d)
+    print(f"  layer 0 against the cache-less flash (not gated: a q7 carry's numerators "
+          f"follow its running max): the ring decode {_codes_differ(out, flash_rows)}; the "
+          f"one-shot prefill (S {pq.shape[2]}, bkv {fa.divisor_tile(512, pq.shape[2])}) "
+          f"{_codes_differ(pout[:, :, :n_prompt], fout[:, :, :n_prompt])}; the same flash "
+          f"at bkv "
+          f"{fa.divisor_tile(512, s) // 2} {_codes_differ(half, fout)}")
+
+
+def hold_forward_shapes(torch, cfg, forwards, smax, guard):
+    """Every shape that the recorded ``forwards`` ((B, S, mode, launches))
+    gave the kernels, held against the plain versions on random codes:
+    each layer's GEMMs (``forward_gemms``), the norms at R = B * S, a
+    prefill's windowed flash at (B, S) with its serving block and a decode
+    forward's ring decode at (B, ``smax``) over lengths up to a full ring.
+    Prints the shapes; fails on any mismatching code."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels import int4_matmul as mm
+    from repro_torch.kernels import quant_layernorm as ln
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    forms = {(b, s, mode) for b, s, mode, _ in forwards}
+    gemms = sorted({g for b, s, _ in forms for g in forward_gemms(cfg, b * s)})
+    norms = sorted({b * s for b, s, _ in forms})
+    flashes = sorted({(b, s) for b, s, mode in forms if mode == "prefill"})
+    decodes = sorted({b for b, _, mode in forms if mode == "decode"})
+    params = _ln_params(torch, gen, cfg.norm_type == "layernorm", cfg.d_model)
+    scal = _attn_scalars(torch, d)
+    bad = {}
+    with guard.paused():
+        for m, k, n in gemms:
+            args, _ = _gemm_args(torch, gen, m, k, n, True)
+            bad[f"int4_matmul {m}x{k}x{n}"] = compare(mm.int4_matmul(*args),
+                                                     ref.int4_matmul_ref(*args))[0]
+        for r in norms:
+            x = _ln_input(torch, gen, r, cfg.d_model)
+            bad[f"quant_layernorm R={r}"] = compare(ln.quant_layernorm(x, params),
+                                                    ref.quant_layernorm_ref(x, params))[0]
+        for b, s in flashes:
+            q = _rand_i8(torch, gen, (b, s, h, d)).transpose(1, 2)
+            k, v = (_rand_i8(torch, gen, (b, s, hkv, d)).transpose(1, 2) for _ in range(2))
+            kw = dict(bkv=fa.divisor_tile(512, s), window=cfg.sliding_window)
+            bad[f"flash_qattention B={b} S={s} bkv={kw['bkv']}"] = compare(
+                fa.flash_qattention(q, k, v, *scal, **kw),
+                fa.flash_qattention_torch(q, k, v, *scal, **kw))[0]
+        for b in decodes:
+            lengths = torch.randint(1, smax + 1, (b,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+            lengths[0] = smax
+            args = (_rand_i8(torch, gen, (b, hkv, h // hkv, d)),
+                    _rand_i8(torch, gen, (b, smax, hkv, d)),
+                    _rand_i8(torch, gen, (b, smax, hkv, d)), lengths, *scal)
+            bkv = fa.divisor_tile(512, smax)
+            bad[f"decode_qattention B={b} Smax={smax} bkv={bkv}"] = compare(
+                da.decode_qattention(*args, bkv=bkv), ref.decode_qattention_ref(*args, bkv))[0]
+    print(f"  held against the plain versions at every shape of the phase's forwards: "
+          f"{len(gemms)} GEMMs (M {sorted({m for m, _, _ in gemms})}), the norm at R "
+          f"{norms}, the flash at (B, S) {flashes}, the ring decode at B {decodes}: "
+          f"{sum(bad.values())} mismatching codes")
+    check(not any(bad.values()),
+          f"mixtral: kernels differ from their plain versions at served shapes: "
+          f"{ {k: v for k, v in bad.items() if v} }")
+
+
+def phase_mixtral(torch, kernels, guard):
+    """mixtral-8x22b at its published widths (d 6144, 48 heads, 8 KV heads,
+    8 experts of d_ff 16,384 top-2, vocab 32,768, a 4,096-row sliding
+    window) at MIXTRAL_DEPTH layers of 56: its int4 codes alone take ~70 GB
+    at full depth, and the calibration holds float weights.  An Engine of 8
+    slots and max_len 4,352 resolves to the contiguous stripe, a ring of
+    4,096 rows; it serves the 8 requests and one of 4,000 prompt tokens and
+    160 new ones, whose decode runs past position 4,096 and wraps the ring.
+    Gates: the ring; finite logits; 4 ``flash_qattention`` launches per
+    one-shot prefill and 4 ``decode_qattention`` per tick, no paged kernel;
+    every GEMM on the path its M implies; the first layer of the long
+    request against a cache-less forward over its 4,160 tokens
+    (``check_layer0``).  Printed, not gated: the KL and argmax agreement
+    between its decode logits and that forward's (after 4 random MoE
+    layers, two q7 carries that partition their blocks differently part
+    far).  Then the cache-less forward at (1, 8,192), where the window
+    bites (median latency, a profile), and a decode tick profiled; last,
+    every shape the phase's forwards ran is held against the plain
+    versions (``hold_forward_shapes``).  The weights are freed before it
+    returns."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels.ref import window_skip_margin
+    from repro_torch.models import serve_int as S
+    from repro_torch.serve.engine import Engine, EngineConfig, Request, RequestStatus
+
+    cfg, folded = load_arch(torch, "mixtral-8x22b", n_layers=MIXTRAL_DEPTH)
+    prep = S.prepare_folded(cfg, folded)
+    margins = [window_skip_margin(float(f["slot0"]["attn_q"]["inv_s_logit"]), cfg.hd)
+               for f in prep["layers"]]
+    branch = "starts each tile at its first live block" if min(margins) > 1 else \
+        "walks from block 0 in some layer"
+    print(f"  window_skip_margin per layer {[round(m, 1) for m in margins]}: the windowed "
+          f"flash {branch}")
+    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=4352))
+    check(eng.layout == "contiguous" and eng.smax == MIXTRAL_WINDOW,
+          f"mixtral: layout {eng.layout}, {eng.smax} rows a slot (want the contiguous "
+          f"4,096-row ring)")
+    n_prompt, n_new = MIXTRAL_LONG
+    long_prompt = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size,
+                                                           n_prompt).astype(np.int32)
+    reqs = [Request(prompt=long_prompt, max_new_tokens=n_new)]
+    reqs += [Request(prompt=p, max_new_tokens=32) for p in _prompts(cfg.vocab_size)]
+    rows, steps, finite = [], [], [True]
+    inner = eng._decode
+
+    def decode(toks):
+        cap.calls["decode_qattention"].clear()
+        out = inner(toks)
+        finite[0] = finite[0] and bool(np.isfinite(out).all())
+        for b, st in enumerate(eng.sched.slots):
+            if st is not None and st.rid == reqs[0].rid:
+                rows.append((int(eng.pos[b]), out[b].copy()))
+                (q, kc, vc, lengths, *scal), ctx = cap.calls["decode_qattention"][0]
+                steps.append((rows[-1][0], q[b].clone(), kc[b].clone(), vc[b].clone(),
+                              int(lengths[b]), ctx[b].clone()))
+                dscal[:] = scal
+        return out
+
+    eng._decode = decode
+    dscal = []
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    reset_gemm_paths()
+    t0 = time.perf_counter()
+    with Captured() as cap, DroppedChoices() as dropped:
+        for r in reqs:
+            eng.submit(r)
+        while eng.has_work:
+            eng.poll()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = eng.counters
+    launches = {k.__name__: k.launches for k in kernels}
+    forwards = list(FORWARDS)
+    prefill = next(call for call in cap.calls["flash_qattention"]     # the first is reqs[0]'s
+                   if call[0][0].shape[2] == eng._bucket_len(n_prompt))
+    del cap
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"  mixtral: {n_tok / wall:.1f} tok/s ({wall:.2f} s wall), 9 requests (one of "
+          f"{n_prompt} prompt tokens and {n_new} new), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"    counters: { {k: v for k, v in c.items() if v} }")
+    print(f"    launches: {launches}; int4_matmul by path {gemm_paths()}")
+    print(f"    {dropped.n} of {dropped.choices} routing choices dropped at capacity")
+    check(all(r.status is RequestStatus.FINISHED for r in reqs), "mixtral: a request failed")
+    check(finite[0], "mixtral: non-finite decode logits")
+    check(c["oneshot_prefills"] == 9 and c["loop_prefill_steps"] == 0,
+          f"mixtral: one-shot prefills {c['oneshot_prefills']}, loop steps "
+          f"{c['loop_prefill_steps']}")
+    want = {"flash_qattention": cfg.n_layers * c["oneshot_prefills"],
+            "decode_qattention": cfg.n_layers * c["decode_steps"],
+            "paged_prefill_qattention": 0, "paged_decode_qattention": 0}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"mixtral: launches {launches}, want {want} (4 flash_qattention per one-shot prefill, "
+          "4 decode_qattention per tick, no paged kernel)")
+    check(launches["int4_matmul"] > 0 and launches["quant_layernorm"] > 0,
+          f"mixtral: a kernel of the path never ran: {launches}")
+    check_paths("mixtral", cfg, gemm_paths(), FORWARDS)
+    last_pos = rows[-1][0]
+    check(len(rows) == n_new - 1 and last_pos == n_prompt + n_new - 2 > MIXTRAL_WINDOW,
+          f"mixtral: the long request's decode ended at position {last_pos} after "
+          f"{len(rows)} steps (want past {MIXTRAL_WINDOW})")
+    # the cache-less forward over the same tokens: the first layer gated,
+    # the logits printed (the reference's own check)
+    seq = np.concatenate([long_prompt, reqs[0].out]).astype(np.int32)
+    toks = torch.as_tensor(seq[None], device="cuda")
+    with Captured() as cap, DroppedChoices() as dropped_full:
+        logits, _ = S.serve_forward(cfg, prep, toks)
+        full = logits[0].cpu().numpy()
+    del logits
+    check_layer0(torch, guard, cfg.sliding_window, n_prompt, steps, dscal, prefill,
+                 cap.calls["flash_qattention"][0])
+    forwards += FORWARDS[-1:]
+    del cap, steps, prefill
+    pos = [p for p, _ in rows]
+    kl, agree = _kl_argmax(full[pos], np.stack([r for _, r in rows]))
+    kl_last, agree_last = _kl_argmax(full[pos[-1:]], rows[-1][1][None])
+    print(f"  ring decode vs the cache-less forward over {len(seq)} tokens: last position "
+          f"{pos[-1]}: KL {kl_last:.3e}, argmax {'agrees' if agree_last else 'differs'}; "
+          f"over the {len(pos)} decode positions {pos[0]}-{pos[-1]}: mean KL {kl:.3e}, "
+          f"argmax agrees on {agree:.4f} (not gated; the forward dropped {dropped_full.n} of "
+          f"{dropped_full.choices} routing choices, the served run {dropped.n} of "
+          f"{dropped.choices})")
+    # the cache-less forward where the window bites
+    toks = torch.as_tensor(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, (1, 8192)).astype(np.int32), device="cuda")
+    fa.flash_qattention.launches = 0
+    reset_gemm_paths()
+    logits, _ = S.serve_forward(cfg, prep, toks)
+    torch.cuda.synchronize()
+    check(tuple(logits.shape) == (1, 8192, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "mixtral (1, 8192): logits")
+    check(fa.flash_qattention.launches == cfg.n_layers,
+          f"mixtral (1, 8192): flash_qattention launches {fa.flash_qattention.launches}")
+    check_paths("mixtral (1, 8192)", cfg, gemm_paths(), FORWARDS)
+    del logits
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        S.serve_forward(cfg, prep, toks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    lat = float(np.median(walls))
+    print(f"  cache-less (1, 8192): median {lat * 1e3:.2f} ms over 3 forwards "
+          f"({8192 / lat:.0f} tokens/s; host clock), {cfg.n_layers} flash_qattention a forward")
+    profile_steps(torch, lambda: S.serve_forward(cfg, prep, toks), "mixtral (1, 8192) forward",
+                  n=2, experts=True)
+    profile_decode(torch, cfg, folded, "mixtral decode tick (batch 8, 4,096-row rings)",
+                   max_len=4352)
+    hold_forward_shapes(torch, cfg, forwards + FORWARDS, eng.smax, guard)
+    del folded, prep
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def phase_small_mixtral(torch):
+    """The small mixtral (window 16) on the card (the kernels) and on the
+    CPU (their plain versions, REPRO_TORCH_KERNELS=gpu): the Engine on
+    ``cache_layout="auto"`` (the 16-row ring) with one-shot prompts (9, 12)
+    and prompts longer than the window (30, 20: the batch-1 decode loop),
+    and the LockstepEngine, every request decoding past the window: equal
+    greedy tokens.  Then a one-shot stripe prefill and 12 decode steps past
+    the window fed the CPU's tokens, the differing logits counted."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import calibrated_folded
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve.engine import Engine, EngineConfig, LockstepEngine, Request
+
+    prev = os.environ.get("REPRO_TORCH_KERNELS")
+    os.environ["REPRO_TORCH_KERNELS"] = "gpu"
+    try:
+        cfg = smoke_config("mixtral-8x22b")
+        folded_cpu = calibrated_folded(cfg, SEED, device="cpu")
+        folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to("cuda"), folded_cpu)}
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (9, 30, 12, 20)]
+        toks, loops = {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64))
+            toks[dev, "engine"] = [r.out.tolist() for r in eng.generate(
+                [Request(prompt=p, max_new_tokens=12) for p in prompts])]
+            loops[dev] = (eng.layout, eng.counters["loop_prefill_steps"],
+                          eng.counters["oneshot_prefills"])
+            toks[dev, "lockstep"] = [r.out.tolist() for r in LockstepEngine(
+                cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64)).generate(
+                [Request(prompt=p, max_new_tokens=10) for p in prompts[:3]])]
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32))
+        out, fed = {}, []
+        for dev in ("cpu", "cuda"):
+            cache = S.init_cache(cfg, 2, 64, device=dev)
+            logits, cache = S.serve_forward(cfg, folded[dev], prompt.to(dev), cache=cache)
+            got = [logits.reshape(-1, cfg.vocab_size).cpu()]
+            for step in range(12):
+                if dev == "cpu":
+                    fed.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+                logits, cache = S.serve_forward(
+                    cfg, folded[dev], fed[step].to(dev), cache=cache,
+                    pos_offset=torch.full((2,), 12 + step, dtype=torch.int32, device=dev),
+                    mode="decode")
+                got.append(logits.reshape(-1, cfg.vocab_size).cpu())
+            out[dev] = torch.cat(got)
+        a, b = out["cpu"], out["cuda"]
+        differ = int((a != b).sum())
+        print(f"  small mixtral, card vs CPU: (layout, loop prefill steps, one-shot prefills) "
+              f"{loops['cuda']}; Engine tokens equal "
+              f"{toks['cuda', 'engine'] == toks['cpu', 'engine']}, LockstepEngine tokens equal "
+              f"{toks['cuda', 'lockstep'] == toks['cpu', 'lockstep']}; stripe prefill + 12 "
+              f"decode steps to position 23: {differ} of {a.numel()} logits differ")
+        check(loops["cuda"] == loops["cpu"] == ("contiguous", 50, 2),
+              f"small mixtral: (layout, loop steps, one-shot prefills) {loops}")
+        check(bool(torch.isfinite(b).all()), "small mixtral: non-finite logits on the card")
+        check(toks["cuda", "engine"] == toks["cpu", "engine"]
+              and toks["cuda", "lockstep"] == toks["cpu", "lockstep"],
+              "small mixtral: the card's greedy tokens differ from the CPU's")
     finally:
         if prev is None:
             del os.environ["REPRO_TORCH_KERNELS"]
@@ -1812,25 +2430,6 @@ def phase_small_bert_reference(torch):
         check(differ == 0, f"small bert {name}: card and CPU logits differ")
 
 
-def guard_plain_flash(torch):
-    """Wrap the plain flash (``flash_qattention_torch``, where the wrapper
-    and ``ops`` call it) so that every call counts by the device of its
-    query; returns the live counts."""
-    from repro_torch.kernels import flash_qattention as fa
-    from repro_torch.kernels import ops
-
-    plain = fa.flash_qattention_torch
-    calls = {"cuda": 0, "cpu": 0}
-
-    def counted(q, *a, **kw):
-        calls[q.device.type] += 1
-        return plain(q, *a, **kw)
-
-    fa.flash_qattention_torch = counted
-    ops.flash_qattention_torch = counted
-    return calls
-
-
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -1911,9 +2510,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("kernel phases")
 
-    # the served paths must reach the plain flash on no CUDA tensor: every
-    # call of it from here on is counted by the device of its query
-    plain_calls = guard_plain_flash(torch)
+    # the served paths must reach no plain version on a CUDA tensor: every
+    # such call from here on is counted, outside a phase's paused comparisons
+    guard = PlainGuard()
     print("[serve] yi-6b, full width, 8 requests x 32 new tokens")
     cfg, folded = load_yi6b(torch)
     served = phase_serve(torch, cfg, folded, engine_wrappers)
@@ -1947,14 +2546,22 @@ def main() -> int:
           "8 requests x 32 new tokens, one-shot and chunked")
     phase_arch(torch, "qwen2-moe-a2.7b", engine_wrappers)
     stamp("moe")
-    check(plain_calls["cuda"] == 0, f"the plain flash ran on the card {plain_calls['cuda']} "
-          "times on the served paths")
-    print(f"  flash_qattention_torch on a CUDA tensor: {plain_calls['cuda']} calls on the "
-          "served paths")
+    print(f"[mixtral] mixtral-8x22b, published widths at {MIXTRAL_DEPTH} of 56 layers (8 "
+          "experts top-2, a 4,096-row sliding window), 9 requests on the contiguous ring")
+    mixtral = phase_mixtral(torch, engine_wrappers[:2] + [da.decode_qattention,
+                                                          fa.flash_qattention]
+                            + engine_wrappers[2:], guard)
+    stamp("mixtral")
+    print(f"  plain versions on a CUDA tensor on the served paths ([serve] to [mixtral]): "
+          f"{guard.ran() or 'none'}")
+    check(not guard.ran(), f"plain versions ran on the card on the served paths: "
+          f"{guard.ran()}")
     print("[check] small model against the CPU")
     phase_small_reference(torch)
     print("[check] small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b against the CPU")
     phase_small_archs(torch)
+    print("[check] small mixtral-8x22b (window 16) against the CPU")
+    phase_small_mixtral(torch)
     print("[bert] bert-base, full width, W4A8 and W8A8, cache-less integer forward")
     bert = phase_bert(torch)
     print("[check] small bert-base against the CPU")
@@ -1983,13 +2590,20 @@ def main() -> int:
             "mismatches": row["mismatches"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"launches_mixtral": mixtral["launches"][fn.__name__]}
+               if fn.__name__ in mixtral["launches"] else {}),
             **({"launch_floor_ms": row["launch_floor_ms"]} if "launch_floor_ms" in row else {}),
             **{case: {k: row[case][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "mismatches",
-                                                "launches_per_forward", "forwards")
+                                                "launches_per_forward", "forwards",
+                                                "skip_margin", "ms_no_window",
+                                                "ms_from_block_0")
                       if k in row[case]}
                for case in ("chunk", "long", "last_chunk", "verify", "qwen3", "expert",
-                            "expert_chunk", "g1_moe", "g1_stablelm") if case in row}})
+                            "expert_chunk", "g1_moe", "g1_stablelm", "mixtral",
+                            "mixtral_prefill", "mixtral_attn", "mixtral_attn_prefill",
+                            "mixtral_forward", "g6_ring",
+                            *(label for label, *_ in WINDOW_CASES)) if case in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

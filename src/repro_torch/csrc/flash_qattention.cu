@@ -8,7 +8,8 @@
 // flash_qattention_torch):
 //
 //   s    = int8 q . int8 k                       (int32)
-//   s    = kpos <= qpos ? s : s - 2^30           (qpos = q_offset + row)
+//   s    = live ? s : s - 2^30                   (qpos = q_offset + row;
+//          live: kpos <= qpos, and kpos > qpos - window with a window)
 //   m'   = max(m, max_block s);  f = exp((m - m') * inv)  (0 while m unset)
 //   num  = LUT_q7[clip(rescale(m' - s, M_idx, sh_idx, 9), 0, 255)]
 //   den  = den * f + sum num;  acc = acc * f + num . int8 v   (per block)
@@ -49,6 +50,18 @@
 // would add num = 0 with f = 1).  bkv is the caller's: any divisor of Skv
 // up to 512, odd ones included (37 for a 37-token prefill).
 //
+// A sliding window (window > 0) masks per element in both sweeps.  The
+// reference computes the blocks below a row's window too: their masked
+// scores set m to a masked max and fill den and acc with nonzero
+// numerators, which the row's first live block scales by f = exp((m_old -
+// m_new) * inv), m_old - m_new <= -(2^30 - 2 D 127^2).  Where that product
+// is below -skip_exp_arg, f is exactly 0.0f for every row, so a tile may
+// start at the first block live for its first row (the others' windows
+// start later); the kernel decides it per CTA from the inv it reads, with
+// the threshold the wrapper passes (kernels/ref.py::SKIP_EXP_ARG, which
+// window_skip_margin and the plain tiled mirror use too), and otherwise
+// walks from block 0, bit for bit the reference's carry.
+//
 // What bounds it on the H100: int8 operations for long sequences — the
 // live causal pairs times 4 * D (QK and PV) at the 1,979 TOP/s int8 tensor
 // rate — against the bytes of Q, K, V and the output.  The second sweep
@@ -77,14 +90,17 @@ __host__ __device__ constexpr int smem_bytes(int D, int gh) {
 }
 
 // Block j's keys run [j bkv, j bkv + bkv); its steps start at j bkv + 32 u.
-// Every block but the tile's last walks spb = ceil(bkv / 32) steps a sweep,
-// the last nlast (its keys up to the causal frontier).  Step s of the walk:
+// The tile walks nblk blocks from block j0; every block but the last walks
+// spb = ceil(bkv / 32) steps a sweep, the last nlast (its keys up to the
+// causal frontier).  Step s of the walk:
 struct Walk {
-  int bkv, spb, nblk, nlast;
+  int bkv, spb, j0, nblk, nlast;
+  __device__ __forceinline__ int len(int j) const { return j == j0 + nblk - 1 ? nlast : spb; }
   __device__ __forceinline__ bool at(int s, int& j, int& u) const {
-    j = s / (2 * spb);
-    const int n = j == nblk - 1 ? nlast : spb;
-    const int r = s - j * 2 * spb;
+    const int jj = s / (2 * spb);
+    j = j0 + jj;
+    const int n = len(j);
+    const int r = s - jj * 2 * spb;
     u = r < n ? r : r - n;
     return r >= n;   // the second sweep
   }
@@ -97,8 +113,8 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
              const int* __restrict__ Mi_p, const int* __restrict__ shi_p,
              const float* __restrict__ inv_p, const float* __restrict__ osc_p,
              int8_t* __restrict__ out, int H, int Hkv, int D, int Sq, int Skv, int bkv,
-             int q_offset, int gh, int qsb, int qsh, int qss, int ksb, int ksh, int kss,
-             int osb, int osh, int oss) {
+             int q_offset, int window, int skip_exp_arg, int gh, int qsb, int qsh, int qss,
+             int ksb, int ksh, int kss, int osb, int osh, int oss) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_lut = reinterpret_cast<int*>(smem);
   int8_t* ring = reinterpret_cast<int8_t*>(smem + kLutBytes);
@@ -119,11 +135,18 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   const int hq = h * G + u0 % groups * gh + warp;
   const int row0 = qt * kRows;
   const int last = q_offset + min(row0 + kRows, Sq) - 1;   // the tile's causal frontier
+  const float inv = *inv_p;
+  const int jend = min(Skv / bkv, last / bkv + 1);           // blocks up to the frontier
+  // the first block live for the tile's first row, where skipping the
+  // blocks below it leaves the reference's result (see the header)
+  const bool skip = window > 0 && static_cast<double>((1 << 30) - 2 * D * 127 * 127) *
+                                          static_cast<double>(inv) > skip_exp_arg;
   Walk walk;
   walk.bkv = bkv;
   walk.spb = (bkv + kStepKeys - 1) / kStepKeys;
-  walk.nblk = min(Skv / bkv, last / bkv + 1);
-  walk.nlast = (min(bkv, last + 1 - (walk.nblk - 1) * bkv) + kStepKeys - 1) / kStepKeys;
+  walk.j0 = skip ? min(max(0, q_offset + row0 - window + 1) / bkv, jend - 1) : 0;
+  walk.nblk = jend - walk.j0;
+  walk.nlast = (min(bkv, last + 1 - (jend - 1) * bkv) + kStepKeys - 1) / kStepKeys;
   const int nsteps = walk.steps();
   const int8_t* kb = k + static_cast<long long>(b) * ksb + static_cast<long long>(h) * ksh;
   const int8_t* vb = v + static_cast<long long>(b) * ksb + static_cast<long long>(h) * ksh;
@@ -167,8 +190,10 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
                       : 0u;
     }
   const LutIndex li(*Mi_p, *shi_p);
-  const float inv = *inv_p;
   const int qpos[2] = {q_offset + row0 + g, q_offset + row0 + g + 8};
+  // a key at or below lo is outside the row's window
+  const int lo[2] = {window > 0 ? qpos[0] - window : INT_MIN,
+                     window > 0 ? qpos[1] - window : INT_MIN};
   // acc (j, e) of this lane at acc_l[(4 j + e) * 32]: row g + 8 (e >> 1),
   // column 32 t + 16 (e & 1) + j
   float* acc_l = s_acc + warp * kAccFloats + lane;
@@ -196,7 +221,7 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
     }
     int j, u;
     const bool second = walk.at(s, j, u);
-    const int n = j == walk.nblk - 1 ? walk.nlast : walk.spb;
+    const int n = walk.len(j);
     const int key0 = j * bkv + u * kStepKeys, end = j * bkv + bkv;
     const int8_t* kt_s = ring + s % kSteps * 2 * tile;
 
@@ -232,7 +257,7 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int key = key0 + 16 * kt + 8 * nn + 2 * t + (e & 1);
           const int x = wrap_add(sc[kt][nn][e], odd[nn][e]);
-          sc[kt][nn][e] = key > qpos[e >> 1] ? wrap_sub(x, kMaskOffset) : x;
+          sc[kt][nn][e] = key > qpos[e >> 1] || key <= lo[e >> 1] ? wrap_sub(x, kMaskOffset) : x;
         }
     }
 
@@ -360,15 +385,17 @@ flash_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
 // strides (batch, head, row; D contiguous, every stride and base a multiple
 // of 16 bytes), lut int32 (256,) of codes in [0, 127], M_idx/sh_idx int32
 // and inv_s_logit/out_scale fp32 scalars in device memory, out int8
-// (B, H, Sq, D) through its strides; gh q heads per CTA.  Needs H % Hkv ==
-// 0, gh dividing H / Hkv and at most 4, D <= 128 with D % 16 == 0, bkv <=
-// 512 dividing Skv, q_offset >= 0 (the wrapper checks).
+// (B, H, Sq, D) through its strides; gh q heads per CTA; window 0 for
+// none; skip_exp_arg the exp argument below which the carry factor over
+// skipped masked blocks is 0.0f.  Needs H % Hkv == 0, gh dividing H / Hkv and at most 4, D <= 128
+// with D % 16 == 0, bkv <= 512 dividing Skv, q_offset >= 0, window >= 0
+// (the wrapper checks).
 extern "C" int flash_qattention(const void* q, const void* k, const void* v, const void* lut,
                                 const void* Mi, const void* shi, const void* inv,
                                 const void* osc, void* out, int B, int H, int Hkv, int D,
-                                int Sq, int Skv, int bkv, int q_offset, int gh, int qsb,
-                                int qsh, int qss, int ksb, int ksh, int kss, int osb, int osh,
-                                int oss, void* stream) {
+                                int Sq, int Skv, int bkv, int q_offset, int window,
+                                int skip_exp_arg, int gh, int qsb, int qsh, int qss, int ksb,
+                                int ksh, int kss, int osb, int osh, int oss, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   const int bytes = smem_bytes(D, gh);
   const cudaError_t e =
@@ -380,6 +407,6 @@ extern "C" int flash_qattention(const void* q, const void* k, const void* v, con
       static_cast<const int8_t*>(v), static_cast<const int*>(lut), static_cast<const int*>(Mi),
       static_cast<const int*>(shi), static_cast<const float*>(inv),
       static_cast<const float*>(osc), static_cast<int8_t*>(out), H, Hkv, D, Sq, Skv, bkv,
-      q_offset, gh, qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss);
+      q_offset, window, skip_exp_arg, gh, qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,7 @@ from repro_torch.kernels.prefill_attention import (
 )
 from repro_torch.kernels.ref import (
     NEG_INIT,
+    SKIP_EXP_ARG,
     _epilogue,
     _online_update,
     flash_qdecode_ref,
@@ -51,14 +52,20 @@ def divisor_tile(cap: int, n: int) -> int:
 
 
 def flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
-                           inv_s_logit, out_scale, *, q_offset: int = 0, bkv: int = 512):
+                           inv_s_logit, out_scale, *, q_offset: int = 0, bkv: int = 512,
+                           window: int | None = None):
     """q (..., H, Sq, D) x k/v (..., Hkv, Skv, D) int8 -> (..., H, Sq, D)
-    int8, query row i at position ``q_offset + i`` attending causally (no
-    sliding window: SWA archs are not ported), one carry update per block
-    of ``bkv`` keys (``bkv`` divides Skv).  KV blocks wholly past the last
-    row's frontier are skipped, as the kernels do: such a block would add
-    num = 0 with f = 1 (a masked key's index clips to 255, whose table entry
-    is 0), so the result equals the reference's, which computes them."""
+    int8, query row i at position ``qpos = q_offset + i`` attending to the
+    keys at ``kpos <= qpos`` (and ``kpos > qpos - window`` with a sliding
+    ``window``), one carry update per block of ``bkv`` keys (``bkv``
+    divides Skv).  KV blocks wholly past the last row's frontier are
+    skipped, as the kernels do: such a block would add num = 0 with f = 1
+    (a masked key's index clips to 255, whose table entry is 0; every row
+    has a live key, its own, at or before the frontier), so the result
+    equals the reference's, which computes them.  Blocks below the window
+    are computed from block 0, as the reference does: their masked scores
+    leave nonzero numerators in the carry until the first live block scales
+    them by exp((m_old - m_new) * inv_s_logit)."""
     h, sq, d = q_i8.shape[-3:]
     hkv, skv = k_i8.shape[-3], k_i8.shape[-2]
     group = h // hkv
@@ -79,26 +86,34 @@ def flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
         vg = v_i8[..., blk, :].repeat_interleave(group, dim=-3)
         s = int_matmul(q_i8, kg.transpose(-1, -2))           # (..., H, Sq, bkv)
         kpos = k_i * bkv + torch.arange(bkv, dtype=torch.int32, device=dev)[None, :]
-        s = torch.where(kpos <= qpos, s, s - qs.MASK_OFFSET)
+        live = kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        s = torch.where(live, s, s - qs.MASK_OFFSET)
         m, den, acc = _online_update(m, den, acc, s, vg, M_idx, shift_idx, lut32, inv)
     return _epilogue(acc, den, out_scale)
 
 
 def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
-                     *, q_offset: int = 0, bkv: int = 512):
+                     *, q_offset: int = 0, bkv: int = 512, window: int | None = None):
     """Causal flash attention, q (B, H, Sq, D) x k/v (B, Hkv, Skv, D) int8
     -> (B, H, Sq, D) int8: the reference's single-sequence kernel with a
     leading batch dimension.  Query row i sits at position ``q_offset +
-    i``; the carry updates once per block of ``bkv`` keys (clipped to Skv;
-    it must divide Skv).  The inputs may be strided views (the serving
-    forward passes its (B, S, H, D) projections transposed); the output
-    takes q's layout.  The reference's q-block size ``bq`` does not change
-    the result, so the kernel takes its own: a CTA serves 16 query rows of
-    ``heads_per_block`` q heads of one kv head, one staging of K and V for
-    all of them."""
+    i``; with a sliding ``window`` it sees only the keys less than
+    ``window`` positions back.  The carry updates once per block of ``bkv``
+    keys (clipped to Skv; it must divide Skv).  A windowed row tile starts
+    at the first block live for its first row where ``window_skip_margin``
+    exceeds 1 (decided by the kernel from the ``inv_s_logit`` it reads, so
+    the host never waits for the card), else at block 0.  The inputs may be
+    strided views (the serving forward passes its (B, S, H, D) projections
+    transposed); the output takes q's layout.  The reference's q-block size
+    ``bq`` does not change the result, so the kernel takes its own: a CTA
+    serves 16 query rows of ``heads_per_block`` q heads of one kv head, one
+    staging of K and V for all of them."""
     if q_i8.device.type == "cpu":
         return flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
-                                      inv_s_logit, out_scale, q_offset=q_offset, bkv=bkv)
+                                      inv_s_logit, out_scale, q_offset=q_offset, bkv=bkv,
+                                      window=window)
     _check_device("flash_qattention", q_i8)
     if q_i8.dtype != torch.int8 or k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
         raise TypeError("flash_qattention wants int8 q, k and v")
@@ -110,11 +125,11 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
     bkv = min(bkv, skv)
     if (b_k, d_k) != (b, d) or v_i8.shape != k_i8.shape or hkv == 0 \
             or h % hkv or d > 128 or d % 16 or not 0 < bkv <= 512 or skv % bkv \
-            or q_offset < 0:
+            or q_offset < 0 or (window is not None and window < 1):
         raise ValueError(f"flash_qattention: unsupported shapes q {tuple(q_i8.shape)}, k/v "
-                         f"{tuple(k_i8.shape)}, bkv {bkv}, q_offset {q_offset} (needs H a "
-                         f"multiple of Hkv, D <= 128, D % 16 == 0, bkv <= 512 dividing Skv, "
-                         f"q_offset >= 0)")
+                         f"{tuple(k_i8.shape)}, bkv {bkv}, q_offset {q_offset}, window "
+                         f"{window} (needs H a multiple of Hkv, D <= 128, D % 16 == 0, "
+                         f"bkv <= 512 dividing Skv, q_offset >= 0, window >= 1)")
     dev = q_i8.device
     q = _strided(q_i8)
     k, v = _same_strides(k_i8, v_i8)
@@ -127,10 +142,11 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
     if (h // hkv) % gh or gh > MAX_HEADS_PER_BLOCK:
         raise ValueError(f"flash_qattention: heads_per_block {gh} must divide H / Hkv = "
                          f"{h // hkv} and be at most {MAX_HEADS_PER_BLOCK}")
-    rc = _build.bind("flash_qattention", "flash_qattention", 9, 18)(
+    rc = _build.bind("flash_qattention", "flash_qattention", 9, 20)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
         *(t.data_ptr() for t in scal), out.data_ptr(), b, h, hkv, d, sq, skv, bkv, q_offset,
-        gh, *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], _build.stream_of(dev))
+        window or 0, SKIP_EXP_ARG, gh, *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+        _build.stream_of(dev))
     _build.check_launch(rc, "flash_qattention")
     flash_qattention.launches += 1
     return out

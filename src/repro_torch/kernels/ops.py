@@ -153,15 +153,16 @@ def decode_attention_q(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7
 
 
 def flash_attention_q(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,
-                      bkv: int, impl=None):
+                      bkv: int, window: Optional[int] = None, impl=None):
     """Causal blocked flash from position 0 over (B, H, S, D) x (B, Hkv, S,
-    D) int8, one fp32 carry update per block of ``bkv`` keys -> (B, H, S,
-    D) int8: the cache-less prefill's attention (the plain version on
-    ``ref``, the kernel on ``gpu``)."""
+    D) int8, within a sliding ``window`` where one is given, one fp32 carry
+    update per block of ``bkv`` keys -> (B, H, S, D) int8: the cache-less
+    prefill's attention (the plain version on ``ref``, the kernel on
+    ``gpu``)."""
     args = (q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale)
     if backend(impl, q_i8.device) == "ref":
-        return flash_qattention_torch(*args, bkv=bkv)
-    return flash_qattention(*args, bkv=bkv)
+        return flash_qattention_torch(*args, bkv=bkv, window=window)
+    return flash_qattention(*args, bkv=bkv, window=window)
 
 
 def attention_q(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,

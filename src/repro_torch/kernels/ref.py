@@ -348,9 +348,31 @@ def stripe_decode_split_ref(q_i8, k_i8, v_i8, lengths, M_idx, shift_idx, lut, in
     return torch.stack(outs)
 
 
+# A KV block wholly below a row's sliding window may be skipped only where
+# the reference's carry factor at the row's first live block is exactly
+# 0.0f: there the running max jumps from a masked score (at most
+# D * 127^2 - 2^30) to a live one (at least -D * 127^2), so the factor is
+# exp(x * inv_s_logit) with x <= -(2^30 - 2 D 127^2).  float32's exp is 0
+# below about -103.97 (half the smallest denormal); SKIP_EXP_ARG leaves room
+# for the roundings of x, of the product and of exp itself.  The CUDA kernel
+# takes it as an argument from its wrapper (an int, so both sides compare
+# the same double product against the same threshold).
+SKIP_EXP_ARG = 128
+
+
+def window_skip_margin(inv_s_logit: float, d: int) -> float:
+    """(2^30 - 2 D 127^2) * inv_s_logit / SKIP_EXP_ARG: above 1, the carry
+    factor that would scale a masked prefix away is exactly 0.0f, so a
+    windowed flash may start a row tile at its first live block (the CUDA
+    kernel evaluates the same inequality per CTA from the same float32
+    ``inv_s_logit`` and the same threshold; dividing by a power of two is
+    exact, so ``> 1`` here is the kernel's ``> SKIP_EXP_ARG``)."""
+    return ((1 << 30) - 2 * d * 127 * 127) * float(inv_s_logit) / SKIP_EXP_ARG
+
+
 def flash_qattention_tiled_ref(q_i8, k_i8, v_i8, M_idx, shift_idx, lut, inv_s_logit,
                                out_scale, *, q_offset: int = 0, bkv: int = 512,
-                               rows: int = 16, keys: int = 32):
+                               window: int | None = None, rows: int = 16, keys: int = 32):
     """The causal flash as the CUDA kernel tiles it (csrc/flash_qattention.cu),
     for the tests: q (..., H, Sq, D) x k/v (..., Hkv, Skv, D) in tiles of
     ``rows`` query rows.  Per block of ``bkv`` keys up to the tile's causal
@@ -358,8 +380,10 @@ def flash_qattention_tiled_ref(q_i8, k_i8, v_i8, M_idx, shift_idx, lut, inv_s_lo
     block's start, the last one cut at the block end and at the frontier)
     takes the block's row max; a second sweep recomputes the integer scores
     for the numerators and sums den_b and P.V in int32 across the block;
-    then the fp32 carry once per block.  Equal to ``flash_qattention_torch``
-    bit for bit."""
+    then the fp32 carry once per block.  With a sliding ``window`` a tile
+    starts at the first block live for its first row where
+    ``window_skip_margin`` exceeds 1, else at block 0.  Equal to
+    ``flash_qattention_torch`` bit for bit."""
     h, sq, d = q_i8.shape[-3:]
     hkv, skv = k_i8.shape[-3], k_i8.shape[-2]
     group = h // hkv
@@ -383,9 +407,16 @@ def flash_qattention_tiled_ref(q_i8, k_i8, v_i8, M_idx, shift_idx, lut, inv_s_lo
         def scores(t, e):
             s = int_matmul(qt, kg[..., t:e, :].transpose(-1, -2))
             kpos = torch.arange(t, e, dtype=torch.int32, device=dev)[None, :]
-            return torch.where(kpos <= qpos, s, s - qs.MASK_OFFSET)
+            live = kpos <= qpos
+            if window is not None:
+                live &= kpos > qpos - window
+            return torch.where(live, s, s - qs.MASK_OFFSET)
 
-        for j in range(min(skv // bkv, last // bkv + 1)):
+        jend = min(skv // bkv, last // bkv + 1)
+        j0 = 0
+        if window is not None and window_skip_margin(inv_s_logit, d) > 1:
+            j0 = min(max(0, q_offset + r0 - window + 1) // bkv, jend - 1)
+        for j in range(j0, jend):
             end = min((j + 1) * bkv, last + 1)
             steps = [(t, min(t + keys, end)) for t in range(j * bkv, end, keys)]
             mb = torch.stack([scores(t, e).amax(-1) for t, e in steps]).amax(0)[..., None]

@@ -163,10 +163,11 @@ def lut_softmax_qat(logits, s_logit, enabled: bool):
 
 def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
                   mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Obs]:
-    """Materialized-score QAT attention.  x (B, S, d); pos (B, S)."""
-    if cfg.mrope_sections is not None or cfg.sliding_window:
-        raise NotImplementedError(
-            "M-RoPE / sliding-window attention is not ported: ROADMAP Open items §1")
+    """Materialized-score QAT attention.  x (B, S, d); pos (B, S).  The
+    default causal mask keeps, for a sliding-window arch, only the keys
+    less than ``cfg.sliding_window`` positions back."""
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE attention is not ported: ROADMAP Open items §1")
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     obs: Obs = {}
@@ -196,7 +197,10 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
     lg = torch.einsum("bqhd,bkhd->bhqk", qh, kg) * q.recip_f32(math.sqrt(hd))
     if mask is None and cfg.causal:
         ar = torch.arange(s, device=x.device)
-        mask = (ar[None, :] <= ar[:, None])[None, None]
+        mask = ar[None, :] <= ar[:, None]
+        if cfg.sliding_window:
+            mask &= ar[None, :] > ar[:, None] - cfg.sliding_window
+        mask = mask[None, None]
     if mask is not None:
         lg = torch.where(mask, lg, torch.full_like(lg, -1e9))
     pr = lut_softmax_qat(lg, s_logit, policy.quantize_softmax)

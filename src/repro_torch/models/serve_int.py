@@ -10,9 +10,10 @@ The paper's deployment datapath: int8 activations end to end, packed-int4
 float islands: the RoPE rotation (with qk-norm's RMSNorm before it), the
 MoE router and combine, and the fp32 ``lm_head`` scale.  Mirrors the
 reference ``models/serve_int.py`` for all-attention archs with a dense or
-MoE feed-forward, causal (yi-6b, qwen3-4b, qwen2-moe-a2.7b, ...) and
-bidirectional (BERT, cache-less prefill only); every other branch raises
-``NotImplementedError``.  A MoE slot makes one ``int4_matmul`` launch per
+MoE feed-forward, causal (yi-6b, qwen3-4b, qwen2-moe-a2.7b, ...; with a
+sliding window, mixtral-8x22b, on the contiguous stripe as a window-sized
+ring) and bidirectional (BERT, cache-less prefill only); every other branch
+raises ``NotImplementedError``.  A MoE slot makes one ``int4_matmul`` launch per
 expert and linear (the reference ``vmap``s them).
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
@@ -176,14 +177,17 @@ def _attn_prefill(x_i8, f, cfg, pos, row_exact: bool = False):
     aq = f["attn_q"]
     if cfg.causal and row_exact:
         idx = torch.arange(s, device=x_i8.device)
-        ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, idx[None, :] <= idx[:, None])
+        live = idx[None, :] <= idx[:, None]
+        if cfg.sliding_window:
+            live &= idx[None, :] > idx[:, None] - cfg.sliding_window
+        ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, live)
     elif cfg.causal:
         # the kernel reads the (B, S, H, D) projections in place and writes
         # ctx in q's layout, so the transposes below are views
         ctx = ops.flash_attention_q(
             qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), aq["M_idx"],
             aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"], aq["out_scale"],
-            bkv=divisor_tile(512, s))                              # (B,H,S,D)
+            bkv=divisor_tile(512, s), window=cfg.sliding_window)   # (B,H,S,D)
     else:
         # bidirectional (BERT): paper-style row LUT softmax, materialized
         ctx = _attn_rows_q8(qc, kc, vc, aq, cfg, None)
@@ -205,19 +209,23 @@ def _gqa_decode(qg, k_cache, v_cache, lengths, aq):
 
 def _attn_decode(x_i8, f, cfg, cache, pos_vec):
     """Decode step over the contiguous stripe: x (B,1,d); cache {'k','v'}:
-    (B, Smax, Hkv, hd) int8.  Each slot appends its row at its own position,
-    then attends over its first ``pos + 1`` rows: on ``gpu`` through the
-    contiguous decode kernel in blocks of ``divisor_tile(512, Smax)`` keys,
-    on ``ref`` through the row-exact q8 rows."""
+    (B, Smax, Hkv, hd) int8.  Each slot writes its row at its own position
+    (at ``pos % Smax`` for a sliding-window arch, whose stripe is a ring of
+    the window's rows), then attends over its first ``pos + 1`` rows (the
+    whole ring once it has wrapped; it then holds exactly the keys inside
+    the window, in ring order, as the reference walks them): on ``gpu``
+    through the contiguous decode kernel in blocks of ``divisor_tile(512,
+    Smax)`` keys, on ``ref`` through the row-exact q8 rows."""
     b, s, _ = x_i8.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     smax = cache["k"].shape[1]
     qc, kc, vc = _qkv_rope(x_i8, f, cfg, pos_vec[:, None])
     aq = f["attn_q"]
     slot = torch.arange(b, device=x_i8.device)
-    cache["k"][slot, pos_vec.long()] = kc[:, 0]
-    cache["v"][slot, pos_vec.long()] = vc[:, 0]
-    lengths = pos_vec + 1
+    row = (pos_vec % smax if cfg.sliding_window else pos_vec).long()
+    cache["k"][slot, row] = kc[:, 0]
+    cache["v"][slot, row] = vc[:, 0]
+    lengths = torch.clamp(pos_vec + 1, max=smax) if cfg.sliding_window else pos_vec + 1
     qg = qc.reshape(b, nkv, nh // nkv, hd)
     if ops.backend(device=x_i8.device) == "gpu":
         ctx = ops.decode_attention_q(
@@ -499,8 +507,18 @@ def _moe_int(x_i8, f, cfg):
 
 # --- whole-model serving forward -----------------------------------------------
 
+def _check_pageable(cfg: ModelConfig):
+    """The paged pool serves non-SWA archs only (a sliding window's stripe
+    is already a window-sized ring), as in the reference."""
+    check_ported(cfg)
+    if cfg.sliding_window:
+        raise ValueError(f"arch {cfg.name!r} has a sliding window: the paged cache requires "
+                         "a non-SWA arch (use the contiguous stripe)")
+
+
 def paged_page_nbytes(cfg: ModelConfig, page_size: int, kv_bits: int = 8) -> int:
     """Device bytes one pool page occupies across every layer (K + V)."""
+    _check_pageable(cfg)
     hd = cfg.hd // 2 if kv_bits == 4 else cfg.hd
     per = 2 * page_size * cfg.n_kv_heads * hd
     if kv_bits == 4:
@@ -516,7 +534,7 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, kv_bits: in
     hd (half the bytes), plus per-page fp32 scale leaves 'ks'/'vs' of shape
     (n_reps, n_pages), all at the all-zero page's scale float32(1/7) (so the
     trash page dequantizes to exact zeros)."""
-    check_ported(cfg)
+    _check_pageable(cfg)
     if kv_bits not in (8, 4):
         raise ValueError(f"kv_bits must be 8 or 4 (got {kv_bits})")
     hd = cfg.hd // 2 if kv_bits == 4 else cfg.hd
@@ -535,8 +553,8 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, kv_bits: in
 
 
 def cache_rows(cfg: ModelConfig, max_len: int) -> int:
-    """KV rows per slot of the contiguous stripe (a sliding-window arch
-    would ring-buffer to its window)."""
+    """KV rows per slot of the contiguous stripe (a sliding-window arch's is
+    a ring of at most its window's rows)."""
     return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
@@ -634,9 +652,13 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
         raise ValueError("decode needs a KV cache")
     if mode == "verify" and (cache is None or block_tables is None or verify_rows is None):
         raise ValueError("verify mode needs a paged cache, block tables and verify_rows")
-    if mode == "prefill" and cache is not None and block_tables is None \
-            and int(pos_offset) != 0:
-        raise ValueError("a prefill into the contiguous stripe starts at position 0")
+    if mode == "prefill" and cache is not None and block_tables is None:
+        if int(pos_offset) != 0:
+            raise ValueError("a prefill into the contiguous stripe starts at position 0")
+        if tokens.shape[1] > cache["slot0"]["k"].shape[2]:
+            raise ValueError(f"a one-shot prefill of {tokens.shape[1]} rows does not fit the "
+                             f"stripe's {cache['slot0']['k'].shape[2]} (a longer prompt of a "
+                             "sliding-window arch takes the decode loop)")
     dev = tokens.device
     x = _embed_int(folded, tokens)
     b, s = x.shape[0], x.shape[1]

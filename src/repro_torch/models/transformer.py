@@ -1,6 +1,6 @@
 """Config-driven model stack for calibration: embeddings -> super-blocks ->
 final norm -> LM head, for the all-attention architectures with a dense or
-MoE feed-forward (qk-norm included).
+MoE feed-forward (qk-norm and the sliding window included).
 
 Params and amax state keep the reference's stacked layout, (n_reps, ...)
 on the leading axis, so the fold and the tests see the same trees; depth
@@ -40,12 +40,13 @@ def slot_kinds(cfg: ModelConfig):
 
 def check_ported(cfg: ModelConfig):
     """The port serves all-attention archs (dense or MoE feed-forward,
-    qk-norm or not) with token frontends and one LM head."""
+    qk-norm or not, a sliding window or not) with token frontends and one
+    LM head."""
     kinds = slot_kinds(cfg)
     if any(m != "attn" for m, _ in kinds) or cfg.frontend != "none" \
-            or cfg.n_lm_heads != 1 or cfg.mrope_sections is not None or cfg.sliding_window:
+            or cfg.n_lm_heads != 1 or cfg.mrope_sections is not None:
         raise NotImplementedError(
-            f"arch {cfg.name!r} needs SSM/SWA/M-RoPE/frontend/multi-head support, "
+            f"arch {cfg.name!r} needs SSM/M-RoPE/frontend/multi-head support, "
             "which is not ported yet: ROADMAP Open items §1")
 
 

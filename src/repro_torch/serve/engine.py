@@ -6,8 +6,10 @@ growth and preemption (or ``reserve_policy="full"``), prefix sharing through
 the allocator's registry and, across replicas, a shared prefix tier
 (``attach_prefix_tier``), chunked prefill under a token budget and greedy
 speculative decoding (``spec_k > 0``, int8 pool); or the contiguous
-per-slot stripe (``cache_layout="contiguous"``) with one-shot prefill per
-request; greedy or sampled decode.  ``LockstepEngine`` is the reference's
+per-slot stripe (``cache_layout="contiguous"``, and what ``"auto"`` resolves
+to for a sliding-window arch, whose stripe is a window-sized ring) with a
+one-shot prefill per request, or the batch-1 decode loop for a prompt
+longer than the stripe; greedy or sampled decode.  ``LockstepEngine`` is the reference's
 lockstep baseline over the contiguous stripe.
 
 ``poll()`` runs ONE scheduler tick — shed expired → adopt tier pages →
@@ -23,7 +25,7 @@ counters equal the reference engine's.
 The engine runs where the folded weights live: CUDA weights take the
 ``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
 Options the port does not have yet (``tp > 1`` / a mesh, archs that need
-MoE/SSM/SWA or a frontend) raise ``EngineConfigError`` or
+SSM, M-RoPE or a frontend) raise ``EngineConfigError`` or
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -290,12 +293,9 @@ class Engine:
                                     f"{cfg.name!r} needs LockstepEngine")
         check_ported(cfg)
         # one-shot prefill needs every mixer to be cache-writing causal
-        # attention; the reference's batch-1 decode-loop prefill serves only
-        # archs the port does not have
-        if not (cfg.causal and all(m == "attn" for m, _ in slot_kinds(cfg))):
-            raise NotImplementedError(
-                f"arch {cfg.name!r} needs the batch-1 decode-loop prefill, which is not "
-                f"ported yet: {_ROADMAP}")
+        # attention; otherwise, and for a prompt longer than a sliding
+        # window's ring, the batch-1 decode loop prefills
+        self._attn_only = cfg.causal and all(m == "attn" for m, _ in slot_kinds(cfg))
         self.cfg = cfg
         self.config = config
         self.device = folded["embed"]["tokens_i8"].device
@@ -304,9 +304,14 @@ class Engine:
         self.max_len = config.max_len
         self.smax = S.cache_rows(cfg, config.max_len)
         self.prefill_bucket = config.prefill_bucket
-        # 'auto' is paged for every arch the port serves (the reference
-        # resolves it to contiguous for sliding-window archs only)
-        layout = "paged" if config.cache_layout == "auto" else config.cache_layout
+        pageable = self._attn_only and not cfg.sliding_window
+        layout = config.cache_layout
+        if layout == "auto":
+            layout = "paged" if pageable else "contiguous"
+        if layout == "paged" and not pageable:
+            raise EngineConfigError(
+                "cache_layout='paged' requires an all-attention, non-SWA arch; use "
+                "cache_layout='auto' to fall back to contiguous")
         self.layout = layout
         self.page_size = config.page_size
         if layout != "paged" and (config.max_batched_tokens is not None
@@ -325,10 +330,21 @@ class Engine:
                 f"cache_layout resolved to {layout!r} for arch {cfg.name!r}")
         else:
             self.reserve_policy = "full"
-        # kv_bits=4 packs the paged pool; validate() refuses it on contiguous
+        # kv_bits=4 packs the paged pool; validate() refuses it on an explicit
+        # contiguous layout, and 'auto' resolving to contiguous falls back to 8
         self.kv_bits = config.kv_bits
-        # speculative decoding: validate() refuses it on the stripe and on kv4
+        if self.kv_bits != 8 and layout != "paged":
+            warnings.warn(f"kv_bits={self.kv_bits} requires the paged cache layout, but "
+                          f"cache_layout resolved to {layout!r} for arch {cfg.name!r}; "
+                          "falling back to kv_bits=8", stacklevel=2)
+            self.kv_bits = 8
+        # speculative decoding: validate() refuses it on an explicit stripe
+        # and on kv4; this guards 'auto' resolving to the stripe
         self.spec_k = config.spec_k
+        if self.spec_k and layout != "paged":
+            raise EngineConfigError(
+                f"speculative decoding (spec_k={self.spec_k}) requires the int8 paged cache "
+                f"layout, but arch {cfg.name!r} resolved to layout={layout!r}")
         self.draft = make_draft_source(config.draft) if self.spec_k else None
         self.tp = 1
         if layout == "paged":
@@ -402,23 +418,37 @@ class Engine:
         return min(max(self.prefill_bucket,
                        math.ceil(ln / self.prefill_bucket) * self.prefill_bucket), self.smax)
 
+    def _oneshot(self, ln: int) -> bool:
+        """Whether a prompt of ``ln`` rows takes the one-shot prefill (else
+        the batch-1 decode loop)."""
+        return self._attn_only and ln <= self.smax
+
     def _prefill_slot(self, b: int, prompt: np.ndarray) -> np.ndarray:
-        """Contiguous layout: the one-shot prefill of a prompt into slot b's
-        stripe (cleared first, as the reference writes a fresh batch-1 cache
-        over it), padded to ``_bucket_len``; a pad row at index r is
-        overwritten by the decode step at pos == r, the step whose mask
-        first admits it.  Returns the last prompt row's logits."""
+        """Contiguous layout: the prefill of a prompt into slot b's stripe
+        (cleared first, as the reference writes a fresh batch-1 cache over
+        it).  One-shot, padded to ``_bucket_len``, where ``_oneshot``
+        allows (a pad row at index r is overwritten by the decode step at
+        pos == r, the step whose mask first admits it); else one batch-1
+        decode step per prompt token, each counted in
+        ``loop_prefill_steps``.  Returns the last prompt row's logits."""
         ln = len(prompt)
-        toks = np.zeros((1, self._bucket_len(ln)), np.int32)
-        toks[0, :ln] = prompt
         stripe = {name: {leaf: t[:, b:b + 1] for leaf, t in c.items()}
                   for name, c in self.cache.items()}
         for c in stripe.values():
             for t in c.values():
                 t.zero_()
-        logits, _ = S.serve_forward(self.cfg, self.folded, self._tensor(toks), cache=stripe,
-                                    pos_offset=0, mode="prefill")
-        return logits[0, ln - 1].cpu().numpy()
+        if self._oneshot(ln):
+            toks = np.zeros((1, self._bucket_len(ln)), np.int32)
+            toks[0, :ln] = prompt
+            logits, _ = S.serve_forward(self.cfg, self.folded, self._tensor(toks),
+                                        cache=stripe, pos_offset=0, mode="prefill")
+            return logits[0, ln - 1].cpu().numpy()
+        toks = self._tensor(np.asarray(prompt, np.int32).reshape(ln, 1, 1))
+        for t in range(ln):
+            logits, _ = S.serve_forward(self.cfg, self.folded, toks[t], cache=stripe,
+                                        pos_offset=t, mode="decode")
+            self.counters["loop_prefill_steps"] += 1
+        return logits[0, -1].cpu().numpy()
 
     # --- prefix sharing ---------------------------------------------------
 
@@ -545,7 +575,8 @@ class Engine:
             raise ValueError(
                 f"request needs a non-empty prompt and max_new_tokens >= 1 "
                 f"(got prompt len {ln}, max_new_tokens {request.max_new_tokens})")
-        if ln + request.max_new_tokens > self.max_len:
+        # a sliding window's ring holds any length
+        if not self.cfg.sliding_window and ln + request.max_new_tokens > self.max_len:
             raise ValueError(f"request needs {ln + request.max_new_tokens} cache rows, "
                              f"engine max_len={self.max_len}")
         if self.layout == "paged":
@@ -625,6 +656,7 @@ class Engine:
         if pos0 < st.hwm_rows:
             self.counters["recomputed_tokens"] += min(pos0 + ntok, st.hwm_rows) - pos0
         final = pos0 + ntok >= ln
+        loop_prefill = False
         if self.layout == "paged":
             pad = pages_needed(ntok, self.page_size) * self.page_size
             toks = np.zeros((1, pad), np.int32)
@@ -634,6 +666,7 @@ class Engine:
             last = self._prefill(toks, btab, pos0, ntok - 1)
         else:
             assert pos0 == 0 and final, "contiguous layout prefills in one whole-prompt chunk"
+            loop_prefill = not self._oneshot(ln)
             last = self._prefill_slot(b, prompt)
         st.prefill_pos = pos0 + ntok
         st.chunks_done += 1
@@ -653,7 +686,7 @@ class Engine:
             self.counters["shared_rows"] += st.shared_rows
             if st.chunks_done == 1:
                 self.counters["suffix_prefills"] += 1
-        elif st.chunks_done == 1:
+        elif st.chunks_done == 1 and not loop_prefill:
             self.counters["oneshot_prefills"] += 1
         if st.chunks_done > 1:
             self.counters["chunked_prefills"] += 1

@@ -40,7 +40,7 @@ from repro_torch.kernels.quant_layernorm import quant_layernorm
 from repro_torch.kernels.quant_softmax import quant_softmax
 from repro_torch.launch.serve import calibrated_folded
 from repro_torch.models.transformer import tree_map
-from repro_torch.serve.engine import Engine, EngineConfig, Request
+from repro_torch.serve.engine import Engine, EngineConfig, LockstepEngine, Request
 
 ENGINE_KERNELS = (int4_matmul, quant_layernorm, paged_prefill_qattention,
                   paged_decode_qattention)
@@ -1336,3 +1336,105 @@ def test_small_arch_engine_on_card_gives_the_cpu_tokens(cuda, arch, monkeypatch)
         assert on_card[0] == on_card[1]
     monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
     assert on_card == [run("cpu") for run in runs]
+
+
+# --- the sliding window (mixtral-8x22b) -----------------------------------------
+
+def _window_scalars(d, device, branch):
+    """``_real_scalars``, or for ``branch="from_block_0"`` a logit scale 600
+    times larger: a masked key still clips to the table's zero entry, but
+    ``window_skip_margin`` falls below 1, so a windowed tile walks from
+    block 0."""
+    M, sh, lut, inv, osc = _real_scalars(d, device)
+    if branch == "skip":
+        return M, sh, lut, inv, osc
+    s_logit = np.sqrt(d) * 73.0 * 73.0 / 2.0 * 600.0
+    M, sh = fxp.quantize_multiplier(1.0 / (s_logit * qs.LUT_DELTA))
+    return (torch.tensor(M, dtype=torch.int32, device=device),
+            torch.tensor(sh, dtype=torch.int32, device=device), lut,
+            torch.tensor(np.float32(1.0 / s_logit), device=device), osc)
+
+
+# (B, H, Hkv, Sq, Skv, D, bkv, q_offset, window)
+WINDOW_CASES = {
+    "mixtral_s8192": (1, 48, 8, 8192, 8192, 128, 512, 0, 4096),
+    "mixtral_q_offset": (1, 48, 8, 128, 8192, 128, 512, 8064, 4096),
+    "mixtral_bkv504": (1, 48, 8, 8064, 8064, 128, 504, 0, 4096),
+    "mixtral_window_never_bites": (1, 48, 8, 4032, 4032, 128, 504, 0, 4096),
+    "g6_small_window": (2, 12, 2, 100, 100, 64, 25, 0, 20),
+    "g6_bkv_odd_q_offset": (1, 12, 2, 37, 111, 128, 37, 74, 50),
+    "g2_window_1": (1, 4, 2, 48, 48, 32, 16, 0, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["skip", "from_block_0"])
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_windowed_flash_qattention_kernel_equals_plain(cuda, case, branch):
+    """Row 9 with a sliding window against its plain version (which walks
+    every row from block 0): mixtral's heads (G 6, three q heads a CTA) at
+    the served shapes, a 16-row tile whose rows' windows start in different
+    blocks, bkv not dividing the window, q_offset > 0, window 1; in the
+    branch that starts each tile at its first live block and in the one that
+    may not."""
+    from repro_torch.kernels.flash_qattention import flash_qattention_torch
+
+    b, h, hkv, sq, skv, d, bkv, q_offset, window = WINDOW_CASES[case]
+    q, k, v, *_ = _flash(b, h, hkv, sq, skv, d, cuda, seed=sq + skv, strided=True)
+    scal = _window_scalars(d, cuda, branch)
+    assert (ref.window_skip_margin(float(scal[3]), d) > 1) == (branch == "skip")
+    args = (q, k, v, *scal)
+    got = _launched_once(flash_qattention, *args, q_offset=q_offset, bkv=bkv, window=window)
+    want = flash_qattention_torch(*args, q_offset=q_offset, bkv=bkv, window=window)
+    assert torch.equal(got, want)
+    if branch == "skip":            # logits of a few units: outputs spread over the codes
+        assert int((want != 0).sum()) > want.numel() // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smax,bkv,lengths", [
+    (4096, 512, [33, 600, 1024, 2047, 2048, 3000, 4095, 4096]),   # mixtral's ring, B 8
+    (16, 16, [16, 3, 16, 9]),                                     # the small mixtral's
+])
+def test_contiguous_decode_kernel_equals_plain_at_g6_over_a_full_ring(cuda, smax, bkv,
+                                                                       lengths):
+    """Row 6 at mixtral's group (Hkv 8, G 6, D 128) over rings whose rows
+    hold positions out of order once they wrap: lengths min(pos + 1, Smax),
+    full rings among them."""
+    args = _stripe(6, 128, smax, lengths, cuda, hkv=8, seed=smax)
+    assert torch.equal(_launched_once(decode_qattention, *args, bkv=bkv),
+                       ref.decode_qattention_ref(*args, bkv))
+
+
+@pytest.mark.cuda
+def test_small_mixtral_on_card_gives_the_cpu_tokens(cuda, monkeypatch):
+    """The small mixtral (window 16) on ``cache_layout="auto"``, which
+    resolves to the 16-row ring: prompts of 9 and 12 tokens prefill
+    one-shot, of 30 and 20 through the batch-1 decode loop, and every
+    request decodes past the window; then the ``LockstepEngine``.  The card
+    (the kernels) and the CPU under REPRO_TORCH_KERNELS=gpu (their plain
+    versions) give equal greedy tokens."""
+    cfg = smoke_config("mixtral-8x22b")
+    folded_cpu = calibrated_folded(cfg, 0, device="cpu")
+    folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to(cuda), folded_cpu)}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (9, 30, 12, 20)]
+
+    def continuous(dev):
+        eng = Engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64))
+        out = [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=12) for p in prompts])]
+        assert eng.layout == "contiguous" and eng.counters["loop_prefill_steps"] == 50
+        return out
+
+    def lockstep(dev):
+        return [r.out.tolist() for r in LockstepEngine(
+            cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64)).generate(
+            [Request(prompt=p, max_new_tokens=10) for p in prompts[:3]])]
+
+    for k in LAYOUT_KERNELS + FLASH_KERNELS:
+        k.launches = 0
+    on_card = [continuous("cuda"), lockstep("cuda")]
+    assert decode_qattention.launches > 0 and flash_qattention.launches > 0
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+    assert on_card == [continuous("cpu"), lockstep("cpu")]
