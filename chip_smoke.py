@@ -41,7 +41,12 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    K = 6144 / 16384 for M = 4 and 1,250, the attention's at M = 8 and
    4,000, the experts' at 1,300 and 2,560, and the LN at N = 6144 for R =
    8, 4,000, 4,032, 4,160 and 8,192; the [mixtral] phase then holds every
-   shape its forwards gave rows 1, 2, 6 and 9 again);
+   shape its forwards gave rows 1, 2, 6 and 9 again; with jamba-1.5-large's
+   shapes: the GEMMs at K = 8192 / 24576 for M = 1, 8 and 512, the RMSNorm
+   at N = 8192 for R = 1, 8 and 512, ``decode_qattention`` at Hkv 8, G 8
+   over 256-row stripes (B = 8 and 1), ``flash_qattention`` at H 64, Hkv 8,
+   S 512; xlstm-1.3b's LN at N = 2048 for R = 1 and 1,024; the [xlstm] and
+   [jamba] phases hold every shape their forwards gave again);
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
@@ -105,16 +110,35 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    printed, not gated); the (1, 8,192) forward timed and profiled, a tick
    profiled; every shape the phase's forwards gave rows 1, 2, 6 and 9 held
    against the plain versions;
+   ``[xlstm]`` and ``[jamba]`` (``phase_recurrent``): xlstm-1.3b at full
+   size (48 layers, 42 mLSTM and 6 sLSTM, d 2048) and jamba-1.5-large at
+   its published widths (d 8192, 64 heads, 8 KV heads, d_ff 24,576, vocab
+   65,536, Mamba d_state 16) at 8 of 72 layers with ``n_experts=0``, each
+   calibrated and folded on the card (time, GiB and the float32 weight
+   cache of the weight-only linears printed), 8 requests of 16-128 prompt
+   tokens and 32 new through ``make_engine`` (``auto``: the contiguous
+   layout, every prompt through the batch-1 decode loop), gated on the
+   counters, the launches per forward (``quant_layernorm`` 49 / 17,
+   jamba's ``int4_matmul`` 28 on the path its M implies and
+   ``decode_qattention`` 1, no flash and no paged kernel) and the dual
+   form (the decode recurrence against the cache-less form at xlstm's
+   slots 1 and 0 over 128 rows and jamba's slot 0 over 200, within the
+   reference's bound); the ``LockstepEngine``'s first divergence printed;
+   a tick, a loop step and the (1, 512) cache-less forward profiled (the
+   float products' share), (1, 1024) timed for xlstm; the state's bytes a
+   slot;
    no served phase may run a plain version or the ``ref`` datapath's
    attention on the card (``PlainGuard``, counted from ``[serve]`` to
-   ``[mixtral]``);
+   ``[jamba]``);
    then checks a small model against the same forward on the CPU on the
    paged int8 pool, the packed pool, the stripe, the verify forward and
    without a cache, and small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b
    through the Engine (equal greedy tokens, the differing logits of a
    prefill and 4 decode steps counted), and the small mixtral (window 16):
    one-shot and decode-loop prefills, the LockstepEngine, decode past the
-   window, equal greedy tokens;
+   window, equal greedy tokens; the small xlstm-1.3b and jamba-1.5-large
+   (its 4 experts top-2): the Engine's greedy tokens equal, the logits of a
+   cache-less prefill and 4 decode steps that differ counted;
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -125,7 +149,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    small BERT on the card against the CPU (equal logits).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
-on the served path, mismatches, times, bound); the last is
+on the served path and in ``[mixtral]``, ``[xlstm]`` and ``[jamba]``,
+mismatches, times, bound); the last is
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero before that
 line; without a card, or without the rest of the repository, it exits 2 and
 prints no result.
@@ -266,21 +291,29 @@ def gemm_paths(name: str = "int4_matmul") -> dict:
 
 
 def forward_gemms(cfg, t: int) -> list:
-    """(M, K, N) of every integer GEMM of one layer of a forward over t = B
-    * S rows: the four attention projections and a dense FFN's linears at M
-    = t; a MoE slot's shared experts (three linears each) at M = t and its
-    routed experts (three each) at M = capacity(t)."""
+    """(M, K, N) of every integer GEMM of one super-block of a forward over
+    t = B * S rows: an attention slot's four projections and a dense FFN's
+    linears at M = t; a MoE slot's shared experts (three linears each) at M
+    = t and its routed experts (three each) at M = capacity(t).  A
+    recurrent mixer (Mamba, mLSTM, sLSTM) has none: its projections are
+    weight-only float products."""
     from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import slot_kinds
 
     d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    out = [(t, d, q), (t, d, kv), (t, d, kv), (t, q, d)]
-    if cfg.n_experts:
-        ffn = [(d, cfg.moe_d_ff), (d, cfg.moe_d_ff), (cfg.moe_d_ff, d)]
-        out += [(t, k, n) for k, n in ffn] * cfg.n_shared_experts
-        out += [(capacity(t, cfg.n_experts, cfg.top_k), k, n) for k, n in ffn] * cfg.n_experts
-    else:
-        ffn = [(d, cfg.d_ff)] * (2 if cfg.act == "swiglu" else 1) + [(cfg.d_ff, d)]
-        out += [(t, k, n) for k, n in ffn]
+    fe = cfg.moe_d_ff or cfg.d_ff
+    out = []
+    for mixer, ffn in slot_kinds(cfg):
+        if mixer == "attn":
+            out += [(t, d, q), (t, d, kv), (t, d, kv), (t, q, d)]
+        if ffn == "moe":
+            lin = [(d, fe), (d, fe), (fe, d)]
+            out += [(t, k, n) for k, n in lin] * cfg.n_shared_experts
+            out += [(capacity(t, cfg.n_experts, cfg.top_k), k, n) for k, n in lin] * \
+                cfg.n_experts
+        elif ffn == "dense":
+            lin = [(d, cfg.d_ff)] * (2 if cfg.act == "swiglu" else 1) + [(cfg.d_ff, d)]
+            out += [(t, k, n) for k, n in lin]
     return out
 
 
@@ -293,7 +326,7 @@ def check_paths(what, cfg, got, forwards):
     want = {"tensor_core": 0, "decode": 0}
     for b, s, _, _ in forwards:
         for m, _, _ in forward_gemms(cfg, b * s):
-            want["decode" if m <= DECODE_MAX_M else "tensor_core"] += cfg.n_layers
+            want["decode" if m <= DECODE_MAX_M else "tensor_core"] += cfg.n_reps
     check(got == want, f"{what}: GEMM launches by path {got} != {want} (each GEMM on the "
           "path its M implies)")
 
@@ -320,6 +353,9 @@ EXPERT_GEMMS = ((2048, 1408), (1408, 2048))
 # 2,560; 4 at a tick, 1,250 at the 4,000-row prefill)
 MIXTRAL_ATTN_GEMMS = ((6144, 6144), (6144, 1024))
 MIXTRAL_EXPERT_GEMMS = ((6144, 16384), (16384, 6144))
+# jamba-1.5-large's (wq and wo, wk and wv, wg and wu, wd), each at M = 1 (a
+# decode-loop prefill step), 8 (a tick) and 512 (the cache-less forward)
+JAMBA_GEMMS = ((8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192))
 
 
 def _gemm_args(torch, gen, m, k, n, w4: bool):
@@ -393,7 +429,8 @@ def phase_int4_matmul(torch, gen):
               + [(m, k, n) for m in (4, 1250)
                  for k, n in MIXTRAL_ATTN_GEMMS + MIXTRAL_EXPERT_GEMMS]
               + [(m, k, n) for m in (8, 4000) for k, n in MIXTRAL_ATTN_GEMMS]
-              + [(m, k, n) for m in (1300, 2560) for k, n in MIXTRAL_EXPERT_GEMMS])
+              + [(m, k, n) for m in (1300, 2560) for k, n in MIXTRAL_EXPERT_GEMMS]
+              + [(m, k, n) for m in (1, 8, 512) for k, n in JAMBA_GEMMS])
     row = gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
     row["verify"] = dict(row["rows"][(32, 4096, 11008)],
@@ -414,6 +451,13 @@ def phase_int4_matmul(torch, gen):
     row["mixtral_attn_prefill"] = dict(row["rows"][(4000, 6144, 6144)],
                                        shape="M=4000 (mixtral 4,000-row prefill) K=6144 "
                                              "N=6144 (wq/wo)")
+    row["jamba"] = dict(row["rows"][(8, 8192, 24576)],
+                        shape="M=8 (jamba decode tick) K=8192 N=24576 (wg/wu)")
+    row["jamba_loop"] = dict(row["rows"][(1, 8192, 24576)],
+                             shape="M=1 (jamba decode-loop prefill step) K=8192 N=24576 (wg/wu)")
+    row["jamba_prefill"] = dict(row["rows"][(512, 24576, 8192)],
+                                shape="M=512 (jamba (1, 512) cache-less forward) K=24576 "
+                                      "N=8192 (wd)")
     return row
 
 
@@ -431,12 +475,16 @@ def launch_floor_ms(torch) -> float:
 # and stablelm's LN (2048) at a decode tick and a 512-row chunk; mixtral's
 # RMSNorm (6144) at a decode tick, the long request's 4,000-row one-shot
 # prefill, the 4,160- and 8,192-row cache-less forwards, and a 4,032-row
-# stripe bucket
+# stripe bucket; xlstm-1.3b's LN (2048) at a decode-loop step, a tick and
+# the (1, 512) and (1, 1024) cache-less forwards; jamba-1.5-large's RMSNorm
+# (8192) at a loop step, a tick and the (1, 512) forward
 LN_SHAPES = ((False, 8, 4096), (False, 32, 4096), (False, 512, 4096), (False, 704, 4096),
              (True, 8, 4096), (True, 512, 4096), (True, 128, 768), (True, 4096, 768),
              (False, 8, 2560), (False, 512, 2560), (False, 8, 2048), (False, 512, 2048),
              (True, 8, 2048), (True, 512, 2048), (False, 8, 6144), (False, 4000, 6144),
-             (False, 4032, 6144), (False, 4160, 6144), (False, 8192, 6144))
+             (False, 4032, 6144), (False, 4160, 6144), (False, 8192, 6144),
+             (True, 1, 2048), (True, 1024, 2048), (False, 1, 8192), (False, 8, 8192),
+             (False, 512, 8192))
 
 
 def _ln_params(torch, gen, sub_mean: bool, n: int):
@@ -485,7 +533,12 @@ def phase_quant_layernorm(torch, gen):
                                     "R=4000 (mixtral 4,000-row one-shot prefill) N=6144 "
                                     "RMSNorm"),
               "R=8192 N=6144 RMS": ("mixtral_forward",
-                                    "R=8192 (mixtral (1, 8192) forward) N=6144 RMSNorm")}
+                                    "R=8192 (mixtral (1, 8192) forward) N=6144 RMSNorm"),
+              "R=8 N=2048 LN": ("xlstm", "R=8 (xlstm decode tick) N=2048 LN"),
+              "R=1 N=2048 LN": ("xlstm_loop", "R=1 (xlstm decode-loop step) N=2048 LN"),
+              "R=8 N=8192 RMS": ("jamba", "R=8 (jamba decode tick) N=8192 RMSNorm"),
+              "R=512 N=8192 RMS": ("jamba_prefill",
+                                   "R=512 (jamba (1, 512) forward) N=8192 RMSNorm")}
     for label, x, p in ln_cases(torch, gen):
         r, n = x.shape
         c, e = compare(mod.quant_layernorm(x, p), quant_layernorm_ref(x, p))
@@ -685,17 +738,24 @@ def phase_decode_contiguous(torch, gen):
     over yi-6b's full context (B=1, 4,096 rows); mixtral's (Hkv 8, G 6) at
     a tick of 8 slots over its 4,096-row rings, lengths 33 to 4,096 (full
     rings among them: a wrapped ring holds positions out of order, which
-    the kernel does not see); equal to the plain version, the kernel,
-    plain and bound times, and the CTAs of each pass."""
+    the kernel does not see); jamba-1.5-large's (Hkv 8, G 8) over its
+    256-row stripes at bkv 256, a tick of 8 slots and a loop step of one;
+    equal to the plain version, the kernel, plain and bound times, and the
+    CTAs of each pass."""
     from repro_torch.kernels import decode_attention as mod
     from repro_torch.kernels.ref import decode_qattention_ref
 
-    d, bkv = 128, 512
+    d = 128
     shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 1024, 4, 8),  # yi-6b, 1024
               "B=1 len=4096": ([4096], 4096, 4, 8),                      # yi-6b's context
-              "mixtral B=8": ([33, 600, 1024, 2047, 2048, 3000, 4095, 4096], 4096, 8, 6)}
+              "mixtral B=8": ([33, 600, 1024, 2047, 2048, 3000, 4095, 4096], 4096, 8, 6),
+              # jamba's attention slot on its 256-row stripes (bkv 256): a tick
+              # and a decode-loop prefill step
+              "jamba B=8": ([17, 40, 80, 128, 150, 200, 230, 256], 256, 8, 8),
+              "jamba B=1": ([128], 256, 8, 8)}
     rows_of = {}
     for label, (lengths, smax, hkv, g) in shapes.items():
+        bkv = min(512, smax)
         b = len(lengths)
         args = (_rand_i8(torch, gen, (b, hkv, g, d)), _rand_i8(torch, gen, (b, smax, hkv, d)),
                 _rand_i8(torch, gen, (b, smax, hkv, d)),
@@ -712,7 +772,7 @@ def phase_decode_contiguous(torch, gen):
         row = dict(ms=device_ms(torch, kernel, args),
                    plain_ms=device_ms(torch, plain, args, cold=False),
                    library_ms=None, mismatches=mism, max_abs_err=err, launches_per_call=3,
-                   shape=f"{label} Hkv={hkv} G={g} D=128 Smax={smax} bkv=512 "
+                   shape=f"{label} Hkv={hkv} G={g} D=128 Smax={smax} bkv={bkv} "
                          f"lengths={lengths}")
         # the function needs the live rows only: a masked key's numerator is 0
         rows = sum(lengths)
@@ -728,6 +788,7 @@ def phase_decode_contiguous(torch, gen):
     for label, row in rows_of.items():
         check(row["mismatches"] == 0, f"decode_qattention: kernel != plain version at {label}")
     return dict(rows_of["B=8"], long=rows_of["B=1 len=4096"], g6_ring=rows_of["mixtral B=8"],
+                jamba=rows_of["jamba B=8"], jamba_loop=rows_of["jamba B=1"],
                 mismatches=sum(r["mismatches"] for r in rows_of.values()),
                 max_abs_err=max(r["max_abs_err"] for r in rows_of.values()))
 
@@ -764,6 +825,7 @@ def _small_inv_scalars(torch, d):
 # cache-less forward over it are the [mixtral] phase's
 MIXTRAL_HEADS = (48, 8, 128)
 MIXTRAL_WINDOW = 4096
+JAMBA_HEADS = (64, 8, 128)
 WINDOW_CASES = (("window_s8192", 8192, 8192, 0, 512),
                 ("window_q_offset", 128, 8192, 8064, 512),
                 ("window_bkv504", 8064, 8064, 0, 504),
@@ -783,9 +845,10 @@ def phase_flash_qattention(torch, gen):
     500 and S 4,160 at bkv 416 (the [mixtral] phase's long request: its
     one-shot prefill and the cache-less forward over it), each beside the
     same call without a window, the skip branch and its margin
-    printed; S 8,192 also in the branch that walks from block 0.  q, k and
-    v are (B, S, H, D) tensors seen transposed, as the serving forward
-    hands them over."""
+    printed; S 8,192 also in the branch that walks from block 0.  Last,
+    jamba-1.5-large's heads (H 64, Hkv 8) at its (1, 512) cache-less
+    forward.  q, k and v are (B, S, H, D) tensors seen transposed, as the
+    serving forward hands them over."""
     from repro_torch.kernels import flash_qattention as mod
     from repro_torch.kernels.ref import window_skip_margin
 
@@ -795,6 +858,7 @@ def phase_flash_qattention(torch, gen):
              (None, (32, 4, 128), 128, 1024, 896, 512, None)]
     cases += [(label, MIXTRAL_HEADS, sq, skv, q_offset, bkv, MIXTRAL_WINDOW)
               for label, sq, skv, q_offset, bkv in WINDOW_CASES]
+    cases.append(("jamba", JAMBA_HEADS, 512, 512, 0, 512, None))   # its (1, 512) forward
     mism, err, main, windowed = 0, 0.0, None, {}
     for label, (h, hkv, d), sq, skv, q_offset, bkv, window in cases:
         q = _rand_i8(torch, gen, (1, sq, h, d)).transpose(1, 2)
@@ -834,6 +898,8 @@ def phase_flash_qattention(torch, gen):
                           f"{window_skip_margin(float(small[6]), d):.2f}) the tiles walk from "
                           f"block 0: {row['ms_from_block_0']:.4f} ms, {cs} mismatches")
             windowed[label] = row
+        elif label:
+            windowed[label] = dict(row, shape=text)
         print(f"  flash_qattention {text}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}, "
               f"the live pairs), {c} mismatches{extra}", flush=True)
@@ -992,7 +1058,11 @@ def profile_steps(torch, step, what: str, n: int = 3, experts: bool = False):
              [r for r in rows if "fq::stripe_" in r[2]]),
             ("flash prefill attention", [r for r in rows if "flash_kernel" in r[2]]),
             ("integer LayerNorm", [r for r in rows if "quant_layernorm_kernel" in r[2]]),
-            ("LUT softmax", [r for r in rows if "quant_softmax_kernel" in r[2]])):
+            ("LUT softmax", [r for r in rows if "quant_softmax_kernel" in r[2]]),
+            ("float products (cuBLAS float32 GEMM / GEMV: the recurrent slots' weight-only "
+             "linears and gates, the lm_head)",
+             [r for r in rows if ("gemm" in r[2].lower() or "gemv" in r[2].lower())
+              and "fq::igemm::" not in r[2]])):
         if picked:
             ms = sum(r[0] for r in picked) / n / 1e3
             print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
@@ -1083,16 +1153,18 @@ def profile_prefill_chunks(torch, cfg, folded, chunks=((512, 0), (128, 256))):
             experts=bool(cfg.n_experts))
 
 
-def serve(torch, cfg, folded, kernels, on_engine=None, **extra):
-    """The 8 requests through one ``Engine`` (``extra``: EngineConfig fields;
+def serve(torch, cfg, folded, kernels, on_engine=None, prompts=None, max_len=1024, **extra):
+    """The 8 requests (``prompts``, by default ``_prompts``) through one
+    engine of ``make_engine`` (``extra``: EngineConfig fields;
     ``on_engine(eng)`` runs on the engine before the first submit), with
     the counts of ``kernels`` set to 0 just before."""
-    from repro_torch.serve.engine import Engine, EngineConfig, Request, RequestStatus
+    from repro_torch.serve.engine import EngineConfig, Request, RequestStatus, make_engine
 
-    eng = Engine(cfg, folded, EngineConfig(batch_slots=8, max_len=1024, **extra))
+    eng = make_engine(cfg, folded, EngineConfig(batch_slots=8, max_len=max_len, **extra))
     if on_engine is not None:
         on_engine(eng)
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in _prompts(cfg.vocab_size)]
+    reqs = [Request(prompt=p, max_new_tokens=32)
+            for p in (prompts if prompts is not None else _prompts(cfg.vocab_size))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -1122,7 +1194,7 @@ def serve(torch, cfg, folded, kernels, on_engine=None, **extra):
     check(all(len(t) == 32 and all(0 <= x < cfg.vocab_size for x in t) for t in toks),
           "a request returned the wrong number of tokens or an out-of-vocab token")
     n_tok = sum(len(t) for t in toks)
-    return dict(tokens=toks, counters=dict(eng.counters), launches=launches,
+    return dict(tokens=toks, counters=dict(eng.counters), launches=launches, layout=eng.layout,
                 paths=gemm_paths(), forwards=list(FORWARDS), tick_launches=tick_launches,
                 wall_s=wall,
                 tok_per_s=n_tok / wall,
@@ -1584,13 +1656,16 @@ def phase_eval(torch, cfg, folded):
 # full size; a MoE's d_ff is its experts' (moe_d_ff)
 ARCHS = {"qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
          "qwen2-moe-a2.7b": (24, 2048, 16, 16, 128, 1408, 151936),
-         "mixtral-8x22b": (56, 6144, 48, 8, 128, 16384, 32768)}
+         "mixtral-8x22b": (56, 6144, 48, 8, 128, 16384, 32768),
+         "xlstm-1.3b": (48, 2048, 4, 4, 512, 0, 50304),
+         "jamba-1.5-large-398b": (72, 8192, 64, 8, 128, 24576, 65536)}
 
 
-def load_arch(torch, name, n_layers=None):
-    """One of ``ARCHS`` at full size, at its full depth or ``n_layers``:
-    random weights from SEED, calibrated on (2, 32) and folded on the card
-    (the float weights freed by ``calibrated_folded``)."""
+def load_arch(torch, name, n_layers=None, **overrides):
+    """One of ``ARCHS`` at full size, at its full depth or ``n_layers`` (and
+    other config ``overrides``): random weights from SEED, calibrated on
+    (2, 32) and folded on the card (the float weights freed by
+    ``calibrated_folded``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1601,7 +1676,8 @@ def load_arch(torch, name, n_layers=None):
             cfg.moe_d_ff or cfg.d_ff, cfg.vocab_size)
     check(dims == ARCHS[name], f"{name} is not full size: {dims}")
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        overrides["n_layers"] = n_layers
+    cfg = dataclasses.replace(cfg, **overrides)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     folded = calibrated_folded(cfg, SEED, device="cuda")
@@ -1611,7 +1687,8 @@ def load_arch(torch, name, n_layers=None):
           f"folded {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card (peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)"
           + (f"; {cfg.n_experts} routed experts top-{cfg.top_k} and {cfg.n_shared_experts} "
-             f"shared a layer" if cfg.n_experts else "; qk-norm" if cfg.qk_norm else ""))
+             f"shared a layer" if cfg.n_experts else "; qk-norm" if cfg.qk_norm else "")
+          + (f"; block pattern {''.join(cfg.pattern)}" if len(cfg.pattern) > 1 else ""))
     return cfg, folded
 
 
@@ -1948,13 +2025,16 @@ def check_layer0(torch, guard, window, n_prompt, steps, dscal, prefill, full):
           f"{fa.divisor_tile(512, s) // 2} {_codes_differ(half, fout)}")
 
 
-def hold_forward_shapes(torch, cfg, forwards, smax, guard):
+def hold_forward_shapes(torch, cfg, forwards, smax, guard, what="mixtral"):
     """Every shape that the recorded ``forwards`` ((B, S, mode, launches))
     gave the kernels, held against the plain versions on random codes:
-    each layer's GEMMs (``forward_gemms``), the norms at R = B * S, a
-    prefill's windowed flash at (B, S) with its serving block and a decode
-    forward's ring decode at (B, ``smax``) over lengths up to a full ring.
-    Prints the shapes; fails on any mismatching code."""
+    each layer's GEMMs (``forward_gemms``), the norms at R = B * S, and for
+    an arch with attention a prefill's (maybe windowed) flash at (B, S)
+    with its serving block and a decode forward's stripe decode at (B,
+    ``smax``) over lengths up to a full stripe.  Prints the shapes; fails
+    on any mismatching code."""
+    from repro_torch.models.transformer import slot_kinds
+
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_qattention as fa
     from repro_torch.kernels import int4_matmul as mm
@@ -1967,8 +2047,9 @@ def hold_forward_shapes(torch, cfg, forwards, smax, guard):
     forms = {(b, s, mode) for b, s, mode, _ in forwards}
     gemms = sorted({g for b, s, _ in forms for g in forward_gemms(cfg, b * s)})
     norms = sorted({b * s for b, s, _ in forms})
-    flashes = sorted({(b, s) for b, s, mode in forms if mode == "prefill"})
-    decodes = sorted({b for b, _, mode in forms if mode == "decode"})
+    attn = any(m == "attn" for m, _ in slot_kinds(cfg))
+    flashes = sorted({(b, s) for b, s, mode in forms if mode == "prefill" and attn})
+    decodes = sorted({b for b, _, mode in forms if mode == "decode" and attn})
     params = _ln_params(torch, gen, cfg.norm_type == "layernorm", cfg.d_model)
     scal = _attn_scalars(torch, d)
     bad = {}
@@ -2000,10 +2081,10 @@ def hold_forward_shapes(torch, cfg, forwards, smax, guard):
                 da.decode_qattention(*args, bkv=bkv), ref.decode_qattention_ref(*args, bkv))[0]
     print(f"  held against the plain versions at every shape of the phase's forwards: "
           f"{len(gemms)} GEMMs (M {sorted({m for m, _, _ in gemms})}), the norm at R "
-          f"{norms}, the flash at (B, S) {flashes}, the ring decode at B {decodes}: "
+          f"{norms}, the flash at (B, S) {flashes}, the stripe decode at B {decodes}: "
           f"{sum(bad.values())} mismatching codes")
     check(not any(bad.values()),
-          f"mixtral: kernels differ from their plain versions at served shapes: "
+          f"{what}: kernels differ from their plain versions at served shapes: "
           f"{ {k: v for k, v in bad.items() if v} }")
 
 
@@ -2224,6 +2305,298 @@ def phase_small_mixtral(torch):
         check(toks["cuda", "engine"] == toks["cpu", "engine"]
               and toks["cuda", "lockstep"] == toks["cpu", "lockstep"],
               "small mixtral: the card's greedy tokens differ from the CPU's")
+    finally:
+        if prev is None:
+            del os.environ["REPRO_TORCH_KERNELS"]
+        else:
+            os.environ["REPRO_TORCH_KERNELS"] = prev
+
+
+# the recurrent archs' requests: 8 prompts of 16-128 tokens (every prompt
+# token is one batch-1 forward of the decode-loop prefill), 32 new tokens
+# each, on 8 slots of max_len 256
+RECURRENT_LENS = (16, 128, 24, 40, 16, 32, 64, 20)
+RECURRENT_MAX_LEN = 256
+JAMBA_DEPTH = 8        # of 72 layers: one super-block, see phase_recurrent
+DUAL_FORM_TOL = dict(atol=2e-3, rtol=2e-2)   # the reference's dual-form bound
+
+
+def _recurrent_prompts(vocab: int):
+    rng = np.random.default_rng(SEED + 7)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in RECURRENT_LENS]
+
+
+def slot_input(torch, cfg, prep, toks, fn_name: str, index: int):
+    """(int8 input, folded slot) of the ``index``-th call of
+    ``serve_int.<fn_name>`` (``_mamba_int`` or ``_xlstm_int``) in a
+    cache-less forward over ``toks``: a recurrent slot's input as the model
+    gives it."""
+    from repro_torch.models import serve_int as S
+
+    calls, inner = [], getattr(S, fn_name)
+
+    def recorded(x_i8, f, *a, **kw):
+        calls.append((x_i8, f))
+        return inner(x_i8, f, *a, **kw)
+
+    setattr(S, fn_name, recorded)
+    try:
+        S.serve_forward(cfg, prep, toks)
+    finally:
+        setattr(S, fn_name, inner)
+    return calls[index]
+
+
+def dual_form(torch, cfg, prep, slot: int, mixer: str, n: int):
+    """The dual-form gate at ``slot`` (rep 0): on the int8 input the model
+    gives that slot over ``n`` seeded tokens, the recurrent decode from a
+    zero state (one row at a time, the state written in place) against the
+    cache-less form (the mLSTM's parallel form, the sLSTM's scan, the
+    Mamba's chunked scan) on the same rows: float outputs within the
+    reference's bound (``DUAL_FORM_TOL``), the requantized codes that differ
+    counted."""
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import slot_kinds
+
+    toks = torch.as_tensor(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int32), device="cuda")
+    if mixer == "mamba":
+        fn_name, island = "_mamba_int", lambda x, f, st=None: S.mamba_float(x, f, cfg, st)
+    else:
+        fn_name, island = "_xlstm_int", lambda x, f, st=None: S.xlstm_float(x, f, cfg, mixer,
+                                                                             st)
+    # the slot's place among the slots that call the same function (rep 0)
+    index = [i for i, (m, _) in enumerate(slot_kinds(cfg))
+             if m != "attn" and (m == "mamba") == (mixer == "mamba")].index(slot)
+    x, f = slot_input(torch, cfg, prep, toks, fn_name, index)
+    whole = island(x, f)
+    state = {k: v[0] for k, v in S.init_cache(cfg, 1, n, device="cuda")[f"slot{slot}"].items()}
+    steps = torch.cat([island(x[:, t:t + 1], f, state) for t in range(n)], 1)
+    ok = bool(torch.allclose(steps, whole, **DUAL_FORM_TOL))
+    codes = [torch.clamp(torch.round(o * f["s_ra"]), -127, 127) for o in (steps, whole)]
+    differ = int((codes[0] != codes[1]).sum())
+    err = float((steps - whole).abs().max())
+    print(f"  dual form at slot {slot} ({mixer}), {n} rows: the decode recurrence against the "
+          f"cache-less form: max abs diff {err:.3g} (max |out| {float(whole.abs().max()):.3g}; "
+          f"bound atol {DUAL_FORM_TOL['atol']}, rtol {DUAL_FORM_TOL['rtol']}), {differ} of "
+          f"{whole.numel()} requantized codes differ")
+    check(ok and bool(torch.isfinite(steps).all()),
+          f"{cfg.name}: slot {slot} ({mixer}) decode recurrence != cache-less form")
+
+
+def phase_recurrent(torch, name, kernels, guard):
+    """xlstm-1.3b at full size (48 layers: 42 mLSTM, 6 sLSTM; d 2048, 4 heads
+    of 512, no FFN), or jamba-1.5-large at its published widths (d 8192, 64
+    heads, 8 KV heads, d_ff 24,576, vocab 65,536, Mamba d_state 16, d_conv
+    4, expand 2) at JAMBA_DEPTH of 72 layers (one super-block, ``m m m m a m
+    m m``) and ``n_experts=0``: its 4 MoE slots of a super-block hold ~38.7 B
+    parameters, and the calibration holds every float weight at once, so
+    one super-block with its experts does not fit the card; every slot's
+    FFN is then the dense SwiGLU at its published d_ff (the MoE slot is held
+    at smoke size by ``phase_small_recurrent``).  Random weights from SEED,
+    calibrated on (2, 32) and folded on the card; the float32 weight cache
+    of the weight-only linears printed.
+
+    The 8 requests (``RECURRENT_LENS``) through ``make_engine`` (``auto``
+    resolves to the contiguous layout): finite logits, tokens in range,
+    every prompt through the batch-1 decode loop (``loop_prefill_steps`` =
+    the prompt tokens, no one-shot prefill), per forward ``quant_layernorm``
+    49 times (xlstm) or 17 (jamba), jamba's ``int4_matmul`` 28 times on the
+    path its M implies and ``decode_qattention`` once, no flash and no
+    paged kernel.  The dual-form gates (``dual_form``): xlstm's slots 1
+    (mLSTM) and 0 (sLSTM) over 128 rows, jamba's slot 0 (Mamba) over 200
+    (two chunks and a ragged pad).  Then the ``LockstepEngine`` on the same
+    prompts (its first divergence from the Engine's tokens printed, not
+    gated: its prompts are left-padded, and its float products run at
+    other M), profiles of a decode tick and a loop-prefill step, the
+    cache-less forward at (1, 512) (jamba: one ``flash_qattention`` a
+    forward, profiled) and, for xlstm, (1, 1024) (the chunked parallel
+    mLSTM) timed; the recurrent state's bytes a slot.  Last, every shape
+    the phase's forwards gave rows 1, 2, 6 and 9 held against the plain
+    versions (``hold_forward_shapes``).  The weights are freed before it
+    returns."""
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import slot_kinds
+    from repro_torch.serve.engine import EngineConfig, LockstepEngine, Request, make_engine
+
+    jamba = name.startswith("jamba")
+    cfg, folded = load_arch(torch, name, **(dict(n_layers=JAMBA_DEPTH, n_experts=0)
+                                            if jamba else {}))
+    t0 = time.perf_counter()
+    prep = S.prepare_folded(cfg, folded)
+    torch.cuda.synchronize()
+    print(f"  float32 weights of the weight-only linears (prepare_folded): "
+          f"{S.float_weight_bytes(prep) / 2**30:.2f} GiB, {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    one = S.init_cache(cfg, 1, RECURRENT_MAX_LEN, device="cuda")
+    state_bytes = sum(t.numel() * t.element_size() for c in one.values()
+                      for k, t in c.items() if k not in ("k", "v"))
+    stripe_bytes = sum(t.numel() * t.element_size() for c in one.values()
+                       for k, t in c.items() if k in ("k", "v"))
+    print(f"  recurrent state a slot: {state_bytes} bytes ({state_bytes / 2**20:.1f} MiB, "
+          f"float32, any length)" + (f"; the attention slot's int8 K/V stripe {stripe_bytes} "
+                                     f"bytes at max_len {RECURRENT_MAX_LEN}" if jamba else ""))
+    kinds = slot_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds) * cfg.n_reps
+    want_ln = (len(kinds) + sum(f != "none" for _, f in kinds)) * cfg.n_reps + 1
+    want_gemm = len(forward_gemms(cfg, 1)) * cfg.n_reps
+    prompts = _recurrent_prompts(cfg.vocab_size)
+    finite = [True]
+
+    def watch(eng):
+        for attr in ("_decode", "_prefill_slot"):
+            inner = getattr(eng, attr)
+
+            def checked(*a, _inner=inner):
+                out = _inner(*a)
+                finite[0] = finite[0] and bool(np.isfinite(out).all())
+                return out
+
+            setattr(eng, attr, checked)
+
+    r = serve(torch, cfg, prep, kernels, on_engine=watch, prompts=prompts,
+              max_len=RECURRENT_MAX_LEN)
+    forwards = list(r["forwards"])
+    print_run(name, r, kernels)
+    print_forward_launches(r)
+    c = r["counters"]
+    launches = dict(zip([k.__name__ for k in kernels], r["launches"]))
+    check(r["layout"] == "contiguous", f"{name}: layout {r['layout']} (want contiguous)")
+    check(finite[0], f"{name}: non-finite logits")
+    check(c["oneshot_prefills"] == 0 and c["loop_prefill_steps"] == c["prefill_tokens"]
+          == sum(RECURRENT_LENS),
+          f"{name}: one-shot prefills {c['oneshot_prefills']}, loop prefill steps "
+          f"{c['loop_prefill_steps']} (want 0 and {sum(RECURRENT_LENS)})")
+    check(len(forwards) == c["loop_prefill_steps"] + c["decode_steps"],
+          f"{name}: {len(forwards)} forwards for {c['loop_prefill_steps']} loop steps and "
+          f"{c['decode_steps']} ticks")
+    want = {"quant_layernorm": want_ln, "int4_matmul": want_gemm,
+            "decode_qattention": n_attn, "flash_qattention": 0,
+            "paged_prefill_qattention": 0, "paged_decode_qattention": 0}
+    bad = [(b, s, {k: got[k] for k in want}) for b, s, _, got in forwards
+           if any(got[k] != v for k, v in want.items())]
+    check(not bad, f"{name}: per-forward launches {bad[:2]} != {want}")
+    print(f"  per forward: {want} (every one of the {len(forwards)} forwards)")
+    check_paths(name, cfg, r["paths"], forwards)
+    mixers = [("mamba", 0, 200)] if jamba else [("mlstm", 1, 128), ("slstm", 0, 128)]
+    for mixer, slot, n in mixers:
+        dual_form(torch, cfg, prep, slot, mixer, n)
+
+    lock = LockstepEngine(cfg, prep, EngineConfig(batch_slots=8, max_len=RECURRENT_MAX_LEN))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lreqs = lock.generate([Request(prompt=p, max_new_tokens=32) for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    div = first_divergence(r["tokens"], [q.out.tolist() for q in lreqs])
+    print(f"  LockstepEngine, the same prompts left-padded to {max(RECURRENT_LENS)}: "
+          f"{32 * len(prompts) / wall:.1f} tok/s ({wall:.2f} s wall); first divergence from "
+          f"the Engine's tokens (request, token): {div} (not gated: the pad tokens enter the "
+          f"recurrent state, and the float products run at other M)")
+
+    # a steady tick (2-token prompts: the recurrent slots' work does not
+    # grow with the prompt) and one batch-1 step of the decode-loop prefill
+    eng = make_engine(cfg, prep, EngineConfig(batch_slots=8, max_len=RECURRENT_MAX_LEN))
+    for p in prompts:
+        eng.submit(Request(prompt=p[:2], max_new_tokens=16))
+    while eng.sched.waiting or eng.sched.prefilling:
+        eng.poll()
+    profile_steps(torch, eng.poll, f"{name} decode tick (batch 8)")
+    tok = torch.as_tensor(prompts[0][:1].reshape(1, 1), device="cuda")
+    profile_steps(torch, lambda: S.serve_forward(cfg, prep, tok, cache=one, pos_offset=5,
+                                                 mode="decode"),
+                  f"{name} decode-loop prefill step (batch 1)")
+    del eng, lock, one
+
+    reset_gemm_paths()
+    rng = np.random.default_rng(SEED + 9)
+    for s in (512,) if jamba else (512, 1024):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, s)).astype(np.int32),
+                               device="cuda")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logits, _ = S.serve_forward(cfg, prep, toks)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"{name} (1, {s}): logits")
+        del logits
+        lat = float(np.median(walls))
+        print(f"  cache-less (1, {s}): median {lat * 1e3:.2f} ms over 3 forwards, the first "
+              f"included ({s / lat:.0f} tokens/s; host clock)")
+        if s == 512:
+            profile_steps(torch, lambda t=toks: S.serve_forward(cfg, prep, t),
+                          f"{name} (1, 512) cache-less forward", n=2 if jamba else 1)
+    cacheless = [f for f in FORWARDS if f[2] == "prefill"]
+    check(all(f[3]["flash_qattention"] == n_attn and f[3]["quant_layernorm"] == want_ln
+              for f in cacheless), f"{name}: cache-less launches {[f[3] for f in cacheless]}")
+    check_paths(f"{name} cache-less", cfg, gemm_paths(), cacheless)
+    hold_forward_shapes(torch, cfg, forwards + cacheless, RECURRENT_MAX_LEN, guard, name)
+    del folded, prep
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def phase_small_recurrent(torch):
+    """Small xlstm-1.3b and small jamba-1.5-large (smoke widths, jamba with
+    its 4 experts top-2) on the card (the kernels) and on the CPU (their
+    plain versions, REPRO_TORCH_KERNELS=gpu) from the same folded weights:
+    the Engine (``auto``: the decode-loop prefill) must give equal greedy
+    tokens; then a cache-less prefill and 4 decode steps fed the CPU's
+    tokens, with the logits that differ counted (the float cores run on
+    cuBLAS on the card)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import calibrated_folded
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve.engine import EngineConfig, Request, make_engine
+
+    prev = os.environ.get("REPRO_TORCH_KERNELS")
+    os.environ["REPRO_TORCH_KERNELS"] = "gpu"
+    try:
+        for name in ("xlstm-1.3b", "jamba-1.5-large-398b"):
+            cfg = smoke_config(name)
+            folded_cpu = calibrated_folded(cfg, SEED, device="cpu")
+            folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to("cuda"), folded_cpu)}
+            rng = np.random.default_rng(SEED)
+            prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                       for n in (9, 30, 17, 12)]
+            toks, loops = {}, {}
+            for dev in ("cpu", "cuda"):
+                eng = make_engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64))
+                toks[dev] = [q.out.tolist() for q in eng.generate(
+                    [Request(prompt=p, max_new_tokens=8) for p in prompts])]
+                loops[dev] = (eng.layout, eng.counters["loop_prefill_steps"],
+                              eng.counters["oneshot_prefills"])
+            prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
+            out, fed = {}, []
+            for dev in ("cpu", "cuda"):
+                logits, _ = S.serve_forward(cfg, folded[dev], prompt.to(dev))
+                rows = [logits.reshape(-1, cfg.vocab_size).cpu()]
+                cache = S.init_cache(cfg, 2, 64, device=dev)
+                for step in range(4):
+                    if dev == "cpu":
+                        fed.append((prompt[:, -1:] if step == 0 else
+                                    rows[-1].reshape(2, -1, cfg.vocab_size)[:, -1].argmax(
+                                        -1, keepdim=True)).to(torch.int32))
+                    logits, cache = S.serve_forward(
+                        cfg, folded[dev], fed[step].to(dev), cache=cache,
+                        pos_offset=torch.full((2,), step, dtype=torch.int32, device=dev),
+                        mode="decode")
+                    rows.append(logits.reshape(-1, cfg.vocab_size).cpu())
+                out[dev] = torch.cat(rows)
+            a, b = out["cpu"], out["cuda"]
+            differ = int((a != b).sum())
+            print(f"  small {name}, card vs CPU: (layout, loop prefill steps, one-shot "
+                  f"prefills) {loops['cuda']}; Engine tokens equal {toks['cuda'] == toks['cpu']};"
+                  f" cache-less prefill (2, 24) + 4 decode steps: {differ} of {a.numel()} "
+                  f"logits differ")
+            check(loops["cuda"] == loops["cpu"] == ("contiguous", 68, 0),
+                  f"small {name}: (layout, loop steps, one-shot prefills) {loops}")
+            check(bool(torch.isfinite(b).all()), f"small {name}: non-finite logits on the card")
+            check(toks["cuda"] == toks["cpu"],
+                  f"small {name}: the card's greedy tokens differ from the CPU's")
     finally:
         if prev is None:
             del os.environ["REPRO_TORCH_KERNELS"]
@@ -2499,7 +2872,9 @@ def main() -> int:
     ]
     check(len(table) == len(_build.KERNELS), "the kernel table and _build.KERNELS disagree")
     engine_wrappers = [fn for fn, *_ in table[:4]]      # the engine's kernels
-    record_forwards(engine_wrappers)
+    # the contiguous layout's two as well: the recurrent phases count them
+    # per forward
+    record_forwards(engine_wrappers + [da.decode_qattention, fa.flash_qattention])
     rows = []
     for fn, phase, *_ in table:
         print(f"[kernel] {fn.__name__}")
@@ -2552,7 +2927,22 @@ def main() -> int:
                                                           fa.flash_qattention]
                             + engine_wrappers[2:], guard)
     stamp("mixtral")
-    print(f"  plain versions on a CUDA tensor on the served paths ([serve] to [mixtral]): "
+    recurrent = {}
+    print("[xlstm] xlstm-1.3b, full size (48 layers: 42 mLSTM + 6 sLSTM, d 2048), 8 requests "
+          f"of {min(RECURRENT_LENS)}-{max(RECURRENT_LENS)} prompt tokens x 32 new, the "
+          "decode-loop prefill")
+    recurrent["xlstm"] = phase_recurrent(torch, "xlstm-1.3b", engine_wrappers[:2] + [
+        da.decode_qattention, fa.flash_qattention] + engine_wrappers[2:], guard)
+    stamp("xlstm")
+    print(f"[jamba] jamba-1.5-large, published widths at {JAMBA_DEPTH} of 72 layers (one "
+          "super-block: 7 Mamba + 1 attention) with n_experts=0 (dense SwiGLU FFNs at d_ff "
+          "24,576): the 4 MoE slots of one super-block hold ~38.7 B parameters and the "
+          "calibration holds every float weight, more than the card; 8 requests, the "
+          "decode-loop prefill")
+    recurrent["jamba"] = phase_recurrent(torch, "jamba-1.5-large-398b", engine_wrappers[:2] + [
+        da.decode_qattention, fa.flash_qattention] + engine_wrappers[2:], guard)
+    stamp("jamba")
+    print(f"  plain versions on a CUDA tensor on the served paths ([serve] to [jamba]): "
           f"{guard.ran() or 'none'}")
     check(not guard.ran(), f"plain versions ran on the card on the served paths: "
           f"{guard.ran()}")
@@ -2562,6 +2952,8 @@ def main() -> int:
     phase_small_archs(torch)
     print("[check] small mixtral-8x22b (window 16) against the CPU")
     phase_small_mixtral(torch)
+    print("[check] small xlstm-1.3b and jamba-1.5-large (4 experts) against the CPU")
+    phase_small_recurrent(torch)
     print("[bert] bert-base, full width, W4A8 and W8A8, cache-less integer forward")
     bert = phase_bert(torch)
     print("[check] small bert-base against the CPU")
@@ -2592,6 +2984,8 @@ def main() -> int:
             "library_ms": row["library_ms"], "shape": row["shape"],
             **({"launches_mixtral": mixtral["launches"][fn.__name__]}
                if fn.__name__ in mixtral["launches"] else {}),
+            **{f"launches_{arch}": r["launches"][fn.__name__] for arch, r in recurrent.items()
+               if fn.__name__ in r["launches"]},
             **({"launch_floor_ms": row["launch_floor_ms"]} if "launch_floor_ms" in row else {}),
             **{case: {k: row[case][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "mismatches",
@@ -2602,7 +2996,8 @@ def main() -> int:
                for case in ("chunk", "long", "last_chunk", "verify", "qwen3", "expert",
                             "expert_chunk", "g1_moe", "g1_stablelm", "mixtral",
                             "mixtral_prefill", "mixtral_attn", "mixtral_attn_prefill",
-                            "mixtral_forward", "g6_ring",
+                            "mixtral_forward", "g6_ring", "xlstm", "xlstm_loop", "jamba",
+                            "jamba_loop", "jamba_prefill",
                             *(label for label, *_ in WINDOW_CASES)) if case in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,11 @@ batched generation through the continuous-batching engine.
 
 ``--device cpu`` runs the plain PyTorch path (use ``--smoke`` there).
 ``--kv-bits 4`` packs the paged KV pool to int4; ``--layout contiguous``
-serves from per-slot contiguous stripes instead of the paged pool.
+serves from per-slot contiguous stripes instead of the paged pool.  The
+recurrent archs (``--arch xlstm-1.3b``, ``--arch jamba-1.5-large-398b``)
+resolve to the contiguous layout and prefill through the batch-1 decode
+loop; at full depth jamba does not fit one card (its calibration holds
+every float weight).
 """
 from __future__ import annotations
 

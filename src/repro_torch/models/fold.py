@@ -70,6 +70,17 @@ def fold_linear_t(w, b, s_a, s_y, policy: QuantPolicy) -> Dict:
     return {"w": _weight_codes(codes, policy.w_bits), "b": bias_i, "M": M, "sh": sh}
 
 
+def fold_linear_weightonly(w, policy: QuantPolicy) -> Dict:
+    """W4-only fold of a (K, N) weight (the SSM inner projections: float
+    activations, int4 weights): K-planar packed codes under a per-tensor
+    scale without the 8-bit scale rounding, and ``inv_s_w`` = 1 / s_w."""
+    w = w.to(F32)
+    qm = q.qmax(policy.w_bits)
+    s_w = q.rdiv(qm, torch.clamp(q.per_tensor_max(w), min=1e-8))
+    codes = torch.clamp(torch.round(w * s_w), -qm, qm).to(torch.int8)
+    return {"w": packing.pack_int4_planar(codes, axis=0), "inv_s_w": q.rdiv(1.0, s_w)}
+
+
 def fold_norm_t(p_norm, s_y) -> Dict:
     gamma = p_norm["gamma"].to(F32)
     beta = p_norm.get("beta")
@@ -125,15 +136,11 @@ def fold_expert_group(grp: Dict, a: Dict, prefix: str, s_mi, policy: QuantPolicy
             "inv_s_out": torch.tensor(1.0 / EXPERT_OUT_SCALE, dtype=F32, device=s_mi.device)}
 
 
-def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in):
-    """Fold one attention + dense / MoE super-block slot of one rep.
-    Returns (folded dict, scale of the outgoing residual grid)."""
-    if mixer != "attn" or ffn not in ("dense", "moe", "none"):
-        raise NotImplementedError(f"folding {mixer}/{ffn} slots is not ported: "
-                                  "ROADMAP Open items §1")
+def _fold_attention(cfg: ModelConfig, p: Dict, s) -> Dict:
+    """The attention mixer's folded leaves (ln1, q/k/v/o, the attention
+    scalars); ``s(site)`` gives a site's scale."""
     pol = cfg.quant
     f: Dict = {}
-    s = lambda name: site_scale(a[name], pol)  # noqa: E731
     pa = p["attn"]
     s_in, s_q, s_k, s_v = s("attn_in"), s("q"), s("k"), s("v")
     s_qp, s_kp = s("q_pre"), s("k_pre")
@@ -157,6 +164,39 @@ def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in
     if cfg.qk_norm:
         f["attn_q"]["qn"] = pa["qn"].to(F32)
         f["attn_q"]["kn"] = pa["kn"].to(F32)
+    return f
+
+
+_GATES = ("w_ig", "w_fg", "w_og")   # the mLSTM's float gate weights
+
+
+def _fold_recurrent(cfg: ModelConfig, mixer: str, p: Dict, s) -> Dict:
+    """A Mamba / mLSTM / sLSTM mixer's folded leaves: ln1 onto the mixer's
+    input grid, ``inv_s_in`` back to float, the inner projections
+    weight-only (``fold_linear_weightonly``), every other leaf float32."""
+    pol = cfg.quant
+    key = {"mamba": "mamba_in", "mlstm": "mlstm_in", "slstm": "slstm_in"}[mixer]
+    m = p["mixer"]
+    if mixer == "mamba":
+        mx = {k: fold_linear_weightonly(m[k], pol) for k in ("w_in", "w_x", "w_out")}
+        mx.update({k: m[k].to(F32) for k in ("conv_w", "conv_b", "w_dt")})
+        mx.update({k: m[k] for k in ("dt_bias", "A_log", "D")})
+    else:
+        mx = {k: (fold_linear_weightonly(v, pol)
+                  if k.startswith("w") and v.dim() == 2 and k not in _GATES else v.to(F32))
+              for k, v in m.items()}
+    return {"ln1": fold_norm_t(p["norm1"], s(key)), "inv_s_in": q.rdiv(1.0, s(key)),
+            "mx": mx, "s_ra": s("resid_a")}
+
+
+def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in):
+    """Fold one super-block slot of one rep: an attention, Mamba, mLSTM or
+    sLSTM mixer, then a dense, MoE or no feed-forward.  Returns (folded
+    dict, scale of the outgoing residual grid)."""
+    pol = cfg.quant
+    s = lambda name: site_scale(a[name], pol)  # noqa: E731
+    f = _fold_attention(cfg, p, s) if mixer == "attn" else _fold_recurrent(cfg, mixer, p, s)
+    s_ra = s("resid_a")
     f["res_a"] = fold_rescale(s_res_in, s_ra)
     s_res = s_ra
     if ffn == "dense":

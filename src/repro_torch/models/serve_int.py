@@ -8,13 +8,18 @@ prefill, single-token decode) that the lockstep engine and
 The paper's deployment datapath: int8 activations end to end, packed-int4
 (or int8, ``w_bits=8``) weights, LUT softmax, integer LN, int8 KV pool, with
 float islands: the RoPE rotation (with qk-norm's RMSNorm before it), the
-MoE router and combine, and the fp32 ``lm_head`` scale.  Mirrors the
-reference ``models/serve_int.py`` for all-attention archs with a dense or
-MoE feed-forward, causal (yi-6b, qwen3-4b, qwen2-moe-a2.7b, ...; with a
-sliding window, mixtral-8x22b, on the contiguous stripe as a window-sized
-ring) and bidirectional (BERT, cache-less prefill only); every other branch
-raises ``NotImplementedError``.  A MoE slot makes one ``int4_matmul`` launch per
-expert and linear (the reference ``vmap``s them).
+MoE router and combine, the fp32 ``lm_head`` scale, and the recurrent
+mixers' cores.  Mirrors the reference ``models/serve_int.py`` for token-LM
+archs with one LM head: attention with a dense or MoE feed-forward, causal
+(yi-6b, qwen3-4b, qwen2-moe-a2.7b, ...; with a sliding window,
+mixtral-8x22b, on the contiguous stripe as a window-sized ring) and
+bidirectional (BERT, cache-less prefill only); and the recurrent slots of
+jamba's Mamba hybrid and of xLSTM (``mamba_float`` / ``xlstm_float``:
+weight-only int4 projections on float activations, a float32 core, the
+output requantized onto the residual grid), whose state lives in the
+contiguous cache and advances one decode step at a time.  Every other
+branch raises.  A MoE slot makes one ``int4_matmul`` launch per expert and
+linear (the reference ``vmap``s them).
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
@@ -30,10 +35,12 @@ softmax (``ops.softmax_q``), the kernel on ``gpu``.
 
 Unlike the functional reference, the caches are updated IN PLACE (the
 returned cache is the same dict of tensors): at full width a copy of the
-pool per layer would cost more than the layer.
+pool per layer would cost more than the layer.  So are recurrent states,
+through the views the engine hands over (one slot of one rep).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
@@ -49,7 +56,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_qattention import divisor_tile
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
 from repro_torch.models import moe as Moe
+from repro_torch.models import xlstm as Xl
 from repro_torch.models.transformer import check_ported, slot_kinds, tree_index
 
 _LUTS: Dict = {}
@@ -92,27 +101,52 @@ def _lut8(x_i8, lut_i8):
     return lut_i8[(x_i8.to(torch.int64) + 128)]
 
 
+@contextlib.contextmanager
+def ieee_fp32(device):
+    """Full float32 matmuls (TF32 off) on the card for the body, whatever the
+    process-wide precision; the caller's setting is restored afterwards.
+    PyTorch's ``fp32_precision`` API where it exists (mixing it with the
+    legacy flags raises)."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    mm = torch.backends.cuda.matmul
+    new_api = hasattr(mm, "fp32_precision")
+    prev = mm.fp32_precision if new_api else torch.get_float32_matmul_precision()
+    if new_api:
+        mm.fp32_precision = "ieee"
+    else:
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if new_api:
+            mm.fp32_precision = prev
+        else:
+            torch.set_float32_matmul_precision(prev)
+
+
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in full float32 (or float64) whatever the process-wide
-    matmul precision: on the card TF32 is turned off for this product and
-    the caller's setting restored afterwards.  The lm_head's product is
-    exact only so (every partial sum an integer below 2^24)."""
-    if a.device.type != "cuda":
+    matmul precision (``ieee_fp32``).  The lm_head's product is exact only
+    so (every partial sum an integer below 2^24)."""
+    with ieee_fp32(a.device):
         return torch.matmul(a, b)
-    mm = torch.backends.cuda.matmul
-    if hasattr(mm, "fp32_precision"):
-        prev = mm.fp32_precision
-        mm.fp32_precision = "ieee"
-        try:
-            return torch.matmul(a, b)
-        finally:
-            mm.fp32_precision = prev
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        return torch.matmul(a, b)
-    finally:
-        torch.set_float32_matmul_precision(prev)
+
+
+def wonly_weight(f: Dict) -> torch.Tensor:
+    """A weight-only linear's float32 weight, ``codes * inv_s_w`` (cached
+    under ``w_f`` by ``prepare_folded``)."""
+    if "w_f" in f:
+        return f["w_f"]
+    return packing.unpack_int4_planar(f["w"], axis=0).to(torch.float32) * f["inv_s_w"]
+
+
+def _lin_wonly(x_f, f):
+    """Weight-only int4 linear on float activations (the SSM islands):
+    ``x_f @ (codes * inv_s_w)`` (+ b), in that order, with TF32 off."""
+    y = exact_matmul(x_f, wonly_weight(f))
+    return y + f["b"] if "b" in f else y
 
 
 def _rope_island(h_i8, inv_s_in, s_out, pos, cfg, qn=None):
@@ -505,15 +539,101 @@ def _moe_int(x_i8, f, cfg):
     return _moe_experts(h, f, cfg, *_moe_route(h, f, cfg)).reshape(b, s, d)
 
 
+# --- recurrent slots (weight-only int4, float core) -----------------------------
+
+def _requant_out(out, f):
+    """A recurrent mixer's float output onto the residual grid of its slot."""
+    return torch.clamp(torch.round(out * f["s_ra"]), -127, 127).to(torch.int8)
+
+
+def _write_state(state: Dict, new: Dict):
+    """A decode step's new recurrent state, written in place into the cache
+    leaves it was given (views of the engine's cache)."""
+    for k, v in new.items():
+        state[k].copy_(v)
+
+
+def mamba_float(x_i8, f, cfg, state=None):
+    """A Mamba slot up to its float output: integer LN -> float island
+    (weight-only in/x/out projections, causal conv, selective scan).
+    ``state`` {h, conv} (decode, S == 1) is updated in place; without it the
+    whole sequence runs through the chunked scan from a zero state."""
+    h = _ln(x_i8, f["ln1"], cfg)
+    with ieee_fp32(x_i8.device):
+        hf = h.to(torch.float32) * f["inv_s_in"]
+        m = f["mx"]
+        _, dt_rank = Mb.mamba_dims(cfg)
+        n = cfg.mamba_d_state
+        xi, z = torch.chunk(_lin_wonly(hf, m["w_in"]), 2, dim=-1)
+        xc, conv_state = Mb.causal_conv(xi, m["conv_w"], None if state is None else state["conv"])
+        xc = Mb.silu(xc + m["conv_b"])
+        dt_r, B_, C_ = torch.split(_lin_wonly(xc, m["w_x"]), [dt_rank, n, n], dim=-1)
+        dt = Mb.softplus(dt_r @ m["w_dt"] + m["dt_bias"])
+        A = -torch.exp(m["A_log"])
+        if state is None:
+            y = Mb.ssm_chunked(xc, dt, B_, C_, A, m["D"])
+        else:
+            y, hstate = Mb.ssm_step(xc, dt, B_, C_, A, m["D"], state["h"])
+            _write_state(state, {"h": hstate, "conv": conv_state})
+        return _lin_wonly(y * Mb.silu(z), m["w_out"])
+
+
+def xlstm_float(x_i8, f, cfg, kind: str, state=None):
+    """An mLSTM or sLSTM slot up to its float output: integer LN -> float
+    island (weight-only projections, float gates, the recurrence).
+    ``state`` (decode, S == 1: mLSTM {C, n, m}, sLSTM {c, n, h, m}) is
+    updated in place; without it the mLSTM runs its parallel form and the
+    sLSTM its scan from a zero state."""
+    b, s, d = x_i8.shape
+    nh = cfg.n_heads
+    h = _ln(x_i8, f["ln1"], cfg)
+    with ieee_fp32(x_i8.device):
+        hf = h.to(torch.float32) * f["inv_s_in"]
+        m = f["mx"]
+        if kind == "slstm":
+            gates = [_lin_wonly(hf, m[w]) + m[bias]
+                     for w, bias in (("w_z", "b_z"), ("w_i", "b_i"), ("w_f", "b_f"),
+                                     ("w_o", "b_o"))]
+            hs, new = Xl.slstm_scan(*gates, m["r"], nh, state)
+            if state is not None:
+                _write_state(state, new)
+            return _lin_wonly(hs, m["w_out"])
+        qh = Xl.heads(_lin_wonly(hf, m["wq"]), nh)
+        kh = Xl.heads(_lin_wonly(hf, m["wk"]), nh) * Xl.key_scale(d // nh)
+        vh = Xl.heads(_lin_wonly(hf, m["wv"]), nh)
+        gi = hf @ m["w_ig"] + m["b_ig"]
+        logf = Xl.log_sigmoid(hf @ m["w_fg"] + m["b_fg"])
+        if state is None:
+            y = Xl.mlstm_parallel(qh, kh, vh, gi, logf)
+        else:
+            y, new = Xl.mlstm_step(qh, kh, vh, gi, logf, state)
+            _write_state(state, new)
+        og = torch.sigmoid(hf @ m["w_og"] + m["b_og"])
+        return _lin_wonly(L.rmsnorm_xla(y.reshape(b, s, d), m["ln_y"]) * og, m["wo"])
+
+
+def _mamba_int(x_i8, f, cfg, state=None):
+    """A Mamba slot: ``mamba_float``, then int8 on the slot's residual grid."""
+    return _requant_out(mamba_float(x_i8, f, cfg, state), f)
+
+
+def _xlstm_int(x_i8, f, cfg, kind: str, state=None):
+    """An mLSTM or sLSTM slot: ``xlstm_float``, then int8 on the slot's
+    residual grid."""
+    return _requant_out(xlstm_float(x_i8, f, cfg, kind, state), f)
+
+
 # --- whole-model serving forward -----------------------------------------------
 
 def _check_pageable(cfg: ModelConfig):
-    """The paged pool serves non-SWA archs only (a sliding window's stripe
-    is already a window-sized ring), as in the reference."""
+    """The paged pool serves all-attention non-SWA archs only (a sliding
+    window's stripe is already a window-sized ring, a recurrent state does
+    not grow with the sequence), as in the reference."""
     check_ported(cfg)
-    if cfg.sliding_window:
-        raise ValueError(f"arch {cfg.name!r} has a sliding window: the paged cache requires "
-                         "a non-SWA arch (use the contiguous stripe)")
+    if cfg.sliding_window or recurrent(cfg):
+        raise ValueError(f"arch {cfg.name!r} has a sliding window or a recurrent mixer: the "
+                         "paged cache requires an all-attention, non-SWA arch (use the "
+                         "contiguous layout)")
 
 
 def paged_page_nbytes(cfg: ModelConfig, page_size: int, kv_bits: int = 8) -> int:
@@ -559,13 +679,36 @@ def cache_rows(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict:
-    """The contiguous stripe: (n_reps, batch, Smax, Hkv, hd) int8 K and V per
-    attention slot."""
+    """Per-slot decode state, stacked (n_reps, batch, ...): the contiguous
+    stripe, (Smax, Hkv, hd) int8 K and V, per attention slot; float32
+    zeros per recurrent slot: Mamba h (d_in, N) and conv (K-1, d_in),
+    mLSTM C (H, dh, dh), n (H, dh) and m (H,), sLSTM c, n, h, m (H, dh)."""
     check_ported(cfg)
-    shape = (cfg.n_reps, batch, cache_rows(cfg, max_len), cfg.n_kv_heads, cfg.hd)
-    return {f"slot{i}": {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                         "v": torch.zeros(shape, dtype=torch.int8, device=device)}
-            for i in range(len(slot_kinds(cfg)))}
+    lead = (cfg.n_reps, batch)
+    dh = cfg.d_model // cfg.n_heads
+    shapes = {"attn": {k: (cache_rows(cfg, max_len), cfg.n_kv_heads, cfg.hd)
+                       for k in ("k", "v")},
+              "mlstm": {"C": (cfg.n_heads, dh, dh), "n": (cfg.n_heads, dh),
+                        "m": (cfg.n_heads,)},
+              "slstm": {k: (cfg.n_heads, dh) for k in ("c", "n", "h", "m")}}
+    if any(m == "mamba" for m, _ in slot_kinds(cfg)):
+        d_in, _ = Mb.mamba_dims(cfg)
+        shapes["mamba"] = {"h": (d_in, cfg.mamba_d_state), "conv": (cfg.mamba_d_conv - 1, d_in)}
+    return {f"slot{i}": {k: torch.zeros(lead + shp, device=device,
+                                        dtype=torch.int8 if m == "attn" else torch.float32)
+                         for k, shp in shapes[m].items()}
+            for i, (m, _) in enumerate(slot_kinds(cfg))}
+
+
+def recurrent(cfg: ModelConfig) -> bool:
+    """Whether any slot of ``cfg`` carries a recurrent state (Mamba, mLSTM,
+    sLSTM)."""
+    return any(m != "attn" for m, _ in slot_kinds(cfg))
+
+
+def _attn_leaf(cache: Dict) -> torch.Tensor:
+    """The K leaf of the cache's first attention slot."""
+    return next(c["k"] for c in cache.values() if "k" in c)
 
 
 def _rep_view(f_rep: Dict) -> Dict:
@@ -608,13 +751,31 @@ def head_weights(cfg: ModelConfig, folded: Dict) -> torch.Tensor:
     return w.to(head_dtype(cfg))
 
 
+def _with_float_weights(f_slot: Dict) -> Dict:
+    """A recurrent slot's view with each weight-only linear's float32
+    weight cached under ``w_f``."""
+    mx = {k: dict(v, w_f=wonly_weight(v)) if isinstance(v, dict) else v
+          for k, v in f_slot["mx"].items()}
+    return dict(f_slot, mx=mx)
+
+
 def prepare_folded(cfg: ModelConfig, folded: Dict) -> Dict:
-    """A shallow copy of ``folded`` with the per-layer views and the
-    converted lm_head cached, for a serving loop that runs many forwards."""
+    """A shallow copy of ``folded`` with the per-layer views, the converted
+    lm_head and the recurrent slots' float32 weights (``wonly_weight``)
+    cached, for a serving loop that runs many forwards."""
     out = dict(folded)
-    out["layers"] = layer_views(folded, cfg.n_reps)
+    out["layers"] = [{k: _with_float_weights(v) if isinstance(v, dict) and "mx" in v else v
+                      for k, v in rep.items()} for rep in layer_views(folded, cfg.n_reps)]
     out["lm_head"] = dict(folded["lm_head"], w_f=head_weights(cfg, folded))
     return out
+
+
+def float_weight_bytes(prepared: Dict) -> int:
+    """Bytes of the float32 weights ``prepare_folded`` cached for the
+    recurrent slots' weight-only linears."""
+    return sum(v["w_f"].numel() * 4 for rep in prepared["layers"] for f in rep.values()
+               if isinstance(f, dict) and "mx" in f
+               for v in f["mx"].values() if isinstance(v, dict))
 
 
 def _embed_int(folded: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -652,13 +813,18 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
         raise ValueError("decode needs a KV cache")
     if mode == "verify" and (cache is None or block_tables is None or verify_rows is None):
         raise ValueError("verify mode needs a paged cache, block tables and verify_rows")
+    if mode == "prefill" and cache is not None and recurrent(cfg):
+        raise ValueError(f"arch {cfg.name!r} has a recurrent state: a prefill with a cache "
+                         "runs as the batch-1 decode loop (Engine._prefill_slot), one decode "
+                         "step per prompt token")
     if mode == "prefill" and cache is not None and block_tables is None:
         if int(pos_offset) != 0:
             raise ValueError("a prefill into the contiguous stripe starts at position 0")
-        if tokens.shape[1] > cache["slot0"]["k"].shape[2]:
+        rows = _attn_leaf(cache).shape[2]
+        if tokens.shape[1] > rows:
             raise ValueError(f"a one-shot prefill of {tokens.shape[1]} rows does not fit the "
-                             f"stripe's {cache['slot0']['k'].shape[2]} (a longer prompt of a "
-                             "sliding-window arch takes the decode loop)")
+                             f"stripe's {rows} (a longer prompt of a sliding-window arch "
+                             "takes the decode loop)")
     dev = tokens.device
     x = _embed_int(folded, tokens)
     b, s = x.shape[0], x.shape[1]
@@ -666,7 +832,7 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     pos0 = int(pos_offset) if mode == "prefill" else None
     if mode == "verify":
         vidx = _verify_index(pos_vec, _pos_vector(verify_rows, b, dev), block_tables,
-                             cache["slot0"]["k"].shape[2], s)
+                             _attn_leaf(cache).shape[2], s)
     if cfg.learned_pos:
         pos_i8 = folded["embed"]["pos_i8"]
         if mode == "prefill":
@@ -680,11 +846,15 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     kinds = slot_kinds(cfg)
     row_exact = ops.backend(device=dev) != "gpu"
     for r, f_rep in enumerate(layer_views(folded, cfg.n_reps)):
-        for i, (_, ffn) in enumerate(kinds):
+        for i, (mixer, ffn) in enumerate(kinds):
             f = f_rep[f"slot{i}"]
             cslot = None if cache is None else \
                 {k: v[r] for k, v in cache[f"slot{i}"].items()}
-            if mode == "verify":
+            if mixer == "mamba":
+                out = _mamba_int(x, f, cfg, cslot)
+            elif mixer != "attn":
+                out = _xlstm_int(x, f, cfg, mixer, cslot)
+            elif mode == "verify":
                 out = _attn_verify_paged(x, f, cfg, cslot, pos_vec, *vidx, block_tables,
                                          row_exact)
             elif mode == "decode" and block_tables is not None:

@@ -1,6 +1,7 @@
 """Config-driven model stack for calibration: embeddings -> super-blocks ->
-final norm -> LM head, for the all-attention architectures with a dense or
-MoE feed-forward (qk-norm and the sliding window included).
+final norm -> LM head, for token-LM architectures whose mixers are
+attention (qk-norm and the sliding window included), Mamba, mLSTM or sLSTM,
+with a dense, MoE or no feed-forward.
 
 Params and amax state keep the reference's stacked layout, (n_reps, ...)
 on the leading axis, so the fold and the tests see the same trees; depth
@@ -10,11 +11,15 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.prng import log_f32
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
 from repro_torch.models import moe as Moe
+from repro_torch.models import xlstm as Xl
 
 ATTN_SITES = ("attn_in", "q_pre", "k_pre", "q", "k", "v", "attn_out_in", "resid_a")
 MLP_SITES_SWIGLU = ("mlp_in", "g_pre", "g_out", "u_out", "h_in", "resid_m")
@@ -39,14 +44,12 @@ def slot_kinds(cfg: ModelConfig):
 
 
 def check_ported(cfg: ModelConfig):
-    """The port serves all-attention archs (dense or MoE feed-forward,
-    qk-norm or not, a sliding window or not) with token frontends and one
-    LM head."""
-    kinds = slot_kinds(cfg)
-    if any(m != "attn" for m, _ in kinds) or cfg.frontend != "none" \
-            or cfg.n_lm_heads != 1 or cfg.mrope_sections is not None:
+    """The port serves token-LM archs with one LM head: attention (dense or
+    MoE feed-forward, qk-norm or not, a sliding window or not), Mamba
+    hybrids and xLSTM stacks."""
+    if cfg.frontend != "none" or cfg.n_lm_heads != 1 or cfg.mrope_sections is not None:
         raise NotImplementedError(
-            f"arch {cfg.name!r} needs SSM/M-RoPE/frontend/multi-head support, "
+            f"arch {cfg.name!r} needs M-RoPE/frontend/multi-head support, "
             "which is not ported yet: ROADMAP Open items §1")
 
 
@@ -89,23 +92,67 @@ def _stacked(gen, n, din, dout, cfg):
     return _dense(gen, n * din, dout, cfg).reshape(n, din, dout)
 
 
-def init_slot_params(cfg: ModelConfig, ffn: str, gen) -> Dict:
-    """Float params of one attention slot with ``ffn`` in {dense, moe, none}."""
+def _mixer_params(cfg: ModelConfig, mixer: str, gen) -> Dict:
+    """Float params of a slot's mixer, with the reference's shapes, scales,
+    constant inits and dtypes."""
     d, hd = cfg.d_model, cfg.hd
+    dev = gen.device
+    zeros = lambda n, dt=cfg.dtype: torch.zeros((n,), dtype=dt, device=dev)  # noqa: E731
+    full = lambda n, v, dt: torch.full((n,), v, dtype=dt, device=dev)  # noqa: E731
+    if mixer == "attn":
+        p = {"wq": _dense(gen, d, cfg.n_heads * hd, cfg),
+             "wk": _dense(gen, d, cfg.n_kv_heads * hd, cfg),
+             "wv": _dense(gen, d, cfg.n_kv_heads * hd, cfg),
+             "wo": _dense(gen, cfg.n_heads * hd, d, cfg)}
+        if cfg.learned_pos:  # BERT uses biases everywhere
+            p.update(bq=zeros(cfg.n_heads * hd), bk=zeros(cfg.n_kv_heads * hd),
+                     bv=zeros(cfg.n_kv_heads * hd), bo=zeros(d))
+        if cfg.qk_norm:
+            p["qn"] = torch.ones((hd,), dtype=cfg.dtype, device=dev)
+            p["kn"] = torch.ones((hd,), dtype=cfg.dtype, device=dev)
+        return p
+    if mixer == "mamba":
+        d_in, dt_rank = Mb.mamba_dims(cfg)
+        n = cfg.mamba_d_state
+        conv = torch.randn((cfg.mamba_d_conv, d_in), generator=gen, device=dev)
+        # jnp.log's float32 values (XLA's CPU log, ``prng.log_f32``), as constants
+        a_log = torch.as_tensor(log_f32(np.arange(1, n + 1, dtype=np.float32)), device=dev)
+        return {"w_in": _dense(gen, d, 2 * d_in, cfg),
+                "conv_w": (conv * 0.1).to(cfg.dtype),
+                "conv_b": zeros(d_in),
+                "w_x": _dense(gen, d_in, dt_rank + 2 * n, cfg),
+                "w_dt": _dense(gen, dt_rank, d_in, cfg, scale=dt_rank**-0.5),
+                "dt_bias": full(d_in, -4.6, torch.float32),      # softplus^-1(0.01)
+                "A_log": a_log.expand(d_in, n).contiguous(),
+                "D": full(d_in, 1.0, torch.float32),
+                "w_out": _dense(gen, d_in, d, cfg)}
+    if mixer == "mlstm":
+        return {"wq": _dense(gen, d, d, cfg), "wk": _dense(gen, d, d, cfg),
+                "wv": _dense(gen, d, d, cfg), "wo": _dense(gen, d, d, cfg),
+                "w_ig": _dense(gen, d, cfg.n_heads, cfg),
+                "b_ig": zeros(cfg.n_heads, torch.float32),
+                "w_fg": _dense(gen, d, cfg.n_heads, cfg),
+                "b_fg": full(cfg.n_heads, 3.0, torch.float32),
+                "w_og": _dense(gen, d, d, cfg), "b_og": zeros(d),
+                "ln_y": torch.ones((d,), dtype=cfg.dtype, device=dev)}
+    dh = d // cfg.n_heads                                         # slstm
+    r = torch.randn((cfg.n_heads, dh, 4 * dh), generator=gen, device=dev)
+    return {"w_z": _dense(gen, d, d, cfg), "b_z": zeros(d),
+            "w_i": _dense(gen, d, d, cfg), "b_i": zeros(d),
+            "w_f": _dense(gen, d, d, cfg), "b_f": full(d, 3.0, cfg.dtype),
+            "w_o": _dense(gen, d, d, cfg), "b_o": zeros(d),
+            "r": (r * dh**-0.5).to(cfg.dtype),
+            "w_out": _dense(gen, d, d, cfg)}
+
+
+def init_slot_params(cfg: ModelConfig, mixer: str, ffn: str, gen) -> Dict:
+    """Float params of one slot: ``mixer`` in {attn, mamba, mlstm, slstm}
+    (under "attn" for attention, "mixer" otherwise, as in the reference),
+    ``ffn`` in {dense, moe, none}."""
+    d = cfg.d_model
     zeros = lambda n: torch.zeros((n,), dtype=cfg.dtype, device=gen.device)  # noqa: E731
-    p: Dict = {"norm1": _norm_params(cfg, gen)}
-    p["attn"] = {
-        "wq": _dense(gen, d, cfg.n_heads * hd, cfg),
-        "wk": _dense(gen, d, cfg.n_kv_heads * hd, cfg),
-        "wv": _dense(gen, d, cfg.n_kv_heads * hd, cfg),
-        "wo": _dense(gen, cfg.n_heads * hd, d, cfg),
-    }
-    if cfg.learned_pos:  # BERT uses biases everywhere
-        p["attn"].update(bq=zeros(cfg.n_heads * hd), bk=zeros(cfg.n_kv_heads * hd),
-                         bv=zeros(cfg.n_kv_heads * hd), bo=zeros(d))
-    if cfg.qk_norm:
-        p["attn"]["qn"] = torch.ones((hd,), dtype=cfg.dtype, device=gen.device)
-        p["attn"]["kn"] = torch.ones((hd,), dtype=cfg.dtype, device=gen.device)
+    p: Dict = {"norm1": _norm_params(cfg, gen),
+               "attn" if mixer == "attn" else "mixer": _mixer_params(cfg, mixer, gen)}
     if ffn != "none":
         p["norm2"] = _norm_params(cfg, gen)
     if ffn == "dense":
@@ -129,8 +176,12 @@ def init_slot_params(cfg: ModelConfig, ffn: str, gen) -> Dict:
     return p
 
 
-def slot_sites(cfg: ModelConfig, ffn: str):
-    sites = list(ATTN_SITES)
+MIXER_SITES = {"attn": ATTN_SITES, "mamba": Mb.MAMBA_SITES + ("resid_a",),
+               "mlstm": Xl.MLSTM_SITES + ("resid_a",), "slstm": Xl.SLSTM_SITES + ("resid_a",)}
+
+
+def slot_sites(cfg: ModelConfig, mixer: str, ffn: str):
+    sites = list(MIXER_SITES[mixer])
     if ffn == "dense":
         sites += list(MLP_SITES_SWIGLU if cfg.act == "swiglu" else MLP_SITES_GELU)
     elif ffn == "moe":
@@ -144,8 +195,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     """Random float master weights from ``gen`` (on ``gen.device``)."""
     check_ported(cfg)
     blocks = {}
-    for i, (_, ffn) in enumerate(slot_kinds(cfg)):
-        blocks[f"slot{i}"] = tree_stack([init_slot_params(cfg, ffn, gen)
+    for i, (mixer, ffn) in enumerate(slot_kinds(cfg)):
+        blocks[f"slot{i}"] = tree_stack([init_slot_params(cfg, mixer, ffn, gen)
                                          for _ in range(cfg.n_reps)])
     p = {"embed": {"tokens": _dense(gen, cfg.vocab_size, cfg.d_model, cfg)},
          "blocks": blocks,
@@ -159,19 +210,26 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
 
 def init_amax(cfg: ModelConfig, device="cuda") -> Dict:
     z = lambda shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
-    blocks = {f"slot{i}": {s: z((cfg.n_reps,)) for s in slot_sites(cfg, f)}
-              for i, (_, f) in enumerate(slot_kinds(cfg))}
+    blocks = {f"slot{i}": {s: z((cfg.n_reps,)) for s in slot_sites(cfg, m, f)}
+              for i, (m, f) in enumerate(slot_kinds(cfg))}
     return {"blocks": blocks, "embed_out": z(()), "head_in": z(())}
 
 
 # --- forward -------------------------------------------------------------------
 
-def _apply_slot(cfg, ffn, x, p, amax, pos, mask):
+def _apply_slot(cfg, mixer, ffn, x, p, amax, pos, mask):
     """One slot -> (x, obs, aux loss of its MoE, 0 without one)."""
     policy = cfg.quant
     obs: Dict = {}
     h = L.qnorm(x, p["norm1"], policy, cfg.norm_type)
-    out, o = L.attention_qat(h, p["attn"], amax, policy, cfg, pos, mask)
+    if mixer == "attn":
+        out, o = L.attention_qat(h, p["attn"], amax, policy, cfg, pos, mask)
+    elif mixer == "mamba":
+        out, o, _ = Mb.mamba_qat(h, p["mixer"], amax, policy, cfg)
+    elif mixer == "mlstm":
+        out, o, _ = Xl.mlstm_qat(h, p["mixer"], amax, policy, cfg)
+    else:
+        out, o, _ = Xl.slstm_qat(h, p["mixer"], amax, policy, cfg)
     obs.update(o)
     x, obs["resid_a"] = L.residual_add(x, out, amax["resid_a"], policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -218,9 +276,9 @@ def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_reps):
         obs_rep = {}
-        for i, (_, ffn) in enumerate(kinds):
+        for i, (mixer, ffn) in enumerate(kinds):
             x, obs_rep[f"slot{i}"], aux = _apply_slot(
-                cfg, ffn, x, tree_index(params["blocks"][f"slot{i}"], r),
+                cfg, mixer, ffn, x, tree_index(params["blocks"][f"slot{i}"], r),
                 tree_index(amax["blocks"][f"slot{i}"], r), pos, mask)
             aux_total = aux_total + aux
         per_rep.append(obs_rep)

@@ -1,0 +1,188 @@
+"""xLSTM blocks for the calibration forward, and the float cores the integer
+forward shares: mLSTM (matrix memory; the stabilized parallel form and the
+single-step recurrence) and sLSTM (scalar memory, a sequential loop over
+time), per arXiv:2405.04517.
+
+A copy in torch of the reference ``models/xlstm.py``.  The projections are
+fake-quantized like every linear; the gates, the recurrences and their
+states stay float32.  ``exp``, ``tanh`` and ``sigmoid`` are torch's (a
+counted float island, ROADMAP §3); ``log_sigmoid`` follows JAX's
+``-softplus(-x)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import quant as q
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.models.layers import Obs, fake_quant_act, qdense, rmsnorm_xla
+from repro_torch.models.mamba import softplus
+
+MLSTM_SITES = ("mlstm_in", "mlstm_y", "mlstm_out")
+SLSTM_SITES = ("slstm_in", "slstm_y", "slstm_out")
+PARALLEL_CHUNK = 512
+SCAN_BASE = 16
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=1)`` in float32 in XLA's CPU order: a sequential
+    sum within blocks of ``SCAN_BASE`` rows (the last block zero-padded),
+    plus the exclusive cumulative sum of the block totals, the same way
+    (XLA rewrites the cumulative reduce-window so).  ``torch.cumsum`` is
+    sequential on the card and accumulates in float64 on the CPU."""
+    n = x.shape[1]
+    if n <= SCAN_BASE:
+        rows = [x[:, 0]]
+        for i in range(1, n):
+            rows.append(rows[-1] + x[:, i])
+        return torch.stack(rows, 1)
+    pad = -n % SCAN_BASE
+    xp = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+    blocks = xp.reshape(x.shape[0] * (n + pad) // SCAN_BASE, SCAN_BASE, *x.shape[2:])
+    inner = cumsum(blocks).reshape(x.shape[0], -1, SCAN_BASE, *x.shape[2:])
+    outer = cumsum(inner[:, :, -1])
+    excl = torch.cat([torch.zeros_like(outer[:, :1]), outer[:, :-1]], 1)
+    return (inner + excl[:, :, None]).reshape(xp.shape)[:, :n]
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return -softplus(-x)
+
+
+def key_scale(e: int) -> float:
+    """The keys' ``1 / sqrt(E)`` as the reference's compiled graphs apply
+    it: its ``/ sqrt(E)`` sits inside a scanned body, where XLA turns the
+    division by a constant into a multiply by the float32 reciprocal
+    (exact where sqrt(E) is a power of two, as at E = 64)."""
+    return q.recip_f32(math.sqrt(e))
+
+
+def heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, h, d // h)
+
+
+def mlstm_parallel(qh, kh, vh, gi, logf):
+    """The stabilized parallel mLSTM: qh/kh/vh (B, S, H, E); gi/logf
+    (B, S, H) -> (B, S, H, E).  Rows need only their own cumulative log
+    forget gate, so a sequence longer than ``PARALLEL_CHUNK`` rows (and a
+    multiple of it) runs in chunks of that many query rows, as in the
+    reference."""
+    b, s, nh, _ = qh.shape
+    a = cumsum(logf)                                                 # (B, S, H)
+    kpos = torch.arange(s, device=qh.device)[None, :]
+
+    def rows(q_rows, a_rows, row0, cq):
+        logd = (a_rows[:, :, None, :] - a[:, None, :, :]) + gi[:, None, :, :]
+        qpos = row0 + torch.arange(cq, device=qh.device)[:, None]
+        logd = torch.where((kpos <= qpos)[None, :, :, None], logd,
+                           torch.full_like(logd, -torch.inf))
+        m = torch.amax(logd, dim=2, keepdim=True)                    # (B, cq, 1, H)
+        dmat = torch.exp(logd - m)
+        sc = torch.einsum("bqhe,bkhe->bqkh", q_rows, kh) * dmat
+        nrm = torch.maximum(torch.abs(sc.sum(2)), torch.exp(-m[:, :, 0]))
+        return torch.einsum("bqkh,bkhe->bqhe", sc, vh) / nrm[..., None]
+
+    if s > PARALLEL_CHUNK and s % PARALLEL_CHUNK == 0:
+        return torch.cat([rows(qh[:, r0:r0 + PARALLEL_CHUNK], a[:, r0:r0 + PARALLEL_CHUNK],
+                               r0, PARALLEL_CHUNK)
+                          for r0 in range(0, s, PARALLEL_CHUNK)], 1)
+    return rows(qh, a, 0, s)
+
+
+def mlstm_step(qh, kh, vh, gi, logf, state: Dict):
+    """The single-step mLSTM recurrence (S == 1): qh/kh/vh (B, 1, H, E),
+    gi/logf (B, 1, H); ``state`` {C (B, H, E, E), n (B, H, E), m (B, H)}.
+    Returns (y (B, 1, H, E), new state)."""
+    qt, kt, vt = qh[:, 0], kh[:, 0], vh[:, 0]
+    git, logft = gi[:, 0], logf[:, 0]
+    m_new = torch.maximum(logft + state["m"], git)
+    fdec = torch.exp(logft + state["m"] - m_new)[..., None]
+    iinc = torch.exp(git - m_new)[..., None]
+    C = fdec[..., None] * state["C"] + iinc[..., None] * (kt[..., :, None] * vt[..., None, :])
+    nvec = fdec * state["n"] + iinc * kt
+    num = torch.einsum("bhe,bhef->bhf", qt, C)
+    den = torch.maximum(torch.abs(torch.sum(nvec * qt, -1)), torch.exp(-m_new))
+    return (num / den[..., None])[:, None], {"C": C, "n": nvec, "m": m_new}
+
+
+def mlstm_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy, cfg,
+              state: Optional[Dict] = None) -> Tuple[torch.Tensor, Obs, Optional[Dict]]:
+    """mLSTM: linear attention with exponential input / forget gates and a
+    (E x E) matrix memory per head; the parallel form over a sequence, the
+    recurrent one (S == 1) with ``state``."""
+    b, s, d = x.shape
+    nh = cfg.n_heads
+    obs: Obs = {}
+    qp, obs["mlstm_in"] = qdense(x, p["wq"], None, amax["mlstm_in"], policy)
+    kp, _ = qdense(x, p["wk"], None, amax["mlstm_in"], policy)
+    vp, _ = qdense(x, p["wv"], None, amax["mlstm_in"], policy)
+    qh = heads(qp, nh).to(torch.float32)
+    kh = heads(kp, nh).to(torch.float32) * key_scale(qh.shape[-1])
+    vh = heads(vp, nh).to(torch.float32)
+    xf = x.to(torch.float32)
+    gi = xf @ p["w_ig"].to(torch.float32) + p["b_ig"]
+    logf = log_sigmoid(xf @ p["w_fg"].to(torch.float32) + p["b_fg"])
+    if state is None:
+        y, new_state = mlstm_parallel(qh, kh, vh, gi, logf), None
+    else:
+        y, new_state = mlstm_step(qh, kh, vh, gi, logf, state)
+    y = y.reshape(b, s, d).to(x.dtype)
+    og = torch.sigmoid(x @ p["w_og"] + p["b_og"])
+    y = rmsnorm_xla(y, p["ln_y"]) * og
+    y, obs["mlstm_y"] = fake_quant_act(y, amax["mlstm_y"], policy.a_bits, policy.quantize_wa)
+    out, obs["mlstm_out"] = qdense(y, p["wo"], None, amax["mlstm_out"], policy)
+    return out, obs, new_state
+
+
+def slstm_scan(zi, ii, ff, oo, r, nh: int, state: Optional[Dict] = None):
+    """The sLSTM recurrence over time: zi/ii/ff/oo (B, S, d) float32 gate
+    pre-activations, r (H, dh, 4 dh) the recurrent matrix; ``state`` {c, n,
+    h, m} (B, H, dh) each, zeros when None.  Returns (h per step (B, S, d),
+    the final state)."""
+    b, s, d = zi.shape
+    dh = d // nh
+    if state is None:
+        z0 = torch.zeros((b, nh, dh), dtype=torch.float32, device=zi.device)
+        c, n, h, m = z0, z0, z0, z0
+    else:
+        c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    hs = []
+    for t in range(s):
+        rz, ri, rf, ro = torch.chunk(torch.einsum("bhe,hef->bhf", h, r), 4, dim=-1)
+        zt = torch.tanh(zi[:, t].reshape(b, nh, dh) + rz)
+        it = ii[:, t].reshape(b, nh, dh) + ri
+        ft = ff[:, t].reshape(b, nh, dh) + rf
+        ot = torch.sigmoid(oo[:, t].reshape(b, nh, dh) + ro)
+        logf = log_sigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(logf + m - m_new)
+        c = f_p * c + i_p * zt
+        n = torch.maximum(f_p * n + i_p, torch.exp(-m_new))
+        h = ot * (c / n)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, 1).reshape(b, s, d), {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy, cfg,
+              state: Optional[Dict] = None) -> Tuple[torch.Tensor, Obs, Optional[Dict]]:
+    """sLSTM: scalar memory, exponential gating, a per-head recurrent
+    matrix, run step by step over the sequence.  With ``state`` the final
+    state comes back too."""
+    b, s, d = x.shape
+    obs: Obs = {}
+    zi, obs["slstm_in"] = qdense(x, p["w_z"], p["b_z"], amax["slstm_in"], policy)
+    ii, _ = qdense(x, p["w_i"], p["b_i"], amax["slstm_in"], policy)
+    ff, _ = qdense(x, p["w_f"], p["b_f"], amax["slstm_in"], policy)
+    oo, _ = qdense(x, p["w_o"], p["b_o"], amax["slstm_in"], policy)
+    hs, final = slstm_scan(*(t.to(torch.float32) for t in (zi, ii, ff, oo)),
+                           p["r"].to(torch.float32), cfg.n_heads, state)
+    y, obs["slstm_y"] = fake_quant_act(hs.to(x.dtype), amax["slstm_y"], policy.a_bits,
+                                       policy.quantize_wa)
+    out, obs["slstm_out"] = qdense(y, p["w_out"], None, amax["slstm_out"], policy)
+    return out, obs, None if state is None else final

@@ -7,10 +7,12 @@ the allocator's registry and, across replicas, a shared prefix tier
 (``attach_prefix_tier``), chunked prefill under a token budget and greedy
 speculative decoding (``spec_k > 0``, int8 pool); or the contiguous
 per-slot stripe (``cache_layout="contiguous"``, and what ``"auto"`` resolves
-to for a sliding-window arch, whose stripe is a window-sized ring) with a
-one-shot prefill per request, or the batch-1 decode loop for a prompt
-longer than the stripe; greedy or sampled decode.  ``LockstepEngine`` is the reference's
-lockstep baseline over the contiguous stripe.
+to for a sliding-window arch, whose stripe is a window-sized ring, and for
+the recurrent archs, jamba's Mamba hybrid and xLSTM, whose slots hold a
+recurrent state) with a one-shot prefill per request, or the batch-1
+decode loop for a prompt longer than the stripe and for every prompt of a
+recurrent arch; greedy or sampled decode.  ``LockstepEngine`` is the
+reference's lockstep baseline over the contiguous stripe.
 
 ``poll()`` runs ONE scheduler tick — shed expired → adopt tier pages →
 admit → prefill chunks under the budget → grow decode pages (preempting
@@ -25,8 +27,11 @@ counters equal the reference engine's.
 The engine runs where the folded weights live: CUDA weights take the
 ``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
 Options the port does not have yet (``tp > 1`` / a mesh, archs that need
-SSM, M-RoPE or a frontend) raise ``EngineConfigError`` or
-``NotImplementedError``.
+M-RoPE, a frontend or several LM heads) raise ``EngineConfigError`` or
+``NotImplementedError``; the options a recurrent arch's layout cannot take
+(the paged pool, speculative decoding, chunked prefill) raise the
+reference's ``EngineConfigError``s, and ``kv_bits=4`` falls back to 8 with a
+warning, as in the reference.
 """
 from __future__ import annotations
 

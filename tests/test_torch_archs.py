@@ -37,8 +37,9 @@ from repro_torch.serve import engine as E
 
 KEY = jax.random.PRNGKey(0)
 ARCHS = ("stablelm-1.6b", "llama3-405b", "qwen3-4b")
-SERVED = ARCHS + ("yi-6b", "qwen2-moe-a2.7b", "mixtral-8x22b", "bert-base")
-REFUSED = ("jamba-1.5-large-398b", "xlstm-1.3b", "qwen2-vl-2b", "musicgen-medium")
+SERVED = ARCHS + ("yi-6b", "qwen2-moe-a2.7b", "mixtral-8x22b", "bert-base",
+                  "jamba-1.5-large-398b", "xlstm-1.3b")
+REFUSED = ("qwen2-vl-2b", "musicgen-medium")
 FLIP_FRACTION = 1e-3
 
 

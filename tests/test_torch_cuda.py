@@ -1438,3 +1438,127 @@ def test_small_mixtral_on_card_gives_the_cpu_tokens(cuda, monkeypatch):
     assert decode_qattention.launches > 0 and flash_qattention.launches > 0
     monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
     assert on_card == [continuous("cpu"), lockstep("cpu")]
+
+
+# --- the recurrent archs (xlstm-1.3b, jamba-1.5-large) ----------------------------
+
+RECURRENT = ["xlstm-1.3b", "jamba-1.5-large-398b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_small_recurrent_arch_on_card_gives_the_cpu_tokens(cuda, arch, monkeypatch):
+    """The small xlstm (sLSTM + mLSTM) or jamba (Mamba, attention, 4
+    experts) on ``cache_layout="auto"`` (the contiguous layout, every prompt
+    through the batch-1 decode loop), then the ``LockstepEngine``: the card
+    (the kernels; the float cores on cuBLAS) and the CPU under
+    REPRO_TORCH_KERNELS=gpu (the kernels' plain versions) give equal greedy
+    tokens."""
+    cfg = smoke_config(arch)
+    folded_cpu = calibrated_folded(cfg, 0, device="cpu")
+    folded = {"cpu": folded_cpu, "cuda": tree_map(lambda t: t.to(cuda), folded_cpu)}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (9, 30, 17, 12)]
+
+    def continuous(dev):
+        eng = Engine(cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64))
+        out = [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=8) for p in prompts])]
+        c = eng.counters
+        assert eng.layout == "contiguous" and c["loop_prefill_steps"] == 68
+        assert c["oneshot_prefills"] == 0
+        return out
+
+    def lockstep(dev):
+        return [r.out.tolist() for r in LockstepEngine(
+            cfg, folded[dev], EngineConfig(batch_slots=3, max_len=64)).generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts[:3]])]
+
+    kernels = (quant_layernorm, int4_matmul, decode_qattention, flash_qattention)
+    for k in kernels + ENGINE_KERNELS:
+        k.launches = 0
+    on_card = [continuous("cuda"), lockstep("cuda")]
+    assert quant_layernorm.launches > 0
+    attn = arch.startswith("jamba")
+    assert (int4_matmul.launches > 0) == attn and (decode_qattention.launches > 0) == attn
+    assert paged_decode_qattention.launches == paged_prefill_qattention.launches == 0
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+    assert on_card == [continuous("cpu"), lockstep("cpu")]
+
+
+@pytest.mark.cuda
+def test_lin_wonly_is_exact_when_the_caller_turns_tf32_on(cuda):
+    """The recurrent slots' float products (``_lin_wonly`` and the rest of
+    the island) run with TF32 off whatever the caller set: a weight-only
+    linear and the small xlstm's logits equal those at "highest", and the
+    caller's setting is in force afterwards."""
+    from repro_torch.models import serve_int as S
+
+    cfg = smoke_config("xlstm-1.3b")
+    folded = S.prepare_folded(cfg, tree_map(lambda t: t.to(cuda),
+                                            calibrated_folded(cfg, 0, device="cpu")))
+    lin = folded["layers"][0]["slot1"]["mx"]["wq"]
+    x = torch.randn((3, 37, cfg.d_model), generator=torch.Generator().manual_seed(4)).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24))
+                            .astype(np.int32)).to(cuda)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = S._lin_wonly(x, lin), S.serve_forward(cfg, folded, toks)[0]
+        torch.set_float32_matmul_precision("high")
+        got = S._lin_wonly(x, lin), S.serve_forward(cfg, folded, toks)[0]
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[17, 40, 80, 128, 150, 200, 230, 256], [200]])
+def test_contiguous_decode_kernel_equals_plain_at_jamba_g8(cuda, lengths):
+    """Row 6 at jamba's group (Hkv 8, G 8, D 128) over 256-row stripes (the
+    served max_len, bkv 256): a tick of 8 slots and a loop step of one."""
+    args = _stripe(8, 128, 256, lengths, cuda, hkv=8, seed=len(lengths))
+    assert torch.equal(_launched_once(decode_qattention, *args, bkv=256),
+                       ref.decode_qattention_ref(*args, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [512, 200])
+def test_flash_qattention_kernel_equals_plain_at_jamba_heads(cuda, s):
+    """Row 9 at jamba's heads (H 64, Hkv 8, D 128): the (1, 512) cache-less
+    forward at its serving block, and a 200-token one."""
+    from repro_torch.kernels.flash_qattention import divisor_tile, flash_qattention_torch
+
+    args = _flash(1, 64, 8, s, s, 128, cuda, strided=True)
+    bkv = divisor_tile(512, s)
+    assert torch.equal(_launched_once(flash_qattention, *args, bkv=bkv),
+                       flash_qattention_torch(*args, bkv=bkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_decode_step_writes_the_recurrent_state_in_place_through_a_slot_view(cuda, arch):
+    """Decode steps through a view of one slot of a 3-slot cache (as the
+    engine's decode-loop prefill hands it over) write the recurrent state
+    in place: the viewed slot ends equal to a batch-1 cache run alone, the
+    other slots stay zero."""
+    from repro_torch.models import serve_int as S
+
+    cfg = smoke_config(arch)
+    folded = S.prepare_folded(cfg, tree_map(lambda t: t.to(cuda),
+                                            calibrated_folded(cfg, 0, device="cpu")))
+    cache = S.init_cache(cfg, 3, 32, device=cuda)
+    view = {n: {leaf: t[:, 1:2] for leaf, t in c.items()} for n, c in cache.items()}
+    alone = S.init_cache(cfg, 1, 32, device=cuda)
+    toks = torch.tensor([[5], [77], [300], [9]], dtype=torch.int32, device=cuda)
+    for t in range(4):
+        for c in (view, alone):
+            S.serve_forward(cfg, folded, toks[t:t + 1], cache=c, pos_offset=t, mode="decode")
+    for n, c in cache.items():
+        for leaf, t in c.items():
+            assert torch.equal(t[:, 1:2], alone[n][leaf]), (n, leaf)
+            assert not t[:, 0].any() and not t[:, 2].any(), (n, leaf)
+    assert all(bool(cache[n][leaf].any()) for n, c in cache.items() for leaf in c
+               if leaf not in ("k", "v"))
