@@ -45,8 +45,14 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    shapes: the GEMMs at K = 8192 / 24576 for M = 1, 8 and 512, the RMSNorm
    at N = 8192 for R = 1, 8 and 512, ``decode_qattention`` at Hkv 8, G 8
    over 256-row stripes (B = 8 and 1), ``flash_qattention`` at H 64, Hkv 8,
-   S 512; xlstm-1.3b's LN at N = 2048 for R = 1 and 1,024; the [xlstm] and
-   [jamba] phases hold every shape their forwards gave again);
+   S 512; xlstm-1.3b's LN at N = 2048 for R = 1 and 1,024; with
+   qwen2-vl-2b's and musicgen-medium's: the GEMMs at K = 1536 / 8960 / 6144
+   for M = 8 and 512, the RMSNorm and the LN at N = 1536 for R = 8 and 512,
+   ``decode_qattention`` at (Hkv 2, G 6, D 128) and (Hkv 24, G 1, D 64)
+   over 1,024-row stripes (B = 8 and 1), ``flash_qattention`` at (H 12, Hkv
+   2, D 128) at (1, 512) and (H = Hkv = 24, D 64) at (8, 64) and (2, 512);
+   the [xlstm], [jamba], [qwen2vl] and [musicgen] phases hold every shape
+   their forwards gave again);
 4. serves yi-6b at full width (32 layers, d=4096, random weights from a
    seed, calibrated on (2, 32) seeded tokens and folded to integers) through
    the port's ``Engine``: 8 requests once with whole-prompt prefill and once
@@ -127,9 +133,23 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    a tick, a loop step and the (1, 512) cache-less forward profiled (the
    float products' share), (1, 1024) timed for xlstm; the state's bytes a
    slot;
+   ``[qwen2vl]`` (``phase_qwen2vl``): qwen2-vl-2b at full size (28 layers,
+   M-RoPE, the tied head), which ``make_engine`` must hand to the
+   ``LockstepEngine``: the [contiguous] lockstep workload greedy and
+   sampled, then the vision stub: 256 image codes on a 16 x 16 ``pos3``
+   grid before 256 text tokens, the cache-less (1, 512) forward, the same
+   one-shot into a 1,024-row stripe (logits equal to the cache-less
+   forward's) and 32 greedy decode steps; ``[musicgen]``
+   (``phase_musicgen``): musicgen-medium at full size (48 layers, 4
+   codebooks, 4 LM heads), served as the reference serves it, through
+   ``serve_forward`` (its ``LockstepEngine.generate`` raises): 8 streams of
+   64 frames one-shot into an 8 x 1,024-row stripe (logits equal to the
+   cache-less forward's), 64 greedy decode steps of (8, 4, 1) codes, the
+   cache-less (2, 4, 512) forward; both gated on the launches per forward
+   and the GEMM paths, with a decode step and a prefill profiled;
    no served phase may run a plain version or the ``ref`` datapath's
    attention on the card (``PlainGuard``, counted from ``[serve]`` to
-   ``[jamba]``);
+   ``[musicgen]``);
    then checks a small model against the same forward on the CPU on the
    paged int8 pool, the packed pool, the stripe, the verify forward and
    without a cache, and small stablelm-1.6b, qwen3-4b and qwen2-moe-a2.7b
@@ -138,7 +158,10 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    one-shot and decode-loop prefills, the LockstepEngine, decode past the
    window, equal greedy tokens; the small xlstm-1.3b and jamba-1.5-large
    (its 4 experts top-2): the Engine's greedy tokens equal, the logits of a
-   cache-less prefill and 4 decode steps that differ counted;
+   cache-less prefill and 4 decode steps that differ counted; the small
+   qwen2-vl-2b (sections (4, 6, 6)) and musicgen-medium: the vision stub's
+   or the codebooks' forward, one-shot prefill and decode steps (and
+   qwen2-vl's LockstepEngine), equal greedy tokens;
 6. ``[bert]``: BERT-base at full width (12 layers, d=768, 12 heads, d_ff
    3072, vocab 30522), under the paper's W4A8 policy and under W8A8:
    calibrates on (2, 128) seeded tokens, folds, runs the cache-less integer
@@ -149,7 +172,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    small BERT on the card against the CPU (equal logits).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
-on the served path and in ``[mixtral]``, ``[xlstm]`` and ``[jamba]``,
+on the served path and in ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
+``[qwen2vl]`` and ``[musicgen]``,
 mismatches, times, bound); the last is
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero before that
 line; without a card, or without the rest of the repository, it exits 2 and
@@ -246,7 +270,8 @@ def compare(got, want):
 
 
 # (B, S, mode, launches by counter) of every serve_forward call since the
-# last reset_gemm_paths(); filled by record_forwards()
+# last reset_gemm_paths(), S the rows (an image's and the text's; an audio
+# arch's frames); filled by record_forwards()
 FORWARDS: list = []
 
 
@@ -268,7 +293,9 @@ def record_forwards(kernels):
         before = counts()
         out = inner(cfg, folded, tokens, **kw)
         after = counts()
-        FORWARDS.append((int(tokens.shape[0]), int(tokens.shape[1]), kw.get("mode", "prefill"),
+        extra = kw.get("extra_embeds_i8")
+        rows = int(tokens.shape[-1]) + (0 if extra is None else int(extra.shape[1]))
+        FORWARDS.append((int(tokens.shape[0]), rows, kw.get("mode", "prefill"),
                          {k: after[k] - before[k] for k in after}))
         return out
 
@@ -356,6 +383,11 @@ MIXTRAL_EXPERT_GEMMS = ((6144, 16384), (16384, 6144))
 # jamba-1.5-large's (wq and wo, wk and wv, wg and wu, wd), each at M = 1 (a
 # decode-loop prefill step), 8 (a tick) and 512 (the cache-less forward)
 JAMBA_GEMMS = ((8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192))
+# qwen2-vl-2b's (wq and wo, wk and wv, wg and wu, wd) and musicgen-medium's
+# (the attention's four, w1, w2), each at a lockstep step or a decode step
+# of 8 streams (M = 8) and a 512-row forward or prefill
+QWEN2VL_GEMMS = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
+MUSICGEN_GEMMS = ((1536, 1536), (1536, 6144), (6144, 1536))
 
 
 def _gemm_args(torch, gen, m, k, n, w4: bool):
@@ -392,7 +424,7 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
     fn, plain = ((mod.int4_matmul, int4_matmul_ref) if w4 else
                  (mod.int8_bitsplit_matmul, int8_bitsplit_matmul_ref))
     mism, err, rows = 0, 0.0, []
-    for m, k, n in shapes:
+    for m, k, n in dict.fromkeys(shapes):
         args, w8 = _gemm_args(torch, gen, m, k, n, w4)
         x = args[0]
         c, e = compare(fn(*args), plain(*args))
@@ -430,7 +462,8 @@ def phase_int4_matmul(torch, gen):
                  for k, n in MIXTRAL_ATTN_GEMMS + MIXTRAL_EXPERT_GEMMS]
               + [(m, k, n) for m in (8, 4000) for k, n in MIXTRAL_ATTN_GEMMS]
               + [(m, k, n) for m in (1300, 2560) for k, n in MIXTRAL_EXPERT_GEMMS]
-              + [(m, k, n) for m in (1, 8, 512) for k, n in JAMBA_GEMMS])
+              + [(m, k, n) for m in (1, 8, 512) for k, n in JAMBA_GEMMS]
+              + [(m, k, n) for m in (8, 512) for k, n in QWEN2VL_GEMMS + MUSICGEN_GEMMS])
     row = gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
     row["verify"] = dict(row["rows"][(32, 4096, 11008)],
@@ -458,6 +491,16 @@ def phase_int4_matmul(torch, gen):
     row["jamba_prefill"] = dict(row["rows"][(512, 24576, 8192)],
                                 shape="M=512 (jamba (1, 512) cache-less forward) K=24576 "
                                       "N=8192 (wd)")
+    row["qwen2vl"] = dict(row["rows"][(8, 1536, 8960)],
+                          shape="M=8 (qwen2-vl lockstep step) K=1536 N=8960 (wg/wu)")
+    row["qwen2vl_prefill"] = dict(row["rows"][(512, 8960, 1536)],
+                                  shape="M=512 (qwen2-vl vision-stub forward) K=8960 N=1536 "
+                                        "(wd)")
+    row["musicgen"] = dict(row["rows"][(8, 1536, 6144)],
+                           shape="M=8 (musicgen decode step, 8 streams) K=1536 N=6144 (w1)")
+    row["musicgen_prefill"] = dict(row["rows"][(512, 6144, 1536)],
+                                   shape="M=512 (musicgen one-shot prefill, 8 x 64 frames) "
+                                         "K=6144 N=1536 (w2)")
     return row
 
 
@@ -477,14 +520,17 @@ def launch_floor_ms(torch) -> float:
 # prefill, the 4,160- and 8,192-row cache-less forwards, and a 4,032-row
 # stripe bucket; xlstm-1.3b's LN (2048) at a decode-loop step, a tick and
 # the (1, 512) and (1, 1024) cache-less forwards; jamba-1.5-large's RMSNorm
-# (8192) at a loop step, a tick and the (1, 512) forward
+# (8192) at a loop step, a tick and the (1, 512) forward; qwen2-vl-2b's
+# RMSNorm and musicgen-medium's LN (1536) at a lockstep or decode step of 8
+# and a 512-row forward or prefill
 LN_SHAPES = ((False, 8, 4096), (False, 32, 4096), (False, 512, 4096), (False, 704, 4096),
              (True, 8, 4096), (True, 512, 4096), (True, 128, 768), (True, 4096, 768),
              (False, 8, 2560), (False, 512, 2560), (False, 8, 2048), (False, 512, 2048),
              (True, 8, 2048), (True, 512, 2048), (False, 8, 6144), (False, 4000, 6144),
              (False, 4032, 6144), (False, 4160, 6144), (False, 8192, 6144),
              (True, 1, 2048), (True, 1024, 2048), (False, 1, 8192), (False, 8, 8192),
-             (False, 512, 8192))
+             (False, 512, 8192), (False, 8, 1536), (False, 512, 1536), (True, 8, 1536),
+             (True, 512, 1536))
 
 
 def _ln_params(torch, gen, sub_mean: bool, n: int):
@@ -538,7 +584,13 @@ def phase_quant_layernorm(torch, gen):
               "R=1 N=2048 LN": ("xlstm_loop", "R=1 (xlstm decode-loop step) N=2048 LN"),
               "R=8 N=8192 RMS": ("jamba", "R=8 (jamba decode tick) N=8192 RMSNorm"),
               "R=512 N=8192 RMS": ("jamba_prefill",
-                                   "R=512 (jamba (1, 512) forward) N=8192 RMSNorm")}
+                                   "R=512 (jamba (1, 512) forward) N=8192 RMSNorm"),
+              "R=8 N=1536 RMS": ("qwen2vl", "R=8 (qwen2-vl lockstep step) N=1536 RMSNorm"),
+              "R=512 N=1536 RMS": ("qwen2vl_prefill",
+                                   "R=512 (qwen2-vl vision-stub forward) N=1536 RMSNorm"),
+              "R=8 N=1536 LN": ("musicgen", "R=8 (musicgen decode step) N=1536 LN"),
+              "R=512 N=1536 LN": ("musicgen_prefill",
+                                  "R=512 (musicgen one-shot prefill) N=1536 LN")}
     for label, x, p in ln_cases(torch, gen):
         r, n = x.shape
         c, e = compare(mod.quant_layernorm(x, p), quant_layernorm_ref(x, p))
@@ -740,21 +792,27 @@ def phase_decode_contiguous(torch, gen):
     rings among them: a wrapped ring holds positions out of order, which
     the kernel does not see); jamba-1.5-large's (Hkv 8, G 8) over its
     256-row stripes at bkv 256, a tick of 8 slots and a loop step of one;
-    equal to the plain version, the kernel, plain and bound times, and the
-    CTAs of each pass."""
+    qwen2-vl-2b's (Hkv 2, G 6, D 128) and musicgen-medium's (Hkv 24, G 1,
+    D 64) over 1,024-row stripes, 8 slots and one (the vision stub's 512
+    rows and its decode steps); equal to the plain version, the kernel,
+    plain and bound times, and the CTAs of each pass."""
     from repro_torch.kernels import decode_attention as mod
     from repro_torch.kernels.ref import decode_qattention_ref
 
-    d = 128
-    shapes = {"B=8": ([33, 100, 250, 400, 520, 640, 700, 1000], 1024, 4, 8),  # yi-6b, 1024
-              "B=1 len=4096": ([4096], 4096, 4, 8),                      # yi-6b's context
-              "mixtral B=8": ([33, 600, 1024, 2047, 2048, 3000, 4095, 4096], 4096, 8, 6),
+    tick = [33, 100, 250, 400, 520, 640, 700, 1000]
+    shapes = {"B=8": (tick, 1024, 4, 8, 128),                        # yi-6b, 1024
+              "B=1 len=4096": ([4096], 4096, 4, 8, 128),             # yi-6b's context
+              "mixtral B=8": ([33, 600, 1024, 2047, 2048, 3000, 4095, 4096], 4096, 8, 6, 128),
               # jamba's attention slot on its 256-row stripes (bkv 256): a tick
               # and a decode-loop prefill step
-              "jamba B=8": ([17, 40, 80, 128, 150, 200, 230, 256], 256, 8, 8),
-              "jamba B=1": ([128], 256, 8, 8)}
+              "jamba B=8": ([17, 40, 80, 128, 150, 200, 230, 256], 256, 8, 8, 128),
+              "jamba B=1": ([128], 256, 8, 8, 128),
+              "qwen2vl B=8": (tick, 1024, 2, 6, 128),
+              "qwen2vl B=1": ([545], 1024, 2, 6, 128),
+              "musicgen B=8": (tick, 1024, 24, 1, 64),
+              "musicgen B=1": ([545], 1024, 24, 1, 64)}
     rows_of = {}
-    for label, (lengths, smax, hkv, g) in shapes.items():
+    for label, (lengths, smax, hkv, g, d) in shapes.items():
         bkv = min(512, smax)
         b = len(lengths)
         args = (_rand_i8(torch, gen, (b, hkv, g, d)), _rand_i8(torch, gen, (b, smax, hkv, d)),
@@ -772,14 +830,14 @@ def phase_decode_contiguous(torch, gen):
         row = dict(ms=device_ms(torch, kernel, args),
                    plain_ms=device_ms(torch, plain, args, cold=False),
                    library_ms=None, mismatches=mism, max_abs_err=err, launches_per_call=3,
-                   shape=f"{label} Hkv={hkv} G={g} D=128 Smax={smax} bkv={bkv} "
+                   shape=f"{label} Hkv={hkv} G={g} D={d} Smax={smax} bkv={bkv} "
                          f"lengths={lengths}")
         # the function needs the live rows only: a masked key's numerator is 0
         rows = sum(lengths)
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * b * hkv * g * d + 2 * rows * hkv * d + 4 * b + 1024, 4.0 * hkv * g * d * rows)
         blocks, live = _stripe_blocks(mod, lengths, smax, bkv, hkv)
-        print(f"  decode (contiguous) {label} Hkv={hkv} G={g} Smax={smax} bkv={bkv} "
+        print(f"  decode (contiguous) {label} Hkv={hkv} G={g} D={d} Smax={smax} bkv={bkv} "
               f"lengths={lengths}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); passes A and B {blocks} "
               f"CTAs each, {live} with rows to run, the carry "
@@ -789,19 +847,22 @@ def phase_decode_contiguous(torch, gen):
         check(row["mismatches"] == 0, f"decode_qattention: kernel != plain version at {label}")
     return dict(rows_of["B=8"], long=rows_of["B=1 len=4096"], g6_ring=rows_of["mixtral B=8"],
                 jamba=rows_of["jamba B=8"], jamba_loop=rows_of["jamba B=1"],
+                qwen2vl=rows_of["qwen2vl B=8"], qwen2vl_b1=rows_of["qwen2vl B=1"],
+                musicgen=rows_of["musicgen B=8"], musicgen_b1=rows_of["musicgen B=1"],
                 mismatches=sum(r["mismatches"] for r in rows_of.values()),
                 max_abs_err=max(r["max_abs_err"] for r in rows_of.values()))
 
 
-def _flash_bound(h, hkv, d, sq, skv, q_offset, window):
+def _flash_bound(h, hkv, d, sq, skv, q_offset, window, b=1):
     """Bytes (q and the output once, the K and V rows some row sees) and
     operations (2 * D in QK^T and 2 * D in P.V per live pair) of a causal,
-    maybe windowed, flash call, as (ms, "bytes" | "operations")."""
+    maybe windowed, flash call over ``b`` sequences, as (ms, "bytes" |
+    "operations")."""
     lo = [0 if window is None else max(0, q_offset + i - window + 1) for i in range(sq)]
     hi = [min(skv, q_offset + i + 1) for i in range(sq)]
-    pairs = h * sum(b - a for a, b in zip(lo, hi))
+    pairs = h * sum(e - a for a, e in zip(lo, hi))
     keys = max(hi) - min(lo)
-    return bound_ms(2 * h * sq * d + 2 * hkv * keys * d + 1024 + 16, 4.0 * d * pairs)
+    return bound_ms(b * (2 * h * sq * d + 2 * hkv * keys * d) + 1024 + 16, 4.0 * d * pairs * b)
 
 
 def _small_inv_scalars(torch, d):
@@ -826,6 +887,8 @@ def _small_inv_scalars(torch, d):
 MIXTRAL_HEADS = (48, 8, 128)
 MIXTRAL_WINDOW = 4096
 JAMBA_HEADS = (64, 8, 128)
+QWEN2VL_HEADS = (12, 2, 128)
+MUSICGEN_HEADS = (24, 24, 64)
 WINDOW_CASES = (("window_s8192", 8192, 8192, 0, 512),
                 ("window_q_offset", 128, 8192, 8064, 512),
                 ("window_bkv504", 8064, 8064, 0, 504),
@@ -845,24 +908,30 @@ def phase_flash_qattention(torch, gen):
     500 and S 4,160 at bkv 416 (the [mixtral] phase's long request: its
     one-shot prefill and the cache-less forward over it), each beside the
     same call without a window, the skip branch and its margin
-    printed; S 8,192 also in the branch that walks from block 0.  Last,
+    printed; S 8,192 also in the branch that walks from block 0.  Then
     jamba-1.5-large's heads (H 64, Hkv 8) at its (1, 512) cache-less
-    forward.  q, k and v are (B, S, H, D) tensors seen transposed, as the
-    serving forward hands them over."""
+    forward; qwen2-vl-2b's (H 12, Hkv 2) at the vision stub's (1, 512)
+    forward; musicgen-medium's (H = Hkv = 24, D 64) at its one-shot
+    prefill of 8 streams of 64 frames and its (2, 512) cache-less forward.
+    q, k and v are (B, S, H, D) tensors seen transposed, as the serving
+    forward hands them over."""
     from repro_torch.kernels import flash_qattention as mod
     from repro_torch.kernels.ref import window_skip_margin
 
-    cases = [(None, (32, 4, 128), 512, 512, 0, 512, None),
-             (None, (32, 4, 128), 704, 704, 0, 352, None),
-             (None, (32, 4, 128), 1024, 1024, 0, 128, None),
-             (None, (32, 4, 128), 128, 1024, 896, 512, None)]
-    cases += [(label, MIXTRAL_HEADS, sq, skv, q_offset, bkv, MIXTRAL_WINDOW)
+    cases = [(None, (32, 4, 128), 512, 512, 0, 512, None, 1),
+             (None, (32, 4, 128), 704, 704, 0, 352, None, 1),
+             (None, (32, 4, 128), 1024, 1024, 0, 128, None, 1),
+             (None, (32, 4, 128), 128, 1024, 896, 512, None, 1)]
+    cases += [(label, MIXTRAL_HEADS, sq, skv, q_offset, bkv, MIXTRAL_WINDOW, 1)
               for label, sq, skv, q_offset, bkv in WINDOW_CASES]
-    cases.append(("jamba", JAMBA_HEADS, 512, 512, 0, 512, None))   # its (1, 512) forward
+    cases += [("jamba", JAMBA_HEADS, 512, 512, 0, 512, None, 1),   # its (1, 512) forward
+              ("qwen2vl", QWEN2VL_HEADS, 512, 512, 0, 512, None, 1),
+              ("musicgen", MUSICGEN_HEADS, 64, 64, 0, 64, None, 8),
+              ("musicgen_forward", MUSICGEN_HEADS, 512, 512, 0, 512, None, 2)]
     mism, err, main, windowed = 0, 0.0, None, {}
-    for label, (h, hkv, d), sq, skv, q_offset, bkv, window in cases:
-        q = _rand_i8(torch, gen, (1, sq, h, d)).transpose(1, 2)
-        k, v = (_rand_i8(torch, gen, (1, skv, hkv, d)).transpose(1, 2) for _ in range(2))
+    for label, (h, hkv, d), sq, skv, q_offset, bkv, window, b in cases:
+        q = _rand_i8(torch, gen, (b, sq, h, d)).transpose(1, 2)
+        k, v = (_rand_i8(torch, gen, (b, skv, hkv, d)).transpose(1, 2) for _ in range(2))
         args = (q, k, v, *_attn_scalars(torch, d))
 
         def kernel(*a, w=window):
@@ -877,8 +946,8 @@ def phase_flash_qattention(torch, gen):
                    plain_ms=device_ms(torch, plain, args, cold=False,
                                       batches=1 if window else 3),
                    library_ms=None, mismatches=c)
-        row["bound_ms"], row["bound_by"] = _flash_bound(h, hkv, d, sq, skv, q_offset, window)
-        text = (f"H={h} Hkv={hkv} D={d} Sq={sq} Skv={skv} q_offset={q_offset} bkv={bkv}"
+        row["bound_ms"], row["bound_by"] = _flash_bound(h, hkv, d, sq, skv, q_offset, window, b)
+        text = (f"B={b} H={h} Hkv={hkv} D={d} Sq={sq} Skv={skv} q_offset={q_offset} bkv={bkv}"
                 + (f" window={window}" if window else ""))
         extra = ""
         if window:
@@ -1461,13 +1530,19 @@ def phase_kv4(torch, cfg, folded, int8_run):
     return one
 
 
-def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16, temperature=0.0):
+def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16, temperature=0.0,
+                   make=None):
+    """``n`` prompts of ``prompt_len`` seeded tokens, ``new`` tokens each,
+    through a ``LockstepEngine`` of 8 slots x 1,024 rows (``make``, by
+    default the class itself, builds it), with the counts of ``kernels`` set
+    to 0 just before."""
     from repro_torch.serve.engine import EngineConfig, LockstepEngine, Request
 
     rng = np.random.default_rng(SEED + 1)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32),
                     max_new_tokens=new, temperature=temperature) for _ in range(n)]
-    eng = LockstepEngine(cfg, folded, EngineConfig(batch_slots=n, max_len=1024))
+    eng = (make or LockstepEngine)(cfg, folded, EngineConfig(batch_slots=n, max_len=1024))
+    check(isinstance(eng, LockstepEngine), f"{cfg.name}: make_engine built {type(eng)}")
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -1658,7 +1733,9 @@ ARCHS = {"qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
          "qwen2-moe-a2.7b": (24, 2048, 16, 16, 128, 1408, 151936),
          "mixtral-8x22b": (56, 6144, 48, 8, 128, 16384, 32768),
          "xlstm-1.3b": (48, 2048, 4, 4, 512, 0, 50304),
-         "jamba-1.5-large-398b": (72, 8192, 64, 8, 128, 24576, 65536)}
+         "jamba-1.5-large-398b": (72, 8192, 64, 8, 128, 24576, 65536),
+         "qwen2-vl-2b": (28, 1536, 12, 2, 128, 8960, 151936),
+         "musicgen-medium": (48, 1536, 24, 24, 64, 6144, 2048)}
 
 
 def load_arch(torch, name, n_layers=None, **overrides):
@@ -2473,10 +2550,7 @@ def phase_recurrent(torch, name, kernels, guard):
     want = {"quant_layernorm": want_ln, "int4_matmul": want_gemm,
             "decode_qattention": n_attn, "flash_qattention": 0,
             "paged_prefill_qattention": 0, "paged_decode_qattention": 0}
-    bad = [(b, s, {k: got[k] for k in want}) for b, s, _, got in forwards
-           if any(got[k] != v for k, v in want.items())]
-    check(not bad, f"{name}: per-forward launches {bad[:2]} != {want}")
-    print(f"  per forward: {want} (every one of the {len(forwards)} forwards)")
+    per_forward(name, forwards, want)
     check_paths(name, cfg, r["paths"], forwards)
     mixers = [("mamba", 0, 200)] if jamba else [("mlstm", 1, 128), ("slstm", 0, 128)]
     for mixer, slot, n in mixers:
@@ -2597,6 +2671,311 @@ def phase_small_recurrent(torch):
             check(bool(torch.isfinite(b).all()), f"small {name}: non-finite logits on the card")
             check(toks["cuda"] == toks["cpu"],
                   f"small {name}: the card's greedy tokens differ from the CPU's")
+    finally:
+        if prev is None:
+            del os.environ["REPRO_TORCH_KERNELS"]
+        else:
+            os.environ["REPRO_TORCH_KERNELS"] = prev
+
+
+# the vision stub's image: IMAGE_GRID x IMAGE_GRID patches (launch/dryrun.py's
+# 256), then as many text tokens; musicgen's 8 streams of 64 prompt frames and
+# 64 decoded, and its cache-less forward
+IMAGE_GRID = 16
+VISION_DECODE = 32
+MUSIC_STREAMS, MUSIC_FRAMES, MUSIC_DECODE = 8, 64, 64
+
+
+def image_pos3(torch, grid: int, text: int):
+    """(1, grid^2 + text, 3) M-RoPE positions on the card: the image's (t 0,
+    h the row, w the column), then the text at ``grid`` onwards on all
+    three streams (Qwen2-VL's rule)."""
+    g = torch.arange(grid * grid, dtype=torch.int32, device="cuda")
+    img = torch.stack([torch.zeros_like(g), g // grid, g % grid], -1)
+    txt = (grid + torch.arange(text, dtype=torch.int32, device="cuda"))[:, None].expand(text, 3)
+    return torch.cat([img, txt])[None]
+
+
+def per_forward(what, forwards, want):
+    """Every recorded forward's launches of the kernels in ``want`` equal."""
+    bad = [(b, s, mode, {k: got[k] for k in want}) for b, s, mode, got in forwards
+           if any(got[k] != v for k, v in want.items())]
+    check(not bad, f"{what}: per-forward launches {bad[:2]} != {want}")
+    print(f"  {what}: per forward {want} (every one of the {len(forwards)} forwards)")
+
+
+def frontend_launches(cfg, decode: bool):
+    """The launches one forward of a frontend arch makes: the norms, the
+    GEMMs, one stripe decode (``decode``) or one flash a layer."""
+    return {"quant_layernorm": 2 * cfg.n_layers + 1,
+            "int4_matmul": len(forward_gemms(cfg, 1)) * cfg.n_layers,
+            "decode_qattention": cfg.n_layers if decode else 0,
+            "flash_qattention": 0 if decode else cfg.n_layers,
+            "paged_prefill_qattention": 0, "paged_decode_qattention": 0}
+
+
+def phase_qwen2vl(torch, kernels, guard):
+    """qwen2-vl-2b at full size (28 layers, d 1,536, 12 heads, 2 KV heads
+    of 128, d_ff 8,960, vocab 151,936, tied embeddings, M-RoPE sections
+    (16, 24, 24)), random weights from SEED, calibrated on (2, 32) text and
+    folded on the card.  ``make_engine`` must hand it to the
+    ``LockstepEngine``: the [contiguous] workload (8 prompts of 32 tokens,
+    16 new, greedy and at T=0.7), each step one ``decode_qattention`` a
+    layer (M-RoPE at its position on all three streams).  Then the vision
+    stub: 256 image codes (random float patch embeddings quantized at the
+    folded ``s_embed``) on a 16 x 16 ``pos3`` grid before 256 text tokens,
+    the cache-less (1, 512) forward, then the same as a one-shot prefill
+    into a 1,024-row stripe (its logits equal to the cache-less forward's:
+    both run the flash at bkv 512) and 32 greedy decode steps from 512.
+    Profiles of a lockstep step and of the one-shot prefill; every shape
+    the phase's forwards gave rows 1, 2, 6 and 9 held (``hold_forward_
+    shapes``).  The weights are freed before it returns."""
+    from repro_torch.models import serve_int as S
+    from repro_torch.serve.engine import EngineConfig, make_engine
+
+    cfg, folded = load_arch(torch, "qwen2-vl-2b")
+    prep = S.prepare_folded(cfg, folded)
+    del folded
+    lock = serve_lockstep(torch, cfg, prep, kernels, make=make_engine)
+    names = [k.__name__ for k in kernels]
+    launches = dict(zip(names, lock["launches"]))
+    print(f"  lockstep through make_engine: {lock['tok_per_s']:.1f} tok/s ({lock['wall_s']:.2f} s"
+          f" wall, {lock['steps']} decode steps at batch 8), launches {launches}")
+    per_forward("qwen2vl lockstep", lock["forwards"], frontend_launches(cfg, decode=True))
+    check_paths("qwen2vl lockstep", cfg, lock["paths"], lock["forwards"])
+    forwards = list(lock["forwards"])
+    hot = serve_lockstep(torch, cfg, prep, kernels, temperature=0.7, make=make_engine)
+    print(f"  lockstep sampled (T=0.7): {hot['tok_per_s']:.1f} tok/s ({hot['wall_s']:.2f} s "
+          f"wall); first divergence from greedy (request, token) "
+          f"{first_divergence(lock['tokens'], hot['tokens'])}")
+    check(hot["launches"] == lock["launches"], f"qwen2vl sampled: launches {hot['launches']}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    n_img = IMAGE_GRID * IMAGE_GRID
+    emb = 0.02 * torch.randn((1, n_img, cfg.d_model), generator=gen, device="cuda")
+    img = torch.clamp(torch.round(emb * prep["s_embed"]), -127, 127).to(torch.int8)
+    text = torch.randint(0, cfg.vocab_size, (1, n_img), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    vision = dict(extra_embeds_i8=img, pos3=image_pos3(torch, IMAGE_GRID, n_img))
+    reset_gemm_paths()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    full, _ = S.serve_forward(cfg, prep, text, **vision)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    cache = S.init_cache(cfg, 1, 1024, device="cuda")
+    t0 = time.perf_counter()
+    oneshot, cache = S.serve_forward(cfg, prep, text, cache=cache, **vision)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    rows = 2 * n_img
+    check(tuple(full.shape) == (1, rows, cfg.vocab_size) and bool(torch.isfinite(full).all()),
+          f"qwen2vl vision forward: logits {tuple(full.shape)} or non-finite")
+    check(torch.equal(oneshot, full), "qwen2vl: the one-shot stripe prefill's logits differ "
+          "from the cache-less forward's (both run the flash at bkv 512)")
+    tok = full[:, -1].argmax(-1).to(torch.int32)[:, None]
+    toks = []
+    t0 = time.perf_counter()
+    for step in range(VISION_DECODE):
+        lg, cache = S.serve_forward(cfg, prep, tok, cache=cache, pos_offset=rows + step,
+                                    mode="decode")
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    toks = torch.cat(toks, 1)[0].tolist()
+    check(bool(torch.isfinite(lg).all()) and all(0 <= t < cfg.vocab_size for t in toks),
+          "qwen2vl decode after the image: non-finite logits or out-of-vocab tokens")
+    vis_fw = list(FORWARDS)
+    per_forward("qwen2vl vision prefills", [f for f in vis_fw if f[2] == "prefill"],
+                frontend_launches(cfg, decode=False))
+    per_forward("qwen2vl vision decode", [f for f in vis_fw if f[2] == "decode"],
+                frontend_launches(cfg, decode=True))
+    check_paths("qwen2vl vision", cfg, gemm_paths(), vis_fw)
+    forwards += vis_fw
+    for name, k in zip(names, kernels):
+        launches[name] += k.launches
+    print(f"  vision stub, {n_img} image rows on a {IMAGE_GRID} x {IMAGE_GRID} grid + {n_img} "
+          f"text tokens: cache-less (1, {rows}) {t_full * 1e3:.1f} ms, one-shot stripe prefill "
+          f"{t_pre * 1e3:.1f} ms (logits equal), {VISION_DECODE} decode steps "
+          f"{t_dec / VISION_DECODE * 1e3:.2f} ms each (host clock, first calls included); "
+          f"tokens {toks[:8]}...")
+    profile_steps(torch, lambda: S.serve_forward(cfg, prep, text, cache=cache, **vision),
+                  "qwen2vl one-shot vision prefill (1, 512) into the stripe")
+    eng = make_engine(cfg, prep, EngineConfig(batch_slots=8, max_len=1024))
+    col = np.arange(8, dtype=np.int32)
+    profile_steps(torch, lambda: eng._step(col, 40), "qwen2vl lockstep step (batch 8)")
+    hold_forward_shapes(torch, cfg, forwards, 1024, guard, "qwen2vl")
+    del prep, cache, eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def phase_musicgen(torch, kernels, guard):
+    """musicgen-medium at full size (48 layers, d 1,536, 24 heads of 64
+    (MHA), d_ff 6,144 GELU, LayerNorm, learned positions, 4 codebooks of
+    2,048 summed at the input and 4 LM heads), random weights from SEED,
+    calibrated on (2, 4, 32) codes and folded on the card.  ``make_engine``
+    hands it to the ``LockstepEngine``, whose ``generate`` raises (the
+    reference's fails); it is served as the reference serves it, through
+    ``serve_forward``: 8 streams of 64 prompt frames one-shot into an 8 x
+    1,024-row stripe (logits (8, 4, 64, 2,048), equal to the cache-less
+    forward's over the same codes), then 64 greedy decode steps of (8, 4,
+    1) codes, each head's argmax the next frame's code; the cache-less
+    forward at (2, 4, 512).  Profiles of a decode step and of the prefill;
+    every shape held (``hold_forward_shapes``).  The weights are freed
+    before it returns."""
+    from repro_torch.models import serve_int as S
+    from repro_torch.serve.engine import EngineConfig, LockstepEngine, Request, make_engine
+
+    cfg, folded = load_arch(torch, "musicgen-medium")
+    prep = S.prepare_folded(cfg, folded)
+    del folded
+    eng = make_engine(cfg, prep, EngineConfig(batch_slots=8, max_len=1024))
+    check(isinstance(eng, LockstepEngine), f"musicgen: make_engine built {type(eng)}")
+    try:
+        eng.generate([Request(prompt=np.arange(4, dtype=np.int32))])
+        check(False, "musicgen: LockstepEngine.generate did not raise")
+    except ValueError as e:
+        print(f"  make_engine -> LockstepEngine; generate raises: {str(e)[:90]}...")
+    del eng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    k_books = cfg.n_codebooks
+    codes = torch.randint(0, cfg.vocab_size, (MUSIC_STREAMS, k_books, MUSIC_FRAMES),
+                          generator=gen, device="cuda", dtype=torch.int32)
+    reset_gemm_paths()
+    for k in kernels:
+        k.launches = 0
+    cache = S.init_cache(cfg, MUSIC_STREAMS, 1024, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = S.serve_forward(cfg, prep, codes, cache=cache)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check(tuple(lg.shape) == (MUSIC_STREAMS, k_books, MUSIC_FRAMES, cfg.vocab_size)
+          and bool(torch.isfinite(lg).all()), f"musicgen prefill: logits {tuple(lg.shape)}")
+    frames = []
+    t0 = time.perf_counter()
+    for step in range(MUSIC_DECODE):
+        nxt = lg[..., -1, :].argmax(-1).to(torch.int32)[..., None]        # (8, 4, 1)
+        frames.append(nxt)
+        lg, cache = S.serve_forward(cfg, prep, nxt, cache=cache,
+                                    pos_offset=MUSIC_FRAMES + step, mode="decode")
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    frames = torch.cat(frames, -1)
+    check(tuple(lg.shape) == (MUSIC_STREAMS, k_books, 1, cfg.vocab_size)
+          and bool(torch.isfinite(lg).all()) and int(frames.min()) >= 0
+          and int(frames.max()) < cfg.vocab_size, "musicgen decode: logits or codes")
+    served = list(FORWARDS)
+    launches = dict(zip([k.__name__ for k in kernels], [k.launches for k in kernels]))
+    per_forward("musicgen prefill", [f for f in served if f[2] == "prefill"],
+                frontend_launches(cfg, decode=False))
+    per_forward("musicgen decode", [f for f in served if f[2] == "decode"],
+                frontend_launches(cfg, decode=True))
+    check_paths("musicgen", cfg, gemm_paths(), served)
+    n_codes = MUSIC_STREAMS * k_books * MUSIC_DECODE
+    print(f"  {MUSIC_STREAMS} streams x {MUSIC_FRAMES} prompt frames one-shot: "
+          f"{t_pre * 1e3:.1f} ms; {MUSIC_DECODE} decode steps {t_dec * 1e3:.1f} ms "
+          f"({MUSIC_STREAMS * MUSIC_DECODE / t_dec:.1f} frames/s, {n_codes / t_dec:.1f} codes/s;"
+          f" host clock, first calls included); launches {launches}; stream 0's first frames "
+          f"{frames[0, :, :4].tolist()}")
+    full, _ = S.serve_forward(cfg, prep, codes)
+    check(torch.equal(full, S.serve_forward(cfg, prep, codes, cache=S.init_cache(
+        cfg, MUSIC_STREAMS, 1024, device="cuda"))[0]),
+        "musicgen: the one-shot prefill's logits differ from the cache-less forward's")
+    del full
+    long_codes = torch.randint(0, cfg.vocab_size, (2, k_books, 512), generator=gen,
+                               device="cuda", dtype=torch.int32)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, _ = S.serve_forward(cfg, prep, long_codes)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(tuple(out.shape) == (2, k_books, 512, cfg.vocab_size)
+          and bool(torch.isfinite(out).all()), f"musicgen (2, 4, 512): {tuple(out.shape)}")
+    del out
+    print(f"  cache-less (2, 4, 512): median {float(np.median(walls)) * 1e3:.2f} ms over 3 "
+          "(host clock, the first included)")
+    tok = frames[..., :1]
+    profile_steps(torch, lambda: S.serve_forward(cfg, prep, tok, cache=cache, pos_offset=100,
+                                                 mode="decode"),
+                  "musicgen decode step (8 streams x 4 codebooks)")
+    profile_steps(torch, lambda: S.serve_forward(cfg, prep, codes, cache=cache),
+                  "musicgen one-shot prefill (8 x 64 frames)")
+    hold_forward_shapes(torch, cfg, list(FORWARDS), 1024, guard, "musicgen")
+    del prep, cache
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def phase_small_frontends(torch):
+    """Small qwen2-vl (the published section proportions at head_dim 32,
+    (4, 6, 6)) and small musicgen on the card (the kernels) and on the CPU
+    (their plain versions, REPRO_TORCH_KERNELS=gpu) from the same folded
+    weights: the cache-less forward, the one-shot stripe prefill and 6
+    greedy decode steps (qwen2-vl: 16 image rows on a 4 x 4 grid before 8
+    text tokens; musicgen: (2, 4, 12) codes, each head's argmax the next
+    frame) and qwen2-vl's LockstepEngine must give equal greedy tokens; the
+    logits that differ are counted."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import calibrated_folded
+    from repro_torch.models import serve_int as S
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve.engine import EngineConfig, Request, make_engine
+
+    def run(cfg, folded, dev):
+        rng = np.random.default_rng(SEED + 5)
+        audio = cfg.frontend == "audio_codebooks"
+        kw = {}
+        if audio:
+            prompt = rng.integers(0, cfg.vocab_size, (2, cfg.n_codebooks, 12))
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, (2, 8))
+            g = np.arange(16)
+            pos3 = np.concatenate([np.stack([0 * g, g // 4, g % 4], -1),
+                                   np.repeat(4 + np.arange(8)[:, None], 3, -1)])
+            kw = dict(extra_embeds_i8=torch.as_tensor(
+                rng.integers(-60, 61, (2, 16, cfg.d_model)).astype(np.int8), device=dev),
+                pos3=torch.as_tensor(np.broadcast_to(pos3, (2, 24, 3)).astype(np.int32),
+                                     device=dev))
+        prompt = torch.as_tensor(prompt.astype(np.int32), device=dev)
+        logits = [S.serve_forward(cfg, folded, prompt, **kw)[0]]
+        lg, cache = S.serve_forward(cfg, folded, prompt, cache=S.init_cache(cfg, 2, 48,
+                                                                             device=dev), **kw)
+        logits.append(lg)
+        toks, rows = [], lg.shape[-2]
+        for step in range(6):
+            toks.append(lg[..., -1, :].argmax(-1).to(torch.int32)[..., None])
+            lg, cache = S.serve_forward(cfg, folded, toks[-1], cache=cache,
+                                        pos_offset=rows + step, mode="decode")
+            logits.append(lg)
+        out = [t.cpu().tolist() for t in toks]
+        if not audio:
+            out.append([r.out.tolist() for r in make_engine(
+                cfg, folded, EngineConfig(batch_slots=2, max_len=48)).generate(
+                [Request(prompt=p, max_new_tokens=6)
+                 for p in (np.arange(3, 12), np.arange(40, 45))])])
+        return out, torch.cat([t.reshape(-1).cpu() for t in logits])
+
+    prev = os.environ.get("REPRO_TORCH_KERNELS")
+    os.environ["REPRO_TORCH_KERNELS"] = "gpu"
+    try:
+        for name, over in (("qwen2-vl-2b", dict(mrope_sections=(4, 6, 6))),
+                           ("musicgen-medium", {})):
+            cfg = smoke_config(name, **over)
+            folded_cpu = calibrated_folded(cfg, SEED, device="cpu")
+            on_card, a = run(cfg, tree_map(lambda t: t.to("cuda"), folded_cpu), "cuda")
+            on_cpu, b = run(cfg, folded_cpu, "cpu")
+            print(f"  small {name}, card vs CPU: greedy tokens equal {on_card == on_cpu}; "
+                  f"{int((a != b).sum())} of {a.numel()} logits differ")
+            check(bool(torch.isfinite(a).all()), f"small {name}: non-finite logits on the card")
+            check(on_card == on_cpu, f"small {name}: the card's greedy tokens differ from the "
+                  "CPU's")
     finally:
         if prev is None:
             del os.environ["REPRO_TORCH_KERNELS"]
@@ -2942,7 +3321,20 @@ def main() -> int:
     recurrent["jamba"] = phase_recurrent(torch, "jamba-1.5-large-398b", engine_wrappers[:2] + [
         da.decode_qattention, fa.flash_qattention] + engine_wrappers[2:], guard)
     stamp("jamba")
-    print(f"  plain versions on a CUDA tensor on the served paths ([serve] to [jamba]): "
+    frontends = {}
+    print("[qwen2vl] qwen2-vl-2b, full size (28 layers, M-RoPE, tied head): the LockstepEngine "
+          "through make_engine, then the vision stub's 256 image rows + 256 text tokens, "
+          "cache-less, one-shot into the stripe and 32 decode steps")
+    frontends["qwen2vl"] = phase_qwen2vl(torch, engine_wrappers[:2] + [
+        da.decode_qattention, fa.flash_qattention] + engine_wrappers[2:], guard)
+    stamp("qwen2vl")
+    print("[musicgen] musicgen-medium, full size (48 layers, MHA 24 x 64, 4 codebooks of "
+          "2,048, 4 LM heads): 8 streams x 64 frames one-shot, 64 decode steps of (8, 4, 1) "
+          "codes, the cache-less (2, 4, 512) forward")
+    frontends["musicgen"] = phase_musicgen(torch, engine_wrappers[:2] + [
+        da.decode_qattention, fa.flash_qattention] + engine_wrappers[2:], guard)
+    stamp("musicgen")
+    print(f"  plain versions on a CUDA tensor on the served paths ([serve] to [musicgen]): "
           f"{guard.ran() or 'none'}")
     check(not guard.ran(), f"plain versions ran on the card on the served paths: "
           f"{guard.ran()}")
@@ -2954,6 +3346,8 @@ def main() -> int:
     phase_small_mixtral(torch)
     print("[check] small xlstm-1.3b and jamba-1.5-large (4 experts) against the CPU")
     phase_small_recurrent(torch)
+    print("[check] small qwen2-vl-2b (sections (4, 6, 6)) and musicgen-medium against the CPU")
+    phase_small_frontends(torch)
     print("[bert] bert-base, full width, W4A8 and W8A8, cache-less integer forward")
     bert = phase_bert(torch)
     print("[check] small bert-base against the CPU")
@@ -2984,8 +3378,8 @@ def main() -> int:
             "library_ms": row["library_ms"], "shape": row["shape"],
             **({"launches_mixtral": mixtral["launches"][fn.__name__]}
                if fn.__name__ in mixtral["launches"] else {}),
-            **{f"launches_{arch}": r["launches"][fn.__name__] for arch, r in recurrent.items()
-               if fn.__name__ in r["launches"]},
+            **{f"launches_{arch}": r["launches"][fn.__name__]
+               for arch, r in {**recurrent, **frontends}.items() if fn.__name__ in r["launches"]},
             **({"launch_floor_ms": row["launch_floor_ms"]} if "launch_floor_ms" in row else {}),
             **{case: {k: row[case][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "mismatches",
@@ -2997,7 +3391,9 @@ def main() -> int:
                             "expert_chunk", "g1_moe", "g1_stablelm", "mixtral",
                             "mixtral_prefill", "mixtral_attn", "mixtral_attn_prefill",
                             "mixtral_forward", "g6_ring", "xlstm", "xlstm_loop", "jamba",
-                            "jamba_loop", "jamba_prefill",
+                            "jamba_loop", "jamba_prefill", "qwen2vl", "qwen2vl_prefill",
+                            "qwen2vl_b1", "musicgen", "musicgen_prefill", "musicgen_b1",
+                            "musicgen_forward",
                             *(label for label, *_ in WINDOW_CASES)) if case in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))

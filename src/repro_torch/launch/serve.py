@@ -29,9 +29,9 @@ from repro_torch.serve.engine import EngineConfig, Request, make_engine
 def calibrated_folded(cfg, seed: int = 0, calib_tokens=None, device="cuda"):
     """Random float weights from ``seed``, one calibration forward over
     ``calib_tokens``, folded to the integer serving form.  The default
-    tokens are seeded, (2, 32) for a causal LM and (2, 128) for an encoder
-    (BERT's operating point, seq 128).  The float weights are freed before
-    returning."""
+    tokens are seeded, (2, 32) for a causal LM ((2, K, 32) codebook codes
+    for an audio arch) and (2, 128) for an encoder (BERT's operating point,
+    seq 128).  The float weights are freed before returning."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but torch.cuda.is_available() is False; pass "
@@ -40,7 +40,8 @@ def calibrated_folded(cfg, seed: int = 0, calib_tokens=None, device="cuda"):
     gen.manual_seed(seed)
     params = T.init_params(cfg, gen)
     if calib_tokens is None:
-        calib_tokens = torch.randint(0, cfg.vocab_size, (2, 32 if cfg.causal else 128),
+        rows = (cfg.n_codebooks,) if cfg.frontend == "audio_codebooks" else ()
+        calib_tokens = torch.randint(0, cfg.vocab_size, (2, *rows, 32 if cfg.causal else 128),
                                      generator=gen, device=dev)
     _, obs, _ = T.forward(cfg, params, T.init_amax(cfg, dev), calib_tokens.to(dev))
     folded = F.fold_params(cfg, params, obs)

@@ -234,8 +234,9 @@ def fold_slot(cfg: ModelConfig, mixer: str, ffn: str, p: Dict, a: Dict, s_res_in
 
 @torch.no_grad()
 def fold_params(cfg: ModelConfig, params: Dict, amax: Dict) -> Dict:
-    """Whole-model fold, keeping the stacked (n_reps, ...) block layout."""
-    T.check_ported(cfg)
+    """Whole-model fold, keeping the stacked (n_reps, ...) block layout; an
+    audio arch's codebooks at the embedding's scale, several LM heads each
+    under its own weight scale (the reference's ``vmap``), stacked."""
     pol = cfg.quant
     kinds = T.slot_kinds(cfg)
     s_emb = site_scale(amax["embed_out"], pol)
@@ -245,6 +246,9 @@ def fold_params(cfg: ModelConfig, params: Dict, amax: Dict) -> Dict:
     if "pos" in params["embed"]:
         folded["embed"]["pos_i8"] = torch.clamp(torch.round(
             params["embed"]["pos"].to(F32) * s_emb), -127, 127).to(torch.int8)
+    if "codebooks" in params["embed"]:
+        folded["embed"]["codebooks_i8"] = torch.clamp(torch.round(
+            params["embed"]["codebooks"].to(F32) * s_emb), -127, 127).to(torch.int8)
     s_head = site_scale(amax["head_in"], pol)
     reps = []
     for r in range(cfg.n_reps):
@@ -259,12 +263,21 @@ def fold_params(cfg: ModelConfig, params: Dict, amax: Dict) -> Dict:
     folded["blocks"] = T.tree_stack(reps)
     folded["final_norm"] = fold_norm_t(params["final_norm"], s_head)
 
-    w = (params["embed"]["tokens"].T if cfg.tied_embeddings else params["lm_head"]).to(F32)
-    qm = q.qmax(pol.w_bits)
-    s_w = q.rdiv(qm, torch.clamp(q.per_tensor_max(w), min=1e-8))
-    codes = torch.clamp(torch.round(w * s_w), -qm, qm).to(torch.int8)
-    folded["lm_head"] = {"w": _weight_codes(codes, pol.w_bits),
-                         "inv_acc": 1.0 / (s_head * s_w)}
+    def fold_head(w):
+        """An LM head's (d, V) weight: its codes under one per-tensor scale
+        and the int32 accumulator's dequant scale (no int8 requant)."""
+        w = w.to(F32)
+        qm = q.qmax(pol.w_bits)
+        s_w = q.rdiv(qm, torch.clamp(q.per_tensor_max(w), min=1e-8))
+        codes = torch.clamp(torch.round(w * s_w), -qm, qm).to(torch.int8)
+        return {"w": _weight_codes(codes, pol.w_bits), "inv_acc": 1.0 / (s_head * s_w)}
+
+    if cfg.tied_embeddings:
+        folded["lm_head"] = fold_head(params["embed"]["tokens"].T)
+    elif cfg.n_lm_heads > 1:
+        folded["lm_head"] = T.tree_stack([fold_head(w) for w in params["lm_head"]])
+    else:
+        folded["lm_head"] = fold_head(params["lm_head"])
     folded["s_embed"] = s_emb
     folded["s_head"] = s_head
     return folded

@@ -1,5 +1,6 @@
-"""QAT building blocks (calibration forward) for the attention (qk-norm
-included) and dense MLP subset of the reference ``models/layers.py``.
+"""QAT building blocks (calibration forward) for the attention (qk-norm and
+Qwen2-VL's M-RoPE included) and dense MLP subset of the reference
+``models/layers.py``.
 
 Conventions as in the reference: params are nested dicts of tensors; every
 activation the integer path quantizes has a *site* whose EMA max arrives in
@@ -113,6 +114,23 @@ def apply_rope(x, pos, theta, partial: float = 1.0):
     return torch.cat([out, xp], -1)
 
 
+def apply_mrope(x, pos3, theta, sections):
+    """Qwen2-VL M-RoPE: ``pos3`` (B, S, 3) holds the (t, h, w) positions; the
+    frequency bands split into ``sections`` groups, each rotated by its own
+    position stream (the band of frequency i is the number of section ends
+    at or below i, as the reference's ``searchsorted(side="right")``).
+    With t = h = w it equals ``apply_rope``."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ends = torch.cumsum(torch.tensor(sections, device=x.device), 0)
+    band = torch.searchsorted(ends, torch.arange(half, device=x.device), right=True)
+    ang = torch.gather(pos3.to(torch.float32), -1, band.expand(*pos3.shape[:2], half)) * freqs
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
 # --- quantized-softmax simulator -----------------------------------------------
 
 def xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
@@ -163,11 +181,9 @@ def lut_softmax_qat(logits, s_logit, enabled: bool):
 
 def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
                   mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Obs]:
-    """Materialized-score QAT attention.  x (B, S, d); pos (B, S).  The
-    default causal mask keeps, for a sliding-window arch, only the keys
-    less than ``cfg.sliding_window`` positions back."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE attention is not ported: ROADMAP Open items §1")
+    """Materialized-score QAT attention.  x (B, S, d); pos (B, S), or (B,
+    S, 3) for M-RoPE.  The default causal mask keeps, for a sliding-window
+    arch, only the keys less than ``cfg.sliding_window`` positions back."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     obs: Obs = {}
@@ -182,7 +198,10 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
     if cfg.qk_norm:
         qh = rmsnorm_xla(qh, p["qn"])
         kh = rmsnorm_xla(kh, p["kn"])
-    if not cfg.learned_pos:
+    if cfg.mrope_sections is not None:
+        qh = apply_mrope(qh, pos, cfg.rope_theta, cfg.mrope_sections)
+        kh = apply_mrope(kh, pos, cfg.rope_theta, cfg.mrope_sections)
+    elif not cfg.learned_pos:
         qh = apply_rope(qh, pos, cfg.rope_theta, cfg.partial_rotary)
         kh = apply_rope(kh, pos, cfg.rope_theta, cfg.partial_rotary)
     qh, obs["q"] = fake_quant_act(qh, amax["q"], policy.a_bits, policy.quantize_wa)

@@ -9,17 +9,19 @@ The paper's deployment datapath: int8 activations end to end, packed-int4
 (or int8, ``w_bits=8``) weights, LUT softmax, integer LN, int8 KV pool, with
 float islands: the RoPE rotation (with qk-norm's RMSNorm before it), the
 MoE router and combine, the fp32 ``lm_head`` scale, and the recurrent
-mixers' cores.  Mirrors the reference ``models/serve_int.py`` for token-LM
-archs with one LM head: attention with a dense or MoE feed-forward, causal
+mixers' cores.  Mirrors the reference ``models/serve_int.py`` for every
+arch of ``configs/``: attention with a dense or MoE feed-forward, causal
 (yi-6b, qwen3-4b, qwen2-moe-a2.7b, ...; with a sliding window,
-mixtral-8x22b, on the contiguous stripe as a window-sized ring) and
+mixtral-8x22b, on the contiguous stripe as a window-sized ring; with
+M-RoPE and the vision stub's embeddings prepended, qwen2-vl-2b; with four
+summed codebooks in and four LM heads out, musicgen-medium) and
 bidirectional (BERT, cache-less prefill only); and the recurrent slots of
 jamba's Mamba hybrid and of xLSTM (``mamba_float`` / ``xlstm_float``:
 weight-only int4 projections on float activations, a float32 core, the
 output requantized onto the residual grid), whose state lives in the
-contiguous cache and advances one decode step at a time.  Every other
-branch raises.  A MoE slot makes one ``int4_matmul`` launch per expert and
-linear (the reference ``vmap``s them).
+contiguous cache and advances one decode step at a time.  Tensor
+parallelism (``tp_axis``) raises.  A MoE slot makes one ``int4_matmul``
+launch per expert and linear (the reference ``vmap``s them).
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
@@ -59,7 +61,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as Mb
 from repro_torch.models import moe as Moe
 from repro_torch.models import xlstm as Xl
-from repro_torch.models.transformer import check_ported, slot_kinds, tree_index
+from repro_torch.models.transformer import slot_kinds, tree_index
 
 _LUTS: Dict = {}
 
@@ -151,11 +153,16 @@ def _lin_wonly(x_f, f):
 
 def _rope_island(h_i8, inv_s_in, s_out, pos, cfg, qn=None):
     """dequant -> (qk-norm: RMSNorm with gamma ``qn``) -> rotate -> requant.
-    (B,S,H,D) int8."""
+    (B,S,H,D) int8.  ``pos`` (B, S), or (B, S, 3) on an M-RoPE arch, where
+    (B, S) positions rotate all three streams alike (a decode step's, as
+    the reference's ``_decode_qkv`` broadcasts them)."""
     hf = h_i8.to(torch.float32) * inv_s_in
     if qn is not None:
         hf = L.rmsnorm_xla(hf, qn)
-    if not cfg.learned_pos:
+    if cfg.mrope_sections is not None:
+        pos3 = pos if pos.dim() == 3 else pos[..., None].expand(*pos.shape, 3)
+        hf = L.apply_mrope(hf, pos3, cfg.rope_theta, cfg.mrope_sections)
+    elif not cfg.learned_pos:
         hf = L.apply_rope(hf, pos, cfg.rope_theta, cfg.partial_rotary)
     return torch.clamp(torch.round(hf * s_out), -127, 127).to(torch.int8)
 
@@ -431,7 +438,8 @@ def _attn_verify_paged(x_i8, f, cfg, cache, pos_vec, positions, pg, row, block_t
     the row-exact q8 rows under a per-slot causal mask (row i equals the
     decode step at that position bit for bit), on ``gpu`` the paged prefill
     kernel with ``pos_vec`` as its per-slot ``pos0``.  The int8 pool only,
-    as in the reference (M-RoPE archs are refused by ``check_ported``)."""
+    as in the reference (``serve_forward`` refuses M-RoPE archs, as the
+    reference asserts)."""
     if _is_kv4(cache):
         raise NotImplementedError("speculative verify serves the int8 pool only (spec x kv4: "
                                   "not in the reference either)")
@@ -629,7 +637,6 @@ def _check_pageable(cfg: ModelConfig):
     """The paged pool serves all-attention non-SWA archs only (a sliding
     window's stripe is already a window-sized ring, a recurrent state does
     not grow with the sequence), as in the reference."""
-    check_ported(cfg)
     if cfg.sliding_window or recurrent(cfg):
         raise ValueError(f"arch {cfg.name!r} has a sliding window or a recurrent mixer: the "
                          "paged cache requires an all-attention, non-SWA arch (use the "
@@ -683,7 +690,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dic
     stripe, (Smax, Hkv, hd) int8 K and V, per attention slot; float32
     zeros per recurrent slot: Mamba h (d_in, N) and conv (K-1, d_in),
     mLSTM C (H, dh, dh), n (H, dh) and m (H,), sLSTM c, n, h, m (H, dh)."""
-    check_ported(cfg)
     lead = (cfg.n_reps, batch)
     dh = cfg.d_model // cfg.n_heads
     shapes = {"attn": {k: (cache_rows(cfg, max_len), cfg.n_kv_heads, cfg.hd)
@@ -743,11 +749,12 @@ def head_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def head_weights(cfg: ModelConfig, folded: Dict) -> torch.Tensor:
     """The lm_head's codes (int8 at w8, unpacked int4 otherwise) as a
-    (K, V) tensor of ``head_dtype``, converted once."""
+    (d, V) tensor of ``head_dtype``, or (K, d, V) for K stacked heads,
+    converted once."""
     head = folded["lm_head"]
     if "w_f" in head:
         return head["w_f"]
-    w = head["w"] if cfg.quant.w_bits == 8 else packing.unpack_int4_planar(head["w"], axis=0)
+    w = head["w"] if cfg.quant.w_bits == 8 else packing.unpack_int4_planar(head["w"], axis=-2)
     return w.to(head_dtype(cfg))
 
 
@@ -778,9 +785,15 @@ def float_weight_bytes(prepared: Dict) -> int:
                for v in f["mx"].values() if isinstance(v, dict))
 
 
-def _embed_int(folded: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, S) -> int8 embedding codes (B, S, d)."""
-    return folded["embed"]["tokens_i8"][tokens.long()]
+def _embed_int(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S) -> int8 embedding codes (B, S, d); an audio arch's
+    (B, K, S) codebook codes -> the K codebooks' rows summed in int32, then
+    clipped to int8."""
+    if cfg.frontend != "audio_codebooks":
+        return folded["embed"]["tokens_i8"][tokens.long()]
+    books = folded["embed"]["codebooks_i8"]
+    acc = sum(books[ci][tokens[:, ci].long()].to(torch.int32) for ci in range(cfg.n_codebooks))
+    return torch.clamp(acc, -127, 127).to(torch.int8)
 
 
 def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
@@ -800,34 +813,45 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     its draft proposals; ``pos_offset`` the per-slot (B,) decode cursor and
     ``verify_rows`` (B,) each slot's real row count (the rest is padding);
     logits for every row, (B, k+1, V), row i what the decode step at
-    position ``pos_offset[b] + i`` gives (``_attn_verify_paged``).  Returns
-    (logits, cache).
+    position ``pos_offset[b] + i`` gives (``_attn_verify_paged``).
+
+    The frontends, as in the reference: an audio arch takes (B, K, S)
+    codebook codes (K = ``n_codebooks``; (B, K, 1) at decode), and with K LM
+    heads the logits are (B, K, S, V); ``extra_embeds_i8`` (B, S_img, d),
+    int8 codes on the embedding's grid, go before the tokens' rows (S then
+    counts both), and ``pos3`` (B, S, 3) gives a prefill's M-RoPE (t, h, w)
+    positions (default: the row positions on all three streams; a decode
+    step rotates its position on all three).  Returns (logits, cache).
     """
-    check_ported(cfg)
     if mode not in ("prefill", "decode", "verify"):
         raise ValueError(f"mode must be prefill|decode|verify (got {mode!r})")
-    if extra_embeds_i8 is not None or pos3 is not None or tp_axis is not None:
-        raise NotImplementedError("extra embeddings, M-RoPE positions and tensor parallelism "
-                                  "are not ported: ROADMAP Open items §1")
+    if tp_axis is not None:
+        raise NotImplementedError("tensor parallelism (tp_axis) is not ported: "
+                                  "ROADMAP Open items §1")
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a KV cache")
     if mode == "verify" and (cache is None or block_tables is None or verify_rows is None):
         raise ValueError("verify mode needs a paged cache, block tables and verify_rows")
+    if mode == "verify" and cfg.mrope_sections is not None:
+        raise ValueError(f"arch {cfg.name!r} rotates by M-RoPE: the speculative verify "
+                         "forward does not serve it (the reference asserts the same)")
     if mode == "prefill" and cache is not None and recurrent(cfg):
         raise ValueError(f"arch {cfg.name!r} has a recurrent state: a prefill with a cache "
                          "runs as the batch-1 decode loop (Engine._prefill_slot), one decode "
                          "step per prompt token")
+    dev = tokens.device
+    x = _embed_int(cfg, folded, tokens)
+    if extra_embeds_i8 is not None:
+        x = torch.cat([extra_embeds_i8.to(torch.int8), x], dim=1)
+    b, s = x.shape[0], x.shape[1]
     if mode == "prefill" and cache is not None and block_tables is None:
         if int(pos_offset) != 0:
             raise ValueError("a prefill into the contiguous stripe starts at position 0")
         rows = _attn_leaf(cache).shape[2]
-        if tokens.shape[1] > rows:
-            raise ValueError(f"a one-shot prefill of {tokens.shape[1]} rows does not fit the "
-                             f"stripe's {rows} (a longer prompt of a sliding-window arch "
-                             "takes the decode loop)")
-    dev = tokens.device
-    x = _embed_int(folded, tokens)
-    b, s = x.shape[0], x.shape[1]
+        if s > rows:
+            raise ValueError(f"a one-shot prefill of {s} rows does not fit the stripe's "
+                             f"{rows} (a longer prompt of a sliding-window arch takes the "
+                             "decode loop)")
     pos_vec = _pos_vector(pos_offset, b, dev)
     pos0 = int(pos_offset) if mode == "prefill" else None
     if mode == "verify":
@@ -841,8 +865,11 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
             grid = pos_vec[:, None] + torch.arange(s, dtype=torch.int32, device=dev)
             posrow = pos_i8[torch.clamp(grid.long(), max=pos_i8.shape[0] - 1)]
         x = torch.clamp(x.to(torch.int32) + posrow.to(torch.int32), -127, 127).to(torch.int8)
-    pos = None if mode != "prefill" else \
-        (pos0 + torch.arange(s, dtype=torch.int32, device=dev)).expand(b, s)
+    pos = None
+    if mode == "prefill":
+        pos = (pos0 + torch.arange(s, dtype=torch.int32, device=dev)).expand(b, s)
+        if cfg.mrope_sections is not None and pos3 is not None:
+            pos = pos3.to(device=dev, dtype=torch.int32)
     kinds = slot_kinds(cfg)
     row_exact = ops.backend(device=dev) != "gpu"
     for r, f_rep in enumerate(layer_views(folded, cfg.n_reps)):
@@ -881,7 +908,11 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     x = _ln(x, folded["final_norm"], cfg)
     # lm_head: the only product outside a kernel, exact in head_dtype with
     # TF32 off (exact_matmul); then the reference's int32 -> float32
-    # accumulator times the float32 scale.
+    # accumulator times the float32 scale.  K stacked heads: one product of
+    # x against each head's codes, (B, K, S, V), each head times its scale.
     w = head_weights(cfg, folded)
+    inv_acc = folded["lm_head"]["inv_acc"]
+    if w.dim() == 3:
+        x, inv_acc = x[:, None], inv_acc[:, None, None]
     acc = exact_matmul(x.to(w.dtype), w).to(torch.float32)
-    return acc * folded["lm_head"]["inv_acc"], cache
+    return acc * inv_acc, cache

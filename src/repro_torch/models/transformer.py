@@ -1,7 +1,8 @@
-"""Config-driven model stack for calibration: embeddings -> super-blocks ->
-final norm -> LM head, for token-LM architectures whose mixers are
-attention (qk-norm and the sliding window included), Mamba, mLSTM or sLSTM,
-with a dense, MoE or no feed-forward.
+"""Config-driven model stack for calibration: embeddings (token, or the
+frontends: summed audio codebooks, precomputed vision-stub embeddings
+prepended) -> super-blocks -> final norm -> LM head(s), for architectures
+whose mixers are attention (qk-norm, M-RoPE and the sliding window
+included), Mamba, mLSTM or sLSTM, with a dense, MoE or no feed-forward.
 
 Params and amax state keep the reference's stacked layout, (n_reps, ...)
 on the leading axis, so the fold and the tests see the same trees; depth
@@ -41,16 +42,6 @@ def slot_kinds(cfg: ModelConfig):
             ffn = "none"
         out.append((mixer, ffn))
     return out
-
-
-def check_ported(cfg: ModelConfig):
-    """The port serves token-LM archs with one LM head: attention (dense or
-    MoE feed-forward, qk-norm or not, a sliding window or not), Mamba
-    hybrids and xLSTM stacks."""
-    if cfg.frontend != "none" or cfg.n_lm_heads != 1 or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"arch {cfg.name!r} needs M-RoPE/frontend/multi-head support, "
-            "which is not ported yet: ROADMAP Open items §1")
 
 
 # --- pytree helpers ------------------------------------------------------------
@@ -192,8 +183,9 @@ def slot_sites(cfg: ModelConfig, mixer: str, ffn: str):
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
-    """Random float master weights from ``gen`` (on ``gen.device``)."""
-    check_ported(cfg)
+    """Random float master weights from ``gen`` (on ``gen.device``): an
+    audio arch's ``embed.codebooks`` (K, V, d), and several untied LM heads
+    stacked (K, d, V), as the reference's."""
     blocks = {}
     for i, (mixer, ffn) in enumerate(slot_kinds(cfg)):
         blocks[f"slot{i}"] = tree_stack([init_slot_params(cfg, mixer, ffn, gen)
@@ -201,9 +193,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     p = {"embed": {"tokens": _dense(gen, cfg.vocab_size, cfg.d_model, cfg)},
          "blocks": blocks,
          "final_norm": _norm_params(cfg, gen)}
+    if cfg.frontend == "audio_codebooks":
+        p["embed"]["codebooks"] = _stacked(gen, cfg.n_codebooks, cfg.vocab_size,
+                                           cfg.d_model, cfg)
     if cfg.learned_pos:
         p["embed"]["pos"] = _dense(gen, cfg.max_position, cfg.d_model, cfg)
-    if not cfg.tied_embeddings:
+    if not cfg.tied_embeddings and cfg.n_lm_heads > 1:
+        p["lm_head"] = torch.stack([_dense(gen, cfg.d_model, cfg.vocab_size, cfg)
+                                    for _ in range(cfg.n_lm_heads)])
+    elif not cfg.tied_embeddings:
         p["lm_head"] = _dense(gen, cfg.d_model, cfg.vocab_size, cfg)
     return p
 
@@ -246,28 +244,58 @@ def _apply_slot(cfg, mixer, ffn, x, p, amax, pos, mask):
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
-            mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None):
-    """QAT (calibration) forward.  Returns (logits, obs tree matching
-    ``init_amax``, aux_loss summed over the MoE slots)."""
-    x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos)
-    w = params["embed"]["tokens"].T if cfg.tied_embeddings else params["lm_head"]
-    logits = x @ w
+            mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None,
+            extra_embeds: Optional[torch.Tensor] = None,
+            pos3: Optional[torch.Tensor] = None):
+    """QAT (calibration) forward (arguments as ``hidden``).  Returns
+    (logits (B, S, V), or (B, K, S, V) for K LM heads; the obs tree matching
+    ``init_amax``; aux_loss summed over the MoE slots)."""
+    x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos,
+                         extra_embeds=extra_embeds, pos3=pos3)
+    if cfg.tied_embeddings:
+        logits = x @ params["embed"]["tokens"].T
+    elif cfg.n_lm_heads > 1:
+        logits = torch.einsum("bsd,kdv->bksv", x, params["lm_head"])
+    else:
+        logits = x @ params["lm_head"]
     return logits.to(torch.float32), obs, aux
+
+
+def embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S), or an audio arch's (B, K, S) codebook codes summed
+    over the K codebooks in order -> float embeddings (B, S, d)."""
+    if cfg.frontend != "audio_codebooks":
+        return params["embed"]["tokens"][tokens.long()]
+    books = params["embed"]["codebooks"]
+    x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model), dtype=books.dtype,
+                    device=books.device)
+    for ci in range(cfg.n_codebooks):
+        x = x + books[ci][tokens[:, ci].long()]
+    return x
 
 
 @torch.no_grad()
 def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
-           mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None):
+           mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None,
+           extra_embeds: Optional[torch.Tensor] = None,
+           pos3: Optional[torch.Tensor] = None):
     """The backbone of ``forward``: embeddings -> blocks -> final norm ->
-    the fake-quantized head input.  Returns (hidden (B, S, d), obs, aux)."""
-    check_ported(cfg)
+    the fake-quantized head input.  ``tokens`` (B, S), or (B, K, S) audio
+    codes; ``extra_embeds`` (B, S_img, d), the vision stub's patch
+    embeddings, go before the tokens' (S counts both); ``pos3`` (B, S, 3),
+    the M-RoPE positions (default: ``pos`` on all three streams).  Returns
+    (hidden (B, S, d), obs, aux)."""
     policy = cfg.quant
-    x = params["embed"]["tokens"][tokens.long()]
+    x = embed(cfg, params, tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     b, s = x.shape[0], x.shape[1]
     if cfg.learned_pos:
         x = x + params["embed"]["pos"][None, :s]
     if pos is None:
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    if cfg.mrope_sections is not None:
+        pos = pos3 if pos3 is not None else pos[..., None].expand(b, s, 3)
     x, obs_embed = L.fake_quant_act(x, amax["embed_out"], policy.a_bits, policy.quantize_wa)
     if mask is None and not cfg.causal:
         mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=x.device)

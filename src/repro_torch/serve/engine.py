@@ -12,7 +12,10 @@ the recurrent archs, jamba's Mamba hybrid and xLSTM, whose slots hold a
 recurrent state) with a one-shot prefill per request, or the batch-1
 decode loop for a prompt longer than the stripe and for every prompt of a
 recurrent arch; greedy or sampled decode.  ``LockstepEngine`` is the
-reference's lockstep baseline over the contiguous stripe.
+reference's lockstep baseline over the contiguous stripe, and
+``make_engine`` hands it the archs the continuous engine does not take (a
+frontend or several LM heads: qwen2-vl-2b, musicgen-medium), as the
+reference does.
 
 ``poll()`` runs ONE scheduler tick — shed expired → adopt tier pages →
 admit → prefill chunks under the budget → grow decode pages (preempting
@@ -26,9 +29,8 @@ counters equal the reference engine's.
 
 The engine runs where the folded weights live: CUDA weights take the
 ``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
-Options the port does not have yet (``tp > 1`` / a mesh, archs that need
-M-RoPE, a frontend or several LM heads) raise ``EngineConfigError`` or
-``NotImplementedError``; the options a recurrent arch's layout cannot take
+The option the port does not have yet (``tp > 1`` / a mesh) raises
+``EngineConfigError``; the options a recurrent arch's layout cannot take
 (the paged pool, speculative decoding, chunked prefill) raise the
 reference's ``EngineConfigError``s, and ``kv_bits=4`` falls back to 8 with a
 warning, as in the reference.
@@ -47,7 +49,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.models import serve_int as S
-from repro_torch.models.transformer import check_ported, slot_kinds
+from repro_torch.models.transformer import slot_kinds
 from repro_torch.serve import stats as stats_schema
 from repro_torch.serve.draft import make_draft_source
 from repro_torch.serve.prefix import SealedChain
@@ -200,26 +202,48 @@ class EngineConfig:
         return self
 
 
+_DEFAULT_CONFIG = EngineConfig()
+# fields the LockstepEngine has no use for; make_engine warns when they
+# deviate from their defaults and resets them before construction
+_CONTINUOUS_ONLY_FIELDS = ("prefill_bucket", "cache_layout", "page_size", "n_pages",
+                           "max_batched_tokens", "max_prefill_chunk", "reserve_policy",
+                           "kv_bits", "tp", "mesh", "spec_k", "draft")
+
+
 def _config_only(config: Optional[EngineConfig], kw: dict, caller: str) -> EngineConfig:
+    """The validated ``config`` (keyword options raise a TypeError naming
+    ``EngineConfig``); the engines then refuse what the port lacks
+    (``EngineConfig.check_ported``)."""
     if kw:
         raise TypeError(
             f"{caller}(cfg, folded, {next(iter(kw))}=..., ...) keyword options were "
             f"removed; pass {caller}(cfg, folded, EngineConfig(...)) — valid fields: "
             f"{', '.join(f.name for f in dataclasses.fields(EngineConfig))}")
-    return (config if config is not None else EngineConfig()).validate().check_ported()
+    return (config if config is not None else EngineConfig()).validate()
 
 
 def supports_continuous(cfg: ModelConfig) -> bool:
+    """Continuous batching serves single-head token-LM archs; the archs with
+    a frontend or several LM heads go through ``LockstepEngine``."""
     return cfg.frontend == "none" and cfg.n_lm_heads == 1
 
 
 def make_engine(cfg: ModelConfig, folded, config: Optional[EngineConfig] = None, **kw):
-    """The continuous engine.  The reference hands archs with a frontend or
-    several LM heads to the lockstep baseline; the port refuses those archs
-    (``check_ported``)."""
+    """The continuous engine when the arch supports it, else the lockstep
+    baseline (same ``generate()`` surface), as in the reference: for a
+    lockstep arch each continuous-only field set away from its default
+    (``tp`` and ``mesh`` among them) is reset, with a warning naming it."""
     config = _config_only(config, kw, "make_engine")
-    check_ported(cfg)
-    return Engine(cfg, folded, config)
+    if supports_continuous(cfg):
+        return Engine(cfg, folded, config)
+    dropped = sorted(f for f in _CONTINUOUS_ONLY_FIELDS
+                     if getattr(config, f) != getattr(_DEFAULT_CONFIG, f))
+    if dropped:
+        warnings.warn(f"make_engine: arch {cfg.name!r} takes the LockstepEngine, which "
+                      f"ignores {', '.join(dropped)}", stacklevel=2)
+        config = dataclasses.replace(
+            config, **{f: getattr(_DEFAULT_CONFIG, f) for f in dropped})
+    return LockstepEngine(cfg, folded, config)
 
 
 class LockstepEngine:
@@ -228,12 +252,13 @@ class LockstepEngine:
     decode forward over the contiguous stripe.  Greedy tokens equal the
     reference's, and so do sampled ones: the key is ``jax.random``'s
     threefry key of ``config.seed``, split once per sampled step, and the
-    draw is its ``categorical`` (``core/prng.py``, numpy on the host)."""
+    draw is its ``categorical`` (``core/prng.py``, numpy on the host).
+    It serves qwen2-vl-2b's text (its decode rotates each position on all
+    three M-RoPE streams); musicgen-medium's ``generate`` raises (below)."""
 
     def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
                  **kw):
-        config = _config_only(config, kw, "LockstepEngine")
-        check_ported(cfg)
+        config = _config_only(config, kw, "LockstepEngine").check_ported()
         self.cfg = cfg
         self.config = config
         self.device = folded["embed"]["tokens_i8"].device
@@ -252,10 +277,22 @@ class LockstepEngine:
                               device=self.device)
         logits, self.cache = S.serve_forward(self.cfg, self.folded, tok, cache=self.cache,
                                              pos_offset=pos, mode="decode")
-        return logits[:, -1].cpu().numpy()
+        return (logits[:, -1] if logits.dim() == 3 else logits[:, :, -1]).cpu().numpy()
 
     def generate(self, requests: List[Request]) -> List[Request]:
-        """Lockstep decode for a batch of same-length-padded prompts."""
+        """Lockstep decode for a batch of same-length-padded prompts.
+
+        An audio-codebook arch raises a ``ValueError``: the reference's
+        ``generate`` feeds its (B, 1) token column to a forward that wants
+        (B, K, S) codes and fails (an ``AssertionError`` in its
+        ``_attn_decode``); such an arch decodes through ``serve_forward``
+        with (B, K, 1) codes a step (a deliberate deviation, ROADMAP §3)."""
+        if self.cfg.frontend == "audio_codebooks":
+            raise ValueError(
+                f"arch {self.cfg.name!r} takes (B, {self.cfg.n_codebooks}, S) codebook codes: "
+                "LockstepEngine.generate feeds one token a slot, which the reference's forward "
+                "rejects (an AssertionError in its _attn_decode); decode it through "
+                f"serve_forward(mode='decode') with (B, {self.cfg.n_codebooks}, 1) codes a step")
         assert len(requests) <= self.batch
         max_prompt = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
@@ -292,11 +329,10 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
                  **kw):
-        config = _config_only(config, kw, "Engine")
+        config = _config_only(config, kw, "Engine").check_ported()
         if not supports_continuous(cfg):
             raise EngineConfigError(f"continuous engine serves token-LM archs; arch "
                                     f"{cfg.name!r} needs LockstepEngine")
-        check_ported(cfg)
         # one-shot prefill needs every mixer to be cache-writing causal
         # attention; otherwise, and for a prompt longer than a sliding
         # window's ring, the batch-1 decode loop prefills

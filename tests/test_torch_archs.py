@@ -4,8 +4,8 @@ stablelm-1.6b (LayerNorm, partial rotary 0.25, MHA at head_dim 64 in full
 size), llama3-405b (GQA, theta 5e5) and qwen3-4b (qk-norm: an RMSNorm of
 q and k inside the RoPE island).
 
-* ``check_ported`` admits the served archs and refuses the rest, naming
-  the ROADMAP.
+* Every config of ``configs/`` is served; what still refuses (tensor
+  parallelism) names the ROADMAP.
 * The calibration forward's observations allclose, the fold equal leaf
   for leaf.
 * The qk-norm island: the port's ``_rope_island`` against the reference's
@@ -29,7 +29,7 @@ from repro.models import fold as JF
 from repro.models import serve_int as JS
 from repro.models import transformer as JT
 from repro.serve import engine as JE
-from repro_torch.configs import get_config, list_configs, smoke_config
+from repro_torch.configs import list_configs, smoke_config
 from repro_torch.models import fold as F
 from repro_torch.models import serve_int as S
 from repro_torch.models import transformer as T
@@ -38,8 +38,7 @@ from repro_torch.serve import engine as E
 KEY = jax.random.PRNGKey(0)
 ARCHS = ("stablelm-1.6b", "llama3-405b", "qwen3-4b")
 SERVED = ARCHS + ("yi-6b", "qwen2-moe-a2.7b", "mixtral-8x22b", "bert-base",
-                  "jamba-1.5-large-398b", "xlstm-1.3b")
-REFUSED = ("qwen2-vl-2b", "musicgen-medium")
+                  "jamba-1.5-large-398b", "xlstm-1.3b", "qwen2-vl-2b", "musicgen-medium")
 FLIP_FRACTION = 1e-3
 
 
@@ -75,12 +74,28 @@ def models():
 
 
 def test_every_config_is_served_or_refused_naming_the_roadmap():
-    assert set(SERVED) | set(REFUSED) == set(list_configs())
+    """Every config is served: its smoke model inits, folds and runs a
+    cache-less forward on the CPU.  What still refuses names the ROADMAP:
+    ``tp > 1`` on either engine and ``serve_forward(tp_axis=...)``."""
+    assert set(SERVED) == set(list_configs())
+    gen = torch.Generator().manual_seed(0)
     for name in SERVED:
-        T.check_ported(get_config(name))
-    for name in REFUSED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Open items §1"):
-            T.check_ported(get_config(name))
+        cfg = smoke_config(name)
+        params = T.init_params(cfg, gen)
+        rows = (cfg.n_codebooks,) if cfg.frontend == "audio_codebooks" else ()
+        toks = torch.randint(0, cfg.vocab_size, (1, *rows, 8), generator=gen)
+        _, obs, _ = T.forward(cfg, params, T.init_amax(cfg, "cpu"), toks)
+        logits, _ = S.serve_forward(cfg, F.fold_params(cfg, params, obs), toks)
+        assert logits.shape[-2:] == (8, cfg.vocab_size) and torch.isfinite(logits).all(), name
+    cfg = smoke_config("yi-6b")
+    params = T.init_params(cfg, gen)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    folded = F.fold_params(cfg, params, T.forward(cfg, params, T.init_amax(cfg, "cpu"), toks)[1])
+    for engine in (E.Engine, E.LockstepEngine):
+        with pytest.raises(E.EngineConfigError, match="ROADMAP Open items §1"):
+            engine(cfg, folded, E.EngineConfig(batch_slots=2, max_len=32, tp=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP Open items §1"):
+        S.serve_forward(cfg, folded, toks, tp_axis="model")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

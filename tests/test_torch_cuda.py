@@ -1562,3 +1562,133 @@ def test_decode_step_writes_the_recurrent_state_in_place_through_a_slot_view(cud
             assert not t[:, 0].any() and not t[:, 2].any(), (n, leaf)
     assert all(bool(cache[n][leaf].any()) for n, c in cache.items() for leaf in c
                if leaf not in ("k", "v"))
+
+
+# --- the frontend archs (qwen2-vl-2b, musicgen-medium) ----------------------------
+
+# (K, N) of qwen2-vl-2b's linears (wq and wo, wk/wv, w_gate/w_up, w_down) and
+# musicgen-medium's (the attention's four, w1, w2), at a lockstep step (M 8)
+# and a 512-row prefill
+FRONTEND_GEMMS = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536), (1536, 6144),
+                  (6144, 1536)]
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 512) for k, n in FRONTEND_GEMMS])
+def test_plan_fills_a_wave_at_the_frontend_shapes(m, k, n):
+    """The decode path at M 8, the tensor cores at 512, 16-byte copies; the
+    blocks fill a wave unless K is already split into single 32-row steps
+    (wk/wv's N 256 at M 8: 2 column blocks x 24 steps)."""
+    p = plan(m, k, n)
+    assert p.path == ("decode" if m <= 8 else "tensor_core") and p.vec == 16
+    assert p.blocks >= WAVE or (p.path == "decode" and p.split == k // 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 512) for k, n in FRONTEND_GEMMS])
+def test_int4_matmul_kernel_equals_plain_at_the_frontend_shapes(cuda, m, k, n):
+    args = _mm(m, k, n, m + n + k, cuda)
+    assert torch.equal(_launched_once_on(int4_matmul, plan(m, k, n).path, *args),
+                       ref.int4_matmul_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 512])
+@pytest.mark.parametrize("subtract_mean", [True, False])
+def test_quant_layernorm_kernel_equals_plain_at_n1536(cuda, subtract_mean, r):
+    """qwen2-vl's RMSNorm and musicgen's LN at d 1,536."""
+    x, p = _ln(r, 1536, r + 1536, subtract_mean, cuda)
+    assert torch.equal(_launched_once(quant_layernorm, x, p), ref.quant_layernorm_ref(x, p))
+
+
+# (Hkv, G, D): qwen2-vl's GQA and musicgen's MHA at head_dim 64
+FRONTEND_HEADS = [(2, 6, 128), (24, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[33, 100, 250, 400, 520, 640, 700, 1024], [545]])
+@pytest.mark.parametrize("hkv,g,d", FRONTEND_HEADS)
+def test_contiguous_decode_kernel_equals_plain_at_the_frontend_heads(cuda, hkv, g, d,
+                                                                     lengths):
+    """Row 6 over 1,024-row stripes at bkv 512: a lockstep step of 8 slots
+    and one slot of the vision stub's 512-row prefill plus its decode."""
+    args = _stripe(g, d, 1024, lengths, cuda, hkv=hkv, seed=hkv + len(lengths))
+    assert torch.equal(_launched_once(decode_qattention, *args, bkv=512),
+                       ref.decode_qattention_ref(*args, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 512])
+@pytest.mark.parametrize("hkv,g,d", FRONTEND_HEADS)
+def test_flash_qattention_kernel_equals_plain_at_the_frontend_heads(cuda, hkv, g, d, s):
+    """Row 9 at qwen2-vl's heads (H 12, Hkv 2, D 128) and musicgen's (H =
+    Hkv = 24, D 64), B 2, the serving block of S 64 and 512."""
+    from repro_torch.kernels.flash_qattention import divisor_tile, flash_qattention_torch
+
+    args = _flash(2, hkv * g, hkv, s, s, d, cuda, seed=s + d, strided=True)
+    bkv = divisor_tile(512, s)
+    assert torch.equal(_launched_once(flash_qattention, *args, bkv=bkv),
+                       flash_qattention_torch(*args, bkv=bkv))
+
+
+def _frontend_tokens(cfg, folded, dev):
+    """A small frontend arch on ``dev``: the cache-less forward, then the
+    one-shot stripe prefill and 6 greedy decode steps (qwen2-vl: 16 image
+    rows of codes and a 4 x 4 ``pos3`` grid before 8 text tokens, the
+    LockstepEngine's greedy tokens too; musicgen: (2, 4, 12) codes, each
+    head's argmax the next frame).  Returns (greedy tokens, logits)."""
+    from repro_torch.models import serve_int as S
+
+    rng = np.random.default_rng(5)
+    audio = cfg.frontend == "audio_codebooks"
+    kw = {}
+    if audio:
+        prompt = rng.integers(0, cfg.vocab_size, (2, cfg.n_codebooks, 12))
+    else:
+        prompt = rng.integers(0, cfg.vocab_size, (2, 8))
+        g = np.arange(16)
+        pos3 = np.concatenate([np.stack([0 * g, g // 4, g % 4], -1),
+                               np.repeat(4 + np.arange(8)[:, None], 3, -1)])
+        kw = dict(extra_embeds_i8=torch.from_numpy(
+            rng.integers(-60, 61, (2, 16, cfg.d_model)).astype(np.int8)).to(dev),
+            pos3=torch.from_numpy(np.broadcast_to(pos3, (2, 24, 3)).astype(np.int32)).to(dev))
+    prompt = torch.from_numpy(prompt.astype(np.int32)).to(dev)
+    logits = [S.serve_forward(cfg, folded, prompt, **kw)[0]]
+    cache = S.init_cache(cfg, 2, 48, device=dev)
+    lg, cache = S.serve_forward(cfg, folded, prompt, cache=cache, **kw)
+    logits.append(lg)
+    toks, rows = [], lg.shape[-2]
+    for step in range(6):
+        toks.append(lg[..., -1, :].argmax(-1).to(torch.int32)[..., None])
+        lg, cache = S.serve_forward(cfg, folded, toks[-1], cache=cache,
+                                    pos_offset=rows + step, mode="decode")
+        logits.append(lg)
+    out = [t.cpu().tolist() for t in toks]
+    if not audio:
+        out.append([r.out.tolist() for r in LockstepEngine(
+            cfg, folded, EngineConfig(batch_slots=2, max_len=48)).generate(
+            [Request(prompt=p, max_new_tokens=6) for p in (np.arange(3, 12), np.arange(40, 45))])])
+    return out, [t.cpu() for t in logits]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
+def test_small_frontend_arch_on_card_gives_the_cpu_tokens(cuda, arch, monkeypatch):
+    """The small qwen2-vl (the published section proportions at head_dim
+    32, (4, 6, 6)) or musicgen on the card (the kernels) and on the CPU
+    under REPRO_TORCH_KERNELS=gpu (their plain versions), from the same
+    folded weights: the cache-less forward, the one-shot stripe prefill and
+    its decode steps give equal greedy tokens, and so does qwen2-vl's
+    LockstepEngine; the flash and the stripe decode ran on the card."""
+    cfg = smoke_config(arch, **({} if arch.startswith("musicgen") else
+                                dict(mrope_sections=(4, 6, 6))))
+    folded_cpu = calibrated_folded(cfg, 0, device="cpu")
+    folded = tree_map(lambda t: t.to(cuda), folded_cpu)
+    for k in (decode_qattention, flash_qattention):
+        k.launches = 0
+    got, got_logits = _frontend_tokens(cfg, folded, cuda)
+    assert decode_qattention.launches > 0 and flash_qattention.launches > 0
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "gpu")
+    want, want_logits = _frontend_tokens(cfg, folded_cpu, "cpu")
+    assert got == want
+    assert all(torch.isfinite(g).all() and g.shape == w.shape
+               for g, w in zip(got_logits, want_logits))
