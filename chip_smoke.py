@@ -169,11 +169,28 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    logits (finite, right shape) and each kernel's launches per forward
    (``quant_softmax`` 12, the policy's GEMM 72, ``quant_layernorm`` 25),
    prints the median latency and sequences/s at (1, 128), and holds the
-   small BERT on the card against the CPU (equal logits).
+   small BERT on the card against the CPU (equal logits);
+7. ``[train]`` (``phase_train``): BERT-base at full size under W4A8 takes
+   60 steps of ``make_bert_train_step`` at (32, 128) on the synthetic SST-2
+   task of ``examples/train_bert_sst2.py`` (loss and accuracy every 10
+   steps, ms per step, peak memory; the loss must be finite and its mean
+   over the last 10 steps below that over the first 10), its
+   ``TrainState`` saved and restored with ``train/checkpoint.py`` (every
+   leaf equal bit for bit), the held-out accuracy of the QAT forward beside
+   the fp32 policy's (printed, not gated), then the trained backbone folded
+   with the trained EMA amax and served as integers at (1, 128) and (8,
+   512) through ``int4_matmul``, ``quant_layernorm`` and ``quant_softmax``
+   (the launches per forward counted, the logits equal bit for bit to the
+   plain versions' on the card); yi-6b at its published widths and 8 of
+   its 32 layers (bf16 params, float32 moments, remat) takes 5 steps of
+   ``make_train_step`` on one ``SyntheticLM`` batch at (4, 1,024) (loss and
+   grad norm each step, all finite, the last loss below the first; ms per
+   step, tokens/s, peak memory, the memory reckoned before the run), a step
+   and the AdamW update profiled.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
 on the served path and in ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
-``[qwen2vl]`` and ``[musicgen]``,
+``[qwen2vl]``, ``[musicgen]`` and ``[train]``,
 mismatches, times, bound); the last is
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero before that
 line; without a card, or without the rest of the repository, it exits 2 and
@@ -1128,10 +1145,13 @@ def profile_steps(torch, step, what: str, n: int = 3, experts: bool = False):
             ("flash prefill attention", [r for r in rows if "flash_kernel" in r[2]]),
             ("integer LayerNorm", [r for r in rows if "quant_layernorm_kernel" in r[2]]),
             ("LUT softmax", [r for r in rows if "quant_softmax_kernel" in r[2]]),
-            ("float products (cuBLAS float32 GEMM / GEMV: the recurrent slots' weight-only "
-             "linears and gates, the lm_head)",
-             [r for r in rows if ("gemm" in r[2].lower() or "gemv" in r[2].lower())
-              and "fq::igemm::" not in r[2]])):
+            ("float products (cuBLAS GEMM / GEMV: the recurrent slots' weight-only "
+             "linears and gates, the lm_head, the QAT forward's and backward's products)",
+             [r for r in rows if any(w in r[2].lower() for w in ("gemm", "gemv", "nvjet"))
+              and "fq::igemm::" not in r[2]]),
+            ("elementwise and reduction kernels (the QAT fake-quant chains, the LUT softmax "
+             "simulator, norms, the AdamW update)",
+             [r for r in rows if "elementwise" in r[2] or "reduce_kernel" in r[2]])):
         if picked:
             ms = sum(r[0] for r in picked) / n / 1e3
             print(f"    {label}: {ms:.3f} ms/call ({100 * ms / busy_ms:.1f} % of device "
@@ -3182,6 +3202,234 @@ def phase_small_bert_reference(torch):
         check(differ == 0, f"small bert {name}: card and CPU logits differ")
 
 
+TRAIN_BERT_STEPS = 60
+TRAIN_BERT_SHAPE = (32, 128)
+TRAIN_YI_DEPTH = 8          # of 32 layers
+TRAIN_YI_SHAPE = (4, 1024)
+TRAIN_YI_STEPS = 5
+
+
+def sst2_batch(torch, vocab: int, step: int, b: int, s: int) -> dict:
+    """The synthetic SST-2 task of ``examples/train_bert_sst2.py``: random
+    tokens with 4-11 "sentiment" tokens (< 16 positive, 16..31 negative)
+    after [CLS]; the label says whether the positive ones outnumber the
+    negative ones.  Seeded by ``step``."""
+    rng = np.random.default_rng(step)
+    toks = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    n_sent = rng.integers(4, 12, (b,))
+    for i in range(b):
+        toks[i, 1:1 + n_sent[i]] = rng.integers(0, 32, (n_sent[i],))
+    labels = (toks < 16).sum(1) > ((toks >= 16) & (toks < 32)).sum(1)
+    return {"tokens": torch.as_tensor(toks, device="cuda"),
+            "mask": torch.ones((b, s), dtype=torch.bool, device="cuda"),
+            "labels": torch.as_tensor(labels.astype(np.int32), device="cuda")}
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor leaf of ``tree`` (a TrainState, nested dicts)."""
+    from repro_torch.train.checkpoint import _paths
+
+    return sum(t.numel() * t.element_size() for _, t in _paths(tree))
+
+
+def check_checkpoint_roundtrip(torch, state, what: str):
+    """Save ``state`` with ``train/checkpoint.py`` and restore it onto the
+    card: every leaf must come back equal bit for bit."""
+    import tempfile
+
+    from repro_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, int(state.step), state, meta={"data_step": int(state.step)})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, meta = ckpt.restore(d, int(state.step), state)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    leaves, got = ckpt._paths(state), ckpt._paths(back)
+    differ = [p for (p, a), (_, b) in zip(leaves, got, strict=True)
+              if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
+    print(f"  {what} checkpoint: {len(leaves)} leaves, {_nbytes(state) / 2**20:.1f} MiB, "
+          f"save {t_save:.2f} s, restore {t_load:.2f} s, {len(differ)} leaves differ")
+    check(not differ and meta["data_step"] == int(state.step),
+          f"{what}: the checkpoint round trip changed {differ[:5]}")
+
+
+def train_bert(torch, kernels, guard):
+    """BERT-base at full size under POLICY_FQ: the paper's fine-tuning step
+    on the synthetic SST-2 task, its checkpoint, the fold of the trained
+    backbone with the trained EMA amax, and the integer forward through
+    rows 1, 2 and 5, equal to the plain versions on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import POLICY_FP32
+    from repro_torch.models import bert as B
+    from repro_torch.models import fold as F
+    from repro_torch.models import serve_int as S
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as St
+
+    cfg = get_config("bert-base")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.remat) == (12, 768, 30522, True),
+          "bert-base is not full size")
+    b, s = TRAIN_BERT_SHAPE
+    opt = AdamWConfig(lr=1e-3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    state = St.init_bert_train_state(cfg, gen, opt)
+    step = St.make_bert_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(TRAIN_BERT_STEPS):
+        batch = sst2_batch(torch, cfg.vocab_size, i, b, s)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, acc = float(m["loss"]), float(m["acc"])    # waits for the card
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if i % 10 == 0 or i == TRAIN_BERT_STEPS - 1:
+            print(f"  bert-base step {i:3d}: loss {loss:.4f} acc {acc:.3f} "
+                  f"({walls[-1] * 1e3:.1f} ms)")
+    ms = float(np.median(walls[1:])) * 1e3
+    print(f"  bert-base ({b}, {s}) QAT step: median {ms:.1f} ms ({b * s / ms * 1e3:.0f} tokens/s, "
+          f"first step {walls[0] * 1e3:.0f} ms), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"  bert-base mean loss: first 10 steps {first:.4f}, last 10 {last:.4f}")
+    check(all(np.isfinite(losses)), f"bert-base: a loss is not finite: {losses}")
+    check(last < first, f"bert-base: the loss did not fall ({first:.4f} -> {last:.4f})")
+    batch = sst2_batch(torch, cfg.vocab_size, TRAIN_BERT_STEPS, b, s)
+    profile_steps(torch, lambda: step(state, batch), "bert-base QAT train step", n=1)
+    check_checkpoint_roundtrip(torch, state, "bert-base")
+
+    # held-out accuracy of the QAT forward beside the fp32 policy (paper
+    # Table I; printed, not gated)
+    accs = {"FQ (QAT)": [], "fp32 policy": []}
+    with torch.no_grad():
+        for i in range(1000, 1010):
+            batch = sst2_batch(torch, cfg.vocab_size, i, b, s)
+            for name, c in (("FQ (QAT)", cfg), ("fp32 policy", dataclasses.replace(
+                    cfg, quant=POLICY_FP32))):
+                lg, _, _ = B.bert_classify(c, state.params, state.amax, batch["tokens"],
+                                           batch["mask"])
+                accs[name].append(float((lg.argmax(-1) == batch["labels"]).float().mean()))
+    print("  bert-base held-out accuracy (10 batches): "
+          + ", ".join(f"{k} {np.mean(v):.3f}" for k, v in accs.items()))
+
+    # the trained backbone, folded with the trained EMA amax, served as integers
+    amax = {k: state.amax[k] for k in ("blocks", "embed_out", "head_in")}
+    folded = S.prepare_folded(cfg, F.fold_params(cfg, state.params["backbone"], amax))
+    rng = np.random.default_rng(SEED + 1)
+    want = {"quant_softmax": BERT_LAUNCHES["quant_softmax"], "int4_matmul": BERT_LAUNCHES["gemm"],
+            "quant_layernorm": BERT_LAUNCHES["quant_layernorm"]}
+    out = {}
+    for fb, fs in ((1, 128), (8, 512)):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (fb, fs)).astype(np.int32),
+                               device="cuda")
+        before = dict(guard.n)
+        logits, launches = bert_forward_once(torch, S, cfg, folded, toks, kernels)
+        # BERT's bidirectional rows are the ref datapath's materialized
+        # attention by design (its products have no TPU kernel); no plain
+        # version of a kernel may run
+        plain = {k: n - before[k] for k, n in guard.n.items() if n != before[k]}
+        check(set(plain) <= {"_attn_rows_q8"},
+              f"trained bert ({fb}, {fs}): plain versions ran on the card: {plain}")
+        check(launches == want, f"trained bert ({fb}, {fs}): launches {launches} != {want}")
+        check_paths(f"trained bert ({fb}, {fs})", cfg, gemm_paths("int4_matmul"), FORWARDS)
+        with guard.paused():
+            os.environ["REPRO_TORCH_KERNELS"] = "ref"
+            try:
+                plain, _ = S.serve_forward(cfg, folded, toks)
+            finally:
+                del os.environ["REPRO_TORCH_KERNELS"]
+        torch.cuda.synchronize()
+        differ = int((logits != plain).sum())
+        print(f"  trained bert-base integer forward ({fb}, {fs}): launches {launches}, "
+              f"finite {bool(torch.isfinite(logits).all())}, {differ} of {logits.numel()} "
+              "logits differ from the plain versions' on the card")
+        check(bool(torch.isfinite(logits).all()) and differ == 0,
+              f"trained bert ({fb}, {fs}): the kernels' logits differ from the plain versions'")
+        if (fb, fs) == (1, 128):
+            out = launches
+    del folded, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_yi6b(torch):
+    """yi-6b at its published widths and TRAIN_YI_DEPTH of 32 layers: bf16
+    params, float32 moments, remat, TRAIN_YI_STEPS steps of
+    ``make_train_step`` on one SyntheticLM batch, profiled."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, apply_updates
+    from repro_torch.train import steps as St
+
+    cfg = get_config("yi-6b")
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
+           cfg.param_dtype, cfg.remat) == (4096, 32, 4, 128, 11008, 64000, "bfloat16", True),
+          "yi-6b is not at its published widths")
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_YI_DEPTH)
+    b, s = TRAIN_YI_SHAPE
+    opt = AdamWConfig(lr=3e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    state = St.init_train_state(cfg, gen, opt)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    big = max(tree_leaves(state.params["blocks"]), key=lambda t: t.numel())
+    print(f"  yi-6b ({cfg.n_layers} layers): {n_params / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.1f} s; reckoned: params {_nbytes(state.params) / 2**30:.2f}"
+          f" GiB bf16 + gradients as much + moments {_nbytes(state.opt) / 2**30:.2f} GiB float32 "
+          f"= {(2 * _nbytes(state.params) + _nbytes(state.opt)) / 2**30:.2f} GiB; the largest "
+          f"stacked leaf {tuple(big.shape)} updated one layer at a time "
+          f"({big[0].numel() * 4 / 2**20:.0f} MiB a float32 temporary, "
+          f"{big.numel() * 4 / 2**30:.2f} GiB for the whole leaf); the lm_head's "
+          f"({b}, {s}, {cfg.vocab_size}) float32 logits {b * s * cfg.vocab_size * 4 / 2**30:.2f} "
+          "GiB")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
+    step = St.make_train_step(cfg, opt)
+    losses, gns, walls = [], [], []
+    for i in range(TRAIN_YI_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gns.append(gn)
+        print(f"  yi-6b step {i}: loss {loss:.4f} grad norm {gn:.4f} ({walls[-1] * 1e3:.0f} ms)")
+    ms = float(np.median(walls[1:])) * 1e3
+    print(f"  yi-6b ({b}, {s}) QAT step: median {ms:.0f} ms, {b * s / ms * 1e3:.0f} tokens/s "
+          f"(first step {walls[0] * 1e3:.0f} ms), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gns)),
+          f"yi-6b: a loss or grad norm is not finite: {losses} {gns}")
+    check(losses[-1] < losses[0], f"yi-6b: the loss did not fall ({losses})")
+    profile_steps(torch, lambda: step(state, batch), "yi-6b QAT train step", n=1)
+    _, _, grads = St.lm_loss_and_grads(cfg, state.params, state.amax, batch)
+    profile_steps(torch, lambda: apply_updates(state.params, grads, state.opt, opt),
+                  "of which the AdamW update alone", n=1)
+    del state, grads
+    torch.cuda.empty_cache()
+    return {"ms": ms, "losses": losses}
+
+
+def phase_train(torch, kernels, guard):
+    bert = train_bert(torch, kernels, guard)
+    yi = train_yi6b(torch)
+    return {"bert_launches": bert, "yi6b": yi}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -3352,6 +3600,12 @@ def main() -> int:
     bert = phase_bert(torch)
     print("[check] small bert-base against the CPU")
     phase_small_bert_reference(torch)
+    stamp("bert")
+    print(f"[train] bert-base at full size: {TRAIN_BERT_STEPS} QAT fine-tuning steps at "
+          f"{TRAIN_BERT_SHAPE} on the synthetic SST-2 task, the checkpoint, the fold and the "
+          f"integer forward; yi-6b at its published widths, {TRAIN_YI_DEPTH} of 32 layers, bf16: "
+          f"{TRAIN_YI_STEPS} steps at {TRAIN_YI_SHAPE}")
+    trained = phase_train(torch, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm], guard)
     stamp("all phases")
 
     # launches: each kernel's count on its own main path (yi-6b one-shot
@@ -3378,6 +3632,8 @@ def main() -> int:
             "library_ms": row["library_ms"], "shape": row["shape"],
             **({"launches_mixtral": mixtral["launches"][fn.__name__]}
                if fn.__name__ in mixtral["launches"] else {}),
+            **({"launches_train": trained["bert_launches"][fn.__name__]}
+               if fn.__name__ in trained["bert_launches"] else {}),
             **{f"launches_{arch}": r["launches"][fn.__name__]
                for arch, r in {**recurrent, **frontends}.items() if fn.__name__ in r["launches"]},
             **({"launch_floor_ms": row["launch_floor_ms"]} if "launch_floor_ms" in row else {}),

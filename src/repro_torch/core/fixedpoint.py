@@ -126,3 +126,19 @@ def rsqrt_mantexp(x: torch.Tensor, iters: int = 3) -> Tuple[torch.Tensor, torch.
         t = (m14 * y2) >> 15
         y = (y * (three - t)) >> 15
     return y, s
+
+
+def fixed_rsqrt(x: torch.Tensor, iters: int = 3) -> torch.Tensor:
+    """y ~= 2^14 / sqrt(x) for int32 x >= 1 (the Q14 form)."""
+    y, s = rsqrt_mantexp(x, iters)
+    return _rshift_round(y, s + 1)
+
+
+# --- small Q-format helpers --------------------------------------------------
+
+def to_fixed(x: torch.Tensor, frac_bits: int, dtype=torch.int32) -> torch.Tensor:
+    return torch.round(x * (1 << frac_bits)).to(dtype)
+
+
+def from_fixed(x: torch.Tensor, frac_bits: int) -> torch.Tensor:
+    return x.to(torch.float32) / (1 << frac_bits)

@@ -1,6 +1,7 @@
 """int4 nibble packing — the storage format the kernels stream from memory.
 
-Nibble-planar layout (the paper's Type-A BIM rearrangement): along the
+``pack_int4``: the adjacent-pair layout, codes (..., 2i) and (..., 2i+1) in
+one byte (low nibble, high nibble).  Nibble-planar layout (the paper's Type-A BIM rearrangement): along the
 packed axis, the first half of the codes sits in the LOW nibbles and the
 second half in the HIGH nibbles, so unpacking yields two contiguous int8
 planes with no interleave.  For weights the packed axis is K:
@@ -17,6 +18,38 @@ def _sign_extend_nibble(u4: torch.Tensor) -> torch.Tensor:
     """uint8 holding a nibble in [0,15] -> signed int8 in [-8,7]: (x ^ 8) - 8."""
     x = u4.to(torch.int8)
     return (x ^ 8) - 8
+
+
+def pack_int4(codes: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Signed int4 codes (int8 storage, range [-8, 7]) two per uint8 along
+    ``axis`` (even length; the packed axis has half of it): low nibble =
+    even index, high nibble = odd index."""
+    axis = axis % codes.ndim
+    assert codes.shape[axis] % 2 == 0, "pack axis must be even-sized"
+    c = codes.movedim(axis, -1)
+    lo_u = c[..., 0::2].to(torch.uint8) & 0xF
+    hi_u = (c[..., 1::2].to(torch.uint8) & 0xF) << 4
+    return (lo_u | hi_u).movedim(-1, axis)
+
+
+def unpack_int4(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of ``pack_int4``: uint8 -> sign-extended int8 codes, the axis
+    doubled."""
+    axis = axis % packed.ndim
+    lo = _sign_extend_nibble(packed & 0xF)
+    hi = _sign_extend_nibble((packed >> 4) & 0xF)
+    stacked = torch.stack([lo, hi], dim=axis + 1)  # (..., n, 2, ...)
+    shape = list(packed.shape)
+    shape[axis] *= 2
+    return stacked.reshape(shape)
+
+
+def packed_nbytes(shape, axis: int = -1) -> int:
+    """Bytes of the packed representation of an int4 tensor of ``shape``."""
+    n = 1
+    for i, d in enumerate(shape):
+        n *= d // 2 if i == axis % len(shape) else d
+    return n
 
 
 def pack_int4_planar(codes: torch.Tensor, axis: int = 0) -> torch.Tensor:

@@ -9,9 +9,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import fixedpoint as fxp
+from repro_torch.core import quant as q
 
 FRAC = fxp.RSQRT_FRAC  # Q14 normalized-value domain
 
@@ -52,3 +54,28 @@ def quant_layernorm(x_int: torch.Tensor, p: QLNParams, eps_codes: int = 1) -> to
     acc = n_q * p.gamma_i.to(torch.int32) + p.beta_aligned.to(torch.int32)
     y = fxp.rescale(acc, p.M_out, p.shift_out)
     return torch.clamp(y, -127, 127).to(torch.int8)
+
+
+def fold_layernorm(gamma, beta, s_y: float, subtract_mean: bool = True) -> QLNParams:
+    """Quantize gamma/beta (numpy or tensor leaves) to 8 bits and fold every
+    scale into integer constants (CPU tensors), in float64 as the reference
+    folds them:
+    beta is quantized on its own 8-bit grid, then re-aligned into the
+    accumulator domain (a constant add)."""
+    gamma = np.asarray(gamma, np.float64)
+    s_g = float(q.qmax(8)) / max(float(np.max(np.abs(gamma))), 1e-8)
+    gamma_i = np.clip(np.round(gamma * s_g), -127, 127).astype(np.int8)
+    acc_scale = float(1 << FRAC) * s_g  # accumulator codes per real unit
+    if beta is not None:
+        beta = np.asarray(beta, np.float64)
+        s_b = float(q.qmax(8)) / max(float(np.max(np.abs(beta))), 1e-8)
+        beta_i = np.clip(np.round(beta * s_b), -127, 127)
+        beta_aligned = np.round(beta_i / s_b * acc_scale).astype(np.int64)
+        beta_aligned = np.clip(beta_aligned, -(2**30), 2**30).astype(np.int32)
+    else:
+        beta_aligned = np.zeros_like(gamma_i, dtype=np.int32)
+    M, sh = fxp.quantize_multiplier(s_y / acc_scale)
+    return QLNParams(gamma_i=torch.from_numpy(gamma_i),
+                     beta_aligned=torch.from_numpy(beta_aligned),
+                     M_out=torch.tensor(M, dtype=torch.int32),
+                     shift_out=torch.tensor(sh, dtype=torch.int32), subtract_mean=subtract_mean)

@@ -33,6 +33,13 @@ def make_exp_lut() -> np.ndarray:
     return vals
 
 
+def index_multiplier(s_x: float):
+    """Fixed-point (M, shift) for idx = d / (s_x * DELTA): ``d`` is in code
+    units of the softmax input (real = d / s_x), and dividing by DELTA
+    converts it to table steps."""
+    return fxp.quantize_multiplier(1.0 / (s_x * LUT_DELTA))
+
+
 def quant_softmax(x_int: torch.Tensor, M_idx, shift_idx, lut: torch.Tensor,
                   mask=None, axis: int = -1) -> torch.Tensor:
     """Integer softmax over ``axis``: int32 codes -> int8 Q0.7 probabilities.

@@ -26,6 +26,7 @@ from repro_torch.models import serve_int as S
 from repro_torch.models import transformer as T
 
 
+@torch.no_grad()
 def quickstart(cfg, params: Dict, amax: Dict, tokens: torch.Tensor) -> Dict:
     """Calibrate on ``tokens``, fold, and run the integer forward on them.
     Returns the float and integer logits, their KL (the float model's

@@ -26,6 +26,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve.engine import EngineConfig, Request, make_engine
 
 
+@torch.no_grad()
 def calibrated_folded(cfg, seed: int = 0, calib_tokens=None, device="cuda"):
     """Random float weights from ``seed``, one calibration forward over
     ``calib_tokens``, folded to the integer serving form.  The default

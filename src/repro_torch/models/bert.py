@@ -3,7 +3,10 @@
 
 The float QAT forward of the reference ``models/bert.py``: [CLS] hidden
 state -> pooler (quantization-aware linear) -> tanh -> classifier.  It runs
-as plain PyTorch on any device; the integer serving path has no
+as plain PyTorch on any device; ``bert_classify`` records autograd for the
+fine-tuning step (``train.steps.make_bert_train_step``, each layer
+recomputed in the backward under ``cfg.remat``), ``bert_forward`` is a
+calibration entry (no autograd).  The integer serving path has no
 classifier head (``serve_int.serve_forward`` serves the encoder and its
 LM head).  The paper's operating point is seq 128, batch 1 (config
 ``bert-base``, shape ``paper_128``).
@@ -63,26 +66,24 @@ def bert_forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tenso
                      mask=_mask4(tokens, attn_mask))
 
 
-@torch.no_grad()
 def bert_classify(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor,
                   attn_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Classification forward: pooled [CLS] -> tanh -> classifier.  Returns
     (logits (B, n_classes) float32, obs, aux)."""
-    hidden, obs = forward_hidden(cfg, params["backbone"], _backbone_amax(amax), tokens,
-                                 _mask4(tokens, attn_mask))
+    hidden, obs, aux = forward_hidden(cfg, params["backbone"], _backbone_amax(amax), tokens,
+                                      _mask4(tokens, attn_mask))
     policy = cfg.quant
     pooled, ob_p = L.qdense(hidden[:, 0], params["pooler"]["w"], params["pooler"]["b"],
                             amax["pool_in"], policy)
     logits, ob_c = L.qdense(torch.tanh(pooled), params["classifier"]["w"],
                             params["classifier"]["b"], amax["cls_in"], policy)
     obs = dict(obs, pool_in=ob_p, cls_in=ob_c)
-    return logits.to(torch.float32), obs, torch.zeros((), device=tokens.device)
+    return logits.to(torch.float32), obs, aux
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor,
                    mask: torch.Tensor):
-    """Backbone forward that returns the final hidden states (pre-LM-head)
-    and the observations."""
-    x, obs, _ = T.hidden(cfg, params, amax, tokens, mask=mask)
-    return x, obs
+    """Backbone forward that returns the final hidden states (pre-LM-head),
+    the observations and the aux loss."""
+    return T.hidden(cfg, params, amax, tokens, mask=mask)

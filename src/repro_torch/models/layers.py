@@ -1,12 +1,16 @@
-"""QAT building blocks (calibration forward) for the attention (qk-norm and
-Qwen2-VL's M-RoPE included) and dense MLP subset of the reference
-``models/layers.py``.
+"""QAT building blocks (calibration and training forward) for the attention
+(qk-norm and Qwen2-VL's M-RoPE included) and dense MLP subset of the
+reference ``models/layers.py``.
 
 Conventions as in the reference: params are nested dicts of tensors; every
 activation the integer path quantizes has a *site* whose EMA max arrives in
-``amax[site]`` and whose batch statistic comes back in ``obs[site]``.  The
-port only calibrates, so these are plain forwards (run them under
-``torch.no_grad()``); rounding is half-to-even like ``jnp.round``.
+``amax[site]`` and whose batch statistic comes back in ``obs[site]``.
+Rounding is half-to-even like ``jnp.round``, through the straight-through
+``ste_round``; every maximum the reference takes under ``stop_gradient``
+is taken of a detached tensor here (the sites carry a ``detach``), since
+``torch.abs`` and ``torch.max(x, dim)`` pass other gradients than
+``jnp.abs`` and ``jnp.max`` would at 0 and at ties.  Calibration callers
+run these under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -15,16 +19,27 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qsoftmax import LUT_DELTA
 
 Obs = Dict[str, torch.Tensor]
+ROW_CHUNK = 512  # query rows a chunk of ``attention_qat`` (the reference's)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) when autograd records; a
+    plain call otherwise (calibration)."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _amax_or_obs(amax: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    ob = q.per_tensor_max(x).to(torch.float32)
+    ob = q.per_tensor_max(x.detach()).to(torch.float32)
     return torch.where(amax > 0, amax, ob), ob
 
 
@@ -39,7 +54,8 @@ def qdense(x, w, b, amax_in, policy: QuantPolicy):
     """Quantization-aware linear; returns (y, observed max|x|)."""
     x_q, ob = fake_quant_act(x, amax_in, policy.a_bits, policy.quantize_wa)
     if policy.quantize_wa:
-        w_m = q.per_channel_max(w, axis=-1) if policy.per_channel_w else q.per_tensor_max(w)
+        w_d = w.detach()
+        w_m = q.per_channel_max(w_d, axis=-1) if policy.per_channel_w else q.per_tensor_max(w_d)
         w = q.fake_quant(w, w_m.to(w.dtype), policy.w_bits)
     y = x_q @ w
     if b is not None:
@@ -81,9 +97,9 @@ def qnorm(x, p, policy: QuantPolicy, norm_type: str):
     gamma = p["gamma"]
     beta = p.get("beta")
     if policy.quantize_layernorm:
-        gamma = q.fake_quant(gamma, q.per_tensor_max(gamma).to(gamma.dtype), 8)
+        gamma = q.fake_quant(gamma, q.per_tensor_max(gamma.detach()).to(gamma.dtype), 8)
         if beta is not None:
-            bm = torch.clamp(q.per_tensor_max(beta), min=1e-8)
+            bm = torch.clamp(q.per_tensor_max(beta.detach()), min=1e-8)
             beta = q.fake_quant(beta, bm.to(beta.dtype), 8)
     if norm_type == "layernorm":
         return layernorm(x, gamma, beta if beta is not None else torch.zeros_like(gamma))
@@ -163,17 +179,19 @@ def lut_softmax_qat(logits, s_logit, enabled: bool):
     entries (``xla_row_sum``): its divisions by the constants
     ``LUT_DELTA`` and 255 are multiplications by their float32
     reciprocals, and its row sum follows XLA's order.  A plain ``/`` and
-    ``torch.sum`` move ``round(p * 128)`` by one code at ties."""
+    ``torch.sum`` move ``round(p * 128)`` by one code at ties.  Gradients
+    pass the four rounds straight through, as in the reference."""
     if not enabled:
         return torch.softmax(logits, dim=-1)
     lf = logits.to(torch.float32)
-    lq = torch.round(lf * s_logit) / s_logit
-    m = torch.amax(lq, -1, keepdim=True)
-    idx = torch.clamp(torch.round((m - lq) * q.recip_f32(LUT_DELTA)), 0, 255)
-    num = torch.round(torch.exp(-idx * LUT_DELTA) * 255.0) * q.recip_f32(255.0)
+    lq = q.ste_round(lf * s_logit) / s_logit
+    m = torch.amax(lq.detach(), -1, keepdim=True)
+    # the row maximum's gap is 0, on the clip's lower bound: half its gradient
+    idx = q.clip(q.ste_round((m - lq) * q.recip_f32(LUT_DELTA)), 0.0, 255.0)
+    num = q.ste_round(torch.exp(-idx * LUT_DELTA) * 255.0) * q.recip_f32(255.0)
     num = torch.where(idx >= 255, torch.zeros_like(num), num)
-    den = torch.clamp(xla_row_sum(num)[..., None], min=1e-9)
-    p = torch.round(num / den * 128.0) / 128.0
+    den = torch.maximum(xla_row_sum(num)[..., None], torch.tensor(1e-9, device=num.device))
+    p = q.ste_round(num / den * 128.0) / 128.0
     return p.to(logits.dtype)
 
 
@@ -212,18 +230,33 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
     vg = vh.repeat_interleave(group, dim=2)
     a_q, _ = _amax_or_obs(amax["q"], qh)
     a_k, _ = _amax_or_obs(amax["k"], kh)
-    s_logit = math.sqrt(hd) * q.rdiv(127.0, a_q) * q.rdiv(127.0, a_k)
-    lg = torch.einsum("bqhd,bkhd->bhqk", qh, kg) * q.recip_f32(math.sqrt(hd))
-    if mask is None and cfg.causal:
-        ar = torch.arange(s, device=x.device)
-        mask = ar[None, :] <= ar[:, None]
-        if cfg.sliding_window:
-            mask &= ar[None, :] > ar[:, None] - cfg.sliding_window
-        mask = mask[None, None]
-    if mask is not None:
-        lg = torch.where(mask, lg, torch.full_like(lg, -1e9))
-    pr = lut_softmax_qat(lg, s_logit, policy.quantize_softmax)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", pr, vg).reshape(b, s, nh * hd)
+    s_logit = (math.sqrt(hd) * q.rdiv(127.0, a_q) * q.rdiv(127.0, a_k)).detach()
+
+    def rows(q_rows, row0: int, row_mask):
+        """Full-row LUT softmax for a block of query rows (the paper's
+        Softmax Core granularity): (B, Cq, H, hd) -> (B, Cq, H*hd)."""
+        cq = q_rows.shape[1]
+        lg = torch.einsum("bqhd,bkhd->bhqk", q_rows, kg) * q.recip_f32(math.sqrt(hd))
+        if row_mask is None and cfg.causal:
+            qpos = row0 + torch.arange(cq, device=x.device)[:, None]
+            kpos = torch.arange(s, device=x.device)[None, :]
+            row_mask = kpos <= qpos
+            if cfg.sliding_window:
+                row_mask &= kpos > qpos - cfg.sliding_window
+            row_mask = row_mask[None, None]
+        if row_mask is not None:
+            lg = torch.where(row_mask, lg, torch.full_like(lg, -1e9))
+        pr = lut_softmax_qat(lg, s_logit, policy.quantize_softmax)
+        return torch.einsum("bhqk,bkhd->bqhd", pr, vg).reshape(b, cq, nh * hd)
+
+    # rows are independent (each sees every key), so chunks of query rows
+    # give the same result; recomputed in the backward, a chunk's (B, H,
+    # ROW_CHUNK, S) float32 chain is all a layer holds at once
+    if s > ROW_CHUNK and s % ROW_CHUNK == 0 and mask is None:
+        ctx = torch.cat([remat(rows, qh[:, i:i + ROW_CHUNK], i, None)
+                         for i in range(0, s, ROW_CHUNK)], 1)
+    else:
+        ctx = rows(qh, 0, mask)
     out, obs["attn_out_in"] = qdense(ctx, p["wo"], p.get("bo"), amax["attn_out_in"], policy)
     return out, obs
 

@@ -1,5 +1,7 @@
-"""Mixture-of-Experts layer (GShard-style capacity dispatch) for the
-calibration forward, and the routing the integer forward shares.
+"""Mixture-of-Experts layer (GShard-style capacity dispatch) for the QAT
+forward (calibration and training), and the routing the integer forward
+shares; its load-balancing loss reaches the training loss (``train.steps.
+lm_loss``).
 
 A copy in torch of the reference ``models/moe.py``.  Router logits stay
 float32; each token's top-k experts take it in the order the tokens come,
@@ -107,7 +109,7 @@ def _expert_ffn_qat(xe, p, amax, policy: QuantPolicy, prefix: str):
     def fq_w(w):
         if not policy.quantize_wa:
             return w
-        return q.fake_quant(w, q.per_tensor_max(w).to(w.dtype), policy.w_bits)
+        return q.fake_quant(w, q.per_tensor_max(w.detach()).to(w.dtype), policy.w_bits)
 
     def fq(x, site):
         return fake_quant_act(x, amax[f"{prefix}_{site}"], policy.a_bits, policy.quantize_wa)

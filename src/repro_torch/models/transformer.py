@@ -1,12 +1,18 @@
-"""Config-driven model stack for calibration: embeddings (token, or the
-frontends: summed audio codebooks, precomputed vision-stub embeddings
-prepended) -> super-blocks -> final norm -> LM head(s), for architectures
-whose mixers are attention (qk-norm, M-RoPE and the sliding window
-included), Mamba, mLSTM or sLSTM, with a dense, MoE or no feed-forward.
+"""Config-driven QAT model stack (calibration and training): embeddings
+(token, or the frontends: summed audio codebooks, precomputed vision-stub
+embeddings prepended) -> super-blocks -> final norm -> LM head(s), for
+architectures whose mixers are attention (qk-norm, M-RoPE and the sliding
+window included), Mamba, mLSTM or sLSTM, with a dense, MoE or no
+feed-forward.
 
 Params and amax state keep the reference's stacked layout, (n_reps, ...)
 on the leading axis, so the fold and the tests see the same trees; depth
-is a Python loop over reps in place of ``lax.scan``.
+is a Python loop over reps in place of ``lax.scan``.  ``forward`` and
+``hidden`` record autograd when the caller does: calibration callers wrap
+them in ``torch.no_grad()``.  With ``cfg.remat`` each super-block's
+activations are recomputed in the backward (``layers.remat``), and with
+``cfg.remat_groups`` > 1 also each group of super-blocks, as the
+reference's two ``jax.checkpoint`` levels.
 """
 from __future__ import annotations
 
@@ -50,6 +56,23 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts in key order (anything but a dict is a leaf)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+
+
+def tree_unflatten(like, leaves):
+    """Nested dicts shaped as ``like`` holding ``leaves`` in key order."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(v) for k, v in t.items()} if isinstance(t, dict) else next(it)
+
+    return build(like)
 
 
 def tree_index(tree, i: int):
@@ -215,6 +238,29 @@ def init_amax(cfg: ModelConfig, device="cuda") -> Dict:
 
 # --- forward -------------------------------------------------------------------
 
+CHUNK_TOKENS = 4096  # token-chunk size for the (token-parallel) dense MLP
+
+
+def _chunked_mlp(x, p, amax, policy, act):
+    """Token-chunked QAT MLP, as the reference's: rows are independent, so
+    chunks of 512 positions (each with the whole batch) cap the live
+    (tokens, d_ff) fake-quant chain, recomputed in the backward; each site's
+    observation is the max over the chunks (each chunk falls back to its
+    own batch statistic where the site's EMA is still 0, as in the
+    reference)."""
+    b, s, d = x.shape
+    c = 512
+    if b * s <= 2 * CHUNK_TOKENS or s % c != 0 or s <= c:
+        return L.mlp_qat(x, p, amax, policy, act)
+    ys, obs_c = [], []
+    for i in range(0, s, c):
+        y, o = L.remat(L.mlp_qat, x[:, i:i + c], p, amax, policy, act)
+        ys.append(y)
+        obs_c.append(o)
+    obs = {k: torch.stack([o[k] for o in obs_c]).amax(0) for k in obs_c[0]}
+    return torch.cat(ys, 1), obs
+
+
 def _apply_slot(cfg, mixer, ffn, x, p, amax, pos, mask):
     """One slot -> (x, obs, aux loss of its MoE, 0 without one)."""
     policy = cfg.quant
@@ -234,7 +280,7 @@ def _apply_slot(cfg, mixer, ffn, x, p, amax, pos, mask):
     if ffn != "none":
         h = L.qnorm(x, p["norm2"], policy, cfg.norm_type)
         if ffn == "dense":
-            out, o = L.mlp_qat(h, p["mlp"], amax, policy, cfg.act)
+            out, o = _chunked_mlp(h, p["mlp"], amax, policy, cfg.act)
         else:
             out, o, aux = Moe.moe_qat(h, p["moe"], amax, policy, cfg)
         obs.update(o)
@@ -242,12 +288,11 @@ def _apply_slot(cfg, mixer, ffn, x, p, amax, pos, mask):
     return x, obs, aux
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
             mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None,
             extra_embeds: Optional[torch.Tensor] = None,
             pos3: Optional[torch.Tensor] = None):
-    """QAT (calibration) forward (arguments as ``hidden``).  Returns
+    """QAT forward (arguments as ``hidden``).  Returns
     (logits (B, S, V), or (B, K, S, V) for K LM heads; the obs tree matching
     ``init_amax``; aux_loss summed over the MoE slots)."""
     x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos,
@@ -263,18 +308,20 @@ def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
 
 def embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids (B, S), or an audio arch's (B, K, S) codebook codes summed
-    over the K codebooks in order -> float embeddings (B, S, d)."""
+    over the K codebooks in order -> float embeddings (B, S, d).  A lookup
+    by ``F.embedding``, whose backward sums a repeated token's gradients in
+    a fixed order (an indexing's backward on the CPU does not: the resumed
+    run must equal the uninterrupted one bit for bit)."""
     if cfg.frontend != "audio_codebooks":
-        return params["embed"]["tokens"][tokens.long()]
+        return torch.nn.functional.embedding(tokens.long(), params["embed"]["tokens"])
     books = params["embed"]["codebooks"]
     x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model), dtype=books.dtype,
                     device=books.device)
     for ci in range(cfg.n_codebooks):
-        x = x + books[ci][tokens[:, ci].long()]
+        x = x + torch.nn.functional.embedding(tokens[:, ci].long(), books[ci])
     return x
 
 
-@torch.no_grad()
 def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
            mask: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None,
            extra_embeds: Optional[torch.Tensor] = None,
@@ -300,16 +347,39 @@ def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
     if mask is None and not cfg.causal:
         mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=x.device)
     kinds = slot_kinds(cfg)
-    per_rep = []
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.n_reps):
+
+    def rep_body(x, aux_sum, r):
+        """Super-block ``r``: every slot of the pattern once."""
         obs_rep = {}
         for i, (mixer, ffn) in enumerate(kinds):
             x, obs_rep[f"slot{i}"], aux = _apply_slot(
                 cfg, mixer, ffn, x, tree_index(params["blocks"][f"slot{i}"], r),
                 tree_index(amax["blocks"][f"slot{i}"], r), pos, mask)
-            aux_total = aux_total + aux
-        per_rep.append(obs_rep)
+            aux_sum = aux_sum + aux
+        return x, aux_sum, obs_rep
+
+    def body(x, aux_sum, r):
+        return L.remat(rep_body, x, aux_sum, r) if cfg.remat else rep_body(x, aux_sum, r)
+
+    def group_body(x, aux_sum, r0, n):
+        obs_g = []
+        for r in range(r0, r0 + n):
+            x, aux_sum, o = body(x, aux_sum, r)
+            obs_g.append(o)
+        return x, aux_sum, obs_g
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    g = cfg.remat_groups
+    if g > 1 and cfg.n_reps % g == 0:
+        # two-level (sqrt-L) checkpointing: only the group boundaries keep
+        # their input; the backward recomputes one group at a time
+        per = cfg.n_reps // g
+        per_rep = []
+        for r0 in range(0, cfg.n_reps, per):
+            x, aux_total, o = L.remat(group_body, x, aux_total, r0, per)
+            per_rep += o
+    else:
+        x, aux_total, per_rep = group_body(x, aux_total, 0, cfg.n_reps)
     x = L.qnorm(x, params["final_norm"], policy, cfg.norm_type)
     x, obs_head = L.fake_quant_act(x, amax["head_in"], policy.a_bits, policy.quantize_wa)
     return x, {"blocks": tree_stack(per_rep), "embed_out": obs_embed,

@@ -39,7 +39,7 @@ from repro_torch.kernels.prefill_attention import (
 from repro_torch.kernels.quant_layernorm import quant_layernorm
 from repro_torch.kernels.quant_softmax import quant_softmax
 from repro_torch.launch.serve import calibrated_folded
-from repro_torch.models.transformer import tree_map
+from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serve.engine import Engine, EngineConfig, LockstepEngine, Request
 
 ENGINE_KERNELS = (int4_matmul, quant_layernorm, paged_prefill_qattention,
@@ -1692,3 +1692,112 @@ def test_small_frontend_arch_on_card_gives_the_cpu_tokens(cuda, arch, monkeypatc
     assert got == want
     assert all(torch.isfinite(g).all() and g.shape == w.shape
                for g, w in zip(got_logits, want_logits))
+
+
+# --- training: the QAT step on the card ----------------------------------------
+
+def _train_state_to(state, device):
+    from repro_torch.train import steps as St
+
+    return St.TrainState(tree_map(lambda t: t.to(device), state.params),
+                         tree_map(lambda t: t.to(device), state.opt),
+                         tree_map(lambda t: t.to(device), state.amax), state.step.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_train_fake_quant_gradient_on_card_equals_cpu(cuda, bits):
+    """``ste_round`` and ``fake_quant`` give the same values and gradients
+    on the card as on the CPU, elements on the clip's bounds (half the
+    gradient) included."""
+    from repro_torch.core import quant as q
+
+    rng = np.random.default_rng(bits)
+    x = rng.normal(0, 1, (257, 129)).astype(np.float32)
+    x[0, :5] = [-2.0, -1.0, 0.3, 1.0, 2.0]
+    x = np.clip(x, -2.0, 2.0)                       # many elements on the bounds
+    w = rng.normal(0, 1, x.shape).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        y = q.fake_quant(xt, torch.tensor(2.0, device=dev), bits)
+        (y * torch.from_numpy(w).to(dev)).sum().backward()
+        r = torch.from_numpy(x * 3.7).to(dev).requires_grad_(True)
+        z = q.ste_round(r)
+        z.sum().backward()
+        out[str(dev)] = (y.detach().cpu(), xt.grad.cpu(), z.detach().cpu(), r.grad.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)], strict=True):
+        assert torch.equal(a, b)
+    assert out["cpu"][1][0, 0] == 0.5 * w[0, 0] and out["cpu"][1][0, 4] == 0.5 * w[0, 4]
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One smoke yi-6b train step on the card against the same step on the
+    CPU (TF32 off, as PyTorch's default).  A float product summed in
+    another order flips activation codes (the first run on the H100 moved
+    the grad norm by 1.6e-4 of itself), so the step is held as the CPU
+    tests hold an arch across such an island: loss and grad norm at rtol
+    1e-3, the gradients (the first moments, (1 - b1) clip g) within 5e-2
+    of their norm, every new param within 2 x lr (an AdamW step's reach),
+    the new amax at rtol 5e-2; every difference printed."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as St
+
+    cfg = smoke_config("yi-6b")
+    opt = AdamWConfig(lr=1e-3)
+    state = St.init_train_state(cfg, torch.Generator().manual_seed(0), opt)
+    batch = {k: torch.as_tensor(v)
+             for k, v in SyntheticLM(cfg.vocab_size, 32, 2).batch_at(0).items()}
+    step = St.make_train_step(cfg, opt)
+    want, wm = step(state, batch)
+    got, gm = step(_train_state_to(state, cuda), {k: v.to(cuda) for k, v in batch.items()})
+    pairs = {name: list(zip(tree_leaves(getattr(want, name) if name != "m" else want.opt["m"]),
+                            tree_leaves(getattr(got, name) if name != "m" else got.opt["m"]),
+                            strict=True)) for name in ("params", "m", "amax")}
+    grad_rel = (sum(float(((b.cpu() - a) ** 2).sum()) for a, b in pairs["m"])
+                / sum(float((a ** 2).sum()) for a, _ in pairs["m"])) ** 0.5
+    param_max = max(float((a - b.cpu()).abs().max()) for a, b in pairs["params"])
+    amax_rel = max(float(((b.cpu() - a).abs() / a.abs().clamp(min=1e-30)).max())
+                   for a, b in pairs["amax"])
+    for k in ("loss", "grad_norm"):
+        print(f"  {k}: CPU {float(wm[k])!r}, card {float(gm[k])!r}")
+    print(f"  gradients: difference norm {grad_rel:.3g} of the norm; new params: max |diff| "
+          f"{param_max / opt.lr:.3g} x lr; new amax: worst relative difference {amax_rel:.3g}")
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), rtol=1e-3)
+    assert grad_rel <= 5e-2
+    assert param_max <= 2 * opt.lr + 1e-6
+    assert amax_rel <= 5e-2
+    assert int(got.step) == 1
+
+
+@pytest.mark.cuda
+def test_train_bf16_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    """A bf16 TrainState on the card (float32 moments) after a step at S =
+    1,024 (rows chunked and each layer recomputed in the backward): saved
+    and restored, every leaf equal bit for bit, on the card, in its dtype."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import steps as St
+
+    cfg = dataclasses.replace(smoke_config("yi-6b"), param_dtype="bfloat16", remat=True)
+    opt = AdamWConfig(lr=1e-3)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    state = St.init_train_state(cfg, gen, opt)
+    batch = {k: torch.as_tensor(v, device=cuda)
+             for k, v in SyntheticLM(cfg.vocab_size, 1024, 2).batch_at(0).items()}
+    state, m = St.make_train_step(cfg, opt)(state, batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert state.params["embed"]["tokens"].dtype == torch.bfloat16
+    assert state.opt["m"]["embed"]["tokens"].dtype == torch.float32
+    ck.save(tmp_path, 1, state, meta={"data_step": 1})
+    back, meta = ck.restore(tmp_path, 1, state)
+    assert meta == {"data_step": 1}
+    for (path, a), (_, b) in zip(ck._paths(state), ck._paths(back), strict=True):
+        assert a.dtype == b.dtype and b.device.type == "cuda" and torch.equal(a, b), path
