@@ -121,7 +121,7 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    its published widths (d 8192, 64 heads, 8 KV heads, d_ff 24,576, vocab
    65,536, Mamba d_state 16) at 8 of 72 layers with ``n_experts=0``, each
    calibrated and folded on the card (time, GiB and the float32 weight
-   cache of the weight-only linears printed), 8 requests of 16-128 prompt
+   cache of the weight-only linears printed), 8 requests of 8-64 prompt
    tokens and 32 new through ``make_engine`` (``auto``: the contiguous
    layout, every prompt through the batch-1 decode loop), gated on the
    counters, the launches per forward (``quant_layernorm`` 49 / 17,
@@ -186,7 +186,14 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    ``make_train_step`` on one ``SyntheticLM`` batch at (4, 1,024) (loss and
    grad norm each step, all finite, the last loss below the first; ms per
    step, tokens/s, peak memory, the memory reckoned before the run), a step
-   and the AdamW update profiled.
+   and the AdamW update profiled; xlstm-1.3b at full size (48 layers: 6
+   sLSTM + 42 mLSTM, d 2,048, bf16 params, float32 moments, remat) takes 3
+   steps at (2, 1,024) on one ``SyntheticLM`` batch (S crosses the
+   mLSTM's 512-row chunks, each sLSTM layer loops 1,024 times; loss and
+   grad norm each step, finite, the last loss below the first; ms per step,
+   tokens/s, peak memory, the state reckoned before the run), a step
+   profiled and one sLSTM layer's loop (forward, recompute, backward)
+   timed alone for its share of the step.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
 on the served path and in ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
@@ -199,6 +206,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pathlib
@@ -1101,17 +1109,32 @@ def _prompts(vocab: int):
     return out
 
 
-def profile_steps(torch, step, what: str, n: int = 3, experts: bool = False):
+def device_rows(torch, prof) -> list:
+    """(device us, count, name) for each kernel name of a finished
+    torch.profiler run, summed over its raw device events:
+    ``key_averages()`` parses every event into Python objects first, which
+    takes minutes for a training step's 10^6 kernels."""
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            us, count = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    return [(us, count, name) for name, (us, count) in sums.items()]
+
+
+def profile_steps(torch, step, what: str, n: int = 3, experts: bool = False,
+                  wall_ms: float | None = None):
     """Where the time of ``step()`` goes: ``n`` calls on the host clock
-    (each ending in a synchronise) and ``n`` under torch.profiler (device
+    (each ending in a synchronise; or ``wall_ms``, an unprofiled call's
+    time the caller measured) and ``n`` under torch.profiler (device
     activity only); prints the device's busy share of an unprofiled call
     and device time by kernel.  ``experts``: then the routed and shared
     experts' share of the integer GEMMs' device time
     (``expert_gemm_share``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    walls = []
-    for _ in range(n):
+    walls = [] if wall_ms is None else [wall_ms / 1e3]
+    for _ in range(n if wall_ms is None else 0):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1120,8 +1143,7 @@ def profile_steps(torch, step, what: str, n: int = 3, experts: bool = False):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+    rows = device_rows(torch, prof)
     wall_ms = float(np.median(walls)) * 1e3
     busy_ms = sum(r[0] for r in rows) / n / 1e3
     if not rows:
@@ -2409,10 +2431,10 @@ def phase_small_mixtral(torch):
             os.environ["REPRO_TORCH_KERNELS"] = prev
 
 
-# the recurrent archs' requests: 8 prompts of 16-128 tokens (every prompt
+# the recurrent archs' requests: 8 prompts of 8-64 tokens (every prompt
 # token is one batch-1 forward of the decode-loop prefill), 32 new tokens
 # each, on 8 slots of max_len 256
-RECURRENT_LENS = (16, 128, 24, 40, 16, 32, 64, 20)
+RECURRENT_LENS = (8, 64, 12, 20, 8, 16, 32, 10)
 RECURRENT_MAX_LEN = 256
 JAMBA_DEPTH = 8        # of 72 layers: one super-block, see phase_recurrent
 DUAL_FORM_TOL = dict(atol=2e-3, rtol=2e-2)   # the reference's dual-form bound
@@ -3207,6 +3229,8 @@ TRAIN_BERT_SHAPE = (32, 128)
 TRAIN_YI_DEPTH = 8          # of 32 layers
 TRAIN_YI_SHAPE = (4, 1024)
 TRAIN_YI_STEPS = 5
+TRAIN_XLSTM_SHAPE = (2, 1024)
+TRAIN_XLSTM_STEPS = 3
 
 
 def sst2_batch(torch, vocab: int, step: int, b: int, s: int) -> dict:
@@ -3424,10 +3448,113 @@ def train_yi6b(torch):
     return {"ms": ms, "losses": losses}
 
 
+def slstm_loop_ms(torch, cfg, params, s: int):
+    """One sLSTM layer's loop at the step's shapes, on the trained slot-0
+    recurrent matrix: wall and device ms of a forward, its recomputation
+    and the backward (what a remat step runs per sLSTM layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import xlstm as Xl
+
+    b, d = TRAIN_XLSTM_SHAPE[0], cfg.d_model
+    r = params["blocks"]["slot0"]["mixer"]["r"][0].to(torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    gates = [torch.randn((b, s, d), generator=gen, device="cuda").requires_grad_(True)
+             for _ in range(4)]
+
+    def run():
+        with torch.no_grad():
+            Xl.slstm_scan(*gates, r, cfg.n_heads)          # the recomputation's twin
+        hs, _ = Xl.slstm_scan(*gates, r, cfg.n_heads)
+        hs.sum().backward()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = sum(us for us, _, _ in device_rows(torch, prof)) / 1e3
+    return wall, busy
+
+
+def train_xlstm(torch):
+    """xlstm-1.3b at its full published size: bf16 params, float32 moments,
+    remat, TRAIN_XLSTM_STEPS steps of ``make_train_step`` on one SyntheticLM
+    batch at TRAIN_XLSTM_SHAPE, a step profiled and the sLSTM loop's share
+    of it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as St
+
+    cfg = get_config("xlstm-1.3b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.pattern, cfg.vocab_size, cfg.param_dtype,
+           cfg.remat) == (48, 2048, 4, ("s",) + ("x",) * 7, 50304, "bfloat16", True),
+          "xlstm-1.3b is not at its full published size")
+    b, s = TRAIN_XLSTM_SHAPE
+    opt = AdamWConfig(lr=3e-4)
+    check(not opt.quantize_moments, "xlstm-1.3b: the moments must be float32")
+    gc.collect()                 # an earlier phase's state held only by reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"  before xlstm-1.3b's init: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    state = St.init_train_state(cfg, gen, opt)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"  xlstm-1.3b ({cfg.n_layers} layers): {n_params / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.1f} s; reckoned: params {_nbytes(state.params) / 2**30:.2f}"
+          f" GiB bf16 + gradients as much + moments {_nbytes(state.opt) / 2**30:.2f} GiB float32 "
+          f"= {(2 * _nbytes(state.params) + _nbytes(state.opt)) / 2**30:.2f} GiB; the lm_head's "
+          f"({b}, {s}, {cfg.vocab_size}) float32 logits {b * s * cfg.vocab_size * 4 / 2**30:.2f} "
+          "GiB")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
+    step = St.make_train_step(cfg, opt)
+    losses, gns, walls = [], [], []
+    for i in range(TRAIN_XLSTM_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gns.append(gn)
+        print(f"  xlstm-1.3b step {i}: loss {loss:.4f} grad norm {gn:.4f} "
+              f"({walls[-1] * 1e3:.0f} ms)")
+    ms = float(np.median(walls)) * 1e3
+    print(f"  xlstm-1.3b ({b}, {s}) QAT step: median {ms:.0f} ms, {b * s / ms * 1e3:.0f} "
+          f"tokens/s (first step {walls[0] * 1e3:.0f} ms), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gns)),
+          f"xlstm-1.3b: a loss or grad norm is not finite: {losses} {gns}")
+    check(losses[-1] < losses[0], f"xlstm-1.3b: the loss did not fall ({losses})")
+    wall, busy = slstm_loop_ms(torch, cfg, state.params, s)
+    n_s = cfg.n_reps * cfg.pattern.count("s")
+    print(f"  one sLSTM layer's loop over {s} steps (forward, recompute, backward): "
+          f"{wall:.0f} ms wall, {busy:.1f} ms device; x {n_s} layers = {n_s * wall:.0f} ms "
+          f"wall ({100 * n_s * wall / ms:.1f} % of the median step)")
+    profile_steps(torch, lambda: step(state, batch), "xlstm-1.3b QAT train step", n=1,
+                  wall_ms=ms)
+    del state
+    torch.cuda.empty_cache()
+    return {"ms": ms, "losses": losses, "slstm_ms": n_s * wall}
+
+
 def phase_train(torch, kernels, guard):
     bert = train_bert(torch, kernels, guard)
     yi = train_yi6b(torch)
-    return {"bert_launches": bert, "yi6b": yi}
+    xlstm = train_xlstm(torch)
+    return {"bert_launches": bert, "yi6b": yi, "xlstm": xlstm}
 
 
 def main() -> int:
@@ -3604,7 +3731,8 @@ def main() -> int:
     print(f"[train] bert-base at full size: {TRAIN_BERT_STEPS} QAT fine-tuning steps at "
           f"{TRAIN_BERT_SHAPE} on the synthetic SST-2 task, the checkpoint, the fold and the "
           f"integer forward; yi-6b at its published widths, {TRAIN_YI_DEPTH} of 32 layers, bf16: "
-          f"{TRAIN_YI_STEPS} steps at {TRAIN_YI_SHAPE}")
+          f"{TRAIN_YI_STEPS} steps at {TRAIN_YI_SHAPE}; xlstm-1.3b at full size (6 sLSTM + 42 "
+          f"mLSTM layers), bf16: {TRAIN_XLSTM_STEPS} steps at {TRAIN_XLSTM_SHAPE}")
     trained = phase_train(torch, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm], guard)
     stamp("all phases")
 

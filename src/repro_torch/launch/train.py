@@ -5,8 +5,10 @@
 
 ``--smoke`` uses the reduced same-family config (CPU-runnable); without it
 the full published config trains on the card (``--device cuda``, the
-default).  The reference's mesh flags (``--production-mesh``,
-``--multi-pod``) raise: the mesh is ROADMAP Open items §1, item 8.
+default).  Every arch of ``configs/`` trains, the recurrent ones included
+(``--arch xlstm-1.3b``, ``--arch jamba-1.5-large-398b``).  The reference's
+mesh flags (``--production-mesh``, ``--multi-pod``) raise: the mesh is
+ROADMAP Open items §1, item 8.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.train.trainer import TrainerConfig, train
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="any config of configs/, e.g. yi-6b, xlstm-1.3b, jamba-1.5-large-398b")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)

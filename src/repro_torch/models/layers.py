@@ -149,6 +149,34 @@ def apply_mrope(x, pos3, theta, sections):
 
 # --- quantized-softmax simulator -----------------------------------------------
 
+class _XlaRowSum(torch.autograd.Function):
+    """The ordered sum of ``xla_row_sum``; its gradient is the upstream
+    gradient broadcast over the row, as for any sum (autograd through the
+    window chain would build each element's one-hot gradient in full)."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        ctx.shape = x.shape
+        return _row_sum_ordered(x, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., None].expand(ctx.shape), None
+
+
+def _row_sum_ordered(x: torch.Tensor, window: int) -> torch.Tensor:
+    n = x.shape[-1]
+    if n > window:
+        pad = -n % window
+        x = F.pad(x, (pad // 2, pad - pad // 2))
+        return _row_sum_ordered(_row_sum_ordered(x.reshape(*x.shape[:-1], -1, window), window),
+                                window)
+    s = torch.zeros_like(x[..., 0])
+    for i in range(n):
+        s = s + x[..., i]
+    return s
+
+
 def xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
     """float32 sum over the last axis in the order XLA's CPU backend adds:
     a row longer than ``window`` is zero-padded to a multiple of it (the
@@ -159,16 +187,7 @@ def xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
     entries stays one reduce that XLA fuses with its producers and lets
     LLVM reassociate (8-lane partial sums), which this order does not
     follow: the softmax simulator's float island (ROADMAP §3)."""
-    n = x.shape[-1]
-    if n > window:
-        pad = -n % window
-        x = F.pad(x, (pad // 2, pad - pad // 2))
-        return xla_row_sum(xla_row_sum(x.reshape(*x.shape[:-1], -1, window), window),
-                           window)
-    s = torch.zeros_like(x[..., 0])
-    for i in range(n):
-        s = s + x[..., i]
-    return s
+    return _XlaRowSum.apply(x, window)
 
 
 def lut_softmax_qat(logits, s_logit, enabled: bool):

@@ -1,6 +1,7 @@
 """Mamba-1 selective-SSM block (jamba's hybrid stack) for the calibration
-forward, and the float pieces the integer forward shares: the depthwise
-causal conv, the chunked selective scan and the single-step recurrence.
+and training forward, and the float pieces the integer forward shares: the
+depthwise causal conv, the chunked selective scan and the single-step
+recurrence.
 
 A copy in torch of the reference ``models/mamba.py``.  The projections
 (in/x/dt/out) are fake-quantized like every linear; the scan runs in
@@ -8,8 +9,17 @@ float32.  Within a chunk of ``CHUNK`` rows the scan mirrors
 ``jax.lax.associative_scan``'s combine tree (pairs, then the recursion on
 the odd elements, then the even ones), so the products and sums are the
 reference's, in its order; ``exp``, ``log1p`` and ``sigmoid`` are torch's
-(a counted float island, ROADMAP §3).  ``softplus`` and ``silu`` follow
-JAX's definitions, ``logaddexp(x, 0)`` and ``x * sigmoid(x)``.
+(a counted float island, ROADMAP §3).  As in the reference the outer loop
+over chunks keeps every chunk's activations for the backward (no
+recomputation).
+
+Gradient rules kept (JAX's, where torch's autograd would differ):
+``softplus`` is ``jax.nn.softplus`` = ``logaddexp(x, 0)`` with
+``logaddexp``'s own rule, ``g * exp(x - out)`` (0.5 at x = 0; autograd
+through the forward's ``clamp`` and ``abs`` gives 1 there); ``sigmoid``
+passes ``g * (y * (1 - y))``, ``lax.logistic``'s rule (torch's multiplies
+in another order), and ``silu`` is ``x * sigmoid(x)`` through it, as
+``jax.nn.silu``.
 """
 from __future__ import annotations
 
@@ -25,13 +35,58 @@ CHUNK = 128
 MAMBA_SITES = ("mamba_in", "mamba_conv", "mamba_x", "mamba_out")
 
 
+def softplus_grad(x, out, g, exp=torch.exp):
+    """``logaddexp``'s gradient with respect to x at (x, 0): ``g * exp(x -
+    out)``, with an infinite x or out read as 0 (JAX's ``_replace_inf``):
+    out is infinite only where x is +inf, and the gradient there is g."""
+    return torch.where(x == torch.inf, g, g * exp(x - out))
+
+
+class _Softplus(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return softplus_grad(x, out, g)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``,
+    with ``logaddexp``'s gradient rule (``softplus_grad``)."""
+    return _Softplus.apply(x)
+
+
+def sigmoid_grad(y, g):
+    """``lax.logistic``'s gradient from its output: ``g * (y * (1 - y))``."""
+    return g * (y * (1 - y))
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sigmoid(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return sigmoid_grad(y, g)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``), with its gradient rule
+    (``sigmoid_grad``)."""
+    return _Sigmoid.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    return x * sigmoid(x)
 
 
 def mamba_dims(cfg) -> Tuple[int, int]:

@@ -8,6 +8,20 @@ fake-quantized like every linear; the gates, the recurrences and their
 states stay float32.  ``exp``, ``tanh`` and ``sigmoid`` are torch's (a
 counted float island, ROADMAP §3); ``log_sigmoid`` follows JAX's
 ``-softplus(-x)``.
+
+Gradient rules kept, JAX's (the reference has no ``stop_gradient`` here,
+so every stabilizer passes gradient): ``log_sigmoid`` through
+``mamba.softplus`` (``logaddexp``'s rule) and the gates' ``sigmoid``
+through ``mamba.sigmoid`` (``lax.logistic``'s); ``jabs`` passes the
+gradient whole at 0, as ``jnp.abs`` (``torch.abs`` passes 0 there);
+``torch.amax`` and ``torch.maximum`` split a tie evenly, as ``jnp.max``
+and ``jnp.maximum`` do.  ``tanh``'s is torch's (an island with its
+forward).  The parallel form's row chunks are recomputed in the backward
+(``layers.remat``), as the reference's ``jax.checkpoint``; the sLSTM loop
+keeps every step, as its ``lax.scan``, each step one autograd node
+(``_SlstmStep``).  ``cumsum``'s backward is
+autograd's (a reverse sum in another order than XLA's; measured within
+the tests' bound).
 """
 from __future__ import annotations
 
@@ -18,8 +32,8 @@ import torch
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.layers import Obs, fake_quant_act, qdense, rmsnorm_xla
-from repro_torch.models.mamba import softplus
+from repro_torch.models.layers import Obs, fake_quant_act, qdense, remat, rmsnorm_xla
+from repro_torch.models.mamba import sigmoid, sigmoid_grad, softplus, softplus_grad
 
 MLSTM_SITES = ("mlstm_in", "mlstm_y", "mlstm_out")
 SLSTM_SITES = ("slstm_in", "slstm_y", "slstm_out")
@@ -52,6 +66,24 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return -softplus(-x)
 
 
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def jabs(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs`` with its gradient rule: ``g`` where x >= 0 (0 and -0
+    included), ``-g`` elsewhere."""
+    return _Abs.apply(x)
+
+
 def key_scale(e: int) -> float:
     """The keys' ``1 / sqrt(E)`` as the reference's compiled graphs apply
     it: its ``/ sqrt(E)`` sits inside a scanned body, where XLA turns the
@@ -69,8 +101,8 @@ def mlstm_parallel(qh, kh, vh, gi, logf):
     """The stabilized parallel mLSTM: qh/kh/vh (B, S, H, E); gi/logf
     (B, S, H) -> (B, S, H, E).  Rows need only their own cumulative log
     forget gate, so a sequence longer than ``PARALLEL_CHUNK`` rows (and a
-    multiple of it) runs in chunks of that many query rows, as in the
-    reference."""
+    multiple of it) runs in chunks of that many query rows, each recomputed
+    in the backward, as in the reference."""
     b, s, nh, _ = qh.shape
     a = cumsum(logf)                                                 # (B, S, H)
     kpos = torch.arange(s, device=qh.device)[None, :]
@@ -83,12 +115,12 @@ def mlstm_parallel(qh, kh, vh, gi, logf):
         m = torch.amax(logd, dim=2, keepdim=True)                    # (B, cq, 1, H)
         dmat = torch.exp(logd - m)
         sc = torch.einsum("bqhe,bkhe->bqkh", q_rows, kh) * dmat
-        nrm = torch.maximum(torch.abs(sc.sum(2)), torch.exp(-m[:, :, 0]))
+        nrm = torch.maximum(jabs(sc.sum(2)), torch.exp(-m[:, :, 0]))
         return torch.einsum("bqkh,bkhe->bqhe", sc, vh) / nrm[..., None]
 
     if s > PARALLEL_CHUNK and s % PARALLEL_CHUNK == 0:
-        return torch.cat([rows(qh[:, r0:r0 + PARALLEL_CHUNK], a[:, r0:r0 + PARALLEL_CHUNK],
-                               r0, PARALLEL_CHUNK)
+        return torch.cat([remat(rows, qh[:, r0:r0 + PARALLEL_CHUNK],
+                                a[:, r0:r0 + PARALLEL_CHUNK], r0, PARALLEL_CHUNK)
                           for r0 in range(0, s, PARALLEL_CHUNK)], 1)
     return rows(qh, a, 0, s)
 
@@ -105,7 +137,7 @@ def mlstm_step(qh, kh, vh, gi, logf, state: Dict):
     C = fdec[..., None] * state["C"] + iinc[..., None] * (kt[..., :, None] * vt[..., None, :])
     nvec = fdec * state["n"] + iinc * kt
     num = torch.einsum("bhe,bhef->bhf", qt, C)
-    den = torch.maximum(torch.abs(torch.sum(nvec * qt, -1)), torch.exp(-m_new))
+    den = torch.maximum(jabs(torch.sum(nvec * qt, -1)), torch.exp(-m_new))
     return (num / den[..., None])[:, None], {"C": C, "n": nvec, "m": m_new}
 
 
@@ -131,18 +163,91 @@ def mlstm_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy, cfg,
     else:
         y, new_state = mlstm_step(qh, kh, vh, gi, logf, state)
     y = y.reshape(b, s, d).to(x.dtype)
-    og = torch.sigmoid(x @ p["w_og"] + p["b_og"])
+    og = sigmoid(x @ p["w_og"] + p["b_og"])
     y = rmsnorm_xla(y, p["ln_y"]) * og
     y, obs["mlstm_y"] = fake_quant_act(y, amax["mlstm_y"], policy.a_bits, policy.quantize_wa)
     out, obs["mlstm_out"] = qdense(y, p["wo"], None, amax["mlstm_out"], policy)
     return out, obs, new_state
 
 
+def _max_split(a, b, g):
+    """``jnp.maximum``'s (and ``torch.maximum``'s) gradient of max(a, b):
+    (to a, to b), a tie split evenly."""
+    half, tie, a_wins = g / 2, a == b, a > b
+    return (torch.where(tie, half, torch.where(a_wins, g, 0.0)),
+            torch.where(tie, half, torch.where(a_wins, 0.0, g)))
+
+
+def _recurrent(h, r):
+    """``einsum("bhe,hef->bhf", h, r)``, the heads as the batch of a bmm."""
+    return torch.bmm(h.transpose(0, 1), r).transpose(0, 1)
+
+
+class _SlstmStep(torch.autograd.Function):
+    """One sLSTM step: (h, the recurrent matrix r, the step's four gate
+    pre-activations, c, n, m) -> (c, n, h, m).  The forward is the
+    reference's step op for op; the backward is its chain rule written out
+    in one call under JAX's rules (``mamba.sigmoid_grad``,
+    ``mamba.softplus_grad`` for ``log_sigmoid``, ties split evenly;
+    ``tanh``'s as torch's autograd), so a step records one autograd node in
+    place of some thirty: the loop is host-bound on the card (1,024 steps a
+    layer at S = 1,024)."""
+
+    @staticmethod
+    def forward(ctx, h, r, zi, ii, ff, oo, c, n, m):
+        rz, ri, rf, ro = torch.chunk(_recurrent(h, r), 4, dim=-1)
+        z = torch.tanh(zi + rz)
+        it = ii + ri
+        ft = ff + rf
+        o = torch.sigmoid(oo + ro)
+        u = -ft
+        sp = torch.clamp(u, min=0) + torch.log1p(torch.exp(-torch.abs(u)))
+        lm = -sp + m
+        m_new = torch.maximum(lm, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(lm - m_new)
+        c_new = f_p * c + i_p * z
+        nn = f_p * n + i_p
+        en = torch.exp(-m_new)
+        n_new = torch.maximum(nn, en)
+        q = c_new / n_new
+        h_new = o * q
+        ctx.save_for_backward(h, r, z, it, o, u, sp, lm, i_p, f_p, c, n, c_new, nn, en,
+                              n_new, q)
+        return c_new, n_new, h_new, m_new
+
+    @staticmethod
+    def backward(ctx, g_c, g_n, g_h, g_m):
+        h, r, z, it, o, u, sp, lm, i_p, f_p, c, n, c_new, nn, en, n_new, q = ctx.saved_tensors
+        g_op = sigmoid_grad(o, g_h * q)
+        g_q = g_h * o
+        g_c = g_c + g_q / n_new
+        g_n = g_n + -g_q * c_new / (n_new * n_new)
+        g_nn, g_en = _max_split(nn, en, g_n)
+        g_m = g_m - g_en * en
+        g_fp = g_nn * n + g_c * c
+        g_ip = g_nn + g_c * z
+        g_zp = g_c * i_p * (1 - z * z)
+        g_e = g_ip * i_p
+        g_lm = g_fp * f_p
+        g_m = g_m - g_e - g_lm
+        g_lm_max, g_it_max = _max_split(lm, it, g_m)
+        g_lm = g_lm + g_lm_max
+        g_it = g_e + g_it_max
+        g_ft = softplus_grad(u, sp, g_lm)
+        g_rec = torch.cat([g_zp, g_it, g_ft, g_op], -1).transpose(0, 1)     # (H, B, 4 dh)
+        g_h = torch.bmm(g_rec, r.transpose(1, 2)).transpose(0, 1)
+        g_r = torch.bmm(h.transpose(0, 1).transpose(1, 2), g_rec)
+        return g_h, g_r, g_zp, g_it, g_ft, g_op, g_c * f_p, g_nn * f_p, g_lm
+
+
 def slstm_scan(zi, ii, ff, oo, r, nh: int, state: Optional[Dict] = None):
     """The sLSTM recurrence over time: zi/ii/ff/oo (B, S, d) float32 gate
     pre-activations, r (H, dh, 4 dh) the recurrent matrix; ``state`` {c, n,
     h, m} (B, H, dh) each, zeros when None.  Returns (h per step (B, S, d),
-    the final state)."""
+    the final state).  Each step is one ``_SlstmStep``; the gates are split
+    into steps once (``unbind``), so their backward writes each step's rows
+    once."""
     b, s, d = zi.shape
     dh = d // nh
     if state is None:
@@ -151,20 +256,8 @@ def slstm_scan(zi, ii, ff, oo, r, nh: int, state: Optional[Dict] = None):
     else:
         c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
-    for t in range(s):
-        rz, ri, rf, ro = torch.chunk(torch.einsum("bhe,hef->bhf", h, r), 4, dim=-1)
-        zt = torch.tanh(zi[:, t].reshape(b, nh, dh) + rz)
-        it = ii[:, t].reshape(b, nh, dh) + ri
-        ft = ff[:, t].reshape(b, nh, dh) + rf
-        ot = torch.sigmoid(oo[:, t].reshape(b, nh, dh) + ro)
-        logf = log_sigmoid(ft)
-        m_new = torch.maximum(logf + m, it)
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(logf + m - m_new)
-        c = f_p * c + i_p * zt
-        n = torch.maximum(f_p * n + i_p, torch.exp(-m_new))
-        h = ot * (c / n)
-        m = m_new
+    for zt, it, ft, ot in zip(*(g.reshape(b, s, nh, dh).unbind(1) for g in (zi, ii, ff, oo))):
+        c, n, h, m = _SlstmStep.apply(h, r, zt, it, ft, ot, c, n, m)
         hs.append(h)
     return torch.stack(hs, 1).reshape(b, s, d), {"c": c, "n": n, "h": h, "m": m}
 

@@ -7,8 +7,8 @@ moments) -> EMA update of the activation-calibration tree (paper Eq. 3).
 A step is a function of (state, batch) that returns a new ``TrainState``;
 it modifies no tensor of the state it is given.  The reference's
 ``jit_train_step`` (its shardings and donation) waits for the mesh, ROADMAP
-Open items §1, item 8.  Attention, dense and MoE archs and BERT train here;
-a recurrent mixer (Mamba, mLSTM, sLSTM) raises, ROADMAP §1 item 10b.
+Open items §1, item 8.  Every config trains here: attention, dense, MoE and
+recurrent (Mamba, mLSTM, sLSTM) archs, the frontends and BERT.
 """
 from __future__ import annotations
 
@@ -50,14 +50,6 @@ def init_bert_train_state(cfg: ModelConfig, gen: torch.Generator,
     return TrainState(params=params, opt=adamw.init_state(params, opt_cfg),
                       amax=B.init_bert_amax(cfg, gen.device),
                       step=torch.zeros((), dtype=torch.int32, device=gen.device))
-
-
-def check_trainable(cfg: ModelConfig):
-    mixers = set(cfg.pattern) - {"a"}
-    if mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent mixers ({sorted(mixers)}: Mamba, mLSTM, sLSTM) "
-            "is not ported yet (ROADMAP Open items §1, item 10b)")
 
 
 def _sharded_ce(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
@@ -143,7 +135,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     ce, aux and grad_norm (0-d tensors).  ``accum_steps`` > 1 splits the
     batch into that many microbatches along axis 0 and sums their float32
     gradients; the observations are the max over the microbatches."""
-    check_trainable(cfg)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         if accum_steps == 1:
@@ -189,7 +180,6 @@ def bert_loss(cfg: ModelConfig, params, amax, batch):
 def make_bert_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, ema_decay: float = 0.99):
     """Classification fine-tuning step (the paper's SST-2 setting): batch
     {'tokens', 'mask'?, 'labels'}; metrics loss and acc."""
-    check_trainable(cfg)
 
     def train_step(state: TrainState, batch):
         loss, aux, grads = value_and_grad(lambda p: bert_loss(cfg, p, state.amax, batch),

@@ -21,7 +21,18 @@ Tolerances (stated, every count outside them printed):
   norm then differs by 1.9e-5), and musicgen's and BERT's LayerNorm/MHA
   forward, whose P.V product XLA sums in an order no torch order matches,
   moves codes from the first layer on (loss 9.3e-5 and 3.4e-4
-  apart).  Their looser bounds are in ``ISLAND`` below.
+  apart).  llama3-405b and stablelm-1.6b cross the norms' float island:
+  the port's ``rmsnorm`` / ``layernorm`` sum the mean square in torch's
+  order and take torch's ``rsqrt``, XLA its own, so some norm outputs
+  differ by an ulp, and where the largest one does, a whole site's scale
+  moves (llama3: rep 1's norm1; stablelm: rep 0's norm1).  With the
+  reference's norm outputs injected every slot equals the reference's bit
+  for bit (``test_norms_are_the_first_differing_site``).  Their bounds,
+  written before the test first ran: llama3 (1e-4, 2e-2, 2e-2), stablelm
+  (5e-5, 2e-2, 2e-2); jamba's are explained in ``test_torch_train_jamba.py``.
+  Whether a draw crosses the island is luck: yi-6b holds at 1e-5 with
+  params from seeds 0 and 2 and misses it with seeds 1 and 3 (measured
+  once, not a test).  The looser bounds are in ``ISLAND`` below.
 * The new params: every element within ``PARAM_TOL`` x lr of the
   reference's (an AdamW step moves a param by about lr; where a gradient is
   near 0 its sign, and so the step's, is free).
@@ -68,12 +79,17 @@ KEY = jax.random.PRNGKey(0)
 LR = 1e-3
 PARAM_TOL = 2.0
 SECTIONS = (4, 6, 6)            # qwen2-vl's published (16, 24, 24) at head_dim 32
-# arch -> (loss / grad-norm rtol, gradient rel-to-leaf-max, amax rtol); the
-# norm of the gradients' difference stays within 1e-5 of theirs (islands 5e-2)
+# arch -> (loss / grad-norm rtol, gradient rel-to-leaf-max, amax rtol[, bound on
+# the norm of the gradients' difference over theirs]); that norm stays within
+# 1e-5 of theirs (islands 5e-2 unless a fourth entry says otherwise)
 EXACT = (1e-5, 1e-5, 1e-5)
 ISLAND = {"qwen2-vl-2b": (5e-5, 2e-2, 1e-5),
           "musicgen-medium": (1e-3, 5e-2, 2e-2),
-          "bert-base": (5e-3, 5e-1, 2e-2)}
+          "bert-base": (5e-3, 5e-1, 2e-2),
+          "llama3-405b": (1e-4, 2e-2, 2e-2),
+          "stablelm-1.6b": (5e-5, 2e-2, 2e-2),
+          "jamba-1.5-large-398b/n_experts=0": (5e-5, 2e-2, 2e-2),
+          "jamba-1.5-large-398b": (5e-3, 1.0, 5e-1, 2e-1)}
 
 
 def _np(tree):
@@ -94,7 +110,7 @@ def _flat(tree, prefix=""):
                                else tree, np.float64)}
 
 
-def _held(what, want, got, rel_to_max):
+def _held(what, want, got, rel_to_max, rel_norm=None):
     """Every leaf of ``got`` within ``rel_to_max`` x the leaf's largest
     |element| of ``want``; prints the worst leaf and the elements outside
     1e-5 of it."""
@@ -113,7 +129,7 @@ def _held(what, want, got, rel_to_max):
     print(f"  {what}: worst {worst:.3g} of the leaf's max at {where}; "
           f"{outside} of {total} elements beyond 1e-5; difference norm {rel:.3g} of the norm")
     assert worst <= rel_to_max, (what, where, worst)
-    assert rel <= (1e-5 if rel_to_max <= 1e-5 else 5e-2), (what, rel)
+    assert rel <= (rel_norm or (1e-5 if rel_to_max <= 1e-5 else 5e-2)), (what, rel)
 
 
 def _jinit(jcfg, opt):
@@ -327,11 +343,12 @@ def _extra(arch):
 
 
 def _compare_step(arch, jstate, jnew, jm, tnew, tm):
-    loss_rtol, grad_tol, amax_rtol = ISLAND.get(arch, EXACT)
+    loss_rtol, grad_tol, amax_rtol, *rel_norm = ISLAND.get(arch, EXACT)
     for k in ("loss", "grad_norm"):
         print(f"  {arch} {k}: reference {float(jm[k])!r}, port {float(tm[k])!r}")
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=loss_rtol)
-    _held(f"{arch} gradients ((1 - b1) clip g)", _np(jnew.opt["m"]), tnew.opt["m"], grad_tol)
+    _held(f"{arch} gradients ((1 - b1) clip g)", _np(jnew.opt["m"]), tnew.opt["m"], grad_tol,
+          *rel_norm)
     dp = max(float(np.max(np.abs(_flat(_np(jnew.params))[k] - _flat(tnew.params)[k])))
              for k in _flat(tnew.params))
     print(f"  {arch} new params: max |diff| {dp / LR:.3g} x lr")
@@ -344,7 +361,8 @@ def _compare_step(arch, jstate, jnew, jm, tnew, tm):
     assert int(tnew.step) == 1 and int(tnew.opt["step"]) == 1
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x22b", "qwen2-vl-2b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mixtral-8x22b", "qwen2-vl-2b", "musicgen-medium",
+                                  "llama3-405b", "stablelm-1.6b"])
 def test_train_step_matches_reference(arch):
     jcfg, cfg = j_smoke(arch, **_extra(arch)), smoke_config(arch, **_extra(arch))
     opt, topt = JA.AdamWConfig(lr=LR), A.AdamWConfig(lr=LR)
@@ -503,10 +521,62 @@ def test_token_chunked_mlp_matches_reference():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0.1 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
-def test_recurrent_configs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        St.make_train_step(smoke_config(arch), A.AdamWConfig())
+@pytest.mark.parametrize("arch", ["llama3-405b", "stablelm-1.6b"])
+def test_norms_are_the_first_differing_site(arch):
+    """Slot by slot, with the reference's slot input: the port's own norms
+    move at least one norm output's largest element by an ulp in this draw
+    (the island the step test crosses), and with the reference's norm
+    outputs injected (taken from the same jitted slot) the port's slot
+    output equals the reference's bit for bit."""
+    jcfg, cfg = j_smoke(arch), smoke_config(arch)
+    jparams = jax.jit(lambda k: JT.init_params(jcfg, k))(KEY)
+    jamax = JT.init_amax(jcfg)
+    tparams = F.params_from_numpy(_np(jparams), "cpu")
+    tamax = F.params_from_numpy(_np(jamax), "cpu")
+    x = jnp.take(jparams["embed"]["tokens"], jnp.asarray(_batch(arch, jcfg)["tokens"]), axis=0)
+    x, _ = JL.fake_quant_act(x, jamax["embed_out"], jcfg.quant.a_bits, True)
+    pos = jnp.broadcast_to(jnp.arange(x.shape[1], dtype=jnp.int32), x.shape[:2])
+    moved = []
+    for r in range(jcfg.n_reps):
+        for i, (mixer, ffn) in enumerate(JT.slot_kinds(jcfg)):
+            pj = jax.tree.map(lambda t, r=r: t[r], jparams["blocks"][f"slot{i}"])
+            aj = jax.tree.map(lambda t, r=r: t[r], jamax["blocks"][f"slot{i}"])
+            norms, inner = [], JL.qnorm
+
+            def jslot(x, pj, aj, mixer=mixer, ffn=ffn, norms=norms, inner=inner):
+                def recorded(*a, **k):
+                    norms.append(inner(*a, **k))
+                    return norms[-1]
+                JL.qnorm = recorded
+                try:
+                    out = JT._apply_slot(jcfg, mixer, ffn, x, pj, aj, pos, None)
+                finally:
+                    JL.qnorm = inner
+                return out[0], list(norms)
+
+            want, jn = jax.jit(jslot)(x, pj, aj)
+            jn = [_t(v) for v in jn]
+            args = (T.tree_index(tparams["blocks"][f"slot{i}"], r),
+                    T.tree_index(tamax["blocks"][f"slot{i}"], r), _t(pos), None)
+            own, tinner = [], L.qnorm
+            for inject in (False, True):
+                it = iter(jn)
+                L.qnorm = ((lambda *a, **k: next(it)) if inject
+                           else (lambda *a, **k: own.append(tinner(*a, **k)) or own[-1]))
+                try:
+                    with torch.no_grad():
+                        got, _, _ = T._apply_slot(cfg, mixer, ffn, _t(x), *args)
+                finally:
+                    L.qnorm = tinner
+                differ = int((got.numpy() != np.asarray(want)).sum())
+                print(f"  {arch} rep {r} slot {i}, {'reference' if inject else 'own'} norms: "
+                      f"{differ} of {got.numel()} outputs differ")
+                if inject:
+                    assert differ == 0, (arch, r, i)
+            moved += [bool(a.abs().max() != b.abs().max()) for a, b in zip(own, jn)]
+            x = want
+    print(f"  {arch}: {sum(moved)} of {len(moved)} norm outputs' largest element moved")
+    assert any(moved)
 
 
 def test_launcher_trains_on_the_cpu_and_refuses_the_mesh(capsys, tmp_path):
