@@ -20,7 +20,9 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    4,096-row chain or stripe, the two paged prefill kernels also on a
    704-row prompt and on the last 16-row chunk of a 1,024-row chain, the
    int8 one also at the speculative verify forward's shape: 8 slots of
-   4 rows at ragged, unaligned cursors 33-1000 on 1,024-row chains)
+   4 rows at ragged, unaligned cursors 33-1000 on 1,024-row chains; the
+   paged decode and prefill kernels, int8 and packed, also at the shape of
+   one rank of [tp]: Hkv = 1 with its G = 8 q heads)
    and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (the two GEMMs at every served
    shape beside ``torch._int_mm``, with the path and tile each took, the
@@ -80,6 +82,12 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    one-shot and chunked: the packed kernels run 32 times per decode tick
    and per prefill chunk, a page takes 262,400 bytes against 524,288, and
    the first token where kv4 leaves the int8 run is printed (not gated);
+   ``[tp]`` (``phase_tp``): yi-6b over a 4-rank tensor-parallel mesh on the
+   one card (``TPMesh((cuda:0,) * 4)``, one KV head a rank): the [serve]
+   requests on the int8 pool, on kv4 and at spec_k=3 (prompt lookup), each
+   equal to its tp=1 run in tokens and counters, the paged attention
+   kernels 4 x 32 times a decode tick and a prefill chunk (the GEMMs once),
+   each rank's shard printed, a decode tick profiled;
    ``[contiguous]``: the same requests on the contiguous stripe (each
    one-shot prefill through ``flash_qattention``, 32 launches), then the
    ``LockstepEngine`` (8 prompts of 32 tokens, 16 new), through
@@ -172,7 +180,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    small BERT on the card against the CPU (equal logits);
 7. ``[train]`` (``phase_train``): BERT-base at full size under W4A8 takes
    60 steps of ``make_bert_train_step`` at (32, 128) on the synthetic SST-2
-   task of ``examples/train_bert_sst2.py`` (loss and accuracy every 10
+   task of ``launch/train_bert_sst2.py`` (its ``make_batch``; loss and
+   accuracy every 10
    steps, ms per step, peak memory; the loss must be finite and its mean
    over the last 10 steps below that over the first 10), its
    ``TrainState`` saved and restored with ``train/checkpoint.py`` (every
@@ -193,10 +202,15 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    grad norm each step, finite, the last loss below the first; ms per step,
    tokens/s, peak memory, the state reckoned before the run), a step
    profiled and one sLSTM layer's loop (forward, recompute, backward)
-   timed alone for its share of the step.
+   timed alone for its share of the step;
+8. ``[sst2]`` (``phase_sst2``): the paper's Table I experiment as
+   ``launch/train_bert_sst2.py`` runs it at its defaults (a BERT of
+   d_model 128 and 2 layers, 150 QAT steps at (16, 32), lr 1e-3): every 25th
+   step's loss and accuracy, the held-out accuracy under FQ and fp32
+   execution (printed, not gated) and the wall time; every loss finite.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
-on the served path and in ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
+on the served path and in ``[tp]``, ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
 ``[qwen2vl]``, ``[musicgen]`` and ``[train]``,
 mismatches, times, bound); the last is
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero before that
@@ -688,6 +702,9 @@ def _pool(torch, gen, n_pages, psize, hkv, d, packed):
 # qwen2-moe-a2.7b's 16 heads of 128 and stablelm-1.6b's 32 heads of 64
 YI6B_HEADS = (4, 8, 128)
 G1_HEADS = {"qwen2-moe G=1": (16, 1, 128), "stablelm G=1": (32, 1, 64)}
+# [tp]: yi-6b over TP ranks, each with Hkv / TP = 1 KV head and its G = 8 q heads
+TP = 4
+TP_HEADS = (YI6B_HEADS[0] // TP, YI6B_HEADS[1], YI6B_HEADS[2])
 
 
 def _decode_shape(torch, gen, lengths, nb, packed, heads=YI6B_HEADS):
@@ -720,6 +737,7 @@ def phase_paged_decode(torch, gen, packed=False):
     tick = [33, 100, 250, 400, 520, 640, 700, 1000]                   # max_len 1024
     shapes = {"B=8": (tick, 64, YI6B_HEADS),
               "B=1 len=4096": ([4096], 256, YI6B_HEADS),                # yi-6b's full context
+              "tp rank": (tick, 64, TP_HEADS),                          # [tp]'s shard
               **{label: (tick, 64, heads) for label, heads in G1_HEADS.items()}}
     rows = {}
     for label, (lengths, nb, heads) in shapes.items():
@@ -741,7 +759,7 @@ def phase_paged_decode(torch, gen, packed=False):
               f"blocks; {mism} mismatching codes")
     for label, row in rows.items():
         check(row["mismatches"] == 0, f"{fn.__name__}: kernel != plain version at {label}")
-    return dict(rows["B=8"], long=rows["B=1 len=4096"],
+    return dict(rows["B=8"], long=rows["B=1 len=4096"], tp_rank=rows["tp rank"],
                 g1_moe=rows["qwen2-moe G=1"], g1_stablelm=rows["stablelm G=1"])
 
 
@@ -761,6 +779,9 @@ def phase_paged_prefill(torch, gen, packed=False):
              "long": (704, [0], yi), "last_chunk": (16, [1008], yi)}
     if not packed:      # the speculative verify forward (int8 pool only): S = spec_k + 1
         cases["verify"] = (4, VERIFY_POS0, yi)
+    # [tp]'s shard: a rank's G * Hkv / TP q heads over its Hkv / TP KV heads
+    hkv, g, d = TP_HEADS
+    cases["tp_rank"] = (512, [0], (hkv * g, hkv, d))
     for label, (hkv, _, d) in G1_HEADS.items():          # G = 1: a one-shot 512-row prompt
         cases[label] = (512, [0], (hkv, hkv, d))
     mism, err, rows_of = 0, 0.0, {}
@@ -789,7 +810,7 @@ def phase_paged_prefill(torch, gen, packed=False):
         rows_of[label] = row
     return dict(rows_of["main"], mismatches=mism, max_abs_err=err,
                 g1_moe=rows_of["qwen2-moe G=1"], g1_stablelm=rows_of["stablelm G=1"],
-                **{k: rows_of[k] for k in ("chunk", "long", "last_chunk", "verify")
+                **{k: rows_of[k] for k in ("chunk", "long", "last_chunk", "verify", "tp_rank")
                    if k in rows_of})
 
 
@@ -1415,7 +1436,7 @@ def phase_spec(torch, cfg, folded, kernels, plain):
     Both must give the one-shot run's tokens; every verify forward launches
     ``paged_prefill_qattention`` once per layer (its GEMMs take the tensor
     cores: M = 32); the oracle rejects nothing and needs fewer decode
-    forwards than the plain run.  Returns the oracle run."""
+    forwards than the plain run.  Returns both runs, by draft."""
     from repro_torch.serve.draft import PromptLookupDraft, SequenceDraft
 
     seqs = [list(p) + t for p, t in zip(_prompts(cfg.vocab_size), plain["tokens"])]
@@ -1451,7 +1472,7 @@ def phase_spec(torch, cfg, folded, kernels, plain):
           f"{plain_steps})")
     check(all(n > 0 for n in total), f"spec: a kernel of the path was never launched: {total}")
     profile_verify(torch, cfg, folded)
-    return oracle
+    return runs
 
 
 def phase_router(torch, cfg, folded, kernels, plain):
@@ -1570,6 +1591,79 @@ def phase_kv4(torch, cfg, folded, int8_run):
           f"{first_divergence(one['tokens'], chunked['tokens'])} (reported, not gated)")
     profile_decode(torch, cfg, folded, "kv4 decode tick (batch 8)", kv_bits=4)
     return one
+
+
+def phase_tp(torch, cfg, folded, plain, kv4, spec, kernel_rows):
+    """yi-6b at full width over a TP-rank tensor-parallel mesh on the one
+    card (``TPMesh((cuda:0,) * TP)``): the paged pool split over its KV
+    heads, one shard of Hkv / TP = 1 head a rank, under one host scheduler.
+    The [serve] requests on the int8 pool, on the kv4 pool and with
+    speculative decoding (spec_k = 3, prompt lookup) must give their tp = 1
+    runs' tokens and counters bit for bit (``plain``, ``kv4``, ``spec``);
+    every attention kernel of the path runs TP times a layer (rows 3, 4, 7
+    and 8 at the rank's shape), the GEMMs once.  Prints each rank's shard
+    and the rank-shape kernel times of the kernel phases (``kernel_rows``,
+    by wrapper name) beside yi-6b's Hkv = 4, and profiles a decode tick.
+    Returns the runs."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.serve.draft import PromptLookupDraft
+
+    mesh = TPMesh((torch.device("cuda", 0),) * TP)
+    attn = [pa.paged_prefill_qattention, da.paged_decode_qattention,
+            pa.paged_prefill_qattention_q4, da.paged_decode_qattention_q4]
+    names = [k.__name__ for k in attn]
+    hkv = cfg.n_kv_heads // TP
+    runs = {}
+    for name, want, kw in (("int8", plain, {}), ("kv4", kv4, {"kv_bits": 4}),
+                           ("spec", spec, {"spec_k": SPEC_K, "draft": PromptLookupDraft()})):
+        shards, per_fwd = [], []
+
+        def on_engine(eng, shards=shards, per_fwd=per_fwd):
+            shards.extend(eng.cache)
+            count_verify(eng, per_fwd)
+
+        r = serve(torch, cfg, folded, attn, on_engine=on_engine, mesh=mesh, **kw)
+        print_run(f"tp={TP} {name}", r, attn)
+        for rank, shard in enumerate(shards):
+            k = shard["slot0"]["k"]
+            nbytes = sum(t.numel() * t.element_size() for c in shard.values() for t in c.values())
+            print(f"    rank {rank}: K/V {tuple(k.shape)} {k.dtype} on {k.device}, "
+                  f"contiguous {k.is_contiguous()}, {nbytes:,} bytes")
+        check(len(shards) == TP and all(
+            sh["slot0"]["k"].shape[3] == hkv and sh["slot0"]["k"].is_contiguous()
+            and sh["slot0"]["k"].device == mesh.devices[rank] for rank, sh in enumerate(shards)),
+            f"tp {name}: the shards are not {TP} contiguous pools of {hkv} KV heads")
+        c = r["counters"]
+        nv = len(per_fwd)
+        check(r["tokens"] == want["tokens"], f"tp {name}: tokens differ from tp=1 (first "
+              f"divergence {first_divergence(want['tokens'], r['tokens'])})")
+        check(c == want["counters"], f"tp {name}: counters {c} != tp=1 {want['counters']}")
+        per_layer = TP * cfg.n_layers
+        prefill, decode = (2, 3) if name == "kv4" else (0, 1)
+        expect = [0] * 4
+        expect[prefill] = per_layer * (c["prefill_chunks"] + nv)
+        expect[decode] = per_layer * (c["decode_steps"] - nv)
+        check(r["launches"] == expect, f"tp {name}: launches {dict(zip(names, r['launches']))} "
+              f"!= {dict(zip(names, expect))} ({TP} per layer and forward)")
+        tick = r["tick_launches"][prefill] + r["tick_launches"][decode]   # a verify tick's too
+        check(tick == per_layer, f"tp {name}: {tick} attention launches in a decode tick, not "
+              f"{per_layer}")
+        check(all(n == per_layer for n in per_fwd),
+              f"tp {name}: paged_prefill_qattention launches per verify forward {per_fwd}")
+        check_paths(f"tp {name}", cfg, r["paths"], r["forwards"])
+        print(f"    equal to tp=1 in tokens and counters; {per_layer} attention launches a "
+              "decode tick" + (f", {nv} verify forwards" if nv else ""))
+        runs[name] = r
+    profile_decode(torch, cfg, folded, f"tp={TP} decode tick (batch 8)", mesh=mesh)
+    for name in names:
+        row = kernel_rows[name]
+        rank = row["tp_rank"]
+        print(f"  {name}: rank shape {rank['shape']}: {rank['ms']:.4f} ms (bound "
+              f"{rank['bound_ms']:.5f} ms, {rank['bound_by']}) x {TP} ranks, against "
+              f"{row['ms']:.4f} ms at {row['shape']}")
+    return runs
 
 
 def serve_lockstep(torch, cfg, folded, kernels, n=8, prompt_len=32, new=16, temperature=0.0,
@@ -3233,22 +3327,6 @@ TRAIN_XLSTM_SHAPE = (2, 1024)
 TRAIN_XLSTM_STEPS = 3
 
 
-def sst2_batch(torch, vocab: int, step: int, b: int, s: int) -> dict:
-    """The synthetic SST-2 task of ``examples/train_bert_sst2.py``: random
-    tokens with 4-11 "sentiment" tokens (< 16 positive, 16..31 negative)
-    after [CLS]; the label says whether the positive ones outnumber the
-    negative ones.  Seeded by ``step``."""
-    rng = np.random.default_rng(step)
-    toks = rng.integers(0, vocab, (b, s)).astype(np.int32)
-    n_sent = rng.integers(4, 12, (b,))
-    for i in range(b):
-        toks[i, 1:1 + n_sent[i]] = rng.integers(0, 32, (n_sent[i],))
-    labels = (toks < 16).sum(1) > ((toks >= 16) & (toks < 32)).sum(1)
-    return {"tokens": torch.as_tensor(toks, device="cuda"),
-            "mask": torch.ones((b, s), dtype=torch.bool, device="cuda"),
-            "labels": torch.as_tensor(labels.astype(np.int32), device="cuda")}
-
-
 def _nbytes(tree) -> int:
     """Bytes of every tensor leaf of ``tree`` (a TrainState, nested dicts)."""
     from repro_torch.train.checkpoint import _paths
@@ -3289,6 +3367,7 @@ def train_bert(torch, kernels, guard):
 
     from repro_torch.configs import get_config
     from repro_torch.core.policy import POLICY_FP32
+    from repro_torch.launch import train_bert_sst2 as SST
     from repro_torch.models import bert as B
     from repro_torch.models import fold as F
     from repro_torch.models import serve_int as S
@@ -3308,7 +3387,7 @@ def train_bert(torch, kernels, guard):
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
     for i in range(TRAIN_BERT_STEPS):
-        batch = sst2_batch(torch, cfg.vocab_size, i, b, s)
+        batch = SST.to_device(SST.make_batch(cfg.vocab_size, i, b, s), "cuda")
         t0 = time.perf_counter()
         state, m = step(state, batch)
         loss, acc = float(m["loss"]), float(m["acc"])    # waits for the card
@@ -3325,7 +3404,7 @@ def train_bert(torch, kernels, guard):
     print(f"  bert-base mean loss: first 10 steps {first:.4f}, last 10 {last:.4f}")
     check(all(np.isfinite(losses)), f"bert-base: a loss is not finite: {losses}")
     check(last < first, f"bert-base: the loss did not fall ({first:.4f} -> {last:.4f})")
-    batch = sst2_batch(torch, cfg.vocab_size, TRAIN_BERT_STEPS, b, s)
+    batch = SST.to_device(SST.make_batch(cfg.vocab_size, TRAIN_BERT_STEPS, b, s), "cuda")
     profile_steps(torch, lambda: step(state, batch), "bert-base QAT train step", n=1)
     check_checkpoint_roundtrip(torch, state, "bert-base")
 
@@ -3334,7 +3413,7 @@ def train_bert(torch, kernels, guard):
     accs = {"FQ (QAT)": [], "fp32 policy": []}
     with torch.no_grad():
         for i in range(1000, 1010):
-            batch = sst2_batch(torch, cfg.vocab_size, i, b, s)
+            batch = SST.to_device(SST.make_batch(cfg.vocab_size, i, b, s), "cuda")
             for name, c in (("FQ (QAT)", cfg), ("fp32 policy", dataclasses.replace(
                     cfg, quant=POLICY_FP32))):
                 lg, _, _ = B.bert_classify(c, state.params, state.amax, batch["tokens"],
@@ -3550,6 +3629,26 @@ def train_xlstm(torch):
     return {"ms": ms, "losses": losses, "slstm_ms": n_s * wall}
 
 
+def phase_sst2(torch):
+    """The paper's Table I experiment as the port's example runs it
+    (``launch/train_bert_sst2.py`` at its defaults: d_model 128, 2 layers,
+    150 QAT steps at (16, 32), lr 1e-3) on the card: every 25th step's loss
+    and accuracy, the held-out accuracy under FQ and fp32 execution (printed,
+    not gated: the card's float products differ from the CPU's), the wall
+    time; every loss must be finite."""
+    from repro_torch.launch import train_bert_sst2 as SST
+
+    t0 = time.perf_counter()
+    _, history, accs = SST.main([])          # prints the example's own lines
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [loss for loss, _ in history]
+    print(f"  {len(history)} steps and the held-out evaluation in {wall:.1f} s "
+          f"({wall / len(history) * 1e3:.1f} ms a step with the evaluation)")
+    check(all(np.isfinite(losses)), f"sst2: a loss is not finite: {losses}")
+    return dict(accs, wall_s=wall, loss_first=losses[0], loss_last=losses[-1])
+
+
 def phase_train(torch, kernels, guard):
     bert = train_bert(torch, kernels, guard)
     yi = train_yi6b(torch)
@@ -3657,6 +3756,12 @@ def main() -> int:
     print("[kv4] yi-6b, full width, the int4-packed pool (kv_bits=4), the same requests")
     kv4 = phase_kv4(torch, cfg, folded, served)
     stamp("kv4")
+    print(f"[tp] yi-6b, full width, tensor parallelism over {TP} ranks on the one card "
+          f"(Hkv {cfg.n_kv_heads // TP} a rank): the [serve], [kv4] and [spec] requests, "
+          "each against its tp=1 run")
+    tp = phase_tp(torch, cfg, folded, served, kv4, spec["prompt lookup"],
+                  {fn.__name__: row for (fn, *_), row in zip(table, rows)})
+    stamp("tp")
     print("[contiguous] yi-6b, full width, the contiguous stripe and the LockstepEngine")
     contiguous = phase_contiguous(torch, cfg, folded)
     print(f"  TTFT p50: paged int8 one-shot {served['ttft_p50_s']:.3f} s, kv4 one-shot "
@@ -3734,6 +3839,11 @@ def main() -> int:
           f"{TRAIN_YI_STEPS} steps at {TRAIN_YI_SHAPE}; xlstm-1.3b at full size (6 sLSTM + 42 "
           f"mLSTM layers), bf16: {TRAIN_XLSTM_STEPS} steps at {TRAIN_XLSTM_SHAPE}")
     trained = phase_train(torch, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm], guard)
+    stamp("train")
+    print("[sst2] the paper's Table I experiment, launch/train_bert_sst2.py at its defaults: "
+          "bert-base at d_model 128, 2 layers, 150 QAT steps at (16, 32), held-out FQ vs fp32")
+    sst2 = phase_sst2(torch)
+    print(f"  held-out accuracy FQ {sst2['fq']:.3f}, fp32 {sst2['fp32']:.3f} (not gated)")
     stamp("all phases")
 
     # launches: each kernel's count on its own main path (yi-6b one-shot
@@ -3742,10 +3852,16 @@ def main() -> int:
     # flash_qattention; the [eval] phase's per-layer calls of the public
     # flash_qdecode; BERT at (1, 128) for the other two)
     launches = dict(zip([fn.__name__ for fn in engine_wrappers], served["launches"]))
-    rows[2]["verify"].update(launches_per_forward=cfg.n_layers, forwards=spec["verify_forwards"])
+    rows[2]["verify"].update(launches_per_forward=cfg.n_layers,
+                             forwards=spec["oracle"]["verify_forwards"])
     launches["paged_prefill_qattention_q4"], launches["paged_decode_qattention_q4"] = \
         kv4["launches"][:2]
     launches["decode_qattention"], launches["flash_qattention"] = contiguous["launches"][:2]
+    # [tp]: rows 3 and 4 in its int8 run, rows 8 and 7 in its kv4 run
+    launches_tp = dict(zip(["paged_prefill_qattention", "paged_decode_qattention"],
+                           tp["int8"]["launches"][:2]))
+    launches_tp.update(zip(["paged_prefill_qattention_q4", "paged_decode_qattention_q4"],
+                           tp["kv4"]["launches"][2:]))
     launches["flash_qdecode"] = evals["flash_qdecode"]
     launches["quant_softmax"] = bert["POLICY_FQ"]["quant_softmax"]
     launches["int8_bitsplit_matmul"] = bert["POLICY_W8A8"]["int8_bitsplit_matmul"]
@@ -3758,6 +3874,7 @@ def main() -> int:
             "mismatches": row["mismatches"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"launches_tp": launches_tp[fn.__name__]} if fn.__name__ in launches_tp else {}),
             **({"launches_mixtral": mixtral["launches"][fn.__name__]}
                if fn.__name__ in mixtral["launches"] else {}),
             **({"launches_train": trained["bert_launches"][fn.__name__]}
@@ -3771,7 +3888,7 @@ def main() -> int:
                                                 "skip_margin", "ms_no_window",
                                                 "ms_from_block_0")
                       if k in row[case]}
-               for case in ("chunk", "long", "last_chunk", "verify", "qwen3", "expert",
+               for case in ("chunk", "long", "last_chunk", "verify", "tp_rank", "qwen3", "expert",
                             "expert_chunk", "g1_moe", "g1_stablelm", "mixtral",
                             "mixtral_prefill", "mixtral_attn", "mixtral_attn_prefill",
                             "mixtral_forward", "g6_ring", "xlstm", "xlstm_loop", "jamba",

@@ -19,9 +19,11 @@ bidirectional (BERT, cache-less prefill only); and the recurrent slots of
 jamba's Mamba hybrid and of xLSTM (``mamba_float`` / ``xlstm_float``:
 weight-only int4 projections on float activations, a float32 core, the
 output requantized onto the residual grid), whose state lives in the
-contiguous cache and advances one decode step at a time.  Tensor
-parallelism (``tp_axis``) raises.  A MoE slot makes one ``int4_matmul``
-launch per expert and linear (the reference ``vmap``s them).
+contiguous cache and advances one decode step at a time.  With a
+tensor-parallel mesh (``mesh=``, the paged pool only) the pool is one shard
+per rank over its KV heads and each rank attends its heads on its device.
+A MoE slot makes one ``int4_matmul`` launch per expert and linear (the
+reference ``vmap``s them).
 
 Backends (``kernels/ops.py``): on ``ref`` the cached forwards take the
 row-exact q8 datapath (``_attn_rows_q8`` / ``_gqa_decode``), bit for bit the
@@ -297,63 +299,125 @@ def _dequant_paged_view(pool_u8, scales, block_tables):
     return pages.reshape(block_tables.shape[0], -1, pages.shape[2], pages.shape[3])
 
 
-def _attn_decode_paged(x_i8, f, cfg, cache, pos_vec, block_tables):
+def _on(aq: Dict, dev) -> Dict:
+    """The attention scalars ``aq`` on ``dev``."""
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in aq.items()}
+
+
+def _q7_scalars(aq: Dict, dev):
+    return (aq["M_idx"], aq["sh_idx"], _lut("q7", dev), aq["inv_s_logit"], aq["out_scale"])
+
+
+def _over_ranks(cfg, mesh, cache, qc, kc, vc, aq, attend):
+    """``attend(pool, q, k, v, aq, dev) -> ctx`` (B, S, heads, hd) int8, once
+    over the unsharded pool with every head (``mesh`` None), or once per rank
+    of a tensor-parallel ``mesh`` on the rank's shard of the pool with the
+    rank's contiguous block of heads: q (B, S, H, hd) in blocks of
+    G * Hkv/tp heads and k/v (B, S, Hkv, hd) in blocks of Hkv/tp, so each
+    rank's GQA groups stay whole, moved with ``aq`` to the rank's device
+    (no copy where it is the caller's).  Each pool is checked to hold the
+    heads its rank owns, on its device, so a shard is never written through
+    the unsharded path.  The contexts are concatenated in rank order, which
+    is head order, on the caller's device: int8 codes move, nothing is
+    recomputed or re-rounded.  Returns (B, S, H, hd)."""
+    if mesh is None:
+        _check_pool(cache, cfg.n_kv_heads, qc.device)
+        return attend(cache, qc, kc, vc, aq, qc.device)
+    nkv, nh = cfg.n_kv_heads // mesh.size, cfg.n_heads // mesh.size
+    parts = []
+    for r, (dev, pool) in enumerate(zip(mesh.devices, cache, strict=True)):
+        _check_pool(pool, nkv, dev)
+        q, k, v = (t[:, :, r * n:(r + 1) * n].to(dev)
+                   for t, n in ((qc, nh), (kc, nkv), (vc, nkv)))
+        ctx = attend(pool, q, k, v, aq if dev == qc.device else _on(aq, dev), dev)
+        parts.append(ctx.to(qc.device))
+    return torch.cat(parts, dim=2)
+
+
+def _first(cache, mesh):
+    """The unsharded pool, or rank 0's shard: what the pool's layout is read
+    from."""
+    return cache if mesh is None else cache[0]
+
+
+def _check_pool(pool: Dict, hkv: int, dev):
+    k = pool["k"]
+    if k.shape[-2] != hkv or k.device != dev:
+        raise ValueError(f"a pool of {k.shape[-2]} KV heads on {k.device} where the rank owns "
+                         f"{hkv} on {dev}")
+
+
+def _attn_decode_paged(x_i8, f, cfg, cache, pos_vec, block_tables, mesh=None):
     """Paged decode step: x (B,1,d); cache {'k','v'}: (n_pages, P, Hkv, hd)
     int8, or (n_pages, P, Hkv, hd/2) uint8 with 'ks'/'vs' (n_pages,) fp32
     page scales at kv_bits=4.  The token's K/V row is written through the
     slot's block table (page = table[b, pos // P], row = pos % P; inactive
     slots, whose table rows are zero, write into the reserved trash page 0),
-    then attention reads the pool through the table.
+    then attention reads the pool through the table.  Under a tensor-parallel
+    ``mesh`` ``cache`` is the per-rank list of shards, each written and read
+    by its rank's heads (``_over_ranks``).
 
     kv4: the row that opens a page (row 0) sets the page's scale from its
-    own codes; later rows quantize under the page's existing scale, so rows
-    written earlier keep dequantizing to the same codes."""
+    own codes, all heads of them (computed before the heads are split, so
+    every rank's replica of the scale agrees); later rows quantize under the
+    page's existing scale, so rows written earlier keep dequantizing to the
+    same codes."""
     b, s, _ = x_i8.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    psize = cache["k"].shape[1]
+    nh, hd = cfg.n_heads, cfg.hd
+    kv4, psize = _is_kv4(_first(cache, mesh)), _first(cache, mesh)["k"].shape[1]
     qc, kc, vc = _qkv_rope(x_i8, f, cfg, pos_vec[:, None])
-    aq = f["attn_q"]
     pos_l = pos_vec.long()
     pg = torch.gather(block_tables.long(), 1, (pos_l // psize)[:, None])[:, 0]
     row = pos_l % psize
-    kv4 = _is_kv4(cache)
-    if kv4:
-        for c, sc, rows in (("k", "ks", kc[:, 0]), ("v", "vs", vc[:, 0])):
-            scale = torch.where(row == 0, packing.kv_page_scale(rows, dims=(1, 2)),
-                                cache[sc][pg])
-            cache[c][pg, row] = packing.quantize_kv_page(rows, scale[:, None, None])
-            cache[sc][pg] = scale
-    else:
-        cache["k"][pg, row] = kc[:, 0]
-        cache["v"][pg, row] = vc[:, 0]
     lengths = pos_vec + 1
-    qg = qc.reshape(b, nkv, nh // nkv, hd)
-    scal = (aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
-            aq["out_scale"])
-    if ops.backend(device=x_i8.device) == "gpu":
-        if kv4:
-            ctx = ops.paged_decode_attention_q4(qg, cache["k"], cache["v"], cache["ks"],
-                                                cache["vs"], block_tables, lengths, *scal)
+    fresh = {"k": packing.kv_page_scale(kc[:, 0], dims=(1, 2)),
+             "v": packing.kv_page_scale(vc[:, 0], dims=(1, 2))} if kv4 else None
+
+    def attend(c, q, k, v, aq, dev):
+        pg_, row_, btab, lens = (t.to(dev) for t in (pg, row, block_tables, lengths))
+        for name, rows in (("k", k[:, 0]), ("v", v[:, 0])):
+            if kv4:
+                sc = name + "s"
+                scale = torch.where(row_ == 0, fresh[name].to(dev), c[sc][pg_])
+                c[name][pg_, row_] = packing.quantize_kv_page(rows, scale[:, None, None])
+                c[sc][pg_] = scale
+            else:
+                c[name][pg_, row_] = rows
+        qg = q.reshape(b, c["k"].shape[2], -1, hd)
+        if ops.backend(device=dev) == "gpu":
+            if kv4:
+                ctx = ops.paged_decode_attention_q4(qg, c["k"], c["v"], c["ks"], c["vs"], btab,
+                                                    lens, *_q7_scalars(aq, dev))
+            else:
+                ctx = ops.paged_decode_attention_q(qg, c["k"], c["v"], btab, lens,
+                                                   *_q7_scalars(aq, dev))
+        elif kv4:
+            ctx = _gqa_decode(qg, _dequant_paged_view(c["k"], c["ks"], btab),
+                              _dequant_paged_view(c["v"], c["vs"], btab), lens, aq)
         else:
-            ctx = ops.paged_decode_attention_q(qg, cache["k"], cache["v"], block_tables,
-                                               lengths, *scal)
-    elif kv4:
-        ctx = _gqa_decode(qg, _dequant_paged_view(cache["k"], cache["ks"], block_tables),
-                          _dequant_paged_view(cache["v"], cache["vs"], block_tables),
-                          lengths, aq)
-    else:
-        ctx = _gqa_decode(qg, _gather_view(cache["k"], block_tables),
-                          _gather_view(cache["v"], block_tables), lengths, aq)
-    ctx = ctx.reshape(b, s, nh * hd)
-    return _lin(ctx, f["wo"], cfg.quant.w_bits)
+            ctx = _gqa_decode(qg, _gather_view(c["k"], btab), _gather_view(c["v"], btab),
+                              lens, aq)
+        return ctx.reshape(b, s, -1, hd)
+
+    ctx = _over_ranks(cfg, mesh, cache, qc, kc, vc, f["attn_q"], attend)
+    return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
 
 
-def _paged_prefill_write(cache, kc, vc, block_tables):
+def _page_scales(kc, vc, psize: int) -> Dict:
+    """kv4: the scale of each page a chunk writes, from its whole (P, Hkv,
+    hd) codes, (B, S/P) for K and V; computed on every head before any
+    split, so the ranks' replicas agree."""
+    b, s = kc.shape[0], kc.shape[1]
+    return {c: packing.kv_page_scale(t.reshape(b, s // psize, psize, *t.shape[2:]),
+                                     dims=(2, 3, 4)) for c, t in (("k", kc), ("v", vc))}
+
+
+def _paged_prefill_write(cache, kc, vc, block_tables, scales=None):
     """Scatter a chunk's K/V rows (B, S, Hkv, hd) into the pool through the
     block table (S a whole number of pages, every entry a page the request
     owns; pad rows land inside owned pages and are masked or overwritten).
-    kv4: each written page is quantized under ONE scale from its whole
-    (P, Hkv, hd) codes, and the scale leaves update with the payload."""
+    kv4: each written page is quantized under its scale from ``scales``
+    (``_page_scales``), and the scale leaves update with the payload."""
     psize = cache["k"].shape[1]
     b, s = kc.shape[0], kc.shape[1]
     nb = s // psize
@@ -362,7 +426,7 @@ def _paged_prefill_write(cache, kc, vc, block_tables):
     for c, rows in (("k", kc), ("v", vc)):
         pages = rows.reshape(b, nb, psize, *rows.shape[2:])
         if _is_kv4(cache):
-            scale = packing.kv_page_scale(pages, dims=(2, 3, 4))           # (B, nb)
+            scale = scales[c]
             cache[c][idx] = packing.quantize_kv_page(pages, scale[:, :, None, None, None])
             cache[c + "s"][idx] = scale
         else:
@@ -370,40 +434,44 @@ def _paged_prefill_write(cache, kc, vc, block_tables):
 
 
 def _attn_prefill_paged(x_i8, f, cfg, cache, pos, block_tables, pos0: int, pos0_vec,
-                        row_exact):
+                        row_exact, mesh=None):
     """Chunk prefill through the block table: queries at [pos0, pos0+S)
     write their K/V rows into the slot's pages, then attend over the slot's
     whole mapped chain (shared prefix pages, earlier chunks, this chunk).
-    ``pos0_vec`` is ``pos0`` as a (B,) device vector."""
+    ``pos0_vec`` is ``pos0`` as a (B,) device vector.  Under a
+    tensor-parallel ``mesh`` every rank runs the same chunk on its heads."""
     b, s, _ = x_i8.shape
     nh, hd = cfg.n_heads, cfg.hd
-    psize = cache["k"].shape[1]
+    kv4, psize = _is_kv4(_first(cache, mesh)), _first(cache, mesh)["k"].shape[1]
     qc, kc, vc = _qkv_rope(x_i8, f, cfg, pos)
-    aq = f["attn_q"]
     p0 = pos0 // psize
-    _paged_prefill_write(cache, kc, vc, block_tables[:, p0:p0 + s // psize])
-    scal = (aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
-            aq["out_scale"])
-    # the paged kernels read the (B, S, H, D) projections in place and write
-    # ctx in q's layout, so on the card the permutes below are views
-    if _is_kv4(cache):
-        # kv4 takes the q7 packed family on every backend, as the reference
-        # does: a decode-written page's scale comes from its first row, a
-        # prefill-written page's from the whole page, so no row-exact
-        # identity between the two holds anyway
-        ctx = ops.paged_prefill_attention_q4(
-            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], cache["ks"], cache["vs"],
-            block_tables, pos0_vec, *scal).permute(0, 2, 1, 3)
-    elif row_exact:
-        k_view = _gather_view(cache["k"], block_tables)
-        v_view = _gather_view(cache["v"], block_tables)
-        qpos = pos0 + torch.arange(s, device=x_i8.device)[:, None]
-        kpos = torch.arange(k_view.shape[1], device=x_i8.device)[None, :]
-        ctx = _attn_rows_q8(qc, k_view, v_view, aq, cfg, kpos <= qpos).permute(0, 2, 1, 3)
-    else:
-        ctx = ops.paged_prefill_attention_q(
-            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], block_tables, pos0_vec, *scal
-        ).permute(0, 2, 1, 3)
+    wtab = block_tables[:, p0:p0 + s // psize]
+    scales = _page_scales(kc, vc, psize) if kv4 else None
+
+    def attend(c, q, k, v, aq, dev):
+        btab, p0_vec = block_tables.to(dev), pos0_vec.to(dev)
+        _paged_prefill_write(c, k, v, wtab.to(dev),
+                             scales and {n: t.to(dev) for n, t in scales.items()})
+        # the paged kernels read the (B, S, H, D) projections in place and
+        # write ctx in q's layout, so on the card the permutes are views
+        if kv4:
+            # kv4 takes the q7 packed family on every backend, as the
+            # reference does: a decode-written page's scale comes from its
+            # first row, a prefill-written page's from the whole page, so no
+            # row-exact identity between the two holds anyway
+            ctx = ops.paged_prefill_attention_q4(q.permute(0, 2, 1, 3), c["k"], c["v"], c["ks"],
+                                                 c["vs"], btab, p0_vec, *_q7_scalars(aq, dev))
+        elif row_exact:
+            k_view, v_view = _gather_view(c["k"], btab), _gather_view(c["v"], btab)
+            qpos = pos0 + torch.arange(s, device=dev)[:, None]
+            kpos = torch.arange(k_view.shape[1], device=dev)[None, :]
+            ctx = _attn_rows_q8(q, k_view, v_view, aq, cfg, kpos <= qpos)
+        else:
+            ctx = ops.paged_prefill_attention_q(q.permute(0, 2, 1, 3), c["k"], c["v"], btab,
+                                                p0_vec, *_q7_scalars(aq, dev))
+        return ctx.permute(0, 2, 1, 3)
+
+    ctx = _over_ranks(cfg, mesh, cache, qc, kc, vc, f["attn_q"], attend)
     return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
 
 
@@ -425,7 +493,7 @@ def _verify_index(pos_vec, n_rows, block_tables, psize: int, s: int):
 
 
 def _attn_verify_paged(x_i8, f, cfg, cache, pos_vec, positions, pg, row, block_tables,
-                       row_exact):
+                       row_exact, mesh=None):
     """Speculative verify: S = k+1 candidate rows per slot in one forward,
     row 0 the slot's last committed token at its decode cursor
     ``pos_vec[b]``, rows 1..k its draft proposals (``_verify_index`` gives
@@ -437,29 +505,32 @@ def _attn_verify_paged(x_i8, f, cfg, cache, pos_vec, positions, pg, row, block_t
     chain, row i of slot b up to position ``pos_vec[b] + i``: on ``ref``
     the row-exact q8 rows under a per-slot causal mask (row i equals the
     decode step at that position bit for bit), on ``gpu`` the paged prefill
-    kernel with ``pos_vec`` as its per-slot ``pos0``.  The int8 pool only,
-    as in the reference (``serve_forward`` refuses M-RoPE archs, as the
-    reference asserts)."""
-    if _is_kv4(cache):
+    kernel with ``pos_vec`` as its per-slot ``pos0``.  Under a
+    tensor-parallel ``mesh`` each rank verifies on its heads.  The int8 pool
+    only, as in the reference (``serve_forward`` refuses M-RoPE archs, as
+    the reference asserts)."""
+    if _is_kv4(_first(cache, mesh)):
         raise NotImplementedError("speculative verify serves the int8 pool only (spec x kv4: "
                                   "not in the reference either)")
     b, s, _ = x_i8.shape
     nh, hd = cfg.n_heads, cfg.hd
     qc, kc, vc = _qkv_rope(x_i8, f, cfg, positions)
-    aq = f["attn_q"]
-    cache["k"][pg, row] = kc
-    cache["v"][pg, row] = vc
-    if row_exact:
-        k_view = _gather_view(cache["k"], block_tables)
-        v_view = _gather_view(cache["v"], block_tables)
-        kpos = torch.arange(k_view.shape[1], device=x_i8.device)
-        ctx = _attn_rows_q8(qc, k_view, v_view, aq, cfg,
-                            kpos[None, None, :] <= positions[:, :, None]).permute(0, 2, 1, 3)
-    else:
-        ctx = ops.paged_prefill_attention_q(
-            qc.permute(0, 2, 1, 3), cache["k"], cache["v"], block_tables, pos_vec,
-            aq["M_idx"], aq["sh_idx"], _lut("q7", x_i8.device), aq["inv_s_logit"],
-            aq["out_scale"]).permute(0, 2, 1, 3)
+
+    def attend(c, q, k, v, aq, dev):
+        pg_, row_, btab = pg.to(dev), row.to(dev), block_tables.to(dev)
+        c["k"][pg_, row_] = k
+        c["v"][pg_, row_] = v
+        if row_exact:
+            k_view, v_view = _gather_view(c["k"], btab), _gather_view(c["v"], btab)
+            kpos = torch.arange(k_view.shape[1], device=dev)
+            ctx = _attn_rows_q8(q, k_view, v_view, aq, cfg,
+                                kpos[None, None, :] <= positions.to(dev)[:, :, None])
+        else:
+            ctx = ops.paged_prefill_attention_q(q.permute(0, 2, 1, 3), c["k"], c["v"], btab,
+                                                pos_vec.to(dev), *_q7_scalars(aq, dev))
+        return ctx.permute(0, 2, 1, 3)
+
+    ctx = _over_ranks(cfg, mesh, cache, qc, kc, vc, f["attn_q"], attend)
     return _lin(ctx.reshape(b, s, nh * hd), f["wo"], cfg.quant.w_bits)
 
 
@@ -654,19 +725,34 @@ def paged_page_nbytes(cfg: ModelConfig, page_size: int, kv_bits: int = 8) -> int
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, kv_bits: int = 8,
-                     device="cuda") -> Dict:
+                     device="cuda", mesh=None):
     """Global paged KV pool, (n_reps, n_pages, P, Hkv, hd) int8 per attn slot.
 
     ``kv_bits=4``: (n_reps, n_pages, P, Hkv, hd/2) uint8, nibble-planar along
     hd (half the bytes), plus per-page fp32 scale leaves 'ks'/'vs' of shape
     (n_reps, n_pages), all at the all-zero page's scale float32(1/7) (so the
-    trash page dequantizes to exact zeros)."""
+    trash page dequantizes to exact zeros).
+
+    With a tensor-parallel ``mesh`` (``launch/mesh.py``): a list of pools,
+    rank r's on ``mesh.devices[r]`` with Hkv/tp heads of every page (and its
+    own copy of the scale leaves), as ``sharding.partition.split_pool``
+    lays them out; ``device`` is then unused."""
     _check_pageable(cfg)
     if kv_bits not in (8, 4):
         raise ValueError(f"kv_bits must be 8 or 4 (got {kv_bits})")
+    if mesh is None:
+        return _paged_pool(cfg, n_pages, page_size, kv_bits, cfg.n_kv_heads, device)
+    if cfg.n_kv_heads % mesh.size:
+        raise ValueError(f"TP={mesh.size} must divide n_kv_heads={cfg.n_kv_heads}")
+    return [_paged_pool(cfg, n_pages, page_size, kv_bits, cfg.n_kv_heads // mesh.size, dev)
+            for dev in mesh.devices]
+
+
+def _paged_pool(cfg: ModelConfig, n_pages: int, page_size: int, kv_bits: int, hkv: int,
+                device) -> Dict:
     hd = cfg.hd // 2 if kv_bits == 4 else cfg.hd
     dtype = torch.uint8 if kv_bits == 4 else torch.int8
-    shape = (cfg.n_reps, n_pages, page_size, cfg.n_kv_heads, hd)
+    shape = (cfg.n_reps, n_pages, page_size, hkv, hd)
     cache = {}
     for i in range(len(slot_kinds(cfg))):
         c = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -799,7 +885,7 @@ def _embed_int(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor) -> torch.Te
 def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
                   cache: Optional[Dict] = None, pos_offset=0, mode: str = "prefill",
                   block_tables: Optional[torch.Tensor] = None, verify_rows=None,
-                  extra_embeds_i8=None, pos3=None, tp_axis=None):
+                  extra_embeds_i8=None, pos3=None, mesh=None):
     """Integer forward.
 
     prefill without cache: tokens (B,S) -> logits (B,S,V).  prefill with the
@@ -821,13 +907,23 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     int8 codes on the embedding's grid, go before the tokens' rows (S then
     counts both), and ``pos3`` (B, S, 3) gives a prefill's M-RoPE (t, h, w)
     positions (default: the row positions on all three streams; a decode
-    step rotates its position on all three).  Returns (logits, cache).
+    step rotates its position on all three).
+
+    Tensor parallelism, the paged pool only: with a ``mesh``
+    (``launch/mesh.py``'s ``TPMesh``) ``cache`` is the list of the ranks'
+    shards (``init_paged_cache(..., mesh=)``), rank r's on
+    ``mesh.devices[r]`` with Hkv/tp heads of every page.  The projections,
+    RoPE, LN, ``wo``, the MLP and the lm_head run once, on the tokens'
+    device; each rank writes and attends its own heads on its device, and
+    the contexts are concatenated in head order before ``wo``
+    (``_over_ranks``), so the logits equal the unsharded forward's.
+    Returns (logits, cache).
     """
     if mode not in ("prefill", "decode", "verify"):
         raise ValueError(f"mode must be prefill|decode|verify (got {mode!r})")
-    if tp_axis is not None:
-        raise NotImplementedError("tensor parallelism (tp_axis) is not ported: "
-                                  "ROADMAP Open items §1")
+    if mesh is not None and (cache is None or block_tables is None or len(cache) != mesh.size):
+        raise ValueError("a tensor-parallel mesh shards the paged KV pool: it needs block tables "
+                         f"and one pool shard per rank ({mesh.size})")
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a KV cache")
     if mode == "verify" and (cache is None or block_tables is None or verify_rows is None):
@@ -856,7 +952,7 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     pos0 = int(pos_offset) if mode == "prefill" else None
     if mode == "verify":
         vidx = _verify_index(pos_vec, _pos_vector(verify_rows, b, dev), block_tables,
-                             _attn_leaf(cache).shape[2], s)
+                             _attn_leaf(_first(cache, mesh)).shape[2], s)
     if cfg.learned_pos:
         pos_i8 = folded["embed"]["pos_i8"]
         if mode == "prefill":
@@ -875,22 +971,26 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     for r, f_rep in enumerate(layer_views(folded, cfg.n_reps)):
         for i, (mixer, ffn) in enumerate(kinds):
             f = f_rep[f"slot{i}"]
-            cslot = None if cache is None else \
-                {k: v[r] for k, v in cache[f"slot{i}"].items()}
+            if cache is None:
+                cslot = None
+            elif mesh is None:
+                cslot = {k: v[r] for k, v in cache[f"slot{i}"].items()}
+            else:
+                cslot = [{k: v[r] for k, v in shard[f"slot{i}"].items()} for shard in cache]
             if mixer == "mamba":
                 out = _mamba_int(x, f, cfg, cslot)
             elif mixer != "attn":
                 out = _xlstm_int(x, f, cfg, mixer, cslot)
             elif mode == "verify":
                 out = _attn_verify_paged(x, f, cfg, cslot, pos_vec, *vidx, block_tables,
-                                         row_exact)
+                                         row_exact, mesh)
             elif mode == "decode" and block_tables is not None:
-                out = _attn_decode_paged(x, f, cfg, cslot, pos_vec, block_tables)
+                out = _attn_decode_paged(x, f, cfg, cslot, pos_vec, block_tables, mesh)
             elif mode == "decode":
                 out = _attn_decode(x, f, cfg, cslot, pos_vec)
             elif cslot is not None and block_tables is not None:
                 out = _attn_prefill_paged(x, f, cfg, cslot, pos, block_tables, pos0,
-                                          pos_vec, row_exact)
+                                          pos_vec, row_exact, mesh)
             else:
                 # cache-less, or the one-shot prefill into the contiguous
                 # stripe (row-exact on ref, so decode continues bit-exactly)

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the folded integer model.
 
-The port of the reference ``serve/engine.py`` on one device (``tp=1``): the
+The port of the reference ``serve/engine.py``: the
 paged KV pool, int8 or int4-packed (``kv_bits=4``), with on-demand page
 growth and preemption (or ``reserve_policy="full"``), prefix sharing through
 the allocator's registry and, across replicas, a shared prefix tier
@@ -27,11 +27,23 @@ returns the tick's ``TokenEvent`` stream; ``step()``, ``run()`` and
 reference's, so on the ``ref`` kernel backend the engine's greedy tokens and
 counters equal the reference engine's.
 
+Tensor parallelism (``tp=N`` or an explicit ``mesh``, ``launch/mesh.py``'s
+``TPMesh``; the paged layout only), as in the reference: the pool is split
+over its KV-head axis, one shard per rank on the rank's device, every rank
+holding its heads' slice of EVERY page.  Page ids stay global and the block
+tables are one host-side copy, so the allocator and the scheduler stay a
+single authority whose admission, growth, preemption and spill decisions
+bind every rank at once (preemption recomputes and moves no pool data).
+Each forward runs the projections, ``wo``, the MLP and the lm_head once and
+each rank's attention on its heads (``serve_int._over_ranks``), so tokens
+and counters equal the unsharded engine's.  A one-rank mesh runs the same
+path degenerately; a mesh that names one device several times runs several
+ranks there (on the CPU, the tests' stand-in for several devices).
+
 The engine runs where the folded weights live: CUDA weights take the
 ``gpu`` kernel backend, CPU weights the ``ref`` one (``kernels/ops.py``).
-The option the port does not have yet (``tp > 1`` / a mesh) raises
-``EngineConfigError``; the options a recurrent arch's layout cannot take
-(the paged pool, speculative decoding, chunked prefill) raise the
+The options a recurrent arch's layout cannot take (the paged pool,
+speculative decoding, chunked prefill, tensor parallelism) raise the
 reference's ``EngineConfigError``s, and ``kv_bits=4`` falls back to 8 with a
 warning, as in the reference.
 """
@@ -48,14 +60,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
+from repro_torch.launch.mesh import TPMesh, make_tp_mesh
 from repro_torch.models import serve_int as S
 from repro_torch.models.transformer import slot_kinds
 from repro_torch.serve import stats as stats_schema
 from repro_torch.serve.draft import make_draft_source
 from repro_torch.serve.prefix import SealedChain
 from repro_torch.serve.scheduler import BlockAllocator, Scheduler, SlotState, pages_needed
-
-_ROADMAP = "ROADMAP Open items §1"
 
 
 class RequestStatus(enum.Enum):
@@ -124,8 +135,7 @@ class EngineConfigError(ValueError):
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Typed, validated engine options — the reference's fields and
-    field-level validation; the engine then refuses the options the port
-    does not serve yet."""
+    field-level validation."""
     batch_slots: int = 8
     max_len: int = 512
     seed: int = 0
@@ -193,14 +203,6 @@ class EngineConfig:
             bad("spec_k > 0 with kv_bits=4 is not supported")
         return self
 
-    def check_ported(self) -> "EngineConfig":
-        """Refuse, naming the ROADMAP item, what the port does not serve yet."""
-        def no(what):
-            raise EngineConfigError(f"{what} is not ported yet: {_ROADMAP}")
-        if self.tp != 1 or self.mesh is not None:
-            no("tensor parallelism (tp > 1 / mesh)")
-        return self
-
 
 _DEFAULT_CONFIG = EngineConfig()
 # fields the LockstepEngine has no use for; make_engine warns when they
@@ -212,8 +214,7 @@ _CONTINUOUS_ONLY_FIELDS = ("prefill_bucket", "cache_layout", "page_size", "n_pag
 
 def _config_only(config: Optional[EngineConfig], kw: dict, caller: str) -> EngineConfig:
     """The validated ``config`` (keyword options raise a TypeError naming
-    ``EngineConfig``); the engines then refuse what the port lacks
-    (``EngineConfig.check_ported``)."""
+    ``EngineConfig``)."""
     if kw:
         raise TypeError(
             f"{caller}(cfg, folded, {next(iter(kw))}=..., ...) keyword options were "
@@ -258,7 +259,11 @@ class LockstepEngine:
 
     def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
                  **kw):
-        config = _config_only(config, kw, "LockstepEngine").check_ported()
+        config = _config_only(config, kw, "LockstepEngine")
+        if config.tp != 1 or config.mesh is not None:
+            raise EngineConfigError("LockstepEngine has no tensor-parallel path (tp / mesh): "
+                                    "serve tp > 1 through Engine on the paged layout, or "
+                                    "through make_engine, which resets them for a lockstep arch")
         self.cfg = cfg
         self.config = config
         self.device = folded["embed"]["tokens_i8"].device
@@ -329,7 +334,7 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, folded, config: Optional[EngineConfig] = None,
                  **kw):
-        config = _config_only(config, kw, "Engine").check_ported()
+        config = _config_only(config, kw, "Engine")
         if not supports_continuous(cfg):
             raise EngineConfigError(f"continuous engine serves token-LM archs; arch "
                                     f"{cfg.name!r} needs LockstepEngine")
@@ -387,7 +392,8 @@ class Engine:
                 f"speculative decoding (spec_k={self.spec_k}) requires the int8 paged cache "
                 f"layout, but arch {cfg.name!r} resolved to layout={layout!r}")
         self.draft = make_draft_source(config.draft) if self.spec_k else None
-        self.tp = 1
+        self.mesh = self._tp_mesh(config)
+        self.tp = 1 if self.mesh is None else self.mesh.size
         if layout == "paged":
             self.max_blocks = pages_needed(self.smax, self.page_size)
             # +1: page 0 is the reserved trash page (inactive-slot writes)
@@ -396,6 +402,33 @@ class Engine:
         # the cross-replica shared prefix tier (attach_prefix_tier)
         self.prefix_tier = None
         self._init_state(config.seed)
+
+    def _tp_mesh(self, config: EngineConfig) -> Optional[TPMesh]:
+        """The tensor-parallel mesh (``make_tp_mesh(tp)`` over the weights'
+        device type unless one is given), checked as the reference checks
+        it, or None."""
+        mesh = config.mesh
+        if mesh is None and config.tp != 1:
+            mesh = make_tp_mesh(config.tp, self.device.type)
+        if mesh is None:
+            return None
+        if not isinstance(mesh, TPMesh):
+            raise EngineConfigError(f"mesh must be a launch.mesh.TPMesh (got "
+                                    f"{type(mesh).__name__})")
+        if self.layout != "paged":
+            raise EngineConfigError("tensor parallelism shards the paged KV pool; the contiguous "
+                                    "layout has no TP path")
+        if config.tp not in (1, mesh.size):
+            raise EngineConfigError(f"tp={config.tp} disagrees with the mesh's {mesh.size} ranks")
+        if self.cfg.n_kv_heads % mesh.size:
+            raise EngineConfigError(f"TP={mesh.size} must divide n_kv_heads={self.cfg.n_kv_heads} "
+                                    "(each rank owns a whole slice of KV heads)")
+        if mesh.devices[0] != self.device or any(d.type != self.device.type
+                                                  for d in mesh.devices):
+            raise EngineConfigError(f"the mesh's ranks {[str(d) for d in mesh.devices]} must be "
+                                    f"{self.device.type} devices, rank 0 the weights' "
+                                    f"{self.device}")
+        return mesh
 
     @staticmethod
     def _zero_counters() -> Dict[str, int]:
@@ -418,7 +451,7 @@ class Engine:
                                    max_prefill_chunk=self.max_prefill_chunk,
                                    reserve=self.reserve_policy)
             self.cache = S.init_paged_cache(self.cfg, self.n_pages, self.page_size,
-                                            self.kv_bits, device=self.device)
+                                            self.kv_bits, device=self.device, mesh=self.mesh)
             self.block_tables = np.zeros((self.batch, self.max_blocks), np.int32)
         else:
             self.alloc = None
@@ -434,7 +467,7 @@ class Engine:
         btab = self._tensor(self.block_tables) if self.layout == "paged" else None
         logits, self.cache = S.serve_forward(
             self.cfg, self.folded, self._tensor(toks), cache=self.cache,
-            pos_offset=self._tensor(self.pos), mode="decode", block_tables=btab)
+            pos_offset=self._tensor(self.pos), mode="decode", block_tables=btab, mesh=self.mesh)
         return logits[:, -1].cpu().numpy()
 
     def _verify(self, toks: np.ndarray, nrows: np.ndarray) -> np.ndarray:
@@ -444,13 +477,14 @@ class Engine:
         logits, self.cache = S.serve_forward(
             self.cfg, self.folded, self._tensor(toks), cache=self.cache,
             pos_offset=self._tensor(self.pos), mode="verify",
-            block_tables=self._tensor(self.block_tables), verify_rows=self._tensor(nrows))
+            block_tables=self._tensor(self.block_tables), verify_rows=self._tensor(nrows),
+            mesh=self.mesh)
         return logits.cpu().numpy()
 
     def _prefill(self, toks: np.ndarray, btab: np.ndarray, pos0: int, row: int):
         logits, self.cache = S.serve_forward(
             self.cfg, self.folded, self._tensor(toks), cache=self.cache,
-            pos_offset=pos0, mode="prefill", block_tables=self._tensor(btab))
+            pos_offset=pos0, mode="prefill", block_tables=self._tensor(btab), mesh=self.mesh)
         return logits[0, row].cpu().numpy()
 
     def _bucket_len(self, ln: int) -> int:
@@ -505,10 +539,16 @@ class Engine:
         publish their sealed chains, and waiting prompts adopt matching
         chains before admission (the payload lands in freshly allocated
         pages that are registered and parked, so admission sees an ordinary
-        prefix hit).  Needs the paged pool at the tier's page size."""
+        prefix hit).  Needs the paged pool at the tier's page size, on one
+        rank: under TP each rank holds only its heads of a page, so publish and
+        adopt would need per-rank payload slices (refused, as the reference
+        refuses it)."""
         if self.layout != "paged":
             raise EngineConfigError("a shared prefix tier needs the paged cache layout; this "
                                     f"engine resolved to {self.layout!r}")
+        if self.mesh is not None:
+            raise EngineConfigError("shared prefix tier under TP needs per-rank publish slices "
+                                    "(ROADMAP follow-up); detach TP or the tier")
         if tier.page_size != self.page_size:
             raise EngineConfigError(f"tier page_size={tier.page_size} != engine "
                                     f"page_size={self.page_size}")

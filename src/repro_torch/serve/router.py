@@ -112,12 +112,14 @@ class ReplicaRouter:
         self.counters = {k: 0 for k in stats_schema.ROUTER_COUNTERS}
 
     def _build_tier(self) -> SharedPrefixTier:
-        """The shared tier, attached to every paged replica (the port's
-        replicas are single-rank); at least one must be eligible."""
-        eligible = [eng for eng in self.replicas if getattr(eng, "layout", None) == "paged"]
+        """The shared tier, attached to every paged single-rank replica (a
+        tensor-parallel one holds only its heads of a page per rank); at
+        least one must be eligible."""
+        eligible = [eng for eng in self.replicas if getattr(eng, "layout", None) == "paged"
+                    and getattr(eng, "mesh", None) is None]
         if not eligible:
             raise RouterConfigError("RouterConfig(shared_tier=True) needs at least one paged "
-                                    "replica to publish/adopt prefix chains")
+                                    "tp=1 replica to publish/adopt prefix chains")
         sizes = {eng.page_size for eng in eligible}
         if len(sizes) > 1:
             raise RouterConfigError(f"shared_tier needs one page_size across replicas, got "

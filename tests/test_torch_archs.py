@@ -30,6 +30,7 @@ from repro.models import serve_int as JS
 from repro.models import transformer as JT
 from repro.serve import engine as JE
 from repro_torch.configs import list_configs, smoke_config
+from repro_torch.launch.mesh import TPMesh
 from repro_torch.models import fold as F
 from repro_torch.models import serve_int as S
 from repro_torch.models import transformer as T
@@ -75,8 +76,10 @@ def models():
 
 def test_every_config_is_served_or_refused_naming_the_roadmap():
     """Every config is served: its smoke model inits, folds and runs a
-    cache-less forward on the CPU.  What still refuses names the ROADMAP:
-    ``tp > 1`` on either engine and ``serve_forward(tp_axis=...)``."""
+    cache-less forward on the CPU.  What is refused: ``tp > 1`` on the
+    lockstep engine, which has no tensor-parallel path, more ranks than the
+    CPU has devices on the continuous one, and a ``serve_forward`` mesh
+    without the paged pool."""
     assert set(SERVED) == set(list_configs())
     gen = torch.Generator().manual_seed(0)
     for name in SERVED:
@@ -91,11 +94,12 @@ def test_every_config_is_served_or_refused_naming_the_roadmap():
     params = T.init_params(cfg, gen)
     toks = torch.zeros((1, 8), dtype=torch.int32)
     folded = F.fold_params(cfg, params, T.forward(cfg, params, T.init_amax(cfg, "cpu"), toks)[1])
-    for engine in (E.Engine, E.LockstepEngine):
-        with pytest.raises(E.EngineConfigError, match="ROADMAP Open items §1"):
-            engine(cfg, folded, E.EngineConfig(batch_slots=2, max_len=32, tp=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Open items §1"):
-        S.serve_forward(cfg, folded, toks, tp_axis="model")
+    with pytest.raises(E.EngineConfigError, match="no tensor-parallel path"):
+        E.LockstepEngine(cfg, folded, E.EngineConfig(batch_slots=2, max_len=32, tp=2))
+    with pytest.raises(ValueError, match="TP=2 needs 2 cpu devices, found 1"):
+        E.Engine(cfg, folded, E.EngineConfig(batch_slots=2, max_len=32, tp=2))
+    with pytest.raises(ValueError, match="paged KV pool"):
+        S.serve_forward(cfg, folded, toks, mesh=TPMesh((torch.device("cpu"),) * 2))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

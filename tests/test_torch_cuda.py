@@ -38,6 +38,7 @@ from repro_torch.kernels.prefill_attention import (
 )
 from repro_torch.kernels.quant_layernorm import quant_layernorm
 from repro_torch.kernels.quant_softmax import quant_softmax
+from repro_torch.launch.mesh import TPMesh
 from repro_torch.launch.serve import calibrated_folded
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serve.engine import Engine, EngineConfig, LockstepEngine, Request
@@ -1828,3 +1829,63 @@ def test_train_bf16_checkpoint_roundtrip_on_card(cuda, tmp_path):
     assert meta == {"data_step": 1}
     for (path, a), (_, b) in zip(ck._paths(state), ck._paths(back), strict=True):
         assert a.dtype == b.dtype and b.device.type == "cuda" and torch.equal(a, b), path
+
+
+# --- tensor parallelism: the paged pool split over four ranks ------------------
+
+# yi-6b at tp = 4: each rank holds Hkv = 1 KV head with its G = 8 q heads
+TP4_LENGTHS = [33, 100, 250, 400, 520, 640, 700, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_decode_at_the_tp4_rank_shape_equals_plain(cuda, kind):
+    fn, plain = _split_pair(kind)
+    make = _decode if kind == "int8" else _decode_q4
+    args = make(8, 128, 16, TP4_LENGTHS, cuda, hkv=1)
+    assert torch.equal(_launched_once(fn, *args), plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,pos0", [(512, [0]), (128, [256]), (16, [1008]),
+                                     (4, TP4_LENGTHS)])          # the verify forward's rows
+@pytest.mark.parametrize("kind", ["int8", "q4"])
+def test_paged_prefill_at_the_tp4_rank_shape_equals_plain(cuda, kind, sq, pos0):
+    fn, plain, make = (
+        (paged_prefill_qattention, ref.paged_prefill_qattention_ref, _prefill) if kind == "int8"
+        else (paged_prefill_qattention_q4, ref.paged_prefill_qattention_q4_ref, _prefill_q4))
+    args = make(8, 1, 128, 16, sq, pos0, cuda)
+    assert torch.equal(_launched_once(fn, *args), plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"kv_bits": 4}, {"spec_k": 3}], ids=["int8", "kv4", "spec"])
+def test_tp4_engine_on_card_equals_tp1(cuda, kw):
+    """A small yi-6b with yi-6b's grouping (32 q heads, 4 KV heads) through
+    the engine on the card, unsharded and over four ranks on the one card
+    (Hkv = 1, G = 8 a rank): equal tokens and counters, and each attention
+    kernel of the path launched four times as often."""
+    cfg = smoke_config("yi-6b", n_heads=32, n_kv_heads=4)
+    folded = tree_map(lambda t: t.to(cuda), calibrated_folded(cfg, 0, device="cpu"))
+    rng = np.random.default_rng(3)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, 3), 12)[:n].astype(np.int32)
+               for n in (9, 30, 17, 12)]
+    attn = [paged_prefill_qattention_q4, paged_decode_qattention_q4] if kw.get("kv_bits") \
+        else [paged_prefill_qattention, paged_decode_qattention]
+
+    def run(mesh):
+        for k in attn:
+            k.launches = 0
+        eng = Engine(cfg, folded, EngineConfig(batch_slots=3, max_len=64, page_size=4,
+                                               mesh=mesh, **kw))
+        out = [r.out.tolist() for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+        torch.cuda.synchronize()
+        return out, dict(eng.counters), [k.launches for k in attn]
+
+    one, c1, n1 = run(None)
+    four, c4, n4 = run(TPMesh((torch.device("cuda", 0),) * 4))
+    assert four == one and c4 == c1
+    assert all(n > 0 for n in n1) and n4 == [4 * n for n in n1]
+    if kw.get("spec_k"):
+        assert c4["drafted"] > 0

@@ -11,14 +11,17 @@ one-shot prefill give the same tokens.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke
 from repro.models import fold as JF
 from repro.models import transformer as JT
 from repro.serve import engine as JE
 from repro_torch.configs import smoke_config
+from repro_torch.launch.mesh import TPMesh
 from repro_torch.models import fold as F
 from repro_torch.serve import engine as E
+from repro_torch.serve.prefix import SharedPrefixTier
 
 KEY = jax.random.PRNGKey(0)
 
@@ -153,11 +156,17 @@ def test_stats_schema_keys_match_reference(folded):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(tp=2), "tensor parallelism"), (dict(mesh=object()), "tensor parallelism"),
+    (dict(mesh=TPMesh((torch.device("cpu"),) * 2)), "prefix tier under TP.*ROADMAP"),
+    (dict(mesh=object()), "mesh must be a launch.mesh.TPMesh"),
 ])
 def test_unported_options_raise_naming_the_roadmap(folded, kw, what):
-    with pytest.raises(E.EngineConfigError, match=f"(?s){what}.*ROADMAP"):
-        E.Engine(folded[2], folded[3], E.EngineConfig(**kw))
+    """What the port refuses: a shared prefix tier under TP, which the
+    reference refuses too naming its ROADMAP (a tensor-parallel engine
+    itself is served, ``tests/test_torch_tp.py``), and a mesh that is not a
+    ``TPMesh``."""
+    with pytest.raises(E.EngineConfigError, match=what):
+        eng = E.Engine(folded[2], folded[3], E.EngineConfig(**kw))
+        eng.attach_prefix_tier(SharedPrefixTier(page_size=eng.page_size))
 
 
 def test_keyword_options_raise_type_error(folded):

@@ -38,6 +38,7 @@ from repro.models import serve_int as JS
 from repro.models import transformer as JT
 from repro.serve import engine as JE
 from repro_torch.configs import smoke_config
+from repro_torch.launch.mesh import TPMesh
 from repro_torch.models import fold as F
 from repro_torch.models import layers as L
 from repro_torch.models import serve_int as S
@@ -394,8 +395,9 @@ def test_musicgen_generate_raises_as_the_reference_fails(models):
 
 
 def test_verify_and_tp_axis_still_raise(models):
-    """The verify forward refuses M-RoPE (the reference asserts), and
-    ``tp_axis`` raises naming the ROADMAP."""
+    """The verify forward refuses M-RoPE (the reference asserts), and a
+    tensor-parallel mesh without the paged pool raises (the reference
+    asserts a block table under ``tp_axis``)."""
     m = models("qwen2-vl-2b")
     cfg, tfolded = m["cfg"], m["tfolded"]
     toks = _t(_inputs(cfg, 2, 4, 7))
@@ -411,5 +413,5 @@ def test_verify_and_tp_axis_still_raise(models):
                          mode="verify", block_tables=jnp.asarray(btab.numpy()),
                          pos_offset=jnp.asarray([3, 5], jnp.int32),
                          verify_rows=jnp.asarray([4, 4], jnp.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Open items §1"):
-        S.serve_forward(cfg, tfolded, toks, tp_axis="model")
+    with pytest.raises(ValueError, match="paged KV pool"):
+        S.serve_forward(cfg, tfolded, toks, mesh=TPMesh((torch.device("cpu"),) * 2))
