@@ -196,7 +196,7 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    grad norm each step, all finite, the last loss below the first; ms per
    step, tokens/s, peak memory, the memory reckoned before the run), a step
    and the AdamW update profiled; xlstm-1.3b at full size (48 layers: 6
-   sLSTM + 42 mLSTM, d 2,048, bf16 params, float32 moments, remat) takes 3
+   sLSTM + 42 mLSTM, d 2,048, bf16 params, float32 moments, remat) takes 2
    steps at (2, 1,024) on one ``SyntheticLM`` batch (S crosses the
    mLSTM's 512-row chunks, each sLSTM layer loops 1,024 times; loss and
    grad norm each step, finite, the last loss below the first; ms per step,
@@ -207,7 +207,31 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    ``launch/train_bert_sst2.py`` runs it at its defaults (a BERT of
    d_model 128 and 2 layers, 150 QAT steps at (16, 32), lr 1e-3): every 25th
    step's loss and accuracy, the held-out accuracy under FQ and fp32
-   execution (printed, not gated) and the wall time; every loss finite.
+   execution (printed, not gated) and the wall time; every loss finite;
+9. ``[mesh]`` (``phase_mesh``): training over a (data, model) mesh
+   (``train/steps.py::jit_train_step``), its ranks named on the one card.
+   BERT-base at full size under W4A8 on ``[train]``'s (32, 128) batches:
+   3 steps on a (1, 1) mesh equal 3 steps of ``make_bert_train_step``,
+   every leaf bit for bit; 3 steps on (4, 1) over ``(cuda:0,) * 4`` with
+   FSDP against ``blocked_step``, the same steps on the same 8-row blocks
+   with no sharding (each loss and grad norm within ``MESH_RTOL``, step 1's
+   gradient and the final moments within ``MESH_RTOL`` of each leaf's
+   largest element, the final params within ``MESH_PARAM_LRS`` x lr), the
+   32-row unsharded step's losses and params printed beside them; where an
+   8-row forward parts from the 32-row one (``rows_island``: the first
+   fake-quant site whose input differs, and one product at the two row
+   counts); each rank's shard bytes against the bytes its specs give; the
+   elastic resize (2 steps on (1, 1), a checkpoint, a restore onto (4, 1)
+   whose shards equal the saved leaves, 1 step) equal bit for bit to the
+   same run re-split in memory.  yi-6b at ``[train]``'s 8 of 32 layers
+   (bf16, remat, (4, 1,024)) on (4, 1) with FSDP: each rank's params and
+   moments bytes, the peak reckoned before the run, 2 steps against
+   ``blocked_step`` (losses and grad norms within ``MESH_RTOL``) and
+   against ``[train]``'s (the first loss within ``MESH_LOSS_RTOL``, the
+   second and the first grad norm within ``MESH_TRAIN_RTOL``), ms per step
+   beside ``[train]``'s, the collectives' device time, the peak
+   memory and a profiled step.  Each line carries the card's name and
+   power limit.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
 on the served path and in ``[tp]``, ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
@@ -3324,7 +3348,7 @@ TRAIN_YI_DEPTH = 8          # of 32 layers
 TRAIN_YI_SHAPE = (4, 1024)
 TRAIN_YI_STEPS = 5
 TRAIN_XLSTM_SHAPE = (2, 1024)
-TRAIN_XLSTM_STEPS = 3
+TRAIN_XLSTM_STEPS = 2         # 3 before [mesh]: cut to keep the script in its time
 
 
 def _nbytes(tree) -> int:
@@ -3524,7 +3548,7 @@ def train_yi6b(torch):
                   "of which the AdamW update alone", n=1)
     del state, grads
     torch.cuda.empty_cache()
-    return {"ms": ms, "losses": losses}
+    return {"ms": ms, "losses": losses, "gns": gns}
 
 
 def slstm_loop_ms(torch, cfg, params, s: int):
@@ -3647,6 +3671,461 @@ def phase_sst2(torch):
           f"({wall / len(history) * 1e3:.1f} ms a step with the evaluation)")
     check(all(np.isfinite(losses)), f"sst2: a loss is not finite: {losses}")
     return dict(accs, wall_s=wall, loss_first=losses[0], loss_last=losses[-1])
+
+
+MESH_RANKS = 4
+MESH_BERT_STEPS = 3
+MESH_YI_STEPS = 2
+# bounds written before [mesh] first ran on the card (PERF.md §6)
+MESH_LOSS_RTOL = 1e-3      # yi-6b's first (4, 1) loss against [train]'s unsharded one
+# the (4, 1) steps against ``blocked_step`` on the same row blocks (the
+# tests' EXACT): losses and grad norms relative; the moments' leaves within
+# this much of each leaf's largest element; BERT's final params within
+# MESH_PARAM_LRS x lr (a hundredth of the most one AdamW step can move one)
+MESH_RTOL = 1e-5
+MESH_PARAM_LRS = 1e-2
+# yi-6b's second loss and first grad norm against [train]'s (its ranks'
+# bf16 gradients are rounded one rank at a time, then summed)
+MESH_TRAIN_RTOL = 1e-2
+
+
+def rank_bytes(shards) -> list:
+    """Each rank's bytes of its shards."""
+    from repro_torch.sharding import partition as Pt
+
+    return [sum(t.numel() * t.element_size() for _, t in Pt.tree_paths(s)) for s in shards]
+
+
+def leaves_differ(torch, a, b) -> list:
+    from repro_torch.sharding import partition as Pt
+
+    pa, pb = Pt.tree_paths(a, sort_keys=True), Pt.tree_paths(b, sort_keys=True)
+    return [p for (p, x), (_, y) in zip(pa, pb, strict=True)
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def _filled(torch, amax, obs):
+    """``amax`` with its zero sites set to ``obs``'s, as the sharded step
+    fills them."""
+    from repro_torch.sharding import partition as Pt
+
+    a, o = Pt.tree_paths(amax, sort_keys=True), Pt.tree_paths(obs, sort_keys=True)
+    return Pt.tree_rebuild(amax, [torch.where(x > 0, x, y) for (_, x), (_, y) in zip(a, o)],
+                           sort_keys=True)
+
+
+def rows_island(torch, logits_fn, amax, batch, rows: int, dense=None) -> str:
+    """The float island a data rank meets: the first ``rows`` rows computed
+    alone against the same rows inside the whole batch, at the amax the
+    batch's zero sites take (its observed max), no gradient.  Every
+    activation fake-quant site (``layers.fake_quant_act``) of the two
+    forwards is compared in call order: the first site whose input differs,
+    whether every site before it agreed in input and codes, how many of its
+    codes flip, how many sites end with flipped codes, and how many still
+    quantize with their own rows' max (an amax of 0 after the fill).
+    ``dense(x)``, the first layer's first projection, is run on the first
+    site's output for the whole batch and for the first ``rows`` alone: one
+    product at two row counts, the same operands."""
+    from repro_torch.models import layers as L
+
+    orig = L.fake_quant_act
+    part_sites, stats, own_max = [], [], [0]
+
+    def on_part(x, a, bits, enabled):
+        y, ob = orig(x, a, bits, enabled)
+        part_sites.append((x, y))
+        own_max[0] += int(bool((a == 0).any()))
+        return y, ob
+
+    def on_full(x, a, bits, enabled):
+        y, ob = orig(x, a, bits, enabled)
+        px, py = part_sites[len(stats)]
+        fx, fy = x[:rows], y[:rows]
+        dx = int((fx != px).sum())
+        rel = float((fx.float() - px.float()).abs().max() / fx.float().abs().max().clamp(min=1e-30))
+        stats.append((tuple(x.shape), dx, rel, int((fy != py).sum()), px.numel(),
+                      y if not stats else None))
+        return y, ob
+
+    part_batch = {k: v[:rows] for k, v in batch.items()}
+    with torch.no_grad():
+        _, obs, _ = logits_fn(amax, batch)
+        filled = _filled(torch, amax, obs)
+        try:
+            L.fake_quant_act = on_part
+            part, _, _ = logits_fn(filled, part_batch)
+            L.fake_quant_act = on_full
+            full, _, _ = logits_fn(filled, batch)
+        finally:
+            L.fake_quant_act = orig
+        probe = ""
+        if dense is not None:
+            x0 = stats[0][5]
+            yf, yp = dense(x0)[:rows], dense(x0[:rows])
+            probe = (f"; the first projection of site 0's output at {x0[:rows].numel() // x0.shape[-1]}"
+                     f" rows against {x0.numel() // x0.shape[-1]}: {int((yf != yp).sum())} of "
+                     f"{yp.numel()} outputs differ, max |diff| "
+                     f"{float((yf.float() - yp.float()).abs().max()):.3g}")
+    full = full[:rows].float()
+    differ = int((full != part.float()).sum())
+    rel = float((full - part.float()).abs().max() / full.abs().max())
+    first = next((i for i, st in enumerate(stats) if st[1]), None)
+    where = "no site's input differs" if first is None else (
+        f"the first site whose input differs is #{first} of {len(stats)}, {stats[first][0]}: "
+        f"{stats[first][1]} of {stats[first][4]} inputs differ, max |diff| "
+        f"{stats[first][2]:.3g} of its largest; sites before it equal in input and codes: "
+        f"{all(st[1] == 0 and st[3] == 0 for st in stats[:first])}; codes flipped there "
+        f"{stats[first][3]}")
+    return (f"{differ} of {part.numel()} logits of rows 0-{rows - 1} differ between a "
+            f"{rows}-row forward and the whole batch's, max |diff| {rel:.3g} of the largest; "
+            f"{where}; sites with flipped codes {sum(1 for st in stats if st[3])} of "
+            f"{len(stats)}; sites quantizing with their own rows' max {own_max[0]}" + probe)
+
+
+def blocked_step(torch, cfg, opt, state, batch, n: int, bert: bool = False):
+    """The sharded step's math without its sharding, on the unsharded
+    ``state``, for ``n`` data ranks: while an amax is 0, the whole batch's
+    observed max at those sites (one no-grad forward); the loss's gradient
+    on each of the ``n`` row blocks at the unsharded params, summed in
+    float32 in block order and divided by ``n``; the blocks' losses likewise;
+    the observations' max; then the unsharded step's AdamW and EMA.  What
+    ``jit_train_step`` computes on an (n, 1) mesh, less its gathers, reduce
+    and scatters.  Returns (state, {"loss", "grad_norm"})."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train import steps as St
+
+    loss_fn = St.bert_loss if bert else St.lm_loss
+    amax = state.amax
+    if any(bool((t == 0).any()) for t in T.tree_leaves(amax)):
+        with torch.no_grad():
+            _, aux = loss_fn(cfg, state.params, amax, batch)
+        amax = _filled(torch, amax, aux["obs"])
+    b = next(iter(batch.values())).shape[0]
+    gsum, loss, obs = None, None, []
+    for k in range(n):
+        rows = {key: v[k * b // n:(k + 1) * b // n] for key, v in batch.items()}
+        lk, aux, g = St.value_and_grad(lambda p, r=rows: loss_fn(cfg, p, amax, r), state.params)
+        if gsum is None:
+            gsum = T.tree_map(lambda t: t.to(torch.float32, copy=True), g)
+        else:
+            for s_, t in zip(T.tree_leaves(gsum), T.tree_leaves(g), strict=True):
+                s_.add_(t.to(torch.float32))
+        loss = lk if loss is None else loss + lk
+        obs.append(aux["obs"])
+        del g
+    for t in T.tree_leaves(gsum):
+        t.div_(n)
+    new, gn = St._finish(cfg, opt, 0.99, state, gsum, C.max_over_ranks(obs))
+    return new, {"loss": loss / n, "grad_norm": gn}
+
+
+def _of_largest(gap: float, largest: float) -> float:
+    """``gap`` as a share of ``largest`` (an all-zero leaf: 0 if equal)."""
+    return gap / largest if largest > 0 else (0.0 if gap == 0 else float("inf"))
+
+
+def leaf_gaps(torch, a, b) -> dict:
+    """{path: (max |a - b|, max |b|)} of two trees' leaves, in float64."""
+    from repro_torch.sharding import partition as Pt
+
+    return {p: (float((x.double() - y.double()).abs().max()), float(y.double().abs().max()))
+            for (p, x), (_, y) in zip(Pt.tree_paths(a, sort_keys=True),
+                                      Pt.tree_paths(b, sort_keys=True), strict=True)}
+
+
+@contextlib.contextmanager
+def collective_spans(torch):
+    """Device time of each collective call of the sharded step, by CUDA
+    events recorded around it on the current stream; yields {name: ms}
+    filled in when the block ends (after a synchronise)."""
+    from repro_torch.sharding import collectives as C
+
+    names = ("all_gather", "reduce_scatter_add", "scatter")
+    originals = {n: getattr(C, n) for n in names}
+    spans, out = [], {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **k)
+            e1.record()
+            spans.append((name, e0, e1))
+            return r
+        return call
+
+    for n in names:
+        setattr(C, n, timed(n, originals[n]))
+    try:
+        yield out
+    finally:
+        for n in names:
+            setattr(C, n, originals[n])
+        torch.cuda.synchronize()
+        for name, e0, e1 in spans:
+            out[name] = out.get(name, 0.0) + e0.elapsed_time(e1)
+
+
+def timed_step(torch, step, shards, batch):
+    t0 = time.perf_counter()
+    shards, m = step(shards, batch)
+    metrics = {k: float(v) for k, v in m.items()}      # waits for the card
+    return shards, metrics, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
+    """BERT-base on (1, 1) and (4, 1) against the unsharded step, the shard
+    bytes, and the elastic resize through a checkpoint."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train_bert_sst2 as SST
+    from repro_torch.launch.elastic_resume import data_mesh
+    from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import partition as Pt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import steps as St
+
+    if cfg is None:
+        cfg = get_config("bert-base")
+        check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (12, 768, 30522),
+              "bert-base is not full size")
+    b, s = shape
+    opt = AdamWConfig(lr=1e-3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state0 = St.init_bert_train_state(cfg, gen, opt)
+    batches = [SST.to_device(SST.make_batch(cfg.vocab_size, i, b, s), dev)
+               for i in range(MESH_BERT_STEPS)]
+    plain = St.make_bert_train_step(cfg, opt)
+    want, want_losses, plain_ms = state0, [], []
+    for bt in batches:
+        t0 = time.perf_counter()
+        want, m = plain(want, bt)
+        want_losses.append(float(m["loss"]))
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+
+    m11 = data_mesh(dev, 1)
+    step11, sh11, _ = St.jit_train_step(cfg, m11, opt, batches[0], bert=True, donate=False)
+    shards, losses11, ms11, after2 = Pt.split_tree(state0, sh11), [], [], None
+    for i, bt in enumerate(batches):
+        shards, m, ms = timed_step(torch, step11, shards, bt)
+        losses11.append(m["loss"])
+        ms11.append(ms)
+        if i == 1:
+            after2 = shards
+    differ = leaves_differ(torch, shards[0], want)
+    print(f"  [{smi}] bert-base (1, 1) mesh, {MESH_BERT_STEPS} steps: losses {losses11} "
+          f"(unsharded {want_losses}); {len(differ)} leaves differ from the unsharded state; "
+          f"ms a step {[round(x, 1) for x in ms11]} (unsharded {[round(x, 1) for x in plain_ms]})")
+    check(not differ and losses11 == want_losses,
+          f"bert-base: the (1, 1) mesh differs from the unsharded step at {differ[:5]}")
+
+    from repro_torch.models import bert as B
+
+    wq0 = state0.params["backbone"]["blocks"]["slot0"]["attn"]["wq"][0]
+    print(f"  [{smi}] bert-base rows' float island at step 0: " + rows_island(
+        torch, lambda a, bt: B.bert_classify(cfg, state0.params, a, bt["tokens"], bt["mask"]),
+        state0.amax, batches[0], b // MESH_RANKS, dense=lambda x: x @ wq0))
+    m41 = data_mesh(dev, MESH_RANKS)
+    step41, sh41, _ = St.jit_train_step(cfg, m41, opt, batches[0], bert=True, fsdp=True)
+    shards = Pt.split_tree(state0, sh41)
+    got, reckoned = rank_bytes(shards), rank_bytes_of_specs(state0, sh41)
+    print(f"  [{smi}] bert-base (4, 1) shard bytes a rank {got}, reckoned from the specs "
+          f"{reckoned}; unsharded {rank_bytes([state0])[0]}")
+    check(all(n == reckoned for n in got), f"bert-base: shard bytes {got} != {reckoned}")
+    met41, ms41, after1 = [], [], None
+    for i, bt in enumerate(batches):
+        shards, m, ms = timed_step(torch, step41, shards, bt)
+        met41.append(m)
+        ms41.append(ms)
+        if i == 0:
+            after1 = Pt.gather_tree(shards, sh41)
+    new = Pt.gather_tree(shards, sh41)
+    del shards
+    # the same steps on the same 8-row blocks without the sharding
+    ref, met_ref, ref1 = state0, [], None
+    for i, bt in enumerate(batches):
+        ref, m = blocked_step(torch, cfg, opt, ref, bt, MESH_RANKS, bert=True)
+        met_ref.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            ref1 = ref
+    rel = {k: [abs(x[k] - w[k]) / abs(w[k]) for x, w in zip(met41, met_ref)]
+           for k in ("loss", "grad_norm")}
+    grad1 = max(_of_largest(*g) for g in leaf_gaps(torch, after1.opt["m"], ref1.opt["m"]).values())
+    moments = max(_of_largest(*g) for g in leaf_gaps(torch, new.opt, ref.opt).values())
+    dp = max(d for d, _ in leaf_gaps(torch, new.params, ref.params).values())
+    same = len(leaves_differ(torch, new, ref))
+    print(f"  [{smi}] bert-base (4, 1) mesh, {MESH_BERT_STEPS} steps against the same steps on "
+          f"the same {b // MESH_RANKS}-row blocks unsharded: losses {[x['loss'] for x in met41]}"
+          f" (blocks {[w['loss'] for w in met_ref]}), grad norms "
+          f"{[x['grad_norm'] for x in met41]} (blocks {[w['grad_norm'] for w in met_ref]}); "
+          f"relative {rel} (bound {MESH_RTOL}); step 1's gradient (m / (1 - b1)) {grad1:.3g} of "
+          f"each leaf's largest, the final moments {moments:.3g} (bound {MESH_RTOL}); the final "
+          f"params max |diff| {dp / opt.lr:.3g} x lr (bound {MESH_PARAM_LRS} x lr); {same} "
+          f"leaves of the final state differ; ms a step {[round(x, 1) for x in ms41]}")
+    check(max(max(v) for v in rel.values()) <= MESH_RTOL and grad1 <= MESH_RTOL
+          and moments <= MESH_RTOL and dp <= MESH_PARAM_LRS * opt.lr,
+          f"bert-base: the (4, 1) mesh left its bounds against the unsharded blocks ({rel}, "
+          f"gradient {grad1}, moments {moments}, params {dp / opt.lr} lr)")
+    # the 32-row unsharded step holds other float sums (rows_island): printed
+    rel32 = [abs(x["loss"] - w) / abs(w) for x, w in zip(met41, want_losses)]
+    far = sum(int(((x.double() - y.double()).abs() > 0.1 * opt.lr).sum()) for (_, x), (_, y) in
+              zip(Pt.tree_paths(new.params, sort_keys=True),
+                  Pt.tree_paths(want.params, sort_keys=True)))
+    d32 = max(d for d, _ in leaf_gaps(torch, new.params, want.params).values())
+    n_params = sum(t.numel() for _, t in Pt.tree_paths(want.params))
+    print(f"  [{smi}] bert-base (4, 1) against the 32-row unsharded step (not gated): losses "
+          f"relative {[f'{r:.3g}' for r in rel32]}, final params max |diff| {d32 / opt.lr:.3g} x "
+          f"lr, {far} of {n_params} beyond 0.1 lr")
+    del after1, ref1, ref, new
+
+    # elastic resize: (1, 1) after 2 steps -> checkpoint -> (4, 1) -> 1 step
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, 2, after2, meta={"data_step": 2}, shardings=sh11)
+        restored, meta = ckpt.restore(d, 2, St.state_shape(cfg, opt, bert=True), shardings=sh41)
+        io_s = time.perf_counter() - t0
+    saved_differ = leaves_differ(torch, Pt.gather_tree(restored, sh41), after2[0])
+    in_memory = Pt.split_tree(after2[0], sh41)
+    a, ma, _ = timed_step(torch, step41, restored, batches[2])
+    c, mc, _ = timed_step(torch, step41, in_memory, batches[2])
+    differ = [p for r in range(MESH_RANKS) for p in leaves_differ(torch, a[r], c[r])]
+    print(f"  [{smi}] bert-base elastic resize (1, 1) -> checkpoint -> (4, 1): save + restore "
+          f"{io_s:.2f} s, {len(saved_differ)} restored leaves differ from the saved ones; step "
+          f"3 loss {ma['loss']} against {mc['loss']} re-split in memory, {len(differ)} rank "
+          "leaves differ")
+    check(meta["data_step"] == 2 and not saved_differ and not differ
+          and ma["loss"] == mc["loss"], "bert-base: the elastic resize differs from the "
+          f"in-memory re-split ({saved_differ[:3]}, {differ[:3]})")
+    return {"ms_11": float(np.median(ms11)), "ms_41": float(np.median(ms41)),
+            "ms_plain": float(np.median(plain_ms)), "rel": rel}
+
+
+def mesh_yi6b(torch, smi, trained, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
+    """yi-6b at [train]'s depth, shape and seed on (4, 1) with FSDP, against
+    ``blocked_step`` on the same row blocks and against [train]'s unsharded
+    steps (``trained``: its losses, grad norms and median ms)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
+    from repro_torch.launch.elastic_resume import data_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import partition as Pt
+    from repro_torch.train import steps as St
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_YI_DEPTH)
+        check((cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.param_dtype, cfg.remat)
+              == (4096, 11008, 64000, "bfloat16", True), "yi-6b is not at its published widths")
+    b, s = shape
+    opt = AdamWConfig(lr=3e-4)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def init():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        return St.init_train_state(cfg, gen, opt)
+
+    state = init()
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
+    wq0 = state.params["blocks"]["slot0"]["attn"]["wq"][0]
+    print(f"  [{smi}] yi-6b rows' float island at step 0: " + rows_island(
+        torch, lambda a, bt: T.forward(cfg, state.params, a, bt["tokens"]), state.amax, batch,
+        b // MESH_RANKS, dense=lambda x: x @ wq0))
+    mesh = data_mesh(dev, MESH_RANKS)
+    step, sh, _ = St.jit_train_step(cfg, mesh, opt, batch, fsdp=True)
+    params_b, opt_b = rank_bytes([state.params])[0], rank_bytes([state.opt])[0]
+    want = {"params": rank_bytes_of_specs(state.params, sh.params),
+            "moments": rank_bytes_of_specs(state.opt, sh.opt),
+            "all": rank_bytes_of_specs(state, sh)}
+    shards = Pt.split_tree(state, sh)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = {"params": rank_bytes([x.params for x in shards]),
+           "moments": rank_bytes([x.opt for x in shards]), "all": rank_bytes(shards)}
+    n_params = params_b // 2
+    # the peak reckoned before the run: the shards, one gathered bf16 copy of
+    # the params, one rank's bf16 gradients, the float32 reduce buffers (the
+    # owners' blocks: one float32 copy of the params in all), and batch-1
+    # activations with remat (the (1, S, V) float32 logits and their
+    # gradient, the recomputed layer's)
+    act = 2 * s * cfg.vocab_size * 4 + 16 * s * cfg.d_ff * 2
+    reckoned_peak = sum(got["all"]) + 2 * params_b + 4 * n_params + act
+    print(f"  [{smi}] yi-6b ({cfg.n_layers} layers) on (4, 1), FSDP: params {params_b / 2**30:.2f}"
+          f" GiB bf16 + moments {opt_b / 2**30:.2f} GiB unsharded; a rank holds params "
+          f"{[round(x / 2**30, 3) for x in got['params']]} GiB, moments "
+          f"{[round(x / 2**30, 3) for x in got['moments']]} GiB (specs: {want['params'] / 2**30:.3f}"
+          f" and {want['moments'] / 2**30:.3f}); peak reckoned {reckoned_peak / 2**30:.2f} GiB")
+    check(all(x == want[k] for k in want for x in got[k]),
+          f"yi-6b: shard bytes {got} differ from the specs' {want}")
+    torch.cuda.reset_peak_memory_stats()
+    mets, walls, spans = [], [], []
+    for _ in range(MESH_YI_STEPS):
+        with collective_spans(torch) as sp:
+            shards, m, ms = timed_step(torch, step, shards, batch)
+        mets.append(m)
+        walls.append(ms)
+        spans.append(sp)
+        print(f"  [{smi}] yi-6b (4, 1) step: loss {m['loss']:.6f} grad norm {m['grad_norm']:.4f}"
+              f" ({ms:.0f} ms; collectives' device ms " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in sp.items()) + ")")
+    peak = torch.cuda.max_memory_allocated()
+    profile_steps(torch, lambda: step(shards, batch), f"[{smi}] yi-6b (4, 1) mesh train step",
+                  n=1, wall_ms=walls[-1])
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps on the same 1-row blocks without the sharding
+    state, met_ref = init(), []
+    for _ in range(MESH_YI_STEPS):
+        state, m = blocked_step(torch, cfg, opt, state, batch, MESH_RANKS)
+        met_ref.append({k: float(v) for k, v in m.items()})
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = {k: [abs(x[k] - w[k]) / abs(w[k]) for x, w in zip(mets, met_ref)]
+           for k in ("loss", "grad_norm")}
+    print(f"  [{smi}] yi-6b (4, 1) against the same steps on the same {b // MESH_RANKS}-row "
+          f"blocks unsharded: losses {[x['loss'] for x in mets]} (blocks "
+          f"{[w['loss'] for w in met_ref]}), grad norms {[x['grad_norm'] for x in mets]} (blocks "
+          f"{[w['grad_norm'] for w in met_ref]}), relative {rel} (bound {MESH_RTOL})")
+    tl, tg = trained["losses"], trained["gns"]
+    rel_t = {"loss 0": abs(mets[0]["loss"] - tl[0]) / abs(tl[0]),
+             "loss 1": abs(mets[1]["loss"] - tl[1]) / abs(tl[1]),
+             "grad norm 0": abs(mets[0]["grad_norm"] - tg[0]) / abs(tg[0]),
+             "grad norm 1 (not gated)": abs(mets[1]["grad_norm"] - tg[1]) / abs(tg[1])}
+    print(f"  [{smi}] yi-6b (4, 1) against [train]'s unsharded steps (losses {tl[:2]}, grad norms "
+          f"{tg[:2]}): relative " + ", ".join(f"{k} {v:.3g}" for k, v in rel_t.items())
+          + f" (bounds: loss 0 {MESH_LOSS_RTOL}, loss 1 and grad norm 0 {MESH_TRAIN_RTOL}); ms a "
+          f"step {[round(w) for w in walls]} against [train]'s median {trained['ms']:.0f}; peak "
+          f"{peak / 2**30:.2f} GiB allocated (reckoned {reckoned_peak / 2**30:.2f})")
+    check(all(np.isfinite([x[k] for x in mets for k in ("loss", "grad_norm")])),
+          f"yi-6b: a (4, 1) loss or grad norm is not finite: {mets}")
+    check(max(max(v) for v in rel.values()) <= MESH_RTOL,
+          f"yi-6b: the (4, 1) mesh left {MESH_RTOL} of the unsharded blocks' steps: {rel}")
+    check(rel_t["loss 0"] <= MESH_LOSS_RTOL and rel_t["loss 1"] <= MESH_TRAIN_RTOL
+          and rel_t["grad norm 0"] <= MESH_TRAIN_RTOL,
+          f"yi-6b: the (4, 1) mesh left its bounds against [train]'s steps: {rel_t}")
+    return {"ms": walls, "losses": [x["loss"] for x in mets], "peak_gib": peak / 2**30,
+            "spans": spans}
+
+
+def phase_mesh(torch, smi, trained):
+    bert = mesh_bert(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    yi = mesh_yi6b(torch, smi, trained["yi6b"])
+    return {"bert": bert, "yi6b": yi}
 
 
 def phase_train(torch, kernels, guard):
@@ -3844,6 +4323,12 @@ def main() -> int:
           "bert-base at d_model 128, 2 layers, 150 QAT steps at (16, 32), held-out FQ vs fp32")
     sst2 = phase_sst2(torch)
     print(f"  held-out accuracy FQ {sst2['fq']:.3f}, fp32 {sst2['fp32']:.3f} (not gated)")
+    stamp("sst2")
+    print(f"[mesh] training over a (data, model) mesh, {MESH_RANKS} data ranks on the one card: "
+          f"bert-base at full size, {MESH_BERT_STEPS} steps at {TRAIN_BERT_SHAPE} on (1, 1) and "
+          f"(4, 1) against the unsharded step, the elastic resize; yi-6b at {TRAIN_YI_DEPTH} of 32"
+          f" layers, {MESH_YI_STEPS} steps at {TRAIN_YI_SHAPE} on (4, 1) with FSDP")
+    phase_mesh(torch, smi, trained)
     stamp("all phases")
 
     # launches: each kernel's count on its own main path (yi-6b one-shot

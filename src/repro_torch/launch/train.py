@@ -6,17 +6,22 @@
 ``--smoke`` uses the reduced same-family config (CPU-runnable); without it
 the full published config trains on the card (``--device cuda``, the
 default).  Every arch of ``configs/`` trains, the recurrent ones included
-(``--arch xlstm-1.3b``, ``--arch jamba-1.5-large-398b``).  The reference's
-mesh flags (``--production-mesh``, ``--multi-pod``) raise: the mesh is
-ROADMAP Open items §1, item 8.
+(``--arch xlstm-1.3b``, ``--arch jamba-1.5-large-398b``).  The mesh is
+``make_host_mesh`` over the visible ``--device`` devices (FSDP unless
+``--smoke``), or the production mesh with ``--production-mesh`` (16 x 16;
+2 x 16 x 16 with ``--multi-pod``), which raises on fewer than 256 or 512
+devices.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import torch
+
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import TrainerConfig, train
 
@@ -40,9 +45,6 @@ def main(argv=None):
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError("--production-mesh / --multi-pod need the device mesh, "
-                                  "which is not ported yet (ROADMAP Open items §1, item 8)")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.grad_compress:
@@ -52,8 +54,11 @@ def main(argv=None):
     if args.seq_len or args.global_batch:
         shape = ShapeConfig("custom", args.seq_len or shape.seq_len,
                             args.global_batch or shape.global_batch, "train")
+    kind = torch.device(args.device).type
+    mesh = (make_production_mesh(multi_pod=args.multi_pod, device_type=kind)
+            if args.production_mesh else make_host_mesh(device_type=kind))
     if args.smoke and args.shape == "train_4k" and not args.seq_len:
-        shape = ShapeConfig("smoke", 128, 4, "train")   # one device: 4 sequences
+        shape = ShapeConfig("smoke", 128, min(8, mesh.size * 4), "train")
     opt_cfg = AdamWConfig(lr=args.lr, quantize_moments=args.quant_moments)
     tcfg = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, accum_steps=args.accum)
@@ -62,7 +67,7 @@ def main(argv=None):
         print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
               f"gnorm {m['grad_norm']:.3f} {m['step_s'] * 1e3:.0f} ms", flush=True)
 
-    train(cfg, shape, opt_cfg, tcfg, device=args.device, log_fn=log)
+    train(cfg, shape, opt_cfg, tcfg, mesh=mesh, fsdp=not args.smoke, log_fn=log)
 
 
 if __name__ == "__main__":

@@ -69,14 +69,22 @@ def _dq_v(m: QMoment) -> torch.Tensor:
     return r * r
 
 
+def _q_zeros(shape, device) -> QMoment:
+    """``_q`` (and ``_q_v``) of zeros of ``shape``: zero codes and the
+    scale of an all-zero vector, 127 / 1e-12, in every vector's place."""
+    s = rdiv(127.0, torch.clamp(torch.zeros((), dtype=F32, device=device), min=1e-12))
+    scale = s if not shape else s.expand((*shape[:-1], 1)).contiguous()
+    return QMoment(torch.zeros(shape, dtype=torch.int8, device=device), scale)
+
+
 def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
-    def zero_like(p, q):
-        z = torch.zeros(p.shape, dtype=F32, device=p.device)
-        return q(z) if cfg.quantize_moments else z
+    def zero_like(p):
+        if cfg.quantize_moments:
+            return _q_zeros(tuple(p.shape), p.device)
+        return torch.zeros(p.shape, dtype=F32, device=p.device)
 
     dev = tree_leaves(params)[0].device
-    return {"m": tree_map(lambda p: zero_like(p, _q), params),
-            "v": tree_map(lambda p: zero_like(p, _q_v), params),
+    return {"m": tree_map(zero_like, params), "v": tree_map(zero_like, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -87,54 +95,67 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def update_scalars(step: torch.Tensor, gn: torch.Tensor, cfg: AdamWConfig,
+                   lr_scale: float = 1.0) -> Tuple:
+    """(clip, b1c, b2c, lr) of the step numbered ``step`` (1 for the first)
+    at the gradients' global norm ``gn``: what every leaf's update shares."""
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    step_f = step.to(F32)
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=step.device), step_f)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=step.device), step_f)
+    return clip, b1c, b2c, cfg.lr * lr_scale
+
+
+def _upd(p, g, m, v, scalars, cfg: AdamWConfig):
+    clip, b1c, b2c, lr = scalars
+    qm = cfg.quantize_moments
+    g = g.to(F32) * clip
+    m_f = _dq(m) if qm else m
+    v_f = _dq_v(v) if qm else v
+    m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
+    v_f = cfg.b2 * v_f + (1 - cfg.b2) * g * g
+    u = (m_f / b1c) / (torch.sqrt(v_f / b2c) + cfg.eps)
+    u = u + cfg.weight_decay * p.to(F32)
+    p_new = (p.to(F32) - lr * u).to(p.dtype)
+    if qm:
+        return p_new, _q(m_f), _q_v(v_f)
+    return p_new, m_f, v_f
+
+
+def update_leaf(p, g, m, v, scalars, cfg: AdamWConfig):
+    """(new p, new m, new v) of one leaf: elementwise, with int8 moments'
+    scales per last-axis vector of the whole leaf.  A stacked leaf of three
+    or more axes is updated one layer slice at a time, each slice's results
+    written into the stacked outputs."""
+    qm = cfg.quantize_moments
+    if p.ndim < 3:
+        return _upd(p, g, m, v, scalars, cfg)
+
+    def layer(mo, i):
+        return QMoment(mo.codes[i], mo.scale[i]) if qm else mo[i]
+
+    bufs = None
+    for i in range(p.shape[0]):
+        parts = [t for o in _upd(p[i], g[i], layer(m, i), layer(v, i), scalars, cfg)
+                 for t in (o if isinstance(o, QMoment) else (o,))]
+        if bufs is None:
+            bufs = [torch.empty((p.shape[0], *t.shape), dtype=t.dtype, device=t.device)
+                    for t in parts]
+        for buf, t in zip(bufs, parts, strict=True):
+            buf[i] = t
+    if qm:
+        return bufs[0], QMoment(*bufs[1:3]), QMoment(*bufs[3:5])
+    return tuple(bufs)
+
+
 def apply_updates(params, grads, state, cfg: AdamWConfig,
                   lr_scale: float = 1.0) -> Tuple[Any, Dict]:
     """One AdamW step.  Returns (new params, {"m", "v", "step",
     "grad_norm"}), the norm taken before clipping."""
     step = state["step"] + 1
     gn = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-    step_f = step.to(F32)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=step.device), step_f)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=step.device), step_f)
-    lr = cfg.lr * lr_scale
-    qm = cfg.quantize_moments
-
-    def upd(p, g, m, v):
-        g = g.to(F32) * clip
-        m_f = _dq(m) if qm else m
-        v_f = _dq_v(v) if qm else v
-        m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
-        v_f = cfg.b2 * v_f + (1 - cfg.b2) * g * g
-        u = (m_f / b1c) / (torch.sqrt(v_f / b2c) + cfg.eps)
-        u = u + cfg.weight_decay * p.to(F32)
-        p_new = (p.to(F32) - lr * u).to(p.dtype)
-        if qm:
-            return p_new, _q(m_f), _q_v(v_f)
-        return p_new, m_f, v_f
-
-    def layer(mo, i):
-        return QMoment(mo.codes[i], mo.scale[i]) if qm else mo[i]
-
-    def upd_by_layer(p, g, m, v):
-        """``upd`` of a stacked leaf one layer slice at a time, each slice's
-        results written into the stacked outputs."""
-        if p.ndim < 3:
-            return upd(p, g, m, v)
-        bufs = None
-        for i in range(p.shape[0]):
-            parts = [t for o in upd(p[i], g[i], layer(m, i), layer(v, i))
-                     for t in (o if isinstance(o, QMoment) else (o,))]
-            if bufs is None:
-                bufs = [torch.empty((p.shape[0], *t.shape), dtype=t.dtype, device=t.device)
-                        for t in parts]
-            for buf, t in zip(bufs, parts, strict=True):
-                buf[i] = t
-        if qm:
-            return bufs[0], QMoment(*bufs[1:3]), QMoment(*bufs[3:5])
-        return tuple(bufs)
-
-    out = [upd_by_layer(p, g, m, v)
+    scalars = update_scalars(step, gn, cfg, lr_scale)
+    out = [update_leaf(p, g, m, v, scalars, cfg)
            for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                                  tree_leaves(state["m"]), tree_leaves(state["v"]), strict=True)]
     return (tree_unflatten(params, [o[0] for o in out]),

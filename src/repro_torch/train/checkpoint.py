@@ -16,11 +16,14 @@ Fault-tolerance contract (as the reference's):
   * a crash mid-write leaves only .tmp dirs; ``latest_step`` ignores them
     and ``gc_old`` collects them; a restart resumes from the last complete
     checkpoint (exactly-once data through the data step in ``meta``);
+  * ``save`` of a sharded state (the ranks' trees and their shardings)
+    writes the full leaves, and ``restore(..., shardings=)`` splits each
+    leaf onto the target mesh's ranks: a run may resume on a mesh of
+    another shape (elastic resize);
   * integrity: the crc32 of every leaf is checked on load.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import re
@@ -33,39 +36,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.sharding import partition as Pt
+
 _LEAF_KEY = "leaf_{:05d}"
 
 
-def _children(tree):
-    """(name, child) pairs in the reference's flatten order, or None for a
-    leaf."""
-    if isinstance(tree, dict):
-        return [(str(k), tree[k]) for k in sorted(tree)]
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return list(zip(tree._fields, tree))
-    return None
-
-
-def _paths(tree, prefix=()):
-    kids = _children(tree)
-    if kids is None:
-        return [("/".join(prefix), tree)]
-    return [pl for name, child in kids for pl in _paths(child, prefix + (name,))]
-
-
-def _rebuild(tree, it):
-    """``tree``'s structure holding the next leaves of ``it`` (flatten order)."""
-    kids = _children(tree)
-    if kids is None:
-        return next(it)
-    vals = {name: _rebuild(child, it) for name, child in kids}
-    if isinstance(tree, dict):
-        return {k: vals[str(k)] for k in tree}
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **vals)
-    return type(tree)(**vals)
+def _paths(tree):
+    """(path, leaf) in the reference's flatten order (dict keys sorted)."""
+    return Pt.tree_paths(tree, sort_keys=True)
 
 
 def _to_numpy(v):
@@ -86,7 +64,12 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def save(ckpt_dir, step: int, tree, meta: Optional[Dict] = None) -> Path:
+def save(ckpt_dir, step: int, tree, meta: Optional[Dict] = None, *, shardings=None) -> Path:
+    """Write ``tree`` as checkpoint ``step``.  With ``shardings``, ``tree``
+    is the ranks' trees (``partition.split_tree``'s list) and their leaves
+    are gathered whole first."""
+    if shardings is not None:
+        tree = Pt.gather_tree(tree, shardings, device="cpu")
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f"step_{step:06d}.tmp-{uuid.uuid4().hex[:8]}"
@@ -122,10 +105,17 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: int, target_tree, device=None, *, strict_crc: bool = True):
+def restore(ckpt_dir, step: int, target_tree, device=None, *, shardings=None,
+            strict_crc: bool = True):
     """Load into the structure of ``target_tree``, whose tensor leaves give
     each leaf's dtype and (unless ``device`` is given) its device.  Returns
-    (tree, meta)."""
+    (tree, meta).  With ``shardings`` (a tree of ``NamedSharding`` shaped as
+    ``target_tree``, whose leaves may then lie on ``meta``), the tree comes
+    back split onto their mesh: the ranks' trees, as
+    ``partition.split_tree`` cuts them, whatever mesh wrote the checkpoint."""
+    if shardings is not None:
+        full, meta = restore(ckpt_dir, step, target_tree, "cpu", strict_crc=strict_crc)
+        return Pt.split_tree(full, shardings), meta
     d = Path(ckpt_dir) / f"step_{step:06d}"
     manifest = json.loads((d / "manifest.json").read_text())
     by_path = {}
@@ -140,7 +130,7 @@ def restore(ckpt_dir, step: int, target_tree, device=None, *, strict_crc: bool =
         if path not in by_path:
             raise KeyError(f"checkpoint missing leaf {path}")
         out.append(by_path[path].to(dtype=v.dtype, device=device or v.device))
-    return _rebuild(target_tree, iter(out)), manifest["meta"]
+    return Pt.tree_rebuild(target_tree, out, sort_keys=True), manifest["meta"]
 
 
 def gc_old(ckpt_dir, keep: int = 3):

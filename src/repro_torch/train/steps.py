@@ -5,10 +5,12 @@ fake-quant) -> optional int8 gradient compression -> AdamW (optionally int8
 moments) -> EMA update of the activation-calibration tree (paper Eq. 3).
 
 A step is a function of (state, batch) that returns a new ``TrainState``;
-it modifies no tensor of the state it is given.  The reference's
-``jit_train_step`` (its shardings and donation) waits for the mesh, ROADMAP
-Open items §1, item 8.  Every config trains here: attention, dense, MoE and
-recurrent (Mamba, mLSTM, sLSTM) archs, the frontends and BERT.
+it modifies no tensor of the state it is given.  ``jit_train_step`` builds
+the step over a device mesh (``launch/mesh.py``): the state split over the
+ranks per ``sharding/partition.py``'s rules, the batch over the data ranks,
+the reference's global math (GSPMD: sharding moves data, not results).
+Every config trains here: attention, dense, MoE and recurrent (Mamba,
+mLSTM, sLSTM) archs, the frontends and BERT; MoE on one data rank only.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import ema_tree_update, rdiv
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import partition as Pt
 
 AUX_WEIGHT = 0.01
 
@@ -109,15 +113,6 @@ def _compress_grads(grads, bits: int):
     return T.tree_map(qdq, grads)
 
 
-def _tree_max(trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_max([t[k] for t in trees]) for k in trees[0]}
-    out = trees[0]
-    for t in trees[1:]:
-        out = torch.maximum(out, t)
-    return out
-
-
 def _finish(cfg, opt_cfg, ema_decay, state: TrainState, grads, obs):
     """Compression, AdamW and the EMA: the new state and the grad norm."""
     if cfg.quant.grad_compress_bits:
@@ -152,7 +147,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                 obs_all.append(aux["obs"])
             grads = T.tree_map(lambda g: g / accum_steps, gsum)
             loss = loss_sum / accum_steps
-            obs, ce = _tree_max(obs_all), loss
+            obs, ce = C.max_over_ranks(obs_all), loss    # the microbatches' max
             aux_l = torch.zeros((), dtype=torch.float32, device=loss.device)
         new_state, gn = _finish(cfg, opt_cfg, ema_decay, state, grads, obs)
         return new_state, {"loss": loss, "ce": ce, "aux": aux_l, "grad_norm": gn}
@@ -188,3 +183,260 @@ def make_bert_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, ema_decay
         return new_state, {"loss": loss, "acc": aux["acc"]}
 
     return train_step
+
+
+# --- the step over a device mesh ---------------------------------------------------
+
+class _MetaGen(torch.Generator):
+    """A CPU generator that names the meta device: an init drawn with it
+    builds every leaf on ``meta``, allocating nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def state_shape(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, bert: bool = False) -> TrainState:
+    """The initial ``TrainState`` with every leaf on the ``meta`` device:
+    shapes and dtypes only (the reference's ``jax.eval_shape`` of the init)."""
+    return (init_bert_train_state if bert else init_train_state)(cfg, _MetaGen(), opt_cfg)
+
+
+def state_shardings(mesh, shape: TrainState, fsdp: bool = True) -> TrainState:
+    """The reference's state shardings: params, m and v (an int8 moment's
+    codes) per ``make_param_shardings``; amax, the steps and the moments'
+    scales replicated."""
+    return TrainState(
+        params=Pt.make_param_shardings(mesh, shape.params, fsdp=fsdp),
+        opt={"m": Pt.make_param_shardings(mesh, shape.opt["m"], fsdp=fsdp),
+             "v": Pt.make_param_shardings(mesh, shape.opt["v"], fsdp=fsdp),
+             "step": Pt.replicated(mesh)},
+        amax=T.tree_map(lambda _: Pt.replicated(mesh), shape.amax),
+        step=Pt.replicated(mesh))
+
+
+def data_ranks(mesh, shapes: Dict[str, Tuple[int, ...]]):
+    """The data ranks of a batch of these shapes: (rows, device) of each
+    block of the batch axis under ``batch_sharding`` (the device of the first
+    rank that holds it).  One entry when the batch does not split."""
+    counts = set()
+    for shape in shapes.values():
+        sh = Pt.batch_sharding(mesh, len(shape), shape)
+        counts.add(Pt.block_index(sh, 0, 1)[0][1])
+    if len(counts) != 1:
+        raise ValueError(f"the batch's leaves split into {sorted(counts)} blocks: {shapes}")
+    n = counts.pop()
+    b = next(iter(shapes.values()))[0]
+    devs = {}
+    for r in range(mesh.size):
+        devs.setdefault(Pt.block_index(sh, r, 1)[0][0], mesh.devices[r])
+    return [(slice(k * b // n, (k + 1) * b // n), devs[k]) for k in range(n)]
+
+
+def _by_path(tree) -> Dict[str, Any]:
+    """{path: leaf} of nested dicts, in their order (an int8 moment is one
+    leaf)."""
+    paths = [p for p, _ in Pt.tree_paths(T.tree_map(lambda _: None, tree))]
+    return dict(zip(paths, T.tree_leaves(tree), strict=True))
+
+
+def _any_zero(tree) -> bool:
+    return any(bool((t == 0).any()) for t in T.tree_leaves(tree))
+
+
+def _gather_moment(blocks, sharding, device):
+    if isinstance(sharding, adamw.QMoment):
+        return adamw.QMoment(*(C.all_gather([b[i] for b in blocks], sharding[i], device)
+                               for i in range(2)))
+    return C.all_gather(blocks, sharding, device)
+
+
+def _scatter_moment(full, sharding, out):
+    if isinstance(sharding, adamw.QMoment):
+        parts = [C.scatter(full[i], sharding[i], None if out is None else [o[i] for o in out])
+                 for i in range(2)]
+        return [adamw.QMoment(c, s) for c, s in zip(*parts, strict=True)]
+    return C.scatter(full, sharding, out)
+
+
+def _copies(t: torch.Tensor, mesh) -> list:
+    """A replicated leaf's value for each rank: its own tensor on its device."""
+    return [t if r == 0 and t.device == d else t.to(d, copy=True)
+            for r, d in enumerate(mesh.devices)]
+
+
+def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_example, *,
+                   fsdp: bool = True, donate: bool = True, bert: bool = False,
+                   accum_steps: int = 1):
+    """The train step over ``mesh``: returns (step, state_shardings,
+    batch_shardings) as the reference's.  ``step(shards, batch) -> (shards,
+    metrics)`` takes the ranks' states (a list in rank order, as
+    ``partition.split_tree(state, state_shardings)`` cuts them) and the
+    global batch (a dict of tensors on any device; ``batch_example`` gives
+    its leaves' shapes, tensors on ``meta`` will do).  The step runs eagerly,
+    as every port step does (capturing it is ROADMAP item 13).
+
+    It keeps the reference's global math.  Each data rank (a block of the
+    batch axis) gathers the params onto its device once a step and runs the
+    loss and its backward on its rows of each microbatch: microbatch i is
+    rows [i B/a, (i+1) B/a) of the global batch, split over the data ranks.
+    At sites whose amax is 0 the reference quantizes with the global
+    (micro)batch's observed max, so while any amax is 0 one no-grad forward
+    over the global microbatch first fills those sites with it.  The ranks'
+    gradients are summed in float32 in rank order into the owners' shards
+    and divided by the data ranks and microbatches; the compression, the
+    global norm (``adamw.global_norm``'s order) and the AdamW update then
+    take each leaf whole (an int8 moment's scales span its whole last-axis
+    vectors) and put its blocks back.  ``donate=True`` writes the new values
+    into the given shards; ``donate=False`` leaves every given tensor as it
+    was.  ``bert=True`` builds ``make_bert_train_step``'s step (no
+    accumulation, as the reference's).  A MoE arch on more than one data
+    rank raises: its capacity and aux loss count the global batch.
+    """
+    shape = state_shape(cfg, opt_cfg, bert)
+    state_sh = state_shardings(mesh, shape, fsdp)
+    example = {k: tuple(v.shape) for k, v in batch_example.items()}
+    batch_sh = {k: Pt.batch_sharding(mesh, len(v), v) for k, v in example.items()}
+    accum = 1 if bert else accum_steps
+    b = next(iter(example.values()))[0]
+    if b % accum:
+        raise ValueError(f"accum_steps={accum} does not divide the batch of {b}")
+    ranks = data_ranks(mesh, {k: (v[0] // accum, *v[1:]) for k, v in example.items()})
+    if cfg.n_experts and len(ranks) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training over {len(ranks)} data ranks is not ported: the "
+            "capacity and the aux loss count the global batch (ROADMAP Open items §1, MoE at "
+            "data size > 1)")
+    p_sh, m_sh, v_sh = (_by_path(t) for t in (state_sh.params, state_sh.opt["m"],
+                                              state_sh.opt["v"]))
+    dev0 = mesh.devices[0]
+    # the whole reduced gradient of a leaf takes the room its owners' blocks
+    # took when every rank is on one device, so the norm's pass keeps it for
+    # the update's; across devices it is gathered again, not held on one
+    keep_whole = len(set(mesh.devices)) == 1
+
+    def loss_and_grads(params, amax, rows):
+        if bert:
+            return value_and_grad(lambda p: bert_loss(cfg, p, amax, rows), params)
+        return lm_loss_and_grads(cfg, params, amax, rows)
+
+    def observed(params, amax, rows):
+        with torch.no_grad():
+            _, aux = (bert_loss if bert else lm_loss)(cfg, params, amax, rows)
+        return aux["obs"]
+
+    def filled(amax, obs):
+        """``amax`` with its zero sites set to ``obs``'s."""
+        a, o = Pt.tree_paths(amax, sort_keys=True), Pt.tree_paths(obs, sort_keys=True)
+        return Pt.tree_rebuild(amax, [torch.where(x > 0, x, y.to(x.device))
+                                      for (_, x), (_, y) in zip(a, o, strict=True)],
+                               sort_keys=True)
+
+    def step(shards, batch):
+        if len(shards) != mesh.size:
+            raise ValueError(f"{len(shards)} rank states for a {mesh.size}-rank mesh")
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        if shapes != example:
+            raise ValueError(f"a batch of {shapes} for a step built for {example}")
+        r0 = shards[0]
+        paths = list(_by_path(r0.params))
+        params = [_by_path(s.params) for s in shards]
+        gathered = {}
+
+        def params_on(dev):
+            if dev not in gathered:
+                gathered[dev] = T.tree_unflatten(r0.params, [
+                    C.all_gather([pr[p] for pr in params], p_sh[p], dev) for p in paths])
+            return gathered[dev]
+
+        n = len(ranks) * accum
+        acc, losses, extras = {}, [], []
+        obs_by_rank = [[] for _ in ranks]
+        fill = len(ranks) > 1 and _any_zero(r0.amax)
+        bm = b // accum
+        for i in range(accum):
+            mb = batch if accum == 1 else {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
+            amax = r0.amax
+            if fill:
+                dev = ranks[0][1]
+                amax = filled(amax, observed(params_on(dev),
+                                             T.tree_map(lambda t, d=dev: t.to(d), amax),
+                                             {k: v.to(dev) for k, v in mb.items()}))
+            loss_i = None
+            for g_i, (rows, dev) in enumerate(ranks):
+                part = {k: v[rows].to(dev) for k, v in mb.items()}
+                loss, aux, grads = loss_and_grads(
+                    params_on(dev), T.tree_map(lambda t, d=dev: t.to(d), amax), part)
+                loss_i = loss.to(dev0) if loss_i is None else loss_i + loss.to(dev0)
+                obs_by_rank[g_i].append(aux["obs"])
+                extras.append(aux)
+                g = _by_path(grads)
+                del grads
+                for p in paths:
+                    acc[p] = C.reduce_scatter_add(acc.get(p), g[p], p_sh[p], sole=n == 1)
+                del g
+            losses.append(loss_i / len(ranks) if len(ranks) > 1 else loss_i)
+        gathered.clear()
+        if n > 1:
+            for blocks in acc.values():
+                for t in blocks:
+                    t.div_(n)
+        loss = losses[0] if accum == 1 else sum(losses, 0.0) / accum
+        obs = C.max_over_ranks([C.max_over_ranks(o) for o in obs_by_rank])
+
+        bits = cfg.quant.grad_compress_bits
+
+        def grad_of(p):
+            g = acc[p]
+            if isinstance(g, list):         # the owners' blocks
+                g = C.all_gather(g, p_sh[p], dev0)
+                g = _compress_grads(g, bits) if bits else g
+                if keep_whole:
+                    acc[p] = g
+            return g
+
+        total = 0
+        for p in paths:                     # adamw.global_norm's order
+            total = total + torch.sum(torch.square(grad_of(p).to(torch.float32)))
+        gn = torch.sqrt(total)
+        opt_step = r0.opt["step"] + 1
+        scalars = adamw.update_scalars(opt_step, gn, opt_cfg)
+        ms, vs = [_by_path(s.opt["m"]) for s in shards], [_by_path(s.opt["v"]) for s in shards]
+        new_p, new_m, new_v = ({} for _ in range(3))
+        for p in paths:
+            pn, mn, vn = adamw.update_leaf(
+                C.all_gather([pr[p] for pr in params], p_sh[p], dev0), grad_of(p),
+                _gather_moment([m[p] for m in ms], m_sh[p], dev0),
+                _gather_moment([v[p] for v in vs], v_sh[p], dev0), scalars, opt_cfg)
+            del acc[p]
+            new_p[p] = C.scatter(pn, p_sh[p], [pr[p] for pr in params] if donate else None)
+            new_m[p] = _scatter_moment(mn, m_sh[p], [m[p] for m in ms] if donate else None)
+            new_v[p] = _scatter_moment(vn, v_sh[p], [v[p] for v in vs] if donate else None)
+        amax_new = ema_tree_update(r0.amax, T.tree_map(lambda t: t.to(dev0), obs), 0.99)
+        amaxes = T.tree_map(lambda t: _copies(t, mesh), amax_new)
+        steps, opt_steps = _copies(r0.step + 1, mesh), _copies(opt_step, mesh)
+        out = []
+        for r, s in enumerate(shards):
+            def rank_tree(tree, new, r=r):
+                return T.tree_unflatten(tree, [new[p][r] for p in _by_path(tree)])
+
+            out.append(TrainState(
+                params=rank_tree(s.params, new_p),
+                opt={"m": rank_tree(s.opt["m"], new_m), "v": rank_tree(s.opt["v"], new_v),
+                     "step": opt_steps[r]},
+                amax=T.tree_map(lambda c, r=r: c[r], amaxes),
+                step=steps[r]))
+        if bert:
+            acc_m = extras[0]["acc"] if len(extras) == 1 else \
+                sum(e["acc"].to(dev0) for e in extras) / len(extras)
+            return out, {"loss": loss, "acc": acc_m, "grad_norm": gn}
+        if accum == 1:
+            ce = sum(e["ce"].to(dev0) for e in extras) / len(extras) if len(extras) > 1 \
+                else extras[0]["ce"]
+            aux_l = sum(e["aux"].to(dev0) for e in extras) / len(extras) if len(extras) > 1 \
+                else extras[0]["aux"]
+        else:
+            ce, aux_l = loss, torch.zeros((), dtype=torch.float32, device=dev0)
+        return out, {"loss": loss, "ce": ce, "aux": aux_l, "grad_norm": gn}
+
+    return step, state_sh, batch_sh

@@ -1,0 +1,79 @@
+"""The port's dry run (``launch/dryrun.py``) on ``meta`` devices: yi-6b and
+llama3-405b ``train_4k`` on the 256-rank pod and the 512-rank two-pod mesh
+trace one data rank's loss and backward at its microbatch (256 / 16 / 4 = 4
+rows on one pod, 256 / 32 / 4 = 2 on two), and each rank's bytes of params,
+moments and batch equal those JAX's ``NamedSharding.shard_shape`` gives for
+the reference's shardings on an ``AbstractMesh`` of the same shape.
+
+Both configs run at their published widths and one layer (``cfg_overrides``):
+a traced layer at S = 4,096 costs ~1 s of meta ops, and the bytes of a
+deeper stack add per layer what one layer adds.  A MoE arch's cell is
+recorded as failing (its data ranks raise) and the sweep goes on; a decode
+cell records its cache's bytes per rank.
+"""
+import json
+
+import jax
+import numpy as np
+import pytest
+from jax.sharding import AbstractMesh
+
+from repro.configs import get_config as j_get_config
+from repro.models import serve_int as JS
+from repro.optim import adamw as JA
+from repro.sharding import partition as JPt
+from repro.train import steps as JSt
+from repro_torch.launch import dryrun as D
+
+ONE_LAYER = {"n_layers": 1}
+
+
+def _rank_bytes(tree, shardings):
+    return sum(int(np.prod(s.shard_shape(v.shape))) * np.dtype(v.dtype).itemsize
+               for v, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shardings)))
+
+
+def _mesh(multi_pod):
+    return (AbstractMesh((2, 16, 16), ("pod", "data", "model")) if multi_pod
+            else AbstractMesh((16, 16), ("data", "model")))
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["256", "512"])
+@pytest.mark.parametrize("arch", ["yi-6b", "llama3-405b"])
+def test_train_cells_trace_with_the_reference_bytes_per_rank(arch, multi_pod, tmp_path,
+                                                             monkeypatch):
+    monkeypatch.setattr(D, "RESULTS", tmp_path)
+    rec = D.run_cell(arch, "train_4k", multi_pod, cfg_overrides=ONE_LAYER)
+    saved = json.loads((tmp_path / f"{arch}--train_4k--{'multipod' if multi_pod else 'pod'}"
+                        ".json").read_text())
+    assert saved == rec
+    assert rec["ok"], rec.get("traceback")
+    assert rec["chips"] == (512 if multi_pod else 256) and rec["grads_match_params"]
+    assert rec["data_ranks"] == (32 if multi_pod else 16)
+    assert rec["microbatch"] == [256 // rec["data_ranks"] // 4, 4096]
+    cfg, mesh = j_get_config(arch, **ONE_LAYER), _mesh(multi_pod)
+    state = jax.eval_shape(lambda k: JSt.init_train_state(
+        cfg, k, JA.AdamWConfig(quantize_moments=True)), jax.random.PRNGKey(0))
+    p_sh = JPt.make_param_shardings(mesh, state.params)
+    want = {"params": _rank_bytes(state.params, p_sh),
+            "moments": sum(_rank_bytes(state.opt[k], JPt.make_param_shardings(mesh, state.opt[k]))
+                           for k in ("m", "v")) + 4,
+            "amax": _rank_bytes(state.amax, jax.tree.map(lambda _: JPt.replicated(mesh),
+                                                          state.amax)),
+            "batch": 256 * 4096 * 4 // rec["data_ranks"]}
+    print(f"  {arch} train_4k on {rec['chips']} ranks: bytes a rank {rec['rank_bytes']}")
+    assert rec["rank_bytes"] == want
+
+
+def test_a_failing_cell_is_recorded_and_serve_cells_trace(tmp_path, monkeypatch):
+    monkeypatch.setattr(D, "RESULTS", tmp_path)
+    moe = D.run_cell("qwen2-moe-a2.7b", "train_4k", False, cfg_overrides=ONE_LAYER)
+    assert not moe["ok"] and moe["error"].startswith("NotImplementedError")
+    rec = D.run_cell("yi-6b", "decode_32k", False, cfg_overrides=ONE_LAYER)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["batch_rows"] == [128 // 16, 1] and rec["logits"] == [8, 1, 64000]
+    cfg, mesh = j_get_config("yi-6b", **ONE_LAYER), _mesh(False)
+    cache = jax.eval_shape(lambda: JS.init_cache(cfg, 128, 32768))
+    assert rec["rank_bytes"]["cache"] == _rank_bytes(cache, JPt.cache_sharding(mesh, cache))
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "qwen2-moe-a2.7b--train_4k--pod.json", "yi-6b--decode_32k--pod.json"]

@@ -585,6 +585,7 @@ def test_launcher_trains_on_the_cpu_and_refuses_the_mesh(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "step     0 loss" in out and "step     1 loss" in out
     assert (tmp_path / "step_000002" / "manifest.json").exists()
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            launch_train.main(["--arch", "yi-6b", "--smoke", "--device", "cpu", flag])
+    # the production meshes need 256 and 512 devices; the CPU is one
+    for flags, need in ((["--production-mesh"], 256), (["--production-mesh", "--multi-pod"], 512)):
+        with pytest.raises(ValueError, match=f"needs {need} devices, found 1"):
+            launch_train.main(["--arch", "yi-6b", "--smoke", "--device", "cpu", *flags])
