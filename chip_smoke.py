@@ -98,9 +98,10 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    median latency), profiles of a (1, 512) forward and a 704-token stripe
    prefill, and ``flash_qdecode`` per layer over that stripe's cache, equal
    to ``decode_qattention`` on it;
-   ``[qwen3]`` and ``[moe]``: qwen3-4b (36 layers, qk-norm) and
-   qwen2-moe-a2.7b (24 layers, 60 routed experts top-4 and 4 shared, one
-   ``int4_matmul`` launch per expert and linear) at full size, each
+   ``[qwen3]`` and ``[moe]``: qwen3-4b at full size (36 layers, qk-norm)
+   and qwen2-moe-a2.7b at its published widths at ``MOE_DEPTH`` of 24
+   layers (60 routed experts top-4 and 4 shared, one ``int4_matmul``
+   launch per expert and linear), each
    calibrated and folded on the card (time and GiB printed), the 8
    requests one-shot and chunked through the Engine on the paged int8 pool
    (equal tokens unless the MoE router dropped a choice at capacity, which
@@ -124,8 +125,9 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    printed, not gated); the (1, 8,192) forward timed and profiled, a tick
    profiled; every shape the phase's forwards gave rows 1, 2, 6 and 9 held
    against the plain versions;
-   ``[xlstm]`` and ``[jamba]`` (``phase_recurrent``): xlstm-1.3b at full
-   size (48 layers, 42 mLSTM and 6 sLSTM, d 2048) and jamba-1.5-large at
+   ``[xlstm]`` and ``[jamba]`` (``phase_recurrent``): xlstm-1.3b at its
+   published widths at ``XLSTM_DEPTH`` of 48 layers (21 mLSTM and 3
+   sLSTM, d 2048) and jamba-1.5-large at
    its published widths (d 8192, 64 heads, 8 KV heads, d_ff 24,576, vocab
    65,536, Mamba d_state 16) at 8 of 72 layers with ``n_experts=0``, each
    calibrated and folded on the card (time, GiB and the float32 weight
@@ -232,6 +234,24 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    beside ``[train]``'s, the collectives' device time, the peak
    memory and a profiled step.  Each line carries the card's name and
    power limit.
+10. ``[analysis]`` (``phase_analysis``): the static analysis of the integer
+   datapath (``repro_torch.analysis``) on ``[serve]``'s yi-6b weights at
+   full width.  Each of ``analyze.PRESETS`` (kv 8/4 x tp 1/4 x spec 0/3,
+   tp 4 over ``(cuda:0,) * 4``) as a paged engine of 4 slots x 128 rows
+   on 16-row pages: every hot step (decode, prefill chunk, verify)
+   recorded op by op and audited; 0 violations over every graph, and
+   every graph launched a kernel.  Per graph: ops, float ops (against the
+   committed CPU baseline, not gated), the launches each wrapper's own
+   counter took, bytes by dtype, the worst exactness ratio of its exact
+   integer products over the operands' static ranges (and over this run's
+   values).  The kernel lint on the card (the battery of edge-case
+   lengths, origins and tables over sentinel, trash and guard pages, with
+   every input buffer unchanged by each call; compute-sanitizer's memcheck
+   where the tool runs; the shared-memory budget from ptxas and the
+   libraries' dynamic requests; argument order; shared bodies): 0
+   violations, and every check ok but a memcheck whose tool refuses the
+   card, which is printed; each kernel's registers and shared memory
+   printed.  The fixtures' self-test must pass.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
 on the served path and in ``[tp]``, ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
@@ -1887,6 +1907,55 @@ def phase_eval(torch, cfg, folded):
     return out
 
 
+def phase_analysis(torch, cfg, folded, guard):
+    """``repro_torch.analysis`` on the card: the six presets' hot steps
+    audited through the kernels at yi-6b's full width (0 violations), the
+    kernel lint (0 violations; the battery's plain versions run paused
+    under the guard), the self-test.  Prints what each graph ran and
+    each kernel's ptxas budget."""
+    from repro_torch.analysis import analyze, cost, fixtures, kernel_lint, report
+
+    t0 = time.perf_counter()
+    presets, skipped = analyze.run_audits(device="cuda", with_bytes=True, cfg=cfg,
+                                          folded=folded, engine_kw=dict(max_len=128,
+                                                                        page_size=16))
+    t_audit = time.perf_counter() - t0
+    with guard.paused():
+        lint = kernel_lint.run_all("cuda")
+    t_lint = time.perf_counter() - t0 - t_audit
+    doc = report.build_report(presets=presets, skipped=skipped, kernel_lint=lint,
+                              torch_version=torch.__version__)
+    base = json.loads(analyze.BASELINE.read_text())
+    for pname, (_, results, hbm) in presets.items():
+        for g, r in results.items():
+            new = sorted(r.float_prims - set(base["presets"][pname]["graphs"][g]["float_prims"]))
+            print(f"  {pname}/{g}: {r.n_eqns} ops {cost.op_counts(r.ops)}, wrapper launches "
+                  f"{r.launched}, exact-product ratio {r.exact_ratio:.4g} of the carrier "
+                  f"over the operands' ranges ({r.exact_ratio_seen:.4g} over this run's), bytes "
+                  f"{ {k: int(v) for k, v in sorted(hbm[g].items())} } (most: "
+                  f"{[(k, int(v)) for k, v in cost.top_ops(r.ops)]}), float ops "
+                  f"{len(r.float_prims)} ({len(new)} beyond the CPU baseline: {new})")
+            for v in r.violations:
+                print(f"    [{v.rule}] {v.scope}: {v.detail}")
+    for c in lint["checks"]:
+        print(f"  lint {c['check']} {c['kernel']}: {'ok' if c['ok'] else 'NOT OK'} ({c['detail']})")
+    failed = kernel_lint.failed_checks(lint)
+    for v in lint["violations"]:
+        print(f"    [{v['rule']}] {v['graph']}: {v['detail']}")
+    st = fixtures.run_self_test()
+    bad = [n for n, f in st["fixtures"].items() if not f["ok"]]
+    print(f"  self-test: {len(st['fixtures']) - len(bad)} of {len(st['fixtures'])} fixtures "
+          f"behaved; audit {t_audit:.1f} s, lint {t_lint:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(doc["violations_total"] == 0, f"[analysis]: {doc['violations_total']} violation(s)")
+    check(not failed, f"[analysis]: lint checks not ok: {failed}")
+    unlaunched = [f"{p}/{g}" for p, (_, results, _) in presets.items()
+                  for g, r in results.items() if not r.launched]
+    check(not unlaunched, f"[analysis]: graphs that launched no kernel: {unlaunched}")
+    check(st["ok"], f"[analysis]: fixtures not flagged with their rule: {bad}")
+    return doc
+
+
 # name -> (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab), at
 # full size; a MoE's d_ff is its experts' (moe_d_ff)
 ARCHS = {"qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
@@ -1973,7 +2042,7 @@ class DroppedChoices:
         self.n = int(self.total)
 
 
-def phase_arch(torch, name, kernels):
+def phase_arch(torch, name, kernels, n_layers=None):
     """An arch of ``ARCHS`` at full size through the Engine on the paged int8
     pool: the 8 requests one-shot and chunked (128-row chunks), every
     kernel of the path launched, every GEMM on the path its M implies (a
@@ -1984,7 +2053,7 @@ def phase_arch(torch, name, kernels):
     depends on the forward's other rows and legitimately moves tokens:
     then the first divergence is printed, not gated).  The weights are
     freed before it returns."""
-    cfg, folded = load_arch(torch, name)
+    cfg, folded = load_arch(torch, name, n_layers=n_layers)
     runs, drops = {}, {}
     for label, extra in (("one-shot", {}),
                          ("chunked", dict(max_prefill_chunk=128, max_batched_tokens=256))):
@@ -2555,6 +2624,10 @@ def phase_small_mixtral(torch):
 RECURRENT_LENS = (8, 64, 12, 20, 8, 16, 32, 10)
 RECURRENT_MAX_LEN = 256
 JAMBA_DEPTH = 8        # of 72 layers: one super-block, see phase_recurrent
+# of 48 and 24 layers: the script passed 1,000 s with [analysis] on a slow
+# host, so [xlstm] and [moe] serve at half depth (their widths published)
+XLSTM_DEPTH = 24
+MOE_DEPTH = 12
 DUAL_FORM_TOL = dict(atol=2e-3, rtol=2e-2)   # the reference's dual-form bound
 
 
@@ -2622,8 +2695,9 @@ def dual_form(torch, cfg, prep, slot: int, mixer: str, n: int):
 
 
 def phase_recurrent(torch, name, kernels, guard):
-    """xlstm-1.3b at full size (48 layers: 42 mLSTM, 6 sLSTM; d 2048, 4 heads
-    of 512, no FFN), or jamba-1.5-large at its published widths (d 8192, 64
+    """xlstm-1.3b at its published widths at XLSTM_DEPTH of 48 layers (three
+    of its six blocks of 1 sLSTM + 7 mLSTM; d 2048, 4 heads of 512, no
+    FFN), or jamba-1.5-large at its published widths (d 8192, 64
     heads, 8 KV heads, d_ff 24,576, vocab 65,536, Mamba d_state 16, d_conv
     4, expand 2) at JAMBA_DEPTH of 72 layers (one super-block, ``m m m m a m
     m m``) and ``n_experts=0``: its 4 MoE slots of a super-block hold ~38.7 B
@@ -2638,7 +2712,7 @@ def phase_recurrent(torch, name, kernels, guard):
     resolves to the contiguous layout): finite logits, tokens in range,
     every prompt through the batch-1 decode loop (``loop_prefill_steps`` =
     the prompt tokens, no one-shot prefill), per forward ``quant_layernorm``
-    49 times (xlstm) or 17 (jamba), jamba's ``int4_matmul`` 28 times on the
+    25 times (xlstm) or 17 (jamba), jamba's ``int4_matmul`` 28 times on the
     path its M implies and ``decode_qattention`` once, no flash and no
     paged kernel.  The dual-form gates (``dual_form``): xlstm's slots 1
     (mLSTM) and 0 (sLSTM) over 128 rows, jamba's slot 0 (Mamba) over 200
@@ -2658,7 +2732,7 @@ def phase_recurrent(torch, name, kernels, guard):
 
     jamba = name.startswith("jamba")
     cfg, folded = load_arch(torch, name, **(dict(n_layers=JAMBA_DEPTH, n_experts=0)
-                                            if jamba else {}))
+                                            if jamba else dict(n_layers=XLSTM_DEPTH)))
     t0 = time.perf_counter()
     prep = S.prepare_folded(cfg, folded)
     torch.cuda.synchronize()
@@ -4249,15 +4323,20 @@ def main() -> int:
     print("[eval] yi-6b, full width, the cache-less causal forward at (1, 512) and (2, 1024)")
     evals = phase_eval(torch, cfg, folded)
     stamp("eval")
+    print("[analysis] yi-6b, full width: the integer-datapath audit of every hot step of the six "
+          "engine presets, the kernel lint on the card and the fixtures' self-test")
+    phase_analysis(torch, cfg, folded, guard)
+    stamp("analysis")
     del folded
     torch.cuda.empty_cache()
     print("[qwen3] qwen3-4b, full size (36 layers, qk-norm), 8 requests x 32 new tokens, "
           "one-shot and chunked")
     phase_arch(torch, "qwen3-4b", engine_wrappers)
     stamp("qwen3")
-    print("[moe] qwen2-moe-a2.7b, full size (24 layers, 60 routed experts top-4 + 4 shared), "
+    print(f"[moe] qwen2-moe-a2.7b, published widths at {MOE_DEPTH} of 24 layers (60 routed "
+          "experts top-4 + 4 shared), "
           "8 requests x 32 new tokens, one-shot and chunked")
-    phase_arch(torch, "qwen2-moe-a2.7b", engine_wrappers)
+    phase_arch(torch, "qwen2-moe-a2.7b", engine_wrappers, n_layers=MOE_DEPTH)
     stamp("moe")
     print(f"[mixtral] mixtral-8x22b, published widths at {MIXTRAL_DEPTH} of 56 layers (8 "
           "experts top-2, a 4,096-row sliding window), 9 requests on the contiguous ring")
@@ -4266,7 +4345,8 @@ def main() -> int:
                             + engine_wrappers[2:], guard)
     stamp("mixtral")
     recurrent = {}
-    print("[xlstm] xlstm-1.3b, full size (48 layers: 42 mLSTM + 6 sLSTM, d 2048), 8 requests "
+    print(f"[xlstm] xlstm-1.3b, published widths at {XLSTM_DEPTH} of 48 layers (21 mLSTM + 3 "
+          "sLSTM, d 2048), 8 requests "
           f"of {min(RECURRENT_LENS)}-{max(RECURRENT_LENS)} prompt tokens x 32 new, the "
           "decode-loop prefill")
     recurrent["xlstm"] = phase_recurrent(torch, "xlstm-1.3b", engine_wrappers[:2] + [

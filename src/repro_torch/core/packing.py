@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.boundary import kernel_boundary
 from repro_torch.core.quant import recip_f32
 
 
@@ -107,6 +108,8 @@ def dequantize_kv_page(packed_u8: torch.Tensor, scale, axis: int = -1) -> torch.
     return dequant_int4_codes(unpack_int4_planar(packed_u8, axis=axis), scale)
 
 
+@kernel_boundary(why="whole-pool int4 dequant of the plain versions; the CUDA kernels "
+                     "dequantize page by page in shared memory")
 def dequantize_kv_pool(packed_pool_u8: torch.Tensor, page_scales: torch.Tensor) -> torch.Tensor:
     """Whole-pool dequant: (n_pages, P, Hkv, hd/2) uint8 + (n_pages,) fp32 ->
     (n_pages, P, Hkv, hd) int8, for the plain versions only (the kernels

@@ -410,3 +410,6 @@ extern "C" int flash_qattention(const void* q, const void* k, const void* v, con
       q_offset, window, skip_exp_arg, gh, qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory of one launch at head dim D, gh q heads a block.
+extern "C" int flash_qattention_smem(int D, int gh) { return smem_bytes(D, gh); }

@@ -577,14 +577,31 @@ inline cudaError_t launch_tc(const int8_t* x, const uint8_t* w, const int* bias,
   return cudaSuccess;
 }
 
+// Dynamic shared memory of a decode-path launch over K split ``split`` ways.
+inline int decode_launch_smem(bool w4, int K, int split) {
+  const int nsteps = (w4 ? K / 2 : K) / kDecodeRows;
+  return decode_smem(w4, (nsteps + split - 1) / split * kDecodeRows);
+}
+
+// Dynamic shared memory the launch of plan (path, bm, bn, split) at K asks
+// for, or -1 for a plan this file has no instance for (the C entries'
+// ``*_smem`` query, read by the kernel lint).
+template <bool kW4>
+inline int dyn_smem(int path, int bm, int bn, int K, int split) {
+  if (path == kDecode) return decode_launch_smem(kW4, K, split);
+  if (path != kTensorCore) return -1;
+  if (bm == 128 && bn == 128) return TcShape<kW4, 128, 128>::kSmem;
+  if (bm == 64 && bn == 128) return TcShape<kW4, 64, 128>::kSmem;
+  if (bm == 64 && bn == 64) return TcShape<kW4, 64, 64>::kSmem;
+  return -1;
+}
+
 template <bool kW4, bool kVec16>
 inline cudaError_t launch_decode(const int8_t* x, const uint8_t* w, const int* bias,
                                  const int* Mq, const int* shq, int8_t* out, int* ws, int M,
                                  int K, int N, int split, cudaStream_t s) {
   static int done = 0;
-  const int nsteps = (kW4 ? K / 2 : K) / kDecodeRows;
-  const int max_len = (nsteps + split - 1) / split * kDecodeRows;
-  const int smem = decode_smem(kW4, max_len);
+  const int smem = decode_launch_smem(kW4, K, split);
   auto kernel = decode_kernel<kW4, kVec16>;
   const cudaError_t e = allow_smem(kernel, smem, done);
   if (e != cudaSuccess) return e;

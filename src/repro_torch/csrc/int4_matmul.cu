@@ -34,3 +34,8 @@ extern "C" int int4_matmul(const void* x, const void* w, const void* bias, const
   return fq::igemm::launch<true>(x, w, bias, Mq, shq, out, ws, M, K, N, path, bm, bn, split,
                                  vec, stream);
 }
+
+// Dynamic shared memory of one launch of plan (path, bm, bn, split) at K.
+extern "C" int int4_matmul_smem(int path, int bm, int bn, int K, int split) {
+  return fq::igemm::dyn_smem<true>(path, bm, bn, K, split);
+}

@@ -33,3 +33,8 @@ extern "C" int int8_bitsplit_matmul(const void* x, const void* w, const void* bi
   return fq::igemm::launch<false>(x, w, bias, Mq, shq, out, ws, M, K, N, path, bm, bn, split,
                                   vec, stream);
 }
+
+// Dynamic shared memory of one launch of plan (path, bm, bn, split) at K.
+extern "C" int int8_bitsplit_matmul_smem(int path, int bm, int bn, int K, int split) {
+  return fq::igemm::dyn_smem<false>(path, bm, bn, K, split);
+}

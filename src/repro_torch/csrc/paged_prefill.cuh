@@ -83,6 +83,15 @@ __host__ __device__ constexpr int pf_smem_bytes(bool packed, int KT, int P, int 
          (packed ? kPfSteps * pf_pages_per_step(KT) * 2 * P * (D / 2) : 0);
 }
 
+// KT: the 16-row tiles one staged page spans (P up to 16, 32 or 64 rows).
+__host__ __device__ constexpr int pf_kt(int P) { return P <= 16 ? 1 : P <= 32 ? 2 : 4; }
+
+// Dynamic shared memory of one launch over P-row pages of head dim D.
+template <class Pages>
+int paged_prefill_smem(int P, int D) {
+  return pf_smem_bytes(Pages::kPacked, pf_kt(P), P, D);
+}
+
 // Staging of one pool page (K and V rows of kv head h) by threads tid of
 // nt, 16 bytes a copy: int8 codes straight to their tile at row stride ld
 // ...
@@ -488,7 +497,7 @@ int launch_paged_prefill(const void* q, Pages pages, const void* btab, const voi
                          int P, int nb, int gh, int qsb, int qsh, int qss, int osb, int osh,
                          int oss, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  const int KT = P <= 16 ? 1 : P <= 32 ? 2 : 4;
+  const int KT = pf_kt(P);
   auto kernel = KT == 1 ? paged_prefill_kernel<Pages, 1>
                 : KT == 2 ? paged_prefill_kernel<Pages, 2> : paged_prefill_kernel<Pages, 4>;
   const int bytes = pf_smem_bytes(Pages::kPacked, KT, P, D);

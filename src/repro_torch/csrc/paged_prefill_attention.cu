@@ -35,3 +35,8 @@ extern "C" int paged_prefill_attention(const void* q, const void* kpool, const v
   return fq::launch_paged_prefill(q, pages, btab, pos0, lut, Mi, shi, inv, osc, out, B, H,
                                   S, Hkv, D, P, nb, gh, qsb, qsh, qss, osb, osh, oss, stream);
 }
+
+// Dynamic shared memory of one launch over P-row pages of head dim D.
+extern "C" int paged_prefill_attention_smem(int P, int D) {
+  return fq::paged_prefill_smem<fq::Int8Pages>(P, D);
+}

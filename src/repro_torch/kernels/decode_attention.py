@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.boundary import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (
     decode_qattention_ref,
@@ -115,6 +116,7 @@ def _workspace(name: str, b, hkv, g, psize, nb, dev) -> torch.Tensor:
     return torch.empty(int(fn(b, hkv, g, psize, nb)), dtype=torch.int32, device=dev)
 
 
+@kernel_launch
 def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
                             shift_idx, lut_q7, inv_s_logit, out_scale):
     """q int8 (B, Hkv, G, D) x pools int8 (n_pages, P, Hkv, D) through the
@@ -155,6 +157,7 @@ def paged_decode_qattention(q_i8, k_pool, v_pool, block_tables, lengths, M_idx,
 paged_decode_qattention.launches = 0
 
 
+@kernel_launch
 def paged_decode_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tables,
                                lengths, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale):
     """q int8 (B, Hkv, G, D) x int4-packed pools uint8 (n_pages, P, Hkv, D/2)
@@ -201,6 +204,7 @@ def paged_decode_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tab
 paged_decode_qattention_q4.launches = 0
 
 
+@kernel_launch
 def decode_qattention(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
                       inv_s_logit, out_scale, *, bkv: int):
     """q int8 (B, Hkv, G, D) x the contiguous stripe int8 (B, Smax, Hkv, D),

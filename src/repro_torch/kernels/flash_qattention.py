@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import qsoftmax as qs
+from repro_torch.analysis.boundary import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     _check_device,
@@ -94,6 +95,7 @@ def flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
     return _epilogue(acc, den, out_scale)
 
 
+@kernel_launch
 def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
                      *, q_offset: int = 0, bkv: int = 512, window: int | None = None):
     """Causal flash attention, q (B, H, Sq, D) x k/v (B, Hkv, Skv, D) int8
@@ -155,6 +157,7 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
 flash_qattention.launches = 0
 
 
+@kernel_launch
 def flash_qdecode(q_i8, k_i8, v_i8, cache_len, M_idx, shift_idx, lut_q7, inv_s_logit,
                   out_scale, *, bkv: int = 512):
     """One token's GQA decode: q (Hkv, G, D) int8 x the cache (Hkv, Smax, D)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.boundary import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import int4_matmul_ref, int8_bitsplit_matmul_ref
 
@@ -109,6 +110,7 @@ def _launch(fn, x_i8, w, bias_i32, M_q, shift_q, n: int, w_bits: int) -> torch.T
     return out
 
 
+@kernel_launch
 def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, bias_i32: torch.Tensor,
                 M_q, shift_q) -> torch.Tensor:
     """x int8 (M, K) @ unpack(w uint8 (K/2, N)) + bias, requantized -> int8 (M, N)."""
@@ -131,6 +133,7 @@ int4_matmul.launches = 0
 int4_matmul.path_launches = dict.fromkeys(PATHS, 0)
 
 
+@kernel_launch
 def int8_bitsplit_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch.Tensor,
                          M_q, shift_q) -> torch.Tensor:
     """x int8 (M, K) @ w int8 (K, N) + bias, requantized -> int8 (M, N): the

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.boundary import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import _strided
 from repro_torch.kernels.ref import paged_prefill_qattention_q4_ref, paged_prefill_qattention_ref
@@ -77,6 +78,7 @@ def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift
     return q, out, kp, vp, btab, p0, lut, scal, ints
 
 
+@kernel_launch
 def paged_prefill_qattention(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
                              shift_idx, lut_q7, inv_s_logit, out_scale):
     """q int8 (B, H, S, D) at positions [pos0, pos0+S) x pools int8
@@ -103,6 +105,7 @@ def paged_prefill_qattention(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
 paged_prefill_qattention.launches = 0
 
 
+@kernel_launch
 def paged_prefill_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tables,
                                 pos0, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale):
     """q int8 (B, H, S, D) at positions [pos0, pos0+S) x int4-packed pools

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.boundary import kernel_launch
 from repro_torch.core.qlayernorm import QLNParams
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import quant_layernorm_ref
@@ -17,6 +18,7 @@ SOURCE = "src/repro_torch/csrc/quant_layernorm.cu"
 REPLACES = "src/repro/kernels/quant_layernorm.py:44"
 
 
+@kernel_launch
 def quant_layernorm(x_i8: torch.Tensor, p: QLNParams, eps_codes: int = 1) -> torch.Tensor:
     """int8 (R, N) rows -> int8 (R, N) on the folded output grid."""
     if x_i8.device.type == "cpu":

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.boundary import kernel_launch
 from repro_torch.core.qsoftmax import LUT_SIZE
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import quant_softmax_ref
@@ -18,6 +19,7 @@ SOURCE = "src/repro_torch/csrc/quant_softmax.cu"
 REPLACES = "src/repro/kernels/quant_softmax.py:44"
 
 
+@kernel_launch
 def quant_softmax(x_int: torch.Tensor, M_idx, shift_idx, lut: torch.Tensor) -> torch.Tensor:
     """int32 (R, S) pre-masked logit codes -> int8 (R, S) Q0.7 probabilities
     through the 256-entry q8 table ``lut``."""

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.boundary import exact_int_product
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core import packing
 from repro_torch.core import qlayernorm as qln
@@ -22,6 +23,8 @@ from repro_torch.core import qsoftmax as qs
 NEG_INIT = -(1 << 30)
 
 
+@exact_int_product(why="integer operands in a float64 carrier, every partial sum an "
+                        "integer below 2^53", carrier=torch.float64)
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer (batched) matmul of int8/int32 operands -> int32."""
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)

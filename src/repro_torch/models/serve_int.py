@@ -49,6 +49,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.analysis.boundary import exact_int_product, kernel_boundary
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core import packing
@@ -136,6 +137,16 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     so (every partial sum an integer below 2^24)."""
     with ieee_fp32(a.device):
         return torch.matmul(a, b)
+
+
+@exact_int_product(why="int8 activations times the head's integer codes in head_dtype, "
+                        "whose every partial sum is an exact integer",
+                   ranges=lambda x_i8, w, w_qmax: (None, w_qmax))
+def _head_product(x_i8: torch.Tensor, w: torch.Tensor, w_qmax: int) -> torch.Tensor:
+    """The lm_head's integer product ``x_i8 @ w``, carried in ``w``'s float
+    type (``head_dtype``) with TF32 off; ``w`` holds codes of magnitude at
+    most ``w_qmax``."""
+    return exact_matmul(x_i8.to(w.dtype), w)
 
 
 def wonly_weight(f: Dict) -> torch.Tensor:
@@ -291,6 +302,8 @@ def _gather_view(pool, block_tables):
     return pool[block_tables.long()].reshape(b, -1, pool.shape[2], pool.shape[3])
 
 
+@kernel_boundary(why="the gathered chain's int4 dequant on the plain path; the CUDA "
+                     "kernels dequantize page by page in shared memory")
 def _dequant_paged_view(pool_u8, scales, block_tables):
     """The slot-major view of a PACKED chain, dequantized: (B, max_blocks*P,
     Hkv, hd) int8 (ref path; the kernels dequantize page by page)."""
@@ -1014,5 +1027,5 @@ def serve_forward(cfg: ModelConfig, folded: Dict, tokens: torch.Tensor, *,
     inv_acc = folded["lm_head"]["inv_acc"]
     if w.dim() == 3:
         x, inv_acc = x[:, None], inv_acc[:, None, None]
-    acc = exact_matmul(x.to(w.dtype), w).to(torch.float32)
+    acc = _head_product(x, w, q.qmax(cfg.quant.w_bits)).to(torch.float32)
     return acc * inv_acc, cache

@@ -463,29 +463,79 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    # the hot steps, as ``hot_graphs`` hands them out: (logits, cache)
+    def _decode_step(self, folded, cache, toks, pos, btab=None):
+        return S.serve_forward(self.cfg, folded, toks, cache=cache, pos_offset=pos,
+                               mode="decode", block_tables=btab, mesh=self.mesh)
+
+    def _prefill_step(self, folded, cache, toks, btab, pos0: int):
+        return S.serve_forward(self.cfg, folded, toks, cache=cache, pos_offset=pos0,
+                               mode="prefill", block_tables=btab, mesh=self.mesh)
+
+    def _verify_step(self, folded, cache, toks, pos, btab, nrows):
+        return S.serve_forward(self.cfg, folded, toks, cache=cache, pos_offset=pos,
+                               mode="verify", block_tables=btab, verify_rows=nrows,
+                               mesh=self.mesh)
+
     def _decode(self, toks: np.ndarray) -> np.ndarray:
         btab = self._tensor(self.block_tables) if self.layout == "paged" else None
-        logits, self.cache = S.serve_forward(
-            self.cfg, self.folded, self._tensor(toks), cache=self.cache,
-            pos_offset=self._tensor(self.pos), mode="decode", block_tables=btab, mesh=self.mesh)
+        logits, self.cache = self._decode_step(self.folded, self.cache, self._tensor(toks),
+                                               self._tensor(self.pos), btab)
         return logits[:, -1].cpu().numpy()
 
     def _verify(self, toks: np.ndarray, nrows: np.ndarray) -> np.ndarray:
         """The speculative verify forward: (B, spec_k+1) tokens at each
         slot's decode cursor, ``nrows`` real rows per slot; every row's
         logits (B, spec_k+1, V)."""
-        logits, self.cache = S.serve_forward(
-            self.cfg, self.folded, self._tensor(toks), cache=self.cache,
-            pos_offset=self._tensor(self.pos), mode="verify",
-            block_tables=self._tensor(self.block_tables), verify_rows=self._tensor(nrows),
-            mesh=self.mesh)
+        logits, self.cache = self._verify_step(
+            self.folded, self.cache, self._tensor(toks), self._tensor(self.pos),
+            self._tensor(self.block_tables), self._tensor(nrows))
         return logits.cpu().numpy()
 
     def _prefill(self, toks: np.ndarray, btab: np.ndarray, pos0: int, row: int):
-        logits, self.cache = S.serve_forward(
-            self.cfg, self.folded, self._tensor(toks), cache=self.cache,
-            pos_offset=pos0, mode="prefill", block_tables=self._tensor(btab), mesh=self.mesh)
+        logits, self.cache = self._prefill_step(self.folded, self.cache, self._tensor(toks),
+                                                self._tensor(btab), pos0)
         return logits[0, row].cpu().numpy()
+
+    def hot_graphs(self) -> Dict[str, tuple]:
+        """``name -> (step_fn, example_args)`` for every hot step of this
+        engine, the counterpart of the reference's ``Engine.hot_graphs``:
+        ``decode``, and on the paged layout ``prefill_chunk`` (one padded
+        chunk of whole pages at batch 1, the shape ``_run_chunk`` runs) and,
+        with speculation on, ``verify``; the contiguous layout gives
+        ``decode`` only (its prefill writes a private stripe per request).
+
+        The arguments come from the live state (zero tokens, the current
+        positions and block tables) with one difference from the
+        reference, whose tracing consumes nothing: ``fn(*args)`` RUNS the
+        step, so each graph's args hold its own clone of the live cache and
+        auditing never writes a serving engine's pool."""
+        def clone(tree):
+            if isinstance(tree, dict):
+                return {k: clone(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [clone(v) for v in tree]
+            return tree.clone()
+
+        tok = self._tensor(np.zeros((self.batch, 1), np.int32))
+        pos = self._tensor(self.pos)
+        if self.layout != "paged":
+            return {"decode": (self._decode_step, (self.folded, clone(self.cache), tok, pos))}
+        btab = self._tensor(self.block_tables)
+        graphs: Dict[str, tuple] = {
+            "decode": (self._decode_step, (self.folded, clone(self.cache), tok, pos, btab)),
+        }
+        chunk = self.max_prefill_chunk or 2 * self.page_size
+        chunk = pages_needed(min(chunk, self.smax), self.page_size) * self.page_size
+        graphs["prefill_chunk"] = (self._prefill_step, (
+            self.folded, clone(self.cache), self._tensor(np.zeros((1, chunk), np.int32)),
+            btab[:1], 0))
+        if self.spec_k:
+            graphs["verify"] = (self._verify_step, (
+                self.folded, clone(self.cache),
+                self._tensor(np.zeros((self.batch, self.spec_k + 1), np.int32)), pos, btab,
+                self._tensor(np.ones((self.batch,), np.int32))))
+        return graphs
 
     def _bucket_len(self, ln: int) -> int:
         """Padded one-shot prefill length for the contiguous layout: a

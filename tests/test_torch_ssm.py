@@ -88,6 +88,17 @@ def assert_codes(got, want, what: str):
     return n
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Per arch: the reference's config, params, calibration tokens, obs and
