@@ -252,6 +252,19 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    violations, and every check ok but a memcheck whose tool refuses the
    card, which is printed; each kernel's registers and shared memory
    printed.  The fixtures' self-test must pass.
+11. ``[autotune]`` (``phase_autotune``, after the kernel phases, and
+   ``phase_autotune_served``, after ``[analysis]``): the launch tuner of
+   ``kernels/autotune.py``.  At every GEMM shape of the kernel phases and
+   every attention case of the paged prefill, flash prefill and
+   contiguous decode phases, every candidate of the knob (the GEMM plans,
+   the heads per block, the bkv) must equal the plain version (at that
+   bkv), and each GEMM plan's shared memory the library's; one row a shape
+   times the off rule's, the model's and the measured pick on cold inputs
+   beside the bound.  Racing must move no wrapper counter, and one wrapper
+   call each in measured mode must count one launch.  Then the W4A8 GEMMs'
+   launches x ms for each mode over yi-6b's one-shot run and a qwen2-moe
+   decode tick, and a yi-6b prefill chunk and decode tick under each mode:
+   equal logits, bit for bit.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches
 on the served path and in ``[tp]``, ``[mixtral]``, ``[xlstm]``, ``[jamba]``,
@@ -276,10 +289,14 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
-F32_OPS_PER_S = 67e12          # H100 SXM CUDA-core float32 rate (32-bit ops)
-L2_BYTES = 50 << 20            # H100 L2 cache
+sys.path.insert(0, str(ROOT / "src"))
+try:    # the card's ceilings, one source with the port
+    from repro_torch.kernels.hw_constants import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.kernels.hw_constants import L2_BYTES
+    from repro_torch.kernels.hw_constants import PEAK_F32_OPS as F32_OPS_PER_S
+    from repro_torch.kernels.hw_constants import PEAK_INT8_OPS as INT8_OPS_PER_S
+except ImportError:     # no port beside this script: main() says so and fails
+    pass
 SEED = 0
 
 
@@ -304,7 +321,8 @@ def sass_ops(path: str) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IMMA", "IGMMA", "IDP")}
 
 
-def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float | None = None):
+    ops_per_s = ops_per_s or INT8_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -499,11 +517,13 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
     plain version, then timed beside the plain version and
     ``torch._int_mm`` on the same product (int32 accumulator only; it needs
     more than 16 rows, so a decode batch is padded to 32).  Prints a row per
-    shape with the path and tile ``plan`` chose, the kernel / _int_mm factor
+    shape with the path and tile the tuner chose, the kernel / _int_mm factor
     and the kernel's share of its bound; returns the ``main_shape`` row."""
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels import int4_matmul as mod
     from repro_torch.kernels.ref import int4_matmul_ref, int8_bitsplit_matmul_ref
 
+    sms = _build.sm_count(torch.device("cuda"))
     fn, plain = ((mod.int4_matmul, int4_matmul_ref) if w4 else
                  (mod.int8_bitsplit_matmul, int8_bitsplit_matmul_ref))
     mism, err, rows = 0, 0.0, []
@@ -513,7 +533,7 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
         c, e = compare(fn(*args), plain(*args))
         mism, err = mism + c, max(err, e)
         xl = torch.cat([x, x.new_zeros((32 - m, k))]) if m < 32 else x
-        p = mod.plan(m, k, n, 4 if w4 else 8)
+        p = autotune.gemm_plan(m, k, n, 4 if w4 else 8, sms)
         row = dict(m=m, k=k, n=n, plan=p, mismatches=c, ms=device_ms(torch, fn, args),
                    plain_ms=device_ms(torch, plain, args, cold=False),
                    library_ms=device_ms(torch, torch._int_mm, (xl, w8)))
@@ -535,19 +555,25 @@ def gemm_phase(torch, gen, w4: bool, shapes, main_shape, shape_text):
                 rows={(r["m"], r["k"], r["n"]): r for r in rows})
 
 
+def served_gemm_shapes() -> list:
+    """(M, K, N) of the W4A8 GEMMs the kernel phase holds: every served
+    arch's linears at the M its paths give (M = 32: a verify forward's rows,
+    8 slots x spec_k + 1 = 4)."""
+    return list(dict.fromkeys(
+        [(m, k, n) for m in (8, 32, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
+        + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]
+        + [(m, k, n) for m in (8, 512) for k, n in QWEN3_GEMMS]
+        + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS]
+        + [(m, k, n) for m in (4, 1250)
+           for k, n in MIXTRAL_ATTN_GEMMS + MIXTRAL_EXPERT_GEMMS]
+        + [(m, k, n) for m in (8, 4000) for k, n in MIXTRAL_ATTN_GEMMS]
+        + [(m, k, n) for m in (1300, 2560) for k, n in MIXTRAL_EXPERT_GEMMS]
+        + [(m, k, n) for m in (1, 8, 512) for k, n in JAMBA_GEMMS]
+        + [(m, k, n) for m in (8, 512) for k, n in QWEN2VL_GEMMS + MUSICGEN_GEMMS]))
+
+
 def phase_int4_matmul(torch, gen):
-    # M = 32: a verify forward's rows (8 slots x spec_k + 1 = 4)
-    shapes = ([(m, k, n) for m in (8, 32, 128, 256, 512, 2048) for k, n in YI6B_GEMMS]
-              + [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]
-              + [(m, k, n) for m in (8, 512) for k, n in QWEN3_GEMMS]
-              + [(m, k, n) for m in (4, 8, 43) for k, n in EXPERT_GEMMS]
-              + [(m, k, n) for m in (4, 1250)
-                 for k, n in MIXTRAL_ATTN_GEMMS + MIXTRAL_EXPERT_GEMMS]
-              + [(m, k, n) for m in (8, 4000) for k, n in MIXTRAL_ATTN_GEMMS]
-              + [(m, k, n) for m in (1300, 2560) for k, n in MIXTRAL_EXPERT_GEMMS]
-              + [(m, k, n) for m in (1, 8, 512) for k, n in JAMBA_GEMMS]
-              + [(m, k, n) for m in (8, 512) for k, n in QWEN2VL_GEMMS + MUSICGEN_GEMMS])
-    row = gemm_phase(torch, gen, True, shapes, (8, 4096, 11008),
+    row = gemm_phase(torch, gen, True, served_gemm_shapes(), (8, 4096, 11008),
                      "M=8 (decode batch) K=4096 N=11008 (wg/wu)")
     row["verify"] = dict(row["rows"][(32, 4096, 11008)],
                          shape="M=32 (verify: 8 slots x 4 rows) K=4096 N=11008 (wg/wu)")
@@ -742,6 +768,12 @@ def _pool(torch, gen, n_pages, psize, hkv, d, packed):
     return (kp, vp, ks, vs), d, 8
 
 
+# (label, wrapper name, args, keywords, (bound ms, bound by)) of every case the
+# paged prefill, flash prefill and contiguous decode phases held: [autotune]
+# tunes the attention knobs at these shapes
+ATTN_CASES: list = []
+
+
 # (Hkv, G, D) of the served archs' attention: yi-6b's GQA, and G = 1 at
 # qwen2-moe-a2.7b's 16 heads of 128 and stablelm-1.6b's 32 heads of 64
 YI6B_HEADS = (4, 8, 128)
@@ -847,6 +879,8 @@ def phase_paged_prefill(torch, gen, packed=False):
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * len(pos0) * h * sq * d + rows * hkv * row_bytes
             + page_bytes * -(-rows // psize) + 4 * len(pos0) * nb + 1024, 4.0 * h * d * keys)
+        ATTN_CASES.append((f"{fn.__name__} {label} H={h} Hkv={hkv} D={d} S={sq} pos0={pos0}",
+                           fn.__name__, args, {}, (row["bound_ms"], row["bound_by"])))
         print(f"  {fn.__name__} H={h} Hkv={hkv} D={d} S={sq} pos0={pos0}: kernel "
               f"{row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
@@ -926,6 +960,8 @@ def phase_decode_contiguous(torch, gen):
         rows = sum(lengths)
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * b * hkv * g * d + 2 * rows * hkv * d + 4 * b + 1024, 4.0 * hkv * g * d * rows)
+        ATTN_CASES.append((f"decode_qattention {label} Hkv={hkv} G={g} D={d} Smax={smax}",
+                           "decode_qattention", args, {}, (row["bound_ms"], row["bound_by"])))
         blocks, live = _stripe_blocks(mod, lengths, smax, bkv, hkv)
         print(f"  decode (contiguous) {label} Hkv={hkv} G={g} D={d} Smax={smax} bkv={bkv} "
               f"lengths={lengths}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -1039,6 +1075,9 @@ def phase_flash_qattention(torch, gen):
         row["bound_ms"], row["bound_by"] = _flash_bound(h, hkv, d, sq, skv, q_offset, window, b)
         text = (f"B={b} H={h} Hkv={hkv} D={d} Sq={sq} Skv={skv} q_offset={q_offset} bkv={bkv}"
                 + (f" window={window}" if window else ""))
+        ATTN_CASES.append((f"flash_qattention {text}", "flash_qattention", args,
+                           dict(q_offset=q_offset, bkv=bkv, window=window),
+                           (row["bound_ms"], row["bound_by"])))
         extra = ""
         if window:
             margin = window_skip_margin(float(args[6]), d)
@@ -1153,10 +1192,245 @@ def phase_quant_softmax(torch, gen):
                 shape="R=1536 S=128 (BERT-base at (1, 128): 12 heads x 128 queries)")
 
 
+BITSPLIT_SHAPES = [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]   # (1, 128), (8, 512)
+
+
 def phase_int8_bitsplit(torch, gen):
-    shapes = [(m, k, n) for m in (128, 4096) for k, n in BERT_GEMMS]   # (1, 128), (8, 512)
-    return gemm_phase(torch, gen, False, shapes, (128, 768, 3072),
+    return gemm_phase(torch, gen, False, BITSPLIT_SHAPES, (128, 768, 3072),
                       "M=128 (BERT-base at (1, 128)) K=768 N=3072 (w1)")
+
+
+# --- [autotune]: the launch tuner's picks -------------------------------------------
+
+AUTOTUNE_MODES = ("off", "roofline", "measure")
+
+
+def _under(mode: str, ask):
+    """``ask()`` with ``REPRO_TORCH_AUTOTUNE=mode`` (the default again after)."""
+    os.environ["REPRO_TORCH_AUTOTUNE"] = mode
+    try:
+        return ask()
+    finally:
+        del os.environ["REPRO_TORCH_AUTOTUNE"]
+
+
+def tune_row(torch, label, cands, launch, plain, args, ask, bound, rows):
+    """One shape of [autotune]: every candidate ``c`` of a knob,
+    ``launch(c, *args)`` (a launch no wrapper counts), against
+    ``plain(c)``; then the off rule's, the model's and the measured pick
+    (``ask()`` under each mode), each timed by ``device_ms`` on cold inputs
+    beside ``bound``; appends the row to ``rows``."""
+    bad = sum(compare(launch(c, *args), plain(c))[0] for c in cands)
+    picks = {mode: _under(mode, ask) for mode in AUTOTUNE_MODES}
+    ms = {c: device_ms(torch, lambda *a, c=c: launch(c, *a), args)
+          for c in dict.fromkeys(picks.values())}
+
+    def text(c):
+        return f"{c.bm}x{c.bn}/{c.split}" if hasattr(c, "split") else str(c)
+
+    row = dict(shape=label, candidates=len(cands), mismatches=bad, bound_ms=bound[0],
+               bound_by=bound[1], **{f"{m}_pick": text(c) for m, c in picks.items()},
+               **{f"{m}_ms": ms[c] for m, c in picks.items()})
+    rows.append(row)
+    print(f"  {label}: off {row['off_pick']} {row['off_ms']:.4f} ms, model "
+          f"{row['roofline_pick']} {row['roofline_ms']:.4f} ms, measured "
+          f"{row['measure_pick']} {row['measure_ms']:.4f} ms, bound {bound[0]:.5f} ms "
+          f"({bound[1]}); {len(cands)} candidates, {bad} mismatching codes", flush=True)
+    return row
+
+
+def tune_gemm(torch, gen, m, k, n, w_bits, rows):
+    """[autotune] at one GEMM shape: every ``gemm_candidates`` plan equal to
+    the plain version."""
+    from repro_torch.kernels import _build, autotune
+    from repro_torch.kernels import int4_matmul as mm
+    from repro_torch.kernels.ref import int4_matmul_ref, int8_bitsplit_matmul_ref
+
+    sms = _build.sm_count(torch.device("cuda"))
+    name = "int4_matmul" if w_bits == 4 else "int8_bitsplit_matmul"
+    args, _ = _gemm_args(torch, gen, m, k, n, w_bits == 4)
+    want = (int4_matmul_ref if w_bits == 4 else int8_bitsplit_matmul_ref)(*args)
+    cands = autotune.gemm_candidates(m, k, n, w_bits, sms)
+    w_bytes = k * n // 2 if w_bits == 4 else k * n
+    return tune_row(
+        torch, f"{name} M={m} K={k} N={n} [{cands[0].path}]", cands,
+        lambda p, *a: mm._launch(name, *a, n, p), lambda p: want, args,
+        lambda: autotune.gemm_plan(m, k, n, w_bits, sms, device="cuda"),
+        bound_ms(m * k + w_bytes + 4 * n + m * n, 2.0 * m * k * n), rows)
+
+
+def tune_attention(torch, label, name, args, kw, bound, rows):
+    """[autotune] at one attention case of the kernel phases: every heads
+    per block of the paged or flash prefill, or every bkv a pin can ask of
+    the contiguous decode, equal to the plain version (at that bkv)."""
+    from repro_torch.kernels import _build, autotune, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels import prefill_attention as pa
+
+    dev = torch.device("cuda")
+    sms = _build.sm_count(dev)
+    q = args[0]
+    if name == "decode_qattention":
+        b, smax, hkv, d = args[1].shape
+        cands = tuple(dict.fromkeys(autotune._fit(c, smax) for c in (512, 256, 128)))
+        return tune_row(torch, label, cands,
+                        lambda c, *a: da._launch_stripe(*a, bkv=c),
+                        lambda c: ref.decode_qattention_ref(*args, c), args,
+                        lambda: autotune.decode_bkv(smax, batch_slots=b, hkv=hkv, hd=d),
+                        bound, rows)
+    b, h, sq, d = q.shape
+    if name == "flash_qattention":
+        hkv, skv = args[1].shape[1], args[1].shape[2]
+        bkv = min(kw["bkv"], skv)
+        shape = (name, b, h, sq, d, hkv, skv, bkv, kw["q_offset"], kw["window"])
+        want = fa.flash_qattention_torch(*args, **kw)
+
+        def launch(gh, *a):
+            return fa._launch_flash(*a, **kw, gh=gh)
+    else:
+        hkv, psize, nb = args[1].shape[2], args[1].shape[1], args[-7].shape[1]
+        shape = (name, b, h, sq, d, hkv, psize, nb)
+        q4 = name.endswith("_q4")
+        want = (ref.paged_prefill_qattention_q4_ref if q4 else
+                ref.paged_prefill_qattention_ref)(*args)
+
+        def launch(gh, *a):
+            return (pa._launch_q4 if q4 else pa._launch_int8)(*a, gh=gh)
+    group, units = h // hkv, -(-sq // pa.ROWS_PER_BLOCK) * b * hkv
+    return tune_row(torch, label, autotune.heads_candidates(group, units, sms), launch,
+                    lambda gh: want, args,
+                    lambda: autotune.attn_heads_per_block(group, units, sms, shape=shape,
+                                                          device=dev), bound, rows)
+
+
+def check_not_slower(rows, where: str):
+    """Gate: at no shape of ``rows`` is the default (the model's) pick
+    slower than the off rule's by more than max(10 %, 0.002 ms)."""
+    slow = [r["shape"] for r in rows
+            if r["roofline_ms"] > max(1.1 * r["off_ms"], r["off_ms"] + 0.002)]
+    print(f"  {where}: the model's pick slower than the off rule by more than "
+          f"max(10 %, 0.002 ms) at {len(slow)} of {len(rows)} shapes {slow}")
+    check(not slow, f"[autotune] {where}: the model's pick is slower than the off rule "
+                    f"at {slow}")
+
+
+def wrapper_counts():
+    """Every wrapper's launches, and the GEMMs' by path."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels import int4_matmul as mm
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import quant_layernorm as ln
+    from repro_torch.kernels import quant_softmax as sm
+
+    fns = (mm.int4_matmul, mm.int8_bitsplit_matmul, ln.quant_layernorm, sm.quant_softmax,
+           pa.paged_prefill_qattention, pa.paged_prefill_qattention_q4,
+           da.paged_decode_qattention, da.paged_decode_qattention_q4, da.decode_qattention,
+           fa.flash_qattention, fa.flash_qdecode)
+    return dict({f.__name__: f.launches for f in fns},
+                **{f"{f.__name__} {p}": v for f in fns[:2] for p, v in f.path_launches.items()})
+
+
+def phase_autotune(torch, gen):
+    """[autotune], the kernels: every candidate of every knob equal to its
+    plain version at the served GEMM shapes (``served_gemm_shapes``, BERT's
+    bit-split ones) and at every attention case of the kernel phases; the
+    off rule's, the model's and the measured pick timed beside the bound;
+    racing moves no wrapper counter, and a wrapper call in measured mode
+    counts one launch however many candidates it raced."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import int4_matmul as mm
+    from repro_torch.kernels import prefill_attention as pa
+
+    t0 = time.perf_counter()
+    before, rows = wrapper_counts(), []
+    for m, k, n in served_gemm_shapes():
+        tune_gemm(torch, gen, m, k, n, 4, rows)
+    for m, k, n in BITSPLIT_SHAPES:
+        tune_gemm(torch, gen, m, k, n, 8, rows)
+    for case in ATTN_CASES:
+        tune_attention(torch, *case, rows)
+    check(wrapper_counts() == before, "[autotune]: racing moved a wrapper's launch counter")
+    # one call of each kind through its wrapper in measured mode, its
+    # candidates raced afresh: one launch counted
+    autotune.clear_cache()
+    gemm_args, _ = _gemm_args(torch, gen, 8, 4096, 11008, True)
+    _, name, attn_args, _, _ = next(c for c in ATTN_CASES if c[1] == "paged_prefill_qattention")
+    _, _, stripe_args, _, _ = next(c for c in ATTN_CASES if c[1] == "decode_qattention")
+    _under("measure", lambda: (mm.int4_matmul(*gemm_args), pa.paged_prefill_qattention(
+        *attn_args), ops.decode_attention_q(*stripe_args)))
+    after = wrapper_counts()
+    moved = {k: after[k] - v for k, v in before.items() if after[k] != v}
+    check(moved == {"int4_matmul": 1, "int4_matmul decode": 1, "paged_prefill_qattention": 1,
+                    "decode_qattention": 1},
+          f"[autotune]: one wrapper call each in measured mode moved the counters by {moved}")
+    gain = [r["shape"] for r in rows if r["measure_ms"] < r["off_ms"] / 1.1]
+    print(f"  measured winner faster than the off rule by more than 10 %: {len(gain)} of "
+          f"{len(rows)} shapes {gain}")
+    bad = [r["shape"] for r in rows if r["mismatches"]]
+    check(not bad, f"[autotune]: a candidate differs from the plain version at {bad}")
+    check_not_slower(rows, "kernels")
+    ATTN_CASES.clear()
+    print(f"  [autotune] kernels {time.perf_counter() - t0:.1f} s; racing moved no counter")
+    return rows
+
+
+def phase_autotune_served(torch, gen, cfg, folded, served, guard):
+    """[autotune], the served path: launches x ms of the W4A8 GEMMs for each
+    mode over yi-6b's one-shot run (``served``'s recorded forwards) and one
+    qwen2-moe-a2.7b decode tick at its published 24 layers
+    (``forward_gemms``); then one paged prefill chunk (8 slots x 32 rows)
+    and one decode tick of yi-6b under each mode: equal logits, bit for
+    bit.  The shapes' comparisons with the plain versions run paused
+    under ``guard``."""
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import serve_int as S
+
+    t0 = time.perf_counter()
+    moe = get_config("qwen2-moe-a2.7b")
+    runs = {"yi-6b one-shot run": (cfg, [b * s for b, s, _, _ in served["forwards"]]),
+            "qwen2-moe-a2.7b decode tick (8 rows, 24 layers)": (moe, [8])}
+    rows = {}
+    for what, (c, ts) in runs.items():
+        counts = Counter()
+        for t in ts:
+            for mkn in forward_gemms(c, t):
+                counts[mkn] += c.n_reps
+        total = dict.fromkeys(AUTOTUNE_MODES, 0.0)
+        for (m, k, n), cnt in counts.items():
+            if (m, k, n) not in rows:
+                with guard.paused():
+                    rows[(m, k, n)] = tune_gemm(torch, gen, m, k, n, 4, [])
+            for mode in AUTOTUNE_MODES:
+                total[mode] += cnt * rows[(m, k, n)][f"{mode}_ms"]
+        print(f"  {what}: {sum(counts.values())} W4A8 GEMM launches, launches x ms: off "
+              f"{total['off']:.2f} ms, model {total['roofline']:.2f} ms, measured "
+              f"{total['measure']:.2f} ms")
+    check_not_slower(list(rows.values()), "served GEMMs")
+    pf = S.prepare_folded(cfg, folded)
+    toks = torch.as_tensor(np.stack([p[:32] for p in _prompts(cfg.vocab_size)]), device="cuda")
+    btab = 1 + torch.arange(8 * 8, dtype=torch.int32, device="cuda").reshape(8, 8)
+    logits = {}
+    for mode in AUTOTUNE_MODES:
+        def step():
+            cache = S.init_paged_cache(cfg, 8 * 8 + 1, 16, device="cuda")
+            pre, _ = S.serve_forward(cfg, pf, toks, cache=cache, mode="prefill",
+                                     block_tables=btab)
+            dec, _ = S.serve_forward(cfg, pf, pre[:, -1:].argmax(-1), cache=cache,
+                                     pos_offset=torch.full((8,), 32, device="cuda"),
+                                     mode="decode", block_tables=btab)
+            return pre, dec
+
+        logits[mode] = _under(mode, step)
+    same = {mode: all(torch.equal(a, b) for a, b in zip(logits["off"], got))
+            for mode, got in logits.items()}
+    print(f"  yi-6b prefill chunk (8 x 32 rows) and decode tick, logits equal to the off "
+          f"rule's: {same}; {time.perf_counter() - t0:.1f} s")
+    check(all(same.values()), f"[autotune]: the modes' logits differ: {same}")
+    return rows
 
 
 # --- the served path ---------------------------------------------------------------
@@ -4210,7 +4484,6 @@ def phase_train(torch, kernels, guard):
 
 
 def main() -> int:
-    sys.path.insert(0, str(ROOT / "src"))
     try:
         import torch
 
@@ -4290,6 +4563,12 @@ def main() -> int:
         rows.append(row)
     torch.cuda.empty_cache()
     stamp("kernel phases")
+    print("[autotune] the launch tuner (kernels/autotune.py): every candidate of every knob at "
+          "the served GEMM shapes and the attention phases' cases, and the picks of its three "
+          "modes")
+    phase_autotune(torch, gen)
+    torch.cuda.empty_cache()
+    stamp("autotune")
 
     # the served paths must reach no plain version on a CUDA tensor: every
     # such call from here on is counted, outside a phase's paused comparisons
@@ -4327,6 +4606,10 @@ def main() -> int:
           "engine presets, the kernel lint on the card and the fixtures' self-test")
     phase_analysis(torch, cfg, folded, guard)
     stamp("analysis")
+    print("[autotune] yi-6b, full width: the GEMMs' launches x ms under each mode over the "
+          "one-shot run and a qwen2-moe tick; a prefill chunk and a decode tick under each mode")
+    phase_autotune_served(torch, gen, cfg, folded, served, guard)
+    stamp("autotune served")
     del folded
     torch.cuda.empty_cache()
     print("[qwen3] qwen3-4b, full size (36 layers, qk-norm), 8 requests x 32 new tokens, "

@@ -23,9 +23,9 @@ reference's ``analysis/pallas_lint.py``.
 ``SMEM-BUDGET`` (counterpart of ``VMEM-BUDGET``)
     From the ``ptxas -v`` log ``_build.build_all`` keeps, each kernel's
     static shared memory plus the dynamic bytes its launches ask for (the
-    libraries' ``*_smem`` queries, at the shapes the served archs give) must
-    fit the H100's 227 KB a block.  Registers and spills are reported, not
-    gated.
+    libraries' ``*_smem`` queries, at the shapes the served archs give and
+    every launch plan the tuner can pick there) must fit the H100's 227 KB
+    a block.  Registers and spills are reported, not gated.
 
 ``ARG-ORDER`` (counterpart of ``SCALAR-PREFETCH``)
     Each ``_build.bind(name, symbol, n_ptr, n_int)(...)`` call must pass as
@@ -55,15 +55,13 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.graph_audit import Violation
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_qattention as FA
 from repro_torch.kernels import int4_matmul as MM
 from repro_torch.kernels import prefill_attention as PA
 from repro_torch.kernels import ref
-
-# the H100's largest shared memory a block may hold (static + dynamic)
-SMEM_PER_BLOCK = 227 * 1024
+from repro_torch.kernels.hw_constants import SMEM_PER_BLOCK
 KERNEL_MODULES = ("decode_attention", "flash_qattention", "int4_matmul", "prefill_attention",
                   "quant_layernorm", "quant_softmax")
 SRC = pathlib.Path(__file__).resolve().parents[1]
@@ -416,15 +414,6 @@ def parse_ptxas(log: str) -> List[Dict]:
     return out
 
 
-def _dyn_query(lib: str, *ints) -> int:
-    import ctypes
-
-    fn = getattr(_build.load(lib), f"{lib}_smem")
-    fn.argtypes = [ctypes.c_int] * len(ints)
-    fn.restype = ctypes.c_int
-    return int(fn(*ints))
-
-
 # (K, N) of the served archs' linears: yi-6b's, qwen3-4b's, mixtral's widest,
 # jamba's; BERT-base's for the W8A8 bit-split GEMM
 GEMM_KN = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (2560, 9728),
@@ -435,17 +424,24 @@ GEMM_M = (1, 8, 32, 128, 512, 2048, 4096)
 
 def dynamic_smem() -> Dict[str, int]:
     """Kernel library -> the most dynamic shared memory its launches ask
-    for at the served shapes (card only: the libraries answer)."""
+    for at the served shapes, over every plan and heads per block the
+    launch tuner can pick there (``autotune.gemm_candidates``; the flash
+    prefill at every heads per block up to the most; the paged prefill's
+    request does not depend on it), -1 where a plan has no instance in the
+    library (card only: the libraries answer)."""
     out = {lib: 0 for lib in _build.KERNELS}
+    sms = _build.sm_count(torch.device("cuda"))
     for lib, kn, w_bits in (("int4_matmul", GEMM_KN, 4), ("int8_bitsplit_matmul", BITSPLIT_KN, 8)):
         for m in GEMM_M:
             for k, n in kn:
-                p = MM.plan(m, k, n, w_bits)
-                out[lib] = max(out[lib], _dyn_query(lib, MM.PATHS.index(p.path), p.bm, p.bn,
-                                                    k, p.split))
+                for p in autotune.gemm_candidates(m, k, n, w_bits, sms):
+                    got = _build.smem_query(lib, MM.PATHS.index(p.path), p.bm, p.bn, k, p.split)
+                    out[lib] = -1 if min(got, out[lib]) < 0 else max(out[lib], got)
     for lib in ("paged_prefill_attention", "paged_prefill_attention_q4"):
-        out[lib] = max(_dyn_query(lib, psize, d) for psize in (8, 16, 32, 64) for d in (64, 128))
-    out["flash_qattention"] = max(_dyn_query("flash_qattention", d, gh) for d in (64, 128)
+        out[lib] = max(_build.smem_query(lib, psize, d) for psize in (8, 16, 32, 64)
+                       for d in (64, 128))
+    out["flash_qattention"] = max(_build.smem_query("flash_qattention", d, gh)
+                                  for d in (64, 128)
                                   for gh in range(1, FA.MAX_HEADS_PER_BLOCK + 1))
     return out
 

@@ -104,6 +104,16 @@ def bind(name: str, symbol: str, n_ptr: int, n_int: int):
     return fn
 
 
+def smem_query(name: str, *ints) -> int:
+    """The dynamic shared memory a launch of kernel ``name`` asks for, as
+    its library's ``<name>_smem(...)`` answers for the launch parameters
+    ``ints`` (-1 where the library has no instance of them)."""
+    fn = getattr(load(name), f"{name}_smem")
+    fn.argtypes = [ctypes.c_int] * len(ints)
+    fn.restype = ctypes.c_int
+    return int(fn(*ints))
+
+
 def device_scalar(v, dtype, device):
     """A scalar argument as a one-element tensor in device memory (a
     kernel reads it there, so a scalar that already lives on the card

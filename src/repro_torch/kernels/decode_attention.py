@@ -204,6 +204,18 @@ def paged_decode_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tab
 paged_decode_qattention_q4.launches = 0
 
 
+def _launch_stripe(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7, inv_s_logit,
+                   out_scale, *, bkv: int):
+    """The contiguous decode's kernel on checked CUDA operands; counts
+    nothing (the tuner races through it)."""
+    b, hkv, g, d = q_i8.shape
+    kc, vc = _same_strides(k_cache, v_cache)
+    return _stripe_call("decode_attention", q_i8, kc, vc, _i32(lengths, q_i8.device), lut_q7,
+                        (M_idx, shift_idx, inv_s_logit, out_scale), b, hkv, g, d,
+                        k_cache.shape[1], bkv, (kc.stride(0), kc.stride(2), kc.stride(1)),
+                        lead=(b,))
+
+
 @kernel_launch
 def decode_qattention(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
                       inv_s_logit, out_scale, *, bkv: int):
@@ -226,10 +238,8 @@ def decode_qattention(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
         raise ValueError(f"decode_qattention: unsupported shapes q {tuple(q_i8.shape)}, "
                          f"cache {tuple(k_cache.shape)}, bkv {bkv} (needs G <= 16, "
                          f"D <= 128, D % 16 == 0, bkv <= 512 dividing Smax)")
-    kc, vc = _same_strides(k_cache, v_cache)
-    out = _stripe_call("decode_attention", q_i8, kc, vc, _i32(lengths, q_i8.device), lut_q7,
-                       (M_idx, shift_idx, inv_s_logit, out_scale), b, hkv, g, d, smax, bkv,
-                       (kc.stride(0), kc.stride(2), kc.stride(1)), lead=(b,))
+    out = _launch_stripe(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
+                         inv_s_logit, out_scale, bkv=bkv)
     decode_qattention.launches += 1
     return out
 

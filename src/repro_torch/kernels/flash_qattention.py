@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import qsoftmax as qs
 from repro_torch.analysis.boundary import kernel_launch
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.decode_attention import (
     _check_device,
     _i32,
@@ -24,11 +24,7 @@ from repro_torch.kernels.decode_attention import (
     _strided,
     _stripe_call,
 )
-from repro_torch.kernels.prefill_attention import (
-    MAX_HEADS_PER_BLOCK,
-    ROWS_PER_BLOCK,
-    heads_per_block,
-)
+from repro_torch.kernels.prefill_attention import MAX_HEADS_PER_BLOCK, ROWS_PER_BLOCK
 from repro_torch.kernels.ref import (
     NEG_INIT,
     SKIP_EXP_ARG,
@@ -95,33 +91,11 @@ def flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
     return _epilogue(acc, den, out_scale)
 
 
-@kernel_launch
-def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
-                     *, q_offset: int = 0, bkv: int = 512, window: int | None = None):
-    """Causal flash attention, q (B, H, Sq, D) x k/v (B, Hkv, Skv, D) int8
-    -> (B, H, Sq, D) int8: the reference's single-sequence kernel with a
-    leading batch dimension.  Query row i sits at position ``q_offset +
-    i``; with a sliding ``window`` it sees only the keys less than
-    ``window`` positions back.  The carry updates once per block of ``bkv``
-    keys (clipped to Skv; it must divide Skv).  A windowed row tile starts
-    at the first block live for its first row where ``window_skip_margin``
-    exceeds 1 (decided by the kernel from the ``inv_s_logit`` it reads, so
-    the host never waits for the card), else at block 0.  The inputs may be
-    strided views (the serving forward passes its (B, S, H, D) projections
-    transposed); the output takes q's layout.  The reference's q-block size
-    ``bq`` does not change the result, so the kernel takes its own: a CTA
-    serves 16 query rows of ``heads_per_block`` q heads of one kv head, one
-    staging of K and V for all of them."""
-    if q_i8.device.type == "cpu":
-        return flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
-                                      inv_s_logit, out_scale, q_offset=q_offset, bkv=bkv,
-                                      window=window)
-    _check_device("flash_qattention", q_i8)
-    if q_i8.dtype != torch.int8 or k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
-        raise TypeError("flash_qattention wants int8 q, k and v")
-    if q_i8.dim() != 4 or k_i8.dim() != 4:
-        raise ValueError(f"flash_qattention: q {tuple(q_i8.shape)} and k {tuple(k_i8.shape)} "
-                         f"must be (B, H, Sq, D) and (B, Hkv, Skv, D)")
+def _launch_flash(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale, *,
+                  q_offset: int, bkv: int, window, gh=None):
+    """The flash kernel on CUDA int8 (B, H, Sq, D) / (B, Hkv, Skv, D)
+    operands, ``gh`` q heads a block (None: the tuner's pick); counts
+    nothing."""
     b, h, sq, d = q_i8.shape
     b_k, hkv, skv, d_k = k_i8.shape
     bkv = min(bkv, skv)
@@ -140,7 +114,11 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
         lut = lut.clone()
     scal = _build.attn_scalars(dev, M_idx, shift_idx, inv_s_logit, out_scale)
     out = torch.empty_like(q)
-    gh = heads_per_block(h // hkv, -(-sq // ROWS_PER_BLOCK) * b * hkv, _build.sm_count(dev))
+    if gh is None:
+        gh = autotune.attn_heads_per_block(
+            h // hkv, -(-sq // ROWS_PER_BLOCK) * b * hkv, _build.sm_count(dev),
+            shape=("flash_qattention", b, h, sq, d, hkv, skv, bkv, q_offset, window),
+            device=dev)
     if (h // hkv) % gh or gh > MAX_HEADS_PER_BLOCK:
         raise ValueError(f"flash_qattention: heads_per_block {gh} must divide H / Hkv = "
                          f"{h // hkv} and be at most {MAX_HEADS_PER_BLOCK}")
@@ -150,6 +128,39 @@ def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, ou
         window or 0, SKIP_EXP_ARG, gh, *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
         _build.stream_of(dev))
     _build.check_launch(rc, "flash_qattention")
+    return out
+
+
+@kernel_launch
+def flash_qattention(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
+                     *, q_offset: int = 0, bkv: int = 512, window: int | None = None):
+    """Causal flash attention, q (B, H, Sq, D) x k/v (B, Hkv, Skv, D) int8
+    -> (B, H, Sq, D) int8: the reference's single-sequence kernel with a
+    leading batch dimension.  Query row i sits at position ``q_offset +
+    i``; with a sliding ``window`` it sees only the keys less than
+    ``window`` positions back.  The carry updates once per block of ``bkv``
+    keys (clipped to Skv; it must divide Skv).  A windowed row tile starts
+    at the first block live for its first row where ``window_skip_margin``
+    exceeds 1 (decided by the kernel from the ``inv_s_logit`` it reads, so
+    the host never waits for the card), else at block 0.  The inputs may be
+    strided views (the serving forward passes its (B, S, H, D) projections
+    transposed); the output takes q's layout.  The reference's q-block size
+    ``bq`` does not change the result, so the kernel takes its own: a CTA
+    serves 16 query rows of the q heads of one kv head that
+    ``autotune.attn_heads_per_block`` picks, one staging of K and V for all
+    of them."""
+    if q_i8.device.type == "cpu":
+        return flash_qattention_torch(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7,
+                                      inv_s_logit, out_scale, q_offset=q_offset, bkv=bkv,
+                                      window=window)
+    _check_device("flash_qattention", q_i8)
+    if q_i8.dtype != torch.int8 or k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
+        raise TypeError("flash_qattention wants int8 q, k and v")
+    if q_i8.dim() != 4 or k_i8.dim() != 4:
+        raise ValueError(f"flash_qattention: q {tuple(q_i8.shape)} and k {tuple(k_i8.shape)} "
+                         f"must be (B, H, Sq, D) and (B, Hkv, Skv, D)")
+    out = _launch_flash(q_i8, k_i8, v_i8, M_idx, shift_idx, lut_q7, inv_s_logit, out_scale,
+                        q_offset=q_offset, bkv=bkv, window=window)
     flash_qattention.launches += 1
     return out
 

@@ -7,7 +7,8 @@ Replace the TPU kernels ``repro/kernels/int4_matmul.py::int4_matmul`` and
 (or raises); on a CPU tensor it computes the plain version
 (``ref.int4_matmul_ref``, ``ref.int8_bitsplit_matmul_ref``).  ``launches``
 counts kernel launches only, ``path_launches`` the same launches by the
-path ``plan`` chose.
+path the plan took.  The plan (path, tile, K split) comes from
+``autotune.gemm_plan``; ``plan`` is its ``off`` rule.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.boundary import kernel_launch
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
+from repro_torch.kernels.hw_constants import SMS
 from repro_torch.kernels.ref import int4_matmul_ref, int8_bitsplit_matmul_ref
 
 SOURCE = "src/repro_torch/csrc/int4_matmul.cu"
@@ -27,8 +29,8 @@ BITSPLIT_REPLACES = "src/repro/kernels/int4_matmul.py:141"
 # either side, while K * 128 * 128 < 2^31 (every int8 code has |c| <= 128)
 BITSPLIT_MAX_K = (2**31 - 1) // (128 * 128)
 
-SMS = 132                  # H100 SXM streaming multiprocessors
-WAVE = 0.9 * SMS           # a grid of at least this many blocks fills a wave
+WAVE_SHARE = 0.9           # a grid of at least this share of the SMs fills a wave
+WAVE = WAVE_SHARE * SMS    # ... of the H100 SXM's
 PATHS = ("tensor_core", "decode")
 DECODE_MAX_M = 8           # a decode tick's batch: the weights are the only large operand
 TC_STAGE_K = 128           # k values per stage of the tensor-core ring
@@ -38,6 +40,11 @@ DECODE_COLS = 128          # weight columns per decode block
 DECODE_ROWS = 32           # weight rows per decode warp step
 DECODE_WARPS = 8
 DECODE_MAX_X_BYTES = 96 << 10   # the staged x slice of a decode block
+# integer instructions a block spends on each weight byte it stages: both
+# paths unpack the weights on the CUDA cores (csrc/igemm.cuh: W4's two
+# nibble planes masked, sign-extended and transposed with __byte_perm, ~96
+# instructions per 16 packed bytes; W8's only transposed)
+UNPACK_OPS_PER_BYTE = {4: 6, 8: 2}
 
 
 class GemmPlan(NamedTuple):
@@ -53,38 +60,47 @@ class GemmPlan(NamedTuple):
     blocks: int
 
 
-def plan(m: int, k: int, n: int, w_bits: int = 4) -> GemmPlan:
-    """The variant a (M, K, N) GEMM takes.  M <= 8: the decode path, 128
-    columns a block, K split until the blocks cover the SMs (each slice at
-    least one 32-row step).  Otherwise the tensor-core path: the largest
-    tile whose grid, with K split into slices of at least 4 stages, fills a
-    wave of SMs (90 % of 132: 128 tiles of 128 x 128 at M = 512, N = 4096
-    run unsplit), else the smallest tile with K split as far as it goes."""
+def decode_fits(k: int, split: int, w_bits: int = 4) -> bool:
+    """Whether the decode path's staged x slice (8 rows of each plane's
+    longest slice, csrc/igemm.cuh decode_x_stride) fits
+    ``DECODE_MAX_X_BYTES`` with K split ``split`` ways."""
+    steps = (k // 2 if w_bits == 4 else k) // DECODE_ROWS
+    planes = 2 if w_bits == 4 else 1
+    return 8 * (planes * -(-steps // split) * DECODE_ROWS + 16) <= DECODE_MAX_X_BYTES
+
+
+def plan(m: int, k: int, n: int, w_bits: int = 4, sms: int = SMS) -> GemmPlan:
+    """The fixed rule for a (M, K, N) GEMM on a card of ``sms`` SMs (the
+    tuner's ``off`` mode).  M <= 8: the decode path, 128 columns a block, K
+    split until the blocks cover the SMs (each slice at least one 32-row
+    step).  Otherwise the tensor-core path: the largest tile whose grid,
+    with K split into slices of at least 4 stages, fills a wave of SMs (90 %
+    of them: 128 tiles of 128 x 128 at M = 512, N = 4096 run unsplit on
+    132), else the smallest tile with K split as far as it goes."""
     vec = 16 if n % 16 == 0 else 4
     rows = k // 2 if w_bits == 4 else k          # weight rows
     if m <= DECODE_MAX_M:
         cols = -(-n // DECODE_COLS)
         steps = rows // DECODE_ROWS
-        split = max(1, min(-(-SMS // cols), steps))
-        planes = 2 if w_bits == 4 else 1
-        while 8 * (planes * -(-steps // split) * DECODE_ROWS + 16) > DECODE_MAX_X_BYTES:
+        split = max(1, min(-(-sms // cols), steps))
+        while not decode_fits(k, split, w_bits):
             split += 1
         return GemmPlan("decode", 8, DECODE_COLS, split, vec, cols * split)
+    wave = WAVE_SHARE * sms
     stages = -(-k // TC_STAGE_K)
     for bm, bn in TC_TILES:
         tiles = -(-m // bm) * -(-n // bn)
-        split = max(1, min(-(-int(WAVE) // tiles), stages // TC_MIN_STAGES))
-        if tiles * split >= WAVE:
+        split = max(1, min(-(-int(wave) // tiles), stages // TC_MIN_STAGES))
+        if tiles * split >= wave:
             return GemmPlan("tensor_core", bm, bn, split, vec, tiles * split)
-    split = max(1, min(-(-int(WAVE) // tiles), stages))
+    split = max(1, min(-(-int(wave) // tiles), stages))
     return GemmPlan("tensor_core", bm, bn, split, vec, tiles * split)
 
 
-def _launch(fn, x_i8, w, bias_i32, M_q, shift_q, n: int, w_bits: int) -> torch.Tensor:
-    """Launch the GEMM kernel named like its wrapper ``fn`` on CUDA operands
-    whose types and shapes the wrapper checked -> int8 (M, N); counts the
-    launch on ``fn`` and on its path."""
-    name = fn.__name__
+def _launch(name: str, x_i8, w, bias_i32, M_q, shift_q, n: int, p: GemmPlan) -> torch.Tensor:
+    """Launch the GEMM kernel ``name`` at plan ``p`` on CUDA operands whose
+    types and shapes its wrapper checked -> int8 (M, N).  Counts nothing:
+    the wrappers count, the tuner's races do not."""
     dev = x_i8.device
     x = x_i8.contiguous()
     w = w.contiguous()
@@ -96,15 +112,23 @@ def _launch(fn, x_i8, w, bias_i32, M_q, shift_q, n: int, w_bits: int) -> torch.T
     shq = _build.device_scalar(shift_q, torch.int32, dev)
     m, k = x.shape
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
-    if m == 0:
-        return out
-    p = plan(m, k, n, w_bits)
     ws = torch.empty((p.split, m, n) if p.split > 1 else (1,), dtype=torch.int32, device=dev)
     rc = _build.bind(name, name, 7, 8)(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), Mq.data_ptr(), shq.data_ptr(),
         out.data_ptr(), ws.data_ptr(), m, k, n, PATHS.index(p.path), p.bm, p.bn, p.split,
         p.vec, _build.stream_of(dev))
     _build.check_launch(rc, name)
+    return out
+
+
+def _counted(fn, x_i8, w, bias_i32, M_q, shift_q, n: int, w_bits: int) -> torch.Tensor:
+    """The wrapper ``fn``'s launch at the tuner's plan, counted on ``fn``
+    and on the plan's path."""
+    m, k = x_i8.shape
+    if m == 0:
+        return torch.empty((0, n), dtype=torch.int8, device=x_i8.device)
+    p = autotune.gemm_plan(m, k, n, w_bits, _build.sm_count(x_i8.device), device=x_i8.device)
+    out = _launch(fn.__name__, x_i8, w, bias_i32, M_q, shift_q, n, p)
     fn.launches += 1
     fn.path_launches[p.path] += 1
     return out
@@ -126,7 +150,7 @@ def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, bias_i32: torch.Tens
     if k != 2 * k2 or k2 % 32 or n % 4 or bias_i32.shape != (n,):
         raise ValueError(f"int4_matmul: unsupported shapes x {tuple(x_i8.shape)}, "
                          f"w {tuple(w_packed.shape)} (needs K/2 % 32 == 0, N % 4 == 0)")
-    return _launch(int4_matmul, x_i8, w_packed, bias_i32, M_q, shift_q, n, 4)
+    return _counted(int4_matmul, x_i8, w_packed, bias_i32, M_q, shift_q, n, 4)
 
 
 int4_matmul.launches = 0
@@ -150,7 +174,7 @@ def int8_bitsplit_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch
         raise ValueError(f"int8_bitsplit_matmul: unsupported shapes x {tuple(x_i8.shape)}, "
                          f"w {tuple(w_i8.shape)} (needs K % 64 == 0, K <= {BITSPLIT_MAX_K}, "
                          "N % 4 == 0)")
-    return _launch(int8_bitsplit_matmul, x_i8, w_i8, bias_i32, M_q, shift_q, n, 8)
+    return _counted(int8_bitsplit_matmul, x_i8, w_i8, bias_i32, M_q, shift_q, n, 8)
 
 
 int8_bitsplit_matmul.launches = 0

@@ -21,6 +21,7 @@ import torch
 from repro_torch.core.qlayernorm import QLNParams
 from repro_torch.core.qlinear import FoldedLinear
 from repro_torch.core.qsoftmax import MASK_OFFSET
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import (
     decode_qattention,
@@ -141,10 +142,18 @@ def paged_prefill_attention_q4(q_i8, k_pool_u8, v_pool_u8, k_scale, v_scale, blo
 
 
 def decode_attention_q(q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7,
-                       inv_s_logit, out_scale, *, bkv: int, impl=None):
+                       inv_s_logit, out_scale, *, bkv: Optional[int] = None, impl=None):
     """(B, Hkv, G, D) grouped queries x the contiguous (B, Smax, Hkv, D) int8
     stripe, each slot masked to ``lengths[b]``, blocks of ``bkv`` keys ->
-    (B, Hkv, G, D) int8 context."""
+    (B, Hkv, G, D) int8 context.  ``bkv=None`` asks ``autotune.decode_bkv``
+    (the pin or 512).
+    The block moves codes: the q7 carry takes each block's max, and the LUT
+    numerators follow it (``tests/test_torch_autotune.py::
+    test_bkv_moves_codes``), so a caller that must agree with another run
+    names its ``bkv``, as the served decode does."""
+    if bkv is None:
+        b, smax, hkv, d = k_cache.shape
+        bkv = autotune.decode_bkv(smax, batch_slots=b, hkv=hkv, hd=d)
     args = (q_i8, k_cache, v_cache, lengths, M_idx, shift_idx, lut_q7, inv_s_logit,
             out_scale)
     if backend(impl, q_i8.device) == "ref":

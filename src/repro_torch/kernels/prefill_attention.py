@@ -9,15 +9,16 @@ On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it computes the plain version in ``kernels/ref.py``.  The kernel reads q
 through its strides and writes the output in q's layout, so the serving
 forward's (B, S, H, D) projections go in and come out without a copy.  A
-block serves 16 query rows of ``heads_per_block`` q heads of one kv head;
-the result does not depend on that choice.
+block serves 16 query rows of some q heads of one kv head, as many as
+``autotune.attn_heads_per_block`` picks (``heads_per_block`` is its
+``off`` rule); the result does not depend on that choice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.analysis.boundary import kernel_launch
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.decode_attention import _strided
 from repro_torch.kernels.ref import paged_prefill_qattention_q4_ref, paged_prefill_qattention_ref
 
@@ -32,9 +33,9 @@ ROWS_PER_BLOCK = 16        # query rows per block
 
 
 def heads_per_block(group: int, units: int, sms: int) -> int:
-    """q heads per block for ``units`` (row tile, slot, kv head) triples:
-    the largest divisor of the group size up to 4, halved while the grid
-    has fewer blocks than the card has SMs."""
+    """q heads per block for ``units`` (row tile, slot, kv head) triples
+    (the tuner's ``off`` rule): the largest divisor of the group size up to
+    4, halved while the grid has fewer blocks than the card has SMs."""
     gh = max(d for d in range(1, MAX_HEADS_PER_BLOCK + 1) if group % d == 0)
     while gh % 2 == 0 and units * (group // gh) < sms:
         gh //= 2
@@ -42,10 +43,11 @@ def heads_per_block(group: int, units: int, sms: int) -> int:
 
 
 def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift_idx,
-            inv_s_logit, out_scale, d_pool):
+            inv_s_logit, out_scale, d_pool, gh):
     """Checks shared by both wrappers; returns q as the kernel reads it, the
     output, the launch's device tensors and its ints.
-    ``d_pool`` is the head dim the pool's last axis stands for."""
+    ``d_pool`` is the head dim the pool's last axis stands for; ``gh`` the
+    heads a block (None: the tuner's pick)."""
     if q_i8.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q_i8.device}")
     b, h, sq, d = q_i8.shape
@@ -57,8 +59,10 @@ def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift
                          f"H % Hkv == 0)")
     group = h // hkv
     dev = q_i8.device
-    units = -(-sq // ROWS_PER_BLOCK) * b * hkv
-    gh = heads_per_block(group, units, _build.sm_count(dev))
+    if gh is None:
+        gh = autotune.attn_heads_per_block(
+            group, -(-sq // ROWS_PER_BLOCK) * b * hkv, _build.sm_count(dev),
+            shape=(name, b, h, sq, d, hkv, psize, block_tables.shape[1]), device=dev)
     if group % gh or gh > MAX_HEADS_PER_BLOCK:
         raise ValueError(f"{name}: heads_per_block {gh} must divide H / Hkv = {group} "
                          f"and be at most {MAX_HEADS_PER_BLOCK}")
@@ -78,6 +82,21 @@ def _common(name, q_i8, k_pool, v_pool, block_tables, pos0, lut_q7, M_idx, shift
     return q, out, kp, vp, btab, p0, lut, scal, ints
 
 
+def _launch_int8(q_i8, k_pool, v_pool, block_tables, pos0, M_idx, shift_idx, lut_q7,
+                 inv_s_logit, out_scale, gh=None):
+    """The int8 pool's kernel on checked CUDA operands, ``gh`` heads a block
+    (None: the tuner's pick); counts nothing."""
+    q, out, kp, vp, btab, p0, lut, scal, ints = _common(
+        "paged_prefill_qattention", q_i8, k_pool, v_pool, block_tables, pos0, lut_q7,
+        M_idx, shift_idx, inv_s_logit, out_scale, k_pool.shape[-1], gh)
+    rc = _build.bind("paged_prefill_attention", "paged_prefill_attention", 11, 14)(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(), p0.data_ptr(),
+        lut.data_ptr(), *(t.data_ptr() for t in scal), out.data_ptr(), *ints,
+        _build.stream_of(q.device))
+    _build.check_launch(rc, "paged_prefill_qattention")
+    return out
+
+
 @kernel_launch
 def paged_prefill_qattention(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
                              shift_idx, lut_q7, inv_s_logit, out_scale):
@@ -90,19 +109,30 @@ def paged_prefill_qattention(q_i8, k_pool, v_pool, block_tables, pos0, M_idx,
                                             out_scale)
     if q_i8.dtype != torch.int8 or k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
         raise TypeError("paged_prefill_qattention wants int8 q and pools")
-    q, out, kp, vp, btab, p0, lut, scal, ints = _common(
-        "paged_prefill_qattention", q_i8, k_pool, v_pool, block_tables, pos0, lut_q7,
-        M_idx, shift_idx, inv_s_logit, out_scale, k_pool.shape[-1])
-    rc = _build.bind("paged_prefill_attention", "paged_prefill_attention", 11, 14)(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), btab.data_ptr(), p0.data_ptr(),
-        lut.data_ptr(), *(t.data_ptr() for t in scal), out.data_ptr(), *ints,
-        _build.stream_of(q.device))
-    _build.check_launch(rc, "paged_prefill_qattention")
+    out = _launch_int8(q_i8, k_pool, v_pool, block_tables, pos0, M_idx, shift_idx, lut_q7,
+                       inv_s_logit, out_scale)
     paged_prefill_qattention.launches += 1
     return out
 
 
 paged_prefill_qattention.launches = 0
+
+
+def _launch_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tables, pos0, M_idx, shift_idx,
+               lut_q7, inv_s_logit, out_scale, gh=None):
+    """The int4-packed pool's kernel on checked CUDA operands, ``gh`` heads
+    a block (None: the tuner's pick); counts nothing."""
+    q, out, kp, vp, btab, p0, lut, scal, ints = _common(
+        "paged_prefill_qattention_q4", q_i8, k_pool, v_pool, block_tables, pos0, lut_q7,
+        M_idx, shift_idx, inv_s_logit, out_scale, 2 * k_pool.shape[-1], gh)
+    ks = k_scale.to(device=q.device, dtype=torch.float32).contiguous()
+    vs = v_scale.to(device=q.device, dtype=torch.float32).contiguous()
+    rc = _build.bind("paged_prefill_attention_q4", "paged_prefill_attention_q4", 13, 14)(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        btab.data_ptr(), p0.data_ptr(), lut.data_ptr(), *(t.data_ptr() for t in scal),
+        out.data_ptr(), *ints, _build.stream_of(q.device))
+    _build.check_launch(rc, "paged_prefill_qattention_q4")
+    return out
 
 
 @kernel_launch
@@ -124,16 +154,8 @@ def paged_prefill_qattention_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_ta
         raise ValueError(f"paged_prefill_qattention_q4: unsupported shapes q "
                          f"{tuple(q_i8.shape)}, scales {tuple(k_scale.shape)} (needs "
                          f"D % 32 == 0, one scale per page)")
-    q, out, kp, vp, btab, p0, lut, scal, ints = _common(
-        "paged_prefill_qattention_q4", q_i8, k_pool, v_pool, block_tables, pos0, lut_q7,
-        M_idx, shift_idx, inv_s_logit, out_scale, 2 * k_pool.shape[-1])
-    ks = k_scale.to(device=q.device, dtype=torch.float32).contiguous()
-    vs = v_scale.to(device=q.device, dtype=torch.float32).contiguous()
-    rc = _build.bind("paged_prefill_attention_q4", "paged_prefill_attention_q4", 13, 14)(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        btab.data_ptr(), p0.data_ptr(), lut.data_ptr(), *(t.data_ptr() for t in scal),
-        out.data_ptr(), *ints, _build.stream_of(q.device))
-    _build.check_launch(rc, "paged_prefill_qattention_q4")
+    out = _launch_q4(q_i8, k_pool, v_pool, k_scale, v_scale, block_tables, pos0, M_idx,
+                     shift_idx, lut_q7, inv_s_logit, out_scale)
     paged_prefill_qattention_q4.launches += 1
     return out
 

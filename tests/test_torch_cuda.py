@@ -18,7 +18,11 @@ from repro_torch.core import fixedpoint as fxp
 from repro_torch.core import packing
 from repro_torch.core import qlayernorm as qln
 from repro_torch.core import qsoftmax as qs
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, autotune, ops, ref
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_qattention as FA
+from repro_torch.kernels import int4_matmul as MM
+from repro_torch.kernels import prefill_attention as PA
 from repro_torch.kernels.decode_attention import (
     decode_qattention,
     paged_decode_qattention,
@@ -40,6 +44,7 @@ from repro_torch.kernels.quant_layernorm import quant_layernorm
 from repro_torch.kernels.quant_softmax import quant_softmax
 from repro_torch.launch.mesh import TPMesh
 from repro_torch.launch.serve import calibrated_folded
+from repro_torch.models import serve_int
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serve.engine import Engine, EngineConfig, LockstepEngine, Request
 
@@ -555,6 +560,8 @@ def test_paged_prefill_back_to_back_calls_leave_no_state(cuda, kind):
 def test_paged_prefill_any_heads_per_block_gives_the_same_codes(cuda, kind, monkeypatch):
     from repro_torch.kernels import prefill_attention as pa
 
+    # the tuner's off mode launches heads_per_block's pick, which this replaces
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "off")
     fn, plain = _prefill_pair(kind)
     args = _prefill_args(kind, (32, 4, 128, 16, 80, [37]), cuda)
     want = plain(*args)
@@ -1027,14 +1034,17 @@ def test_flash_qattention_back_to_back_calls_leave_no_state(cuda):
 @pytest.mark.cuda
 def test_flash_qattention_any_heads_per_block_gives_the_same_codes(cuda, monkeypatch):
     from repro_torch.kernels import flash_qattention as fa
+    from repro_torch.kernels import prefill_attention as pa
 
+    # the tuner's off mode launches heads_per_block's pick, which this replaces
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "off")
     args = _flash(1, 32, 4, 80, 80, 128, cuda, strided=True)
     want = fa.flash_qattention_torch(*args, q_offset=0, bkv=40)
     for gh in (1, 2, 4):
-        monkeypatch.setattr(fa, "heads_per_block", lambda *_, gh=gh: gh)
+        monkeypatch.setattr(pa, "heads_per_block", lambda *_, gh=gh: gh)
         assert torch.equal(fa.flash_qattention(*args, q_offset=0, bkv=40), want), gh
     for gh in (3, 8):
-        monkeypatch.setattr(fa, "heads_per_block", lambda *_, gh=gh: gh)
+        monkeypatch.setattr(pa, "heads_per_block", lambda *_, gh=gh: gh)
         with pytest.raises(ValueError, match="heads_per_block"):
             fa.flash_qattention(*args, q_offset=0, bkv=40)
 
@@ -1889,3 +1899,136 @@ def test_tp4_engine_on_card_equals_tp1(cuda, kw):
     assert all(n > 0 for n in n1) and n4 == [4 * n for n in n1]
     if kw.get("spec_k"):
         assert c4["drafted"] > 0
+
+
+# --- the launch tuner (kernels/autotune.py) on the card -------------------------
+
+# (M, K, N, w_bits): a decode tick (both GEMMs), qwen2-moe's experts at M = 4,
+# a decode-loop step, a verify forward, a ragged N (4-byte copies), d 1,536's
+# 512-row forward, BERT's bit-split at (1, 128)
+TUNE_GEMMS = [(8, 4096, 11008, 4), (4, 2048, 1408, 4), (1, 8192, 1024, 4), (32, 4096, 4096, 4),
+              (130, 4096, 100, 4), (512, 1536, 1536, 4), (128, 768, 3072, 8), (4, 3072, 768, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,w_bits", TUNE_GEMMS)
+def test_every_gemm_plan_candidate_equals_plain(cuda, m, k, n, w_bits):
+    """Every plan ``gemm_plan`` can pick equals the plain version (the
+    partials are exact int32 sums), and the library has an instance of it."""
+    name = "int4_matmul" if w_bits == 4 else "int8_bitsplit_matmul"
+    args = (_mm if w_bits == 4 else _mm8)(m, k, n, 5, cuda)
+    want = (ref.int4_matmul_ref if w_bits == 4 else ref.int8_bitsplit_matmul_ref)(*args)
+    cands = autotune.gemm_candidates(m, k, n, w_bits, _build.sm_count(cuda))
+    for p in cands:
+        assert torch.equal(MM._launch(name, *args, n, p), want), p
+        assert _build.smem_query(name, MM.PATHS.index(p.path), p.bm, p.bn, k, p.split) > 0, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,h,hkv,sq,pos0", [
+    ("int8", 32, 4, 128, [256]), ("int8", 8, 1, 64, [37, 0]), ("int8", 48, 8, 16, [1008]),
+    ("q4", 32, 4, 40, [0]), ("q4", 24, 2, 64, [16, 100]),
+    ("flash", 32, 4, 96, [0]), ("flash", 12, 2, 64, [32])])
+def test_every_heads_per_block_equals_plain(cuda, kind, h, hkv, sq, pos0):
+    """Every heads per block the tuner can pick, on the paged prefill (int8
+    and packed pools) and the flash prefill: equal to the plain version."""
+    d, sms = 128, _build.sm_count(cuda)
+    group = h // hkv
+    if kind == "flash":
+        args = _flash(len(pos0), h, hkv, sq, pos0[0] + sq, d, cuda, strided=True)
+        kw = dict(q_offset=pos0[0], bkv=32, window=None)
+        want = FA.flash_qattention_torch(*args, **kw)
+        run = lambda gh: FA._launch_flash(*args, **kw, gh=gh)   # noqa: E731
+    elif kind == "q4":
+        args = _prefill_q4(h, hkv, d, 16, sq, pos0, cuda)
+        want = ref.paged_prefill_qattention_q4_ref(*args)
+        run = lambda gh: PA._launch_q4(*args, gh=gh)            # noqa: E731
+    else:
+        args = _prefill(h, hkv, d, 16, sq, pos0, cuda)
+        want = ref.paged_prefill_qattention_ref(*args)
+        run = lambda gh: PA._launch_int8(*args, gh=gh)          # noqa: E731
+    units = -(-sq // PA.ROWS_PER_BLOCK) * len(pos0) * hkv
+    cands = autotune.heads_candidates(group, units, sms)
+    assert sorted(cands) == [g for g in range(1, PA.MAX_HEADS_PER_BLOCK + 1) if group % g == 0]
+    for gh in cands:
+        assert torch.equal(run(gh), want), gh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,smax,lengths,hkv", [(8, 128, 1024, [33, 300, 700, 1000], 4),
+                                                  (6, 128, 768, [5, 768], 2),
+                                                  (1, 64, 384, [100, 384, 7], 4)])
+def test_every_bkv_equals_plain_at_that_bkv(cuda, g, d, smax, lengths, hkv):
+    """Every bkv a pin can ask for: the stripe decode equal to the plain
+    version at that bkv (bkv moves codes, so only at the same one)."""
+    args = _stripe(g, d, smax, lengths, cuda, hkv=hkv)
+    for bkv in dict.fromkeys(autotune._fit(c, smax) for c in (512, 256, 128)):
+        assert torch.equal(DA._launch_stripe(*args, bkv=bkv),
+                           ref.decode_qattention_ref(*args, bkv)), bkv
+
+
+def _counters():
+    fns = KERNELS + LAYOUT_KERNELS + FLASH_KERNELS
+    return ([f.launches for f in fns], dict(int4_matmul.path_launches),
+            dict(int8_bitsplit_matmul.path_launches))
+
+
+@pytest.mark.cuda
+def test_measured_mode_races_without_counting(cuda, monkeypatch):
+    """Measured mode races every candidate through the kernels and caches
+    the winner under ("measure",) + key; no wrapper counter moves, and a
+    wrapper call that races counts its one launch.  bkv is never raced."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", "measure")
+    autotune.clear_cache()
+    sms = _build.sm_count(cuda)
+    before = _counters()
+    p = autotune.gemm_plan(8, 4096, 4096, 4, sms, device=cuda)
+    autotune.gemm_plan(512, 1536, 1536, 4, sms, device=cuda)
+    gh = autotune.attn_heads_per_block(
+        8, 32, sms, shape=("paged_prefill_qattention", 1, 32, 128, 128, 4, 16, 25), device=cuda)
+    autotune.attn_heads_per_block(
+        8, 32, sms, shape=("paged_prefill_qattention_q4", 1, 32, 128, 128, 4, 16, 25),
+        device=cuda)
+    autotune.attn_heads_per_block(
+        8, 128, sms, shape=("flash_qattention", 1, 32, 512, 128, 4, 512, 512, 0, None),
+        device=cuda)
+    bkv = autotune.decode_bkv(1024, batch_slots=2, hkv=4, hd=128)
+    torch.cuda.synchronize()
+    assert _counters() == before
+    assert autotune._cache[("measure", "gemm_plan", 8, 4096, 4096, 4, sms)] == p
+    assert gh in autotune.heads_candidates(8, 32, sms) and bkv == 512
+    autotune.clear_cache()
+    _launched_once_on(int4_matmul, "decode", *_mm(8, 4096, 4096, 3, cuda))
+    _launched_once(paged_prefill_qattention, *_prefill(32, 4, 128, 16, 128, [256], cuda))
+    _launched_once(flash_qattention, *_flash(1, 32, 4, 64, 64, 128, cuda), bkv=64)
+    n0 = decode_qattention.launches
+    ops.decode_attention_q(*_stripe(8, 128, 1024, [33, 1000], cuda))
+    assert decode_qattention.launches == n0 + 1
+    assert sum(k[0] == "measure" for k in autotune._cache) == 3
+
+
+@pytest.mark.cuda
+def test_autotune_modes_give_equal_logits(cuda, monkeypatch):
+    """The smoke yi-6b (with yi-6b's grouping) on the card under each
+    tuner mode: a paged prefill chunk, a decode tick and the cache-less
+    forward give the same logits, bit for bit."""
+    cfg = smoke_config("yi-6b", n_heads=32, n_kv_heads=4)
+    folded = tree_map(lambda t: t.to(cuda), calibrated_folded(cfg, 0, device="cpu"))
+    pf = serve_int.prepare_folded(cfg, folded)
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 24)).astype(np.int32)).to(cuda)
+    btab = 1 + torch.arange(16, dtype=torch.int32, device=cuda).reshape(4, 4)
+    outs = {}
+    for mode in ("off", "roofline", "measure"):
+        monkeypatch.setenv("REPRO_TORCH_AUTOTUNE", mode)
+        autotune.clear_cache()
+        cache = serve_int.init_paged_cache(cfg, 17, 8, device=cuda)
+        pre, _ = serve_int.serve_forward(cfg, pf, toks, cache=cache, mode="prefill",
+                                         block_tables=btab)
+        dec, _ = serve_int.serve_forward(cfg, pf, pre[:, -1:].argmax(-1), cache=cache,
+                                         pos_offset=torch.full((4,), 24, device=cuda),
+                                         mode="decode", block_tables=btab)
+        flat, _ = serve_int.serve_forward(cfg, pf, toks)
+        outs[mode] = (pre, dec, flat)
+    for mode, got in outs.items():
+        assert all(torch.equal(a, b) for a, b in zip(outs["off"], got)), mode
