@@ -232,8 +232,18 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    against ``[train]``'s (the first loss within ``MESH_LOSS_RTOL``, the
    second and the first grad norm within ``MESH_TRAIN_RTOL``), ms per step
    beside ``[train]``'s, the collectives' device time, the peak
-   memory and a profiled step.  Each line carries the card's name and
-   power limit.
+   memory and a profiled step.  qwen2-moe-a2.7b at its published widths
+   (60 experts top-4, 4 shared, bf16, remat) and 2 of 24 layers on (4, 1)
+   with FSDP, its ranks routing each MoE layer over the whole batch
+   through the counts exchange: 2 steps at (4, 1,024) against
+   ``blocked_step`` (whose four blocks route together; each loss, grad
+   norm and aux within ``MESH_RTOL``) and against the unsharded step on
+   the same batch (the first loss within ``MESH_LOSS_RTOL``, the second
+   and the first grad norm within ``MESH_TRAIN_RTOL``), aux > 0; per MoE
+   layer the routing choices that differ from the unsharded forward's and
+   the choices dropped; ms a step against the unsharded step, the
+   exchange's host ms, the peak and each rank's bytes against the specs'.
+   Each line carries the card's name and power limit.
 10. ``[analysis]`` (``phase_analysis``): the static analysis of the integer
    datapath (``repro_torch.analysis``) on ``[serve]``'s yi-6b weights at
    full width.  Each of ``analyze.PRESETS`` (kv 8/4 x tp 1/4 x spec 0/3,
@@ -277,6 +287,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -2901,7 +2912,7 @@ JAMBA_DEPTH = 8        # of 72 layers: one super-block, see phase_recurrent
 # of 48 and 24 layers: the script passed 1,000 s with [analysis] on a slow
 # host, so [xlstm] and [moe] serve at half depth (their widths published)
 XLSTM_DEPTH = 24
-MOE_DEPTH = 12
+MOE_DEPTH = 6          # of 24 layers: 12 before [mesh]'s qwen2-moe took its time
 DUAL_FORM_TOL = dict(atol=2e-3, rtol=2e-2)   # the reference's dual-form bound
 
 
@@ -4136,9 +4147,13 @@ def blocked_step(torch, cfg, opt, state, batch, n: int, bert: bool = False):
     observed max at those sites (one no-grad forward); the loss's gradient
     on each of the ``n`` row blocks at the unsharded params, summed in
     float32 in block order and divided by ``n``; the blocks' losses likewise;
-    the observations' max; then the unsharded step's AdamW and EMA.  What
+    the observations' max; then the unsharded step's AdamW and EMA.  For a
+    MoE arch the blocks run as the ``n`` data ranks of one
+    ``collectives.DataRanks``, a thread each (``steps._meeting``), so every
+    MoE layer routes the whole batch through ``moe.route`` and ``moe.plan``
+    with every block's counts, as the sharded step does.  What
     ``jit_train_step`` computes on an (n, 1) mesh, less its gathers, reduce
-    and scatters.  Returns (state, {"loss", "grad_norm"})."""
+    and scatters.  Returns (state, {"loss", "grad_norm", "aux"})."""
     from repro_torch.models import transformer as T
     from repro_torch.sharding import collectives as C
     from repro_torch.train import steps as St
@@ -4150,10 +4165,13 @@ def blocked_step(torch, cfg, opt, state, batch, n: int, bert: bool = False):
             _, aux = loss_fn(cfg, state.params, amax, batch)
         amax = _filled(torch, amax, aux["obs"])
     b = next(iter(batch.values())).shape[0]
-    gsum, loss, obs = None, None, []
-    for k in range(n):
-        rows = {key: v[k * b // n:(k + 1) * b // n] for key, v in batch.items()}
-        lk, aux, g = St.value_and_grad(lambda p, r=rows: loss_fn(cfg, p, amax, r), state.params)
+    passes = [functools.partial(
+        St.value_and_grad, lambda p, r={key: v[k * b // n:(k + 1) * b // n]
+                                        for key, v in batch.items()}: loss_fn(cfg, p, amax, r),
+        state.params) for k in range(n)]
+    gsum, loss, obs, aux_sum = None, None, [], 0.0
+    for lk, aux, g in (St._meeting(passes) if cfg.n_experts and not bert
+                       else (f() for f in passes)):
         if gsum is None:
             gsum = T.tree_map(lambda t: t.to(torch.float32, copy=True), g)
         else:
@@ -4161,11 +4179,12 @@ def blocked_step(torch, cfg, opt, state, batch, n: int, bert: bool = False):
                 s_.add_(t.to(torch.float32))
         loss = lk if loss is None else loss + lk
         obs.append(aux["obs"])
+        aux_sum = aux_sum + aux.get("aux", 0.0)
         del g
     for t in T.tree_leaves(gsum):
         t.div_(n)
     new, gn = St._finish(cfg, opt, 0.99, state, gsum, C.max_over_ranks(obs))
-    return new, {"loss": loss / n, "grad_norm": gn}
+    return new, {"loss": loss / n, "grad_norm": gn, "aux": aux_sum / n}
 
 
 def _of_largest(gap: float, largest: float) -> float:
@@ -4468,12 +4487,215 @@ def mesh_yi6b(torch, smi, trained, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
             "spans": spans}
 
 
+MESH_MOE_DEPTH = 2        # of qwen2-moe-a2.7b's 24 layers
+MESH_MOE_STEPS = 2
+
+
+class MoeRouting:
+    """While open, records each MoE layer's routing (``moe.plan``'s dest and
+    cap) of each forward, keyed by data rank (None outside one); a
+    recomputed layer's replay is not recorded."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        from repro_torch.sharding import collectives as C
+
+        self.seen, self.inner = {}, M.plan
+
+        def recorded(probs, idx, cap, *a):
+            res = self.inner(probs, idx, cap, *a)
+            me = C._current()
+            if me is None or me.source is None:
+                self.seen.setdefault(None if me is None else me.rank, []).append((res[0], cap))
+            return res
+
+        M.plan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+
+        M.plan = self.inner
+
+
+@contextlib.contextmanager
+def exchange_host_ms():
+    """Host ms spent in ``collectives.all_gather_counts`` (every rank's,
+    waiting for the others included); yields a one-element list."""
+    from repro_torch.sharding import collectives as C
+
+    inner, total = C.all_gather_counts, [0.0]
+
+    def timed(counts):
+        t0 = time.perf_counter()
+        out = inner(counts)
+        total[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    C.all_gather_counts = timed
+    try:
+        yield total
+    finally:
+        C.all_gather_counts = inner
+
+
+def mesh_moe(torch, smi, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
+    """qwen2-moe-a2.7b at its published widths, MESH_MOE_DEPTH of 24 layers,
+    on (4, 1) with FSDP: its ranks route each MoE layer over the whole batch
+    (the counts exchange).  MESH_MOE_STEPS steps against ``blocked_step`` on
+    the same row blocks and against the unsharded step on the same batch;
+    the routing choices that differ from the unsharded forward's and the
+    choices dropped, per layer; ms a step and the exchange's host ms; peak
+    memory and each rank's bytes against the specs'."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
+    from repro_torch.launch.elastic_resume import data_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import partition as Pt
+    from repro_torch.train import steps as St
+
+    if cfg is None:
+        cfg = get_config("qwen2-moe-a2.7b")
+        check((cfg.d_model, cfg.n_experts, cfg.top_k, cfg.n_shared_experts, cfg.moe_d_ff,
+               cfg.vocab_size, cfg.param_dtype, cfg.remat)
+              == (2048, 60, 4, 4, 1408, 151936, "bfloat16", True),
+              "qwen2-moe-a2.7b is not at its published widths")
+        cfg = dataclasses.replace(cfg, n_layers=MESH_MOE_DEPTH)
+    b, s = shape
+    opt = AdamWConfig(lr=3e-4)
+    e_cap = cfg.n_experts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def init():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        return St.init_train_state(cfg, gen, opt)
+
+    def dropped(routes):
+        return [int((d == e_cap * cap).sum()) for d, cap in routes]
+
+    state = init()
+    n_params = sum(t.numel() for t in T.tree_leaves(state.params))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
+    wq0 = state.params["blocks"]["slot0"]["attn"]["wq"][0]
+    print(f"  [{smi}] qwen2-moe ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params) rows' "
+          "float island at step 0 (the rows alone route at their own capacity, so from the "
+          "first MoE layer on they differ by routing too): " + rows_island(
+              torch, lambda a, bt: T.forward(cfg, state.params, a, bt["tokens"]), state.amax,
+              batch, b // MESH_RANKS, dense=lambda x: x @ wq0))
+    plain = St.make_train_step(cfg, opt)
+    want, plain_ms = [], []
+    for i in range(MESH_MOE_STEPS):
+        t0 = time.perf_counter()
+        with MoeRouting() as rt:
+            state, m = plain(state, batch)
+        want.append({k: float(v) for k, v in m.items()})
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            whole = rt.seen[None][:cfg.n_layers]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = init()
+    mesh = data_mesh(dev, MESH_RANKS)
+    step, sh, _ = St.jit_train_step(cfg, mesh, opt, batch, fsdp=True)
+    want_b = rank_bytes_of_specs(state, sh)
+    shards = Pt.split_tree(state, sh)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    got_b = rank_bytes(shards)
+    check(all(x == want_b for x in got_b),
+          f"qwen2-moe: shard bytes {got_b} differ from the specs' {want_b}")
+    torch.cuda.reset_peak_memory_stats()
+    mets, walls, exch = [], [], []
+    for i in range(MESH_MOE_STEPS):
+        with MoeRouting() as rt, exchange_host_ms() as ex:
+            shards, m, ms = timed_step(torch, step, shards, batch)
+        mets.append(m)
+        walls.append(ms)
+        exch.append(ex[0])
+        if i == 0:
+            ranks = [rt.seen[r][:cfg.n_layers] for r in range(MESH_RANKS)]
+    peak = torch.cuda.max_memory_allocated()
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ, rows_differ, mesh_drops = [], [], []
+    for layer, (dest, cap) in enumerate(whole):
+        got = torch.cat([ranks[r][layer][0] for r in range(MESH_RANKS)], 1)
+        check(all(ranks[r][layer][1] == cap for r in range(MESH_RANKS)),
+              f"qwen2-moe: layer {layer}'s capacity differs between the ranks and the batch")
+        expert = [torch.where(d == e_cap * cap, -1, torch.div(d, cap, rounding_mode="floor"))
+                  for d in (got, dest)]
+        differ.append(int((expert[0] != expert[1]).sum()))
+        rows_differ.append(int((got != dest).sum()))
+        mesh_drops.append(int((got == e_cap * cap).sum()))
+    print(f"  [{smi}] qwen2-moe (4, 1) routing at step 0, per MoE layer, of "
+          f"{whole[0][0].numel()} (choice, token) pairs: expert or drop differing from the "
+          f"unsharded forward's {differ}, destination row differing {rows_differ}; dropped at "
+          f"capacity {whole[0][1]}: unsharded {dropped(whole)}, mesh {mesh_drops}")
+
+    state, met_ref = init(), []
+    for _ in range(MESH_MOE_STEPS):
+        state, m = blocked_step(torch, cfg, opt, state, batch, MESH_RANKS)
+        met_ref.append({k: float(v) for k, v in m.items()})
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("loss", "grad_norm", "aux")
+    rel = {k: [abs(x[k] - w[k]) / abs(w[k]) for x, w in zip(mets, met_ref)] for k in keys}
+    rel_t = {"loss 0": abs(mets[0]["loss"] - want[0]["loss"]) / abs(want[0]["loss"]),
+             "loss 1": abs(mets[1]["loss"] - want[1]["loss"]) / abs(want[1]["loss"]),
+             "grad norm 0": abs(mets[0]["grad_norm"] - want[0]["grad_norm"])
+             / abs(want[0]["grad_norm"]),
+             "aux 0 (not gated)": abs(mets[0]["aux"] - want[0]["aux"]) / abs(want[0]["aux"])}
+    print(f"  [{smi}] qwen2-moe (4, 1) against the same steps on the same {b // MESH_RANKS}-row "
+          f"blocks unsharded (blocked_step, its blocks routing together): "
+          + "; ".join(f"{k} {[x[k] for x in mets]} (blocks {[w[k] for w in met_ref]})"
+                      for k in keys) + f"; relative {rel} (bound {MESH_RTOL})")
+    print(f"  [{smi}] qwen2-moe (4, 1) against the unsharded steps (losses "
+          f"{[w['loss'] for w in want]}, grad norms {[w['grad_norm'] for w in want]}, aux "
+          f"{[w['aux'] for w in want]}): relative "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel_t.items())
+          + f" (bounds: loss 0 {MESH_LOSS_RTOL}, loss 1 and grad norm 0 {MESH_TRAIN_RTOL}); ms a "
+          f"step {[round(w) for w in walls]} against unsharded {[round(w) for w in plain_ms]}; "
+          f"the counts exchange's host ms a step (4 ranks' calls, waiting included) "
+          f"{[round(x, 1) for x in exch]}; peak {peak / 2**30:.2f} GiB allocated; bytes a rank "
+          f"{got_b} (specs {want_b})")
+    check(all(np.isfinite([x[k] for x in mets for k in keys])),
+          f"qwen2-moe: a (4, 1) metric is not finite: {mets}")
+    check(all(x["aux"] > 0 for x in mets), f"qwen2-moe: the aux loss is not positive: {mets}")
+    check(max(max(v) for v in rel.values()) <= MESH_RTOL,
+          f"qwen2-moe: the (4, 1) mesh left {MESH_RTOL} of blocked_step: {rel}")
+    check(rel_t["loss 0"] <= MESH_LOSS_RTOL and rel_t["loss 1"] <= MESH_TRAIN_RTOL
+          and rel_t["grad norm 0"] <= MESH_TRAIN_RTOL,
+          f"qwen2-moe: the (4, 1) mesh left its bounds against the unsharded steps: {rel_t}")
+    return {"ms": walls, "plain_ms": plain_ms, "exchange_ms": exch, "peak_gib": peak / 2**30,
+            "differ": differ, "rows_differ": rows_differ, "dropped": mesh_drops}
+
+
 def phase_mesh(torch, smi, trained):
+    t0 = time.perf_counter()
     bert = mesh_bert(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     yi = mesh_yi6b(torch, smi, trained["yi6b"])
-    return {"bert": bert, "yi6b": yi}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    moe = mesh_moe(torch, smi)
+    print(f"  [mesh] seconds: bert-base {t1 - t0:.1f}, yi-6b {t2 - t1:.1f}, qwen2-moe "
+          f"{time.perf_counter() - t2:.1f}")
+    return {"bert": bert, "yi6b": yi, "moe": moe}
 
 
 def phase_train(torch, kernels, guard):
@@ -4690,7 +4912,9 @@ def main() -> int:
     print(f"[mesh] training over a (data, model) mesh, {MESH_RANKS} data ranks on the one card: "
           f"bert-base at full size, {MESH_BERT_STEPS} steps at {TRAIN_BERT_SHAPE} on (1, 1) and "
           f"(4, 1) against the unsharded step, the elastic resize; yi-6b at {TRAIN_YI_DEPTH} of 32"
-          f" layers, {MESH_YI_STEPS} steps at {TRAIN_YI_SHAPE} on (4, 1) with FSDP")
+          f" layers, {MESH_YI_STEPS} steps at {TRAIN_YI_SHAPE} on (4, 1) with FSDP; "
+          f"qwen2-moe-a2.7b at {MESH_MOE_DEPTH} of 24 layers, {MESH_MOE_STEPS} steps at "
+          f"{TRAIN_YI_SHAPE} on (4, 1), its ranks routing the whole batch")
     phase_mesh(torch, smi, trained)
     stamp("all phases")
 

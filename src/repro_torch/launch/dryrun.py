@@ -14,8 +14,23 @@ train_4k on one pod, 256 / 16 / 4 = 4 rows).  A serve cell folds the params
 on ``meta`` and traces one data rank's integer prefill or decode forward.
 Each records its ranks' bytes of params, moments, batch and cache from the
 specs (every rank holds as much), ``ok``, or the error; a failing cell is
-recorded and the sweep goes on.  XLA's collective bytes and loop-aware HLO
-costs have no eager counterpart: they are ROADMAP item 11's cost model.
+recorded and the sweep goes on.  A MoE arch's traced rank routes as rank 0
+of its data ranks: its counts exchange returns a ``meta`` table, so its
+capacity counts the global microbatch as the step's does.
+
+A train cell also records what the reference reads from XLA's compiled HLO,
+from the port's own eager step instead (both say so in the JSON):
+``collectives``, per kind under the reference's names, the calls and the
+bytes of their results on one rank in one step, counted at each
+``sharding/collectives.py`` call from the shardings' specs (the forward's
+gather of every split param once a step; each microbatch's reduce of every
+gradient leaf into its owners' blocks and each MoE layer's counts
+exchange, x the microbatches; the max of the observations once; the update's
+gathers onto rank 0 belong to the one process that drives every rank and
+are not counted);
+and ``hlo_cost``, the bytes by dtype of the traced rank's loss and backward
+(``analysis/graph_audit.record`` on ``meta``, ``analysis/cost.py``'s eager
+traffic model), or ``hlo_cost_error`` where recording fails.
 One JSON per cell under ``results/dryrun/``.
 """
 from __future__ import annotations
@@ -30,10 +45,12 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis import cost, graph_audit
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES, ShapeConfig, cell_is_runnable
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding import partition as Pt
 from repro_torch.train import steps as St
 
@@ -82,6 +99,28 @@ def _rank_batch(mesh, batch):
             for k, v in batch.items()}, len(ranks)
 
 
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+COLLECTIVES_NOTE = ("the port's eager step, counted at each sharding/collectives.py call from "
+                    "the specs: the result bytes on one rank in one step; not XLA's numbers")
+HLO_COST_NOTE = ("one data rank's loss and backward on one microbatch: the port's eager ops on "
+                 "meta, each reading its operands and writing its results once "
+                 "(analysis/cost.py); not XLA's loop-aware HLO cost")
+
+
+def collectives_record(*tallies):
+    """{kind: {count, bytes}} under the reference's names, and {function:
+    {count, bytes}}, of ``(tally, times)`` pairs."""
+    kinds = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
+    calls = {}
+    for t, times in tallies:
+        for (kind, fn), (n, nbytes) in t.items():
+            for rec in (kinds[kind], calls.setdefault(fn, {"count": 0, "bytes": 0})):
+                rec["count"] += n * times
+                rec["bytes"] += nbytes * times
+    return kinds, calls
+
+
 def train_cell(cfg, shape, mesh, fsdp=True, accum_steps=4) -> dict:
     opt_cfg = AdamWConfig(quantize_moments=True)
     batch = input_specs(cfg, shape)
@@ -91,8 +130,31 @@ def train_cell(cfg, shape, mesh, fsdp=True, accum_steps=4) -> dict:
     micro = {k: torch.empty((v.shape[0] // accum_steps, *v.shape[1:]), dtype=v.dtype,
                             device=META) for k, v in batch.items()}
     rows, n_data = _rank_batch(mesh, micro)
+    p_sh = dict(Pt.tree_paths(state_sh.params, sort_keys=True))
+    rec = {}
     t0 = time.time()
-    loss, _, grads = St.lm_loss_and_grads(cfg, state.params, state.amax, rows)
+    with C.tally() as per_step:             # the forward's gather, once a step
+        for p, v in Pt.tree_paths(state.params, sort_keys=True):
+            C.all_gather(Pt.split_leaf(v, p_sh[p]), p_sh[p], META)
+
+    def rank_pass():
+        with C.data_rank(C.DataRanks(n_data), 0):
+            return St.lm_loss_and_grads(cfg, state.params, state.amax, rows)
+
+    with C.tally() as per_micro:
+        try:
+            (loss, aux, grads), audit = graph_audit.record(rank_pass, ())
+            rec["hlo_cost"] = {"bytes_by_dtype": cost.bytes_by_dtype(audit.ops),
+                               "op_counts": cost.op_counts(audit.ops), "note": HLO_COST_NOTE}
+        except Exception as e:  # noqa: BLE001 -- recorded, as the reference records its own
+            rec["hlo_cost_error"] = f"{type(e).__name__}: {e}"
+            per_micro.clear()
+            loss, aux, grads = rank_pass()
+        for p, g in Pt.tree_paths(grads, sort_keys=True):
+            C.reduce_scatter_add(None, g, p_sh[p])
+    with C.tally() as per_step_max:
+        C.max_over_ranks([aux["obs"]] * n_data)
+    kinds, calls = collectives_record((per_step, 1), (per_micro, accum_steps), (per_step_max, 1))
     ok = loss.shape == () and all(
         g.shape == p.shape for (_, g), (_, p) in zip(Pt.tree_paths(grads),
                                                      Pt.tree_paths(state.params)))
@@ -102,7 +164,9 @@ def train_cell(cfg, shape, mesh, fsdp=True, accum_steps=4) -> dict:
             "rank_bytes": {"params": rank_bytes(state.params, state_sh.params),
                            "moments": rank_bytes(state.opt, state_sh.opt),
                            "amax": rank_bytes(state.amax, state_sh.amax),
-                           "batch": rank_bytes(batch, batch_sh)}}
+                           "batch": rank_bytes(batch, batch_sh)},
+            "collectives": kinds, "collectives_by_call": calls,
+            "collectives_note": COLLECTIVES_NOTE, **rec}
 
 
 def serve_cell(cfg, shape, mesh) -> dict:

@@ -24,6 +24,7 @@ import torch.utils.checkpoint
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qsoftmax import LUT_DELTA
+from repro_torch.sharding import collectives as C
 
 Obs = Dict[str, torch.Tensor]
 ROW_CHUNK = 512  # query rows a chunk of ``attention_qat`` (the reference's)
@@ -32,9 +33,12 @@ ROW_CHUNK = 512  # query rows a chunk of ``attention_qat`` (the reference's)
 def remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant) when autograd records; a
-    plain call otherwise (calibration)."""
+    plain call otherwise (calibration).  Inside a data rank of a sharded MoE
+    step the recomputation replays the routing counts its first forward
+    received (``collectives.recompute_contexts``)."""
     if torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 context_fn=C.recompute_contexts)
     return fn(*args)
 
 

@@ -10,11 +10,23 @@ dropped (its ``dest`` is the sentinel row ``E * cap``).  Dispatch and
 combine are indexed writes and gathers: ``dest`` is unique apart from the
 sentinel row, so an indexed write equals the reference's scatter-add.
 
+Routing spans the data ranks of a sharded train step as the reference's
+global step does.  A token's choices depend on its own probabilities only
+(``topk_choices``), so a rank needs nothing of the others' rows but their
+(k, E) choice counts: ``route`` gathers every rank's
+(``collectives.all_gather_counts``), and ``plan`` places this rank's
+choices after the kept rows of the forward's earlier choices and the ranks
+ahead of it, with the capacity of every rank's rows and the aux loss
+against the whole forward's kept load.  Outside a data rank the counts are
+this forward's own, and ``plan`` is ``topk_routing``.  Each rank's dispatch
+buffer is the global capacity's: the rows of the other ranks' tokens stay 0.
+
 The float steps follow the reference's float32 order where it is known:
 the softmax's row sum in XLA's order (``layers.xla_row_sum``), the gate
 renormalization summed over the k choices in order, the combine a
-separate multiply and add per choice.  Its ``exp`` and the router product
-are torch's (a counted float island, ROADMAP §3).
+separate multiply and add per choice, SiLU as ``x * sigmoid(x)`` with
+``lax.logistic``'s gradient (``mamba.silu``).  Its ``exp`` and the router
+product are torch's (a counted float island, ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -25,7 +37,9 @@ import torch
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.models import mamba as Mb
 from repro_torch.models.layers import Obs, fake_quant_act, xla_row_sum
+from repro_torch.sharding import collectives as C
 
 CAPACITY_FACTOR = 1.25
 MOE_SITES = ("exp_in", "exp_g", "exp_u", "exp_h")
@@ -47,38 +61,94 @@ def router_softmax(gate_logits: torch.Tensor) -> torch.Tensor:
     return e / xla_row_sum(e)[..., None]
 
 
-def topk_routing(gate_logits: torch.Tensor, top_k: int, cap: int):
-    """Routing plan of (T, E) router logits: per choice, the flat
-    destination row in [0, E*cap] (``E*cap``: dropped) and the
-    renormalized combine weight, (k, T) each, and the load-balancing loss."""
-    t, e = gate_logits.shape
-    dev = gate_logits.device
-    probs = router_softmax(gate_logits)
-    remaining = probs
-    fill = torch.zeros((e,), dtype=torch.int32, device=dev)
-    load = torch.zeros((e,), dtype=torch.float32, device=dev)
-    dests, gates = [], []
+def topk_choices(probs: torch.Tensor, top_k: int) -> torch.Tensor:
+    """(k, T) int64: each token's experts in choice order, the argmax of its
+    probabilities with the experts of its earlier choices masked out.  A
+    choice depends on its token's probabilities alone, not on whether an
+    earlier one was kept."""
+    remaining, idx = probs, []
     for _ in range(top_k):
-        idx = torch.argmax(remaining, -1)                                    # (T,)
-        onehot = torch.nn.functional.one_hot(idx, e).to(torch.float32)
-        gate = torch.gather(probs, 1, idx[:, None])[:, 0]
-        pos = fill[None, :] + torch.cumsum(onehot, 0).to(torch.int32) - 1
-        pos_tok = torch.gather(pos, 1, idx[:, None])[:, 0]
+        i = torch.argmax(remaining, -1)
+        idx.append(i)
+        remaining = remaining * (1.0 - torch.nn.functional.one_hot(i, probs.shape[1])
+                                 .to(torch.float32))
+    return torch.stack(idx)
+
+
+def choice_counts(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """(k, E) int32: the tokens choosing each expert at each choice."""
+    return torch.nn.functional.one_hot(idx, n_experts).sum(1).to(torch.int32)
+
+
+def plan(probs: torch.Tensor, idx: torch.Tensor, cap: int, before: torch.Tensor,
+         totals: torch.Tensor, tokens: int):
+    """Routing plan of these rows' choices within a forward of ``tokens``
+    rows: ``before`` (k, E) counts the forward's rows ahead of these (other
+    data ranks'), ``totals`` (k, E) all of its rows'.  Choice i of a token
+    takes the next row of its expert after the rows kept by the forward's
+    choices < i and its rows ahead at choice i; it is kept below ``cap``.
+    Returns (dest (k, T) in [0, E*cap], E*cap where dropped; combine weights
+    (k, T); the load-balancing loss of these rows' mean probabilities against
+    the forward's kept load)."""
+    e = probs.shape[1]
+    fill = torch.zeros((e,), dtype=torch.int32, device=probs.device)
+    load = torch.zeros((e,), dtype=torch.float32, device=probs.device)
+    dests, gates = [], []
+    for i in range(idx.shape[0]):
+        onehot = torch.nn.functional.one_hot(idx[i], e).to(torch.float32)
+        gate = torch.gather(probs, 1, idx[i][:, None])[:, 0]
+        pos = (fill + before[i])[None, :] + torch.cumsum(onehot, 0).to(torch.int32) - 1
+        pos_tok = torch.gather(pos, 1, idx[i][:, None])[:, 0]
         keep = (pos_tok < cap) & (pos_tok >= 0)
-        dests.append(torch.where(keep, idx.to(torch.int32) * cap + pos_tok,
+        dests.append(torch.where(keep, idx[i].to(torch.int32) * cap + pos_tok,
                                  torch.full_like(pos_tok, e * cap)))
         gates.append(torch.where(keep, gate, torch.zeros_like(gate)))
-        taken = torch.sum(onehot * keep[:, None], 0)
-        load = load + taken
-        fill = fill + taken.to(torch.int32)
-        remaining = remaining * (1.0 - onehot)
+        taken = torch.minimum(totals[i], cap - fill)
+        load = load + taken.to(torch.float32)
+        fill = fill + taken
     me = torch.mean(probs, 0)
-    aux = e * torch.sum(me * (load / t)) / max(top_k, 1)
+    aux = e * torch.sum(me * (load / tokens)) / max(idx.shape[0], 1)
     denom = gates[0]
     for g in gates[1:]:
         denom = denom + g
     denom = torch.clamp(denom, min=1e-9)
     return torch.stack(dests), torch.stack([g / denom for g in gates]), aux
+
+
+def topk_routing(gate_logits: torch.Tensor, top_k: int, cap: int):
+    """Routing plan of (T, E) router logits, every row of the forward here:
+    per choice, the flat destination row in [0, E*cap] (``E*cap``: dropped)
+    and the renormalized combine weight, (k, T) each, and the load-balancing
+    loss."""
+    probs = router_softmax(gate_logits)
+    idx = topk_choices(probs, top_k)
+    counts = choice_counts(idx, probs.shape[1])
+    return plan(probs, idx, cap, torch.zeros_like(counts), counts, probs.shape[0])
+
+
+def route(gate_logits: torch.Tensor, n_experts: int, top_k: int):
+    """``topk_routing`` over the whole (micro)batch of a data-parallel step:
+    this rank's rows are its block of it, in rank order.  Outside a data
+    rank (``sharding.collectives.data_rank``) the rows are the whole
+    forward.  Inside one, every rank's (k, E) counts are gathered (one
+    ``all_gather_counts`` a layer): capacity counts every rank's rows, a
+    choice's row follows the kept rows of the forward's earlier choices and
+    the ranks ahead of this one, and the aux loss weighs this rank's mean
+    probabilities against the forward's kept load, so the ranks' mean aux is
+    the whole batch's.  Returns (cap, dest, gates, aux)."""
+    probs = router_softmax(gate_logits)
+    t = probs.shape[0]
+    idx = topk_choices(probs, top_k)
+    counts = choice_counts(idx, n_experts)
+    met = C.all_gather_counts(counts)
+    if met is None:
+        before, totals, tokens = torch.zeros_like(counts), counts, t
+    else:
+        table, rank = met
+        before, totals, tokens = table[:rank].sum(0), table.sum(0), t * table.shape[0]
+        before, totals = before.to(torch.int32), totals.to(torch.int32)
+    cap = capacity(tokens, n_experts, top_k)
+    return (cap, *plan(probs, idx, cap, before, totals, tokens))
 
 
 def scatter_dispatch(x: torch.Tensor, dest: torch.Tensor, e: int, cap: int) -> torch.Tensor:
@@ -117,7 +187,7 @@ def _expert_ffn_qat(xe, p, amax, policy: QuantPolicy, prefix: str):
     xq, obs[f"{prefix}_in"] = fq(xe, "in")
     g = torch.einsum("ecd,edf->ecf", xq, fq_w(p["wg"]))
     u = torch.einsum("ecd,edf->ecf", xq, fq_w(p["wu"]))
-    g, obs[f"{prefix}_g"] = fq(torch.nn.functional.silu(g), "g")
+    g, obs[f"{prefix}_g"] = fq(Mb.silu(g), "g")
     u, obs[f"{prefix}_u"] = fq(u, "u")
     h, obs[f"{prefix}_h"] = fq(g * u, "h")
     return torch.einsum("ecf,efd->ecd", h, fq_w(p["wd"])), obs
@@ -131,8 +201,7 @@ def moe_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy,
     xt = x.reshape(t, d)
     obs: Obs = {}
     gate_logits = xt.to(torch.float32) @ p["router"].to(torch.float32)
-    cap = capacity(t, cfg.n_experts, cfg.top_k)
-    dest, gates, aux = topk_routing(gate_logits, cfg.top_k, cap)
+    cap, dest, gates, aux = route(gate_logits, cfg.n_experts, cfg.top_k)
     xe = scatter_dispatch(xt, dest, cfg.n_experts, cap).reshape(cfg.n_experts, cap, d)
     ye, o = _expert_ffn_qat(xe, p["experts"], amax, policy, "exp")
     obs.update(o)

@@ -9,12 +9,14 @@ it modifies no tensor of the state it is given.  ``jit_train_step`` builds
 the step over a device mesh (``launch/mesh.py``): the state split over the
 ranks per ``sharding/partition.py``'s rules, the batch over the data ranks,
 the reference's global math (GSPMD: sharding moves data, not results).
-Every config trains here: attention, dense, MoE and recurrent (Mamba,
-mLSTM, sLSTM) archs, the frontends and BERT; MoE on one data rank only.
+Every config trains here, on one data rank or more: attention, dense, MoE
+and recurrent (Mamba, mLSTM, sLSTM) archs, the frontends and BERT.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Any, Dict, Tuple
 
 import torch
@@ -147,7 +149,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                 obs_all.append(aux["obs"])
             grads = T.tree_map(lambda g: g / accum_steps, gsum)
             loss = loss_sum / accum_steps
-            obs, ce = C.max_over_ranks(obs_all), loss    # the microbatches' max
+            obs, ce = C.tree_max(obs_all), loss    # the microbatches' max
             aux_l = torch.zeros((), dtype=torch.float32, device=loss.device)
         new_state, gn = _finish(cfg, opt_cfg, ema_decay, state, grads, obs)
         return new_state, {"loss": loss, "ce": ce, "aux": aux_l, "grad_norm": gn}
@@ -265,6 +267,47 @@ def _copies(t: torch.Tensor, mesh) -> list:
             for r, d in enumerate(mesh.devices)]
 
 
+def _meeting(passes):
+    """Runs each data rank's pass (``passes[r]()``) in a thread of its own
+    as rank r of one ``collectives.DataRanks``, at the caller's grad mode
+    and torch thread count (a new thread starts at torch's), and yields
+    their results in rank order as they finish.  A rank that raises stops
+    the others at their next exchange; the first rank's own error is
+    raised."""
+    group = C.DataRanks(len(passes))
+    results, errors = [None] * len(passes), [None] * len(passes)
+    grad, n_threads = torch.is_grad_enabled(), torch.get_num_threads()
+
+    def run(r):
+        torch.set_num_threads(n_threads)
+        try:
+            with torch.set_grad_enabled(grad), C.data_rank(group, r):
+                results[r] = passes[r]()
+        except BaseException as e:  # noqa: BLE001 -- raised on the caller's thread
+            errors[r] = e
+            group.abort()
+
+    threads = [threading.Thread(target=run, args=(r,), name=f"data rank {r}", daemon=True)
+               for r in range(len(passes))]
+    for t in threads:
+        t.start()
+    try:
+        for r, t in enumerate(threads):
+            t.join()
+            if errors[r] is not None:
+                break
+            yield results[r]
+            results[r] = None
+    finally:
+        group.abort()
+        for t in threads:
+            t.join()
+    first = next((e for e in errors if e is not None and not isinstance(e, C.PeerFailed)),
+                 None)
+    if first is not None:
+        raise first
+
+
 def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_example, *,
                    fsdp: bool = True, donate: bool = True, bert: bool = False,
                    accum_steps: int = 1):
@@ -282,16 +325,22 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     rows [i B/a, (i+1) B/a) of the global batch, split over the data ranks.
     At sites whose amax is 0 the reference quantizes with the global
     (micro)batch's observed max, so while any amax is 0 one no-grad forward
-    over the global microbatch first fills those sites with it.  The ranks'
-    gradients are summed in float32 in rank order into the owners' shards
-    and divided by the data ranks and microbatches; the compression, the
-    global norm (``adamw.global_norm``'s order) and the AdamW update then
-    take each leaf whole (an int8 moment's scales span its whole last-axis
-    vectors) and put its blocks back.  ``donate=True`` writes the new values
-    into the given shards; ``donate=False`` leaves every given tensor as it
-    was.  ``bert=True`` builds ``make_bert_train_step``'s step (no
-    accumulation, as the reference's).  A MoE arch on more than one data
-    rank raises: its capacity and aux loss count the global batch.
+    over the global microbatch first fills those sites with it (its MoE
+    layers route the whole microbatch at once, so it exchanges nothing).
+    A MoE arch's capacity and aux loss count the global microbatch too: over
+    more than one data rank each rank runs its loss and backward in a thread
+    of its own under ``collectives.data_rank``, and at every MoE layer the
+    ranks gather each other's (k, E) routing counts
+    (``collectives.all_gather_counts``, ``moe.route``), a recomputed layer
+    replaying what its forward received; any other arch runs the ranks one
+    after another.  The ranks' gradients are summed in float32 in rank order
+    into the owners' shards and divided by the data ranks and microbatches;
+    the compression, the global norm (``adamw.global_norm``'s order) and the
+    AdamW update then take each leaf whole (an int8 moment's scales span its
+    whole last-axis vectors) and put its blocks back.  ``donate=True`` writes
+    the new values into the given shards; ``donate=False`` leaves every
+    given tensor as it was.  ``bert=True`` builds ``make_bert_train_step``'s
+    step (no accumulation, as the reference's).
     """
     shape = state_shape(cfg, opt_cfg, bert)
     state_sh = state_shardings(mesh, shape, fsdp)
@@ -302,11 +351,7 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     if b % accum:
         raise ValueError(f"accum_steps={accum} does not divide the batch of {b}")
     ranks = data_ranks(mesh, {k: (v[0] // accum, *v[1:]) for k, v in example.items()})
-    if cfg.n_experts and len(ranks) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training over {len(ranks)} data ranks is not ported: the "
-            "capacity and the aux loss count the global batch (ROADMAP Open items §1, MoE at "
-            "data size > 1)")
+    meet = bool(cfg.n_experts) and not bert and len(ranks) > 1
     p_sh, m_sh, v_sh = (_by_path(t) for t in (state_sh.params, state_sh.opt["m"],
                                               state_sh.opt["v"]))
     dev0 = mesh.devices[0]
@@ -363,10 +408,11 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
                                              T.tree_map(lambda t, d=dev: t.to(d), amax),
                                              {k: v.to(dev) for k, v in mb.items()}))
             loss_i = None
-            for g_i, (rows, dev) in enumerate(ranks):
-                part = {k: v[rows].to(dev) for k, v in mb.items()}
-                loss, aux, grads = loss_and_grads(
-                    params_on(dev), T.tree_map(lambda t, d=dev: t.to(d), amax), part)
+            passes = [functools.partial(
+                loss_and_grads, params_on(dev), T.tree_map(lambda t, d=dev: t.to(d), amax),
+                {k: v[rows].to(dev) for k, v in mb.items()}) for rows, dev in ranks]
+            for g_i, (loss, aux, grads) in enumerate(
+                    _meeting(passes) if meet else (f() for f in passes)):
                 loss_i = loss.to(dev0) if loss_i is None else loss_i + loss.to(dev0)
                 obs_by_rank[g_i].append(aux["obs"])
                 extras.append(aux)
@@ -382,7 +428,7 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
                 for t in blocks:
                     t.div_(n)
         loss = losses[0] if accum == 1 else sum(losses, 0.0) / accum
-        obs = C.max_over_ranks([C.max_over_ranks(o) for o in obs_by_rank])
+        obs = C.max_over_ranks([C.tree_max(o) for o in obs_by_rank])
 
         bits = cfg.quant.grad_compress_bits
 

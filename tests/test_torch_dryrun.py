@@ -1,17 +1,25 @@
-"""The port's dry run (``launch/dryrun.py``) on ``meta`` devices: yi-6b and
-llama3-405b ``train_4k`` on the 256-rank pod and the 512-rank two-pod mesh
-trace one data rank's loss and backward at its microbatch (256 / 16 / 4 = 4
-rows on one pod, 256 / 32 / 4 = 2 on two), and each rank's bytes of params,
-moments and batch equal those JAX's ``NamedSharding.shard_shape`` gives for
-the reference's shardings on an ``AbstractMesh`` of the same shape.
+"""The port's dry run (``launch/dryrun.py``) on ``meta`` devices: yi-6b,
+llama3-405b, qwen2-moe-a2.7b and mixtral-8x22b ``train_4k`` on the 256-rank
+pod and the 512-rank two-pod mesh trace one data rank's loss and backward at
+its microbatch (256 / 16 / 4 = 4 rows on one pod, 256 / 32 / 4 = 2 on two;
+a MoE arch's rank routes as rank 0 of its data ranks, its counts exchange
+included), and each rank's bytes of params, moments and batch equal those
+JAX's ``NamedSharding.shard_shape`` gives for the reference's shardings on
+an ``AbstractMesh`` of the same shape.  The cell's ``collectives`` equal
+the step's worked out from those shardings: an all-gather of every split
+param (its whole bytes), and per microbatch a reduce-scatter of each split
+param's float32 block or an all-reduce of a whole one, and each MoE layer's
+(data ranks, k, E) int32 counts gathered; one all-reduce of each observed
+max.  ``hlo_cost`` holds the traced rank's bytes by dtype.
 
-Both configs run at their published widths and one layer (``cfg_overrides``):
-a traced layer at S = 4,096 costs ~1 s of meta ops, and the bytes of a
-deeper stack add per layer what one layer adds.  A MoE arch's cell is
-recorded as failing (its data ranks raise) and the sweep goes on; a decode
-cell records its cache's bytes per rank.
+Every config runs at its published widths and one layer
+(``cfg_overrides``): a traced layer at S = 4,096 costs ~1 s of meta ops,
+and the bytes of a deeper stack add per layer what one layer adds.  A cell
+forced to fail is recorded as failing and the sweep goes on; a decode cell
+records its cache's bytes per rank.
 """
 import json
+import math
 
 import jax
 import numpy as np
@@ -20,6 +28,7 @@ from jax.sharding import AbstractMesh
 
 from repro.configs import get_config as j_get_config
 from repro.models import serve_int as JS
+from repro.models import transformer as JT
 from repro.optim import adamw as JA
 from repro.sharding import partition as JPt
 from repro.train import steps as JSt
@@ -39,7 +48,7 @@ def _mesh(multi_pod):
 
 
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["256", "512"])
-@pytest.mark.parametrize("arch", ["yi-6b", "llama3-405b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "llama3-405b", "qwen2-moe-a2.7b", "mixtral-8x22b"])
 def test_train_cells_trace_with_the_reference_bytes_per_rank(arch, multi_pod, tmp_path,
                                                              monkeypatch):
     monkeypatch.setattr(D, "RESULTS", tmp_path)
@@ -63,12 +72,42 @@ def test_train_cells_trace_with_the_reference_bytes_per_rank(arch, multi_pod, tm
             "batch": 256 * 4096 * 4 // rec["data_ranks"]}
     print(f"  {arch} train_4k on {rec['chips']} ranks: bytes a rank {rec['rank_bytes']}")
     assert rec["rank_bytes"] == want
+    accum, n_data = rec["accum_steps"], rec["data_ranks"]
+    coll = {k: {"count": 0, "bytes": 0} for k in D.COLLECTIVE_KINDS}
+
+    def add(kind, n, nbytes):
+        coll[kind]["count"] += n
+        coll[kind]["bytes"] += nbytes
+
+    for v, sh in zip(jax.tree.leaves(state.params), jax.tree.leaves(p_sh)):
+        block = sh.shard_shape(v.shape)
+        if tuple(block) != tuple(v.shape):
+            add("all-gather", 1, math.prod(v.shape) * np.dtype(v.dtype).itemsize)
+            add("reduce-scatter", accum, accum * math.prod(block) * 4)
+        else:
+            add("all-reduce", accum, accum * math.prod(v.shape) * 4)
+    for a in jax.tree.leaves(state.amax):
+        add("all-reduce", 1, math.prod(a.shape) * 4)
+    n_moe = cfg.n_reps * sum(f == "moe" for _, f in JT.slot_kinds(cfg))
+    add("all-gather", accum * n_moe, accum * n_moe * n_data * cfg.top_k * cfg.n_experts * 4)
+    print(f"  {arch} train_4k on {rec['chips']} ranks: collectives a rank a step "
+          f"{rec['collectives']}; bytes by dtype {rec['hlo_cost']['bytes_by_dtype']}")
+    assert rec["collectives"] == coll
+    assert rec["collectives_by_call"].get("all_gather_counts", {"count": 0})["count"] == \
+        accum * n_moe
+    assert "hlo_cost_error" not in rec and rec["hlo_cost"]["bytes_by_dtype"]["float32"] > 0
 
 
 def test_a_failing_cell_is_recorded_and_serve_cells_trace(tmp_path, monkeypatch):
     monkeypatch.setattr(D, "RESULTS", tmp_path)
-    moe = D.run_cell("qwen2-moe-a2.7b", "train_4k", False, cfg_overrides=ONE_LAYER)
-    assert not moe["ok"] and moe["error"].startswith("NotImplementedError")
+
+    def fails(*a, **k):
+        raise FloatingPointError("a cell forced to fail")
+
+    with monkeypatch.context() as m:
+        m.setattr(D.St, "lm_loss_and_grads", fails)
+        moe = D.run_cell("qwen2-moe-a2.7b", "train_4k", False, cfg_overrides=ONE_LAYER)
+    assert not moe["ok"] and moe["error"] == "FloatingPointError: a cell forced to fail"
     rec = D.run_cell("yi-6b", "decode_32k", False, cfg_overrides=ONE_LAYER)
     assert rec["ok"], rec.get("traceback")
     assert rec["batch_rows"] == [128 // 16, 1] and rec["logits"] == [8, 1, 64000]

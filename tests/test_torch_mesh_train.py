@@ -372,16 +372,6 @@ def test_int8_moment_init_equals_reference(reference):
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]), err_msg=k)
 
 
-def test_moe_over_data_ranks_raises():
-    cfg = smoke_config("qwen2-moe-a2.7b")
-    opt = A.AdamWConfig()
-    batch = {"tokens": torch.empty((4, 16), dtype=torch.int32, device="meta")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        St.jit_train_step(cfg, _mesh(2), opt, batch)
-    St.jit_train_step(cfg, _mesh(1, 2), opt, batch)     # one data rank trains
-    St.jit_train_step(cfg, _mesh(8), opt, batch)        # 4 rows do not split 8 ways
-
-
 @pytest.mark.parametrize("donate", [False, True])
 def test_donation(reference, donate):
     """``donate=False`` leaves every tensor of the given state as it was;

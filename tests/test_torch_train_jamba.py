@@ -26,17 +26,36 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke
+from repro.models import layers as JL
+from repro.models import moe as JMoe
+from repro.models import transformer as JT
 from repro.optim import adamw as JA
 from repro.train import steps as JSt
 from repro_torch.configs import smoke_config
+from repro_torch.models import fold as F
+from repro_torch.models import moe as M
+from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
 from repro_torch.train import steps as St
-from test_torch_train import LR, _batch, _compare_step, _jinit, _t, _torch_state
+from test_torch_train import (EXACT, KEY, LR, _batch, _compare_step, _held, _jinit, _np, _t,
+                              _torch_state)
 
 ARCH = "jamba-1.5-large-398b"
 CASES = {f"{ARCH}/n_experts=0": {"n_experts": 0}, ARCH: {}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -62,3 +81,132 @@ def test_train_step_matches_reference(reference_step):
         print(f"  {case} aux: reference {float(jm['aux'])!r}, port {float(tm['aux'])!r}")
         assert float(tm["aux"]) > 0
         np.testing.assert_allclose(float(tm["aux"]), float(jm["aux"]), rtol=5e-3)
+
+
+# --- the MoE slot with the reference's own input -------------------------------------
+
+MOE_ARCHS = [ARCH, "mixtral-8x22b", "qwen2-moe-a2.7b"]
+
+
+def _experts(dest, e, cap):
+    """Each (choice, token)'s expert, -1 where dropped."""
+    dest = np.asarray(dest)
+    return np.where(dest == e * cap, -1, dest // cap)
+
+
+def _reference_moe_slots(jcfg, jparams, jamax, tokens):
+    """The reference's forward slot by slot, each slot jitted (as
+    ``test_norms_are_the_first_differing_site`` walks it), recording each MoE
+    slot's input to ``moe_qat`` and its routing: [(rep, slot, h, dest, cap)]."""
+    x = jnp.take(jparams["embed"]["tokens"], jnp.asarray(tokens), axis=0)
+    x, _ = JL.fake_quant_act(x, jamax["embed_out"], jcfg.quant.a_bits, True)
+    pos = jnp.broadcast_to(jnp.arange(x.shape[1], dtype=jnp.int32), x.shape[:2])
+    out = []
+    for r in range(jcfg.n_reps):
+        for i, (mixer, ffn) in enumerate(JT.slot_kinds(jcfg)):
+            pj = jax.tree.map(lambda t, r=r: t[r], jparams["blocks"][f"slot{i}"])
+            aj = jax.tree.map(lambda t, r=r: t[r], jamax["blocks"][f"slot{i}"])
+
+            def jslot(x, pj, aj, mixer=mixer, ffn=ffn):
+                seen, moe, routing = {}, JMoe.moe_qat, JMoe.topk_routing
+
+                def moe_in(h, *a, **k):
+                    seen["h"] = h
+                    return moe(h, *a, **k)
+
+                def routed(logits, k, cap):
+                    res = routing(logits, k, cap)
+                    seen["dest"], seen["cap"] = res[0], cap
+                    return res
+
+                JMoe.moe_qat, JMoe.topk_routing = moe_in, routed
+                try:
+                    y = JT._apply_slot(jcfg, mixer, ffn, x, pj, aj, pos, None)[0]
+                finally:
+                    JMoe.moe_qat, JMoe.topk_routing = moe, routing
+                return y, seen.get("h"), seen.get("dest"), seen.get("cap")
+
+            x, h, dest, cap = jax.jit(jslot)(x, pj, aj)
+            if ffn == "moe":
+                out.append((r, i, np.asarray(h), np.asarray(dest), int(cap)))
+    return out
+
+
+def _port_routing(cfg, tparams, tamax, tokens):
+    """The port's own forward (no gradient): each MoE slot's dest and cap."""
+    seen, inner = [], M.plan
+
+    def recorded(probs, idx, cap, *a):
+        res = inner(probs, idx, cap, *a)
+        seen.append((res[0].numpy(), cap))
+        return res
+
+    M.plan = recorded
+    try:
+        with torch.no_grad():
+            T.forward(cfg, tparams, tamax, _t(tokens))
+    finally:
+        M.plan = inner
+    return seen
+
+
+def _slot_grads_reference(jcfg, h, p, amax, ct):
+    def f(h, p):
+        y, _, aux = JMoe.moe_qat(h, p, amax, jcfg.quant, jcfg)
+        return jnp.sum(y * ct) + aux, (y, aux)
+
+    (_, (y, aux)), (gh, gp) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(h, p)
+    return np.asarray(y), float(aux), {"h": np.asarray(gh), "p": _np(gp)}
+
+
+def _slot_grads_port(cfg, h, p, amax, ct):
+    ht = _t(h).requires_grad_(True)
+    leaves = [v.requires_grad_(True) for v in T.tree_leaves(p)]
+    pt = T.tree_unflatten(p, leaves)
+    y, _, aux = M.moe_qat(ht, pt, amax, cfg.quant, cfg)
+    grads = torch.autograd.grad((y * _t(ct)).sum() + aux, [ht] + leaves)
+    return (y.detach().numpy(), float(aux),
+            {"h": grads[0].numpy(), "p": T.tree_unflatten(p, list(grads[1:]))})
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_slot_holds_exact_with_the_reference_input(arch):
+    """Each MoE slot of the step's forward, fed the reference's own input to
+    that slot (taken from the jitted slot), with the same params, amax and a
+    seeded cotangent: the port's ``moe_qat`` output within 1e-5 of its
+    largest element, the aux loss at rtol 1e-5, and the gradients of
+    sum(y * ct) + aux (the input, the router, the expert stacks) within 1e-5
+    of each leaf's largest element (``EXACT``).  The (token, choice) pairs
+    whose expert or drop differs between the two packages' own forwards are
+    printed at each slot: the float island upstream of the slot, not the
+    slot, is what moves them."""
+    jcfg, cfg = j_smoke(arch), smoke_config(arch)
+    jparams = jax.jit(lambda k: JT.init_params(jcfg, k))(KEY)
+    jamax = JT.init_amax(jcfg)
+    tparams = F.params_from_numpy(_np(jparams), "cpu")
+    tamax = F.params_from_numpy(_np(jamax), "cpu")
+    tokens = _batch(arch, jcfg)["tokens"]
+    slots = _reference_moe_slots(jcfg, jparams, jamax, tokens)
+    own = _port_routing(cfg, tparams, tamax, tokens)
+    assert len(slots) == len(own) > 0
+    rng = np.random.default_rng(11)
+    for (r, i, h, jdest, cap), (tdest, tcap) in zip(slots, own, strict=True):
+        e = cfg.n_experts
+        assert tcap == cap
+        je, te = _experts(jdest, e, cap), _experts(tdest, e, cap)
+        print(f"  {arch} rep {r} slot {i}: {int((je != te).sum())} of {je.size} (token, "
+              f"choice) pairs differ in expert or drop between the packages' own forwards; "
+              f"dropped: reference {int((je < 0).sum())}, port {int((te < 0).sum())}")
+        pj = _np(jax.tree.map(lambda t, r=r: t[r], jparams["blocks"][f"slot{i}"]["moe"]))
+        aj = {k: np.float32(v) for k, v in _np(jax.tree.map(
+            lambda t, r=r: t[r], jamax["blocks"][f"slot{i}"])).items()}
+        ct = rng.normal(0, 1, h.shape).astype(np.float32)
+        wy, waux, wg = _slot_grads_reference(jcfg, h, pj, aj, ct)
+        gy, gaux, gg = _slot_grads_port(cfg, h, T.tree_map(_t, pj), T.tree_map(_t, aj), ct)
+        differ = int((gy != wy).sum())
+        far = float(np.abs(gy - wy).max() / np.abs(wy).max())
+        print(f"  {arch} rep {r} slot {i}, the reference's input: output {differ} of {gy.size} "
+              f"differ, worst {far:.3g} of the largest; aux {waux!r} against {gaux!r}")
+        assert far <= EXACT[1]
+        np.testing.assert_allclose(gaux, waux, rtol=EXACT[0])
+        _held(f"{arch} rep {r} slot {i} gradients", wg, gg, EXACT[1])
