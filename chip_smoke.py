@@ -243,6 +243,18 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    layer the routing choices that differ from the unsharded forward's and
    the choices dropped; ms a step against the unsharded step, the
    exchange's host ms, the peak and each rank's bytes against the specs'.
+   Then (``mesh_processes``) BERT-base's and qwen2-moe's (4, 1) runs again
+   on MESH_PROCS processes, one a rank, sharing the card over gloo
+   (``launch/ranks.py``; the parent frees the card first): every rank's
+   params, moments, amax and steps (``ranks.digest``) and every metric
+   equal to the one-process runs' bit for bit, the routing counts
+   exchanged between the processes; each rank's tally of collectives
+   equal to the reckoning from the specs; rank 0's BERT-base checkpoint
+   restored equal to the one-process final state, folded and served at
+   (1, 128) through rows 1, 2 and 5, each equal to its plain version;
+   printed: each rank's own peak against the one-process peak, ms a step
+   against the one-process step's, each collective kind's host ms and
+   bytes a rank, the op routes (``collectives.ROUTES``).
    Each line carries the card's name and power limit.
 10. ``[analysis]`` (``phase_analysis``): the static analysis of the integer
    datapath (``repro_torch.analysis``) on ``[serve]``'s yi-6b weights at
@@ -290,6 +302,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -3752,8 +3765,6 @@ def train_bert(torch, kernels, guard):
     from repro_torch.core.policy import POLICY_FP32
     from repro_torch.launch import train_bert_sst2 as SST
     from repro_torch.models import bert as B
-    from repro_torch.models import fold as F
-    from repro_torch.models import serve_int as S
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import steps as St
 
@@ -3805,14 +3816,29 @@ def train_bert(torch, kernels, guard):
     print("  bert-base held-out accuracy (10 batches): "
           + ", ".join(f"{k} {np.mean(v):.3f}" for k, v in accs.items()))
 
-    # the trained backbone, folded with the trained EMA amax, served as integers
+    out = serve_trained_bert(torch, cfg, state, kernels, guard, ((1, 128), (8, 512)),
+                             "trained bert-base")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_trained_bert(torch, cfg, state, kernels, guard, shapes, what):
+    """The trained backbone of ``state``, folded with its trained EMA amax
+    and served as integers at each (B, S) of ``shapes``: every forward's
+    launches of rows 1, 2 and 5 (``kernels``) as ``BERT_LAUNCHES`` says, no
+    plain version on the card, and logits equal to the plain versions'.
+    Returns the first shape's launches."""
+    from repro_torch.models import fold as F
+    from repro_torch.models import serve_int as S
+
     amax = {k: state.amax[k] for k in ("blocks", "embed_out", "head_in")}
     folded = S.prepare_folded(cfg, F.fold_params(cfg, state.params["backbone"], amax))
     rng = np.random.default_rng(SEED + 1)
     want = {"quant_softmax": BERT_LAUNCHES["quant_softmax"], "int4_matmul": BERT_LAUNCHES["gemm"],
             "quant_layernorm": BERT_LAUNCHES["quant_layernorm"]}
     out = {}
-    for fb, fs in ((1, 128), (8, 512)):
+    for fb, fs in shapes:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (fb, fs)).astype(np.int32),
                                device="cuda")
         before = dict(guard.n)
@@ -3822,9 +3848,9 @@ def train_bert(torch, kernels, guard):
         # version of a kernel may run
         plain = {k: n - before[k] for k, n in guard.n.items() if n != before[k]}
         check(set(plain) <= {"_attn_rows_q8"},
-              f"trained bert ({fb}, {fs}): plain versions ran on the card: {plain}")
-        check(launches == want, f"trained bert ({fb}, {fs}): launches {launches} != {want}")
-        check_paths(f"trained bert ({fb}, {fs})", cfg, gemm_paths("int4_matmul"), FORWARDS)
+              f"{what} ({fb}, {fs}): plain versions ran on the card: {plain}")
+        check(launches == want, f"{what} ({fb}, {fs}): launches {launches} != {want}")
+        check_paths(f"{what} ({fb}, {fs})", cfg, gemm_paths("int4_matmul"), FORWARDS)
         with guard.paused():
             os.environ["REPRO_TORCH_KERNELS"] = "ref"
             try:
@@ -3833,14 +3859,14 @@ def train_bert(torch, kernels, guard):
                 del os.environ["REPRO_TORCH_KERNELS"]
         torch.cuda.synchronize()
         differ = int((logits != plain).sum())
-        print(f"  trained bert-base integer forward ({fb}, {fs}): launches {launches}, "
+        print(f"  {what} integer forward ({fb}, {fs}): launches {launches}, "
               f"finite {bool(torch.isfinite(logits).all())}, {differ} of {logits.numel()} "
               "logits differ from the plain versions' on the card")
         check(bool(torch.isfinite(logits).all()) and differ == 0,
-              f"trained bert ({fb}, {fs}): the kernels' logits differ from the plain versions'")
-        if (fb, fs) == (1, 128):
+              f"{what} ({fb}, {fs}): the kernels' logits differ from the plain versions'")
+        if not out:
             out = launches
-    del folded, state
+    del folded
     torch.cuda.empty_cache()
     return out
 
@@ -4247,6 +4273,7 @@ def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
     import tempfile
 
     from repro_torch.configs import get_config
+    from repro_torch.launch import ranks as R
     from repro_torch.launch import train_bert_sst2 as SST
     from repro_torch.launch.elastic_resume import data_mesh
     from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
@@ -4304,12 +4331,16 @@ def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
           f"{reckoned}; unsharded {rank_bytes([state0])[0]}")
     check(all(n == reckoned for n in got), f"bert-base: shard bytes {got} != {reckoned}")
     met41, ms41, after1 = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for i, bt in enumerate(batches):
         shards, m, ms = timed_step(torch, step41, shards, bt)
         met41.append(m)
         ms41.append(ms)
         if i == 0:
             after1 = Pt.gather_tree(shards, sh41)
+    peak41 = torch.cuda.max_memory_allocated()
+    digests41 = [R.digest(x) for x in shards]
     new = Pt.gather_tree(shards, sh41)
     del shards
     # the same steps on the same 8-row blocks without the sharding
@@ -4368,7 +4399,8 @@ def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
           and ma["loss"] == mc["loss"], "bert-base: the elastic resize differs from the "
           f"in-memory re-split ({saved_differ[:3]}, {differ[:3]})")
     return {"ms_11": float(np.median(ms11)), "ms_41": float(np.median(ms41)),
-            "ms_plain": float(np.median(plain_ms)), "rel": rel}
+            "ms_plain": float(np.median(plain_ms)), "rel": rel, "ms": ms41, "metrics": met41,
+            "digests": digests41, "peak_gib": peak41 / 2**30}
 
 
 def mesh_yi6b(torch, smi, trained, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
@@ -4551,6 +4583,7 @@ def mesh_moe(torch, smi, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import ranks as R
     from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
     from repro_torch.launch.elastic_resume import data_mesh
     from repro_torch.models import transformer as T
@@ -4625,6 +4658,7 @@ def mesh_moe(torch, smi, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
         if i == 0:
             ranks = [rt.seen[r][:cfg.n_layers] for r in range(MESH_RANKS)]
     peak = torch.cuda.max_memory_allocated()
+    digests = [R.digest(x) for x in shards]
     del shards
     gc.collect()
     torch.cuda.empty_cache()
@@ -4679,10 +4713,172 @@ def mesh_moe(torch, smi, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
           and rel_t["grad norm 0"] <= MESH_TRAIN_RTOL,
           f"qwen2-moe: the (4, 1) mesh left its bounds against the unsharded steps: {rel_t}")
     return {"ms": walls, "plain_ms": plain_ms, "exchange_ms": exch, "peak_gib": peak / 2**30,
-            "differ": differ, "rows_differ": rows_differ, "dropped": mesh_drops}
+            "differ": differ, "rows_differ": rows_differ, "dropped": mesh_drops,
+            "metrics": mets, "digests": digests}
 
 
-def phase_mesh(torch, smi, trained):
+MESH_PROCS = 4           # ranks, one process each, sharing the one card over gloo
+MESH_PROCS_TIMEOUT_S = 600.0
+
+
+def reckon_step_collectives(state, shardings, n_data: int, moe_layers: int = 0,
+                            k: int = 0, e: int = 0, accum: int = 1) -> dict:
+    """One rank's collectives in one step of the process backend (float
+    moments), reckoned from the specs: {(kind, function): [calls, bytes]}
+    as ``collectives.tally`` counts them.  Each split param leaf is
+    gathered whole for the forward and, as the reduced float32 gradient,
+    for the norm; each leaf's gradient is reduced once a microbatch (a
+    rank's float32 block; an all-reduce where no rank splits the leaf);
+    each amax leaf is maxed; each MoE layer's (n, k, E) int32 counts are
+    gathered once a microbatch."""
+    from repro_torch.sharding import partition as Pt
+
+    out = {}
+
+    def add(key, nbytes, times=1):
+        c = out.setdefault(key, [0, 0])
+        c[0] += times
+        c[1] += nbytes * times
+
+    sole = n_data * accum == 1
+    for (_, v), (_, sh) in zip(Pt.tree_paths(state.params, sort_keys=True),
+                               Pt.tree_paths(shardings.params, sort_keys=True), strict=True):
+        split = any(n > 1 for _, n in Pt.block_index(sh, 0, v.dim()))
+        if split:
+            add(("all-gather", "all_gather"), v.numel() * v.element_size())
+            add(("all-gather", "all_gather"), v.numel() * (v.element_size() if sole else 4))
+        if not sole:
+            add(("reduce-scatter" if split else "all-reduce", "reduce_scatter_add"),
+                math.prod(Pt.shard_shape(tuple(v.shape), sh)) * 4, accum)
+    for _, a in Pt.tree_paths(state.amax):
+        add(("all-reduce", "max_over_ranks"), a.numel() * a.element_size())
+    if moe_layers and n_data > 1:
+        add(("all-gather", "all_gather_counts"), n_data * k * e * 4, moe_layers * accum)
+    return out
+
+
+def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None, moe_cfg=None,
+                   device_type="cuda"):
+    """[mesh]'s training by MESH_PROCS processes, one a rank, on the one
+    card over gloo (``launch/ranks.py``; the parent holds no tensor on the
+    card while they run): BERT-base as ``mesh_bert``'s (4, 1) run, with its
+    checkpoint written by rank 0, and qwen2-moe as ``mesh_moe``'s (4, 1)
+    run, the routing counts exchanged between the processes.  Every rank's
+    params, moments, amax and steps (by ``ranks.digest``) and every metric
+    must equal those one-process runs' (``ref_bert``, ``ref_moe``) bit for
+    bit; each rank's tally of collectives must equal the reckoning from the
+    specs.  Rank 0's checkpoint, restored here, must equal the one-process
+    run's final state leaf for leaf, and its fold's integer forward at (1,
+    128) launches rows 1, 2 and 5, each equal to its plain version.
+    Printed: each rank's own peak against the one-process peak, ms a step
+    against the one-process step's, each collective kind's host ms and
+    bytes a rank, and the op routes."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import ranks as R
+    from repro_torch.launch import train_bert_sst2 as SST
+    from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
+    from repro_torch.launch.elastic_resume import data_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import partition as Pt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import steps as St
+
+    print(f"  [{smi}] the process backend's op routes (collectives.ROUTES, a CUDA tensor under "
+          f"each backend): {sorted(C.ROUTES.items())}")
+    bert_cfg = bert_cfg or get_config("bert-base")
+    moe_cfg = moe_cfg or dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                                             n_layers=MESH_MOE_DEPTH)
+    bert_opt, moe_opt = AdamWConfig(lr=1e-3), AdamWConfig(lr=3e-4)
+    b, s = TRAIN_BERT_SHAPE
+    bert_batches = [SST.make_batch(bert_cfg.vocab_size, i, b, s) for i in range(MESH_BERT_STEPS)]
+    mb, ms = TRAIN_YI_SHAPE
+    moe_batch = SyntheticLM(moe_cfg.vocab_size, ms, mb, seed=SEED).batch_at(0)
+    meta_mesh = data_mesh("meta", MESH_PROCS)
+    shapes = {"bert": St.state_shape(bert_cfg, bert_opt, bert=True),
+              "moe": St.state_shape(moe_cfg, moe_opt)}
+    shs = {"bert": St.state_shardings(meta_mesh, shapes["bert"]),
+           "moe": St.state_shardings(meta_mesh, shapes["moe"])}
+    reckoned = {"bert": reckon_step_collectives(shapes["bert"], shs["bert"], MESH_PROCS),
+                "moe": reckon_step_collectives(shapes["moe"], shs["moe"], MESH_PROCS,
+                                               moe_cfg.n_layers, moe_cfg.top_k,
+                                               moe_cfg.n_experts)}
+    # each qwen2-moe rank's bytes, reckoned before the run
+    n_params = sum(t.numel() for t in T.tree_leaves(shapes["moe"].params))
+    parts = {"its state's shard": rank_bytes_of_specs(shapes["moe"], shs["moe"]),
+             "the params gathered whole (bf16)": 2 * n_params,
+             "its data block's gradient (bf16)": 2 * n_params,
+             "its float32 gradient block": 4 * n_params // MESH_PROCS,
+             "the (1, 1,024) logits, float32 copy and gradient": mb // MESH_PROCS * ms
+             * moe_cfg.vocab_size * (2 + 4 + 4)}
+    print(f"  [{smi}] qwen2-moe a rank's bytes reckoned before the run: "
+          + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
+          + f"; in all {sum(parts.values()) / 2**30:.2f} GiB a rank, "
+          f"{MESH_PROCS * sum(parts.values()) / 2**30:.2f} GiB for {MESH_PROCS} ranks")
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        res = R.run(R.in_turn, MESH_PROCS, backend="gloo", device_type=device_type, args=([
+            functools.partial(R.train_steps, bert_cfg, bert_opt, bert_batches,
+                              device_type=device_type, bert=True, seed=SEED, keep="digest",
+                              ckpt_dir=d),
+            functools.partial(R.train_steps, moe_cfg, moe_opt, [moe_batch] * MESH_MOE_STEPS,
+                              device_type=device_type, seed=SEED, keep="digest")],),
+            timeout_s=MESH_PROCS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        restored, meta = ckpt.restore(d, MESH_BERT_STEPS, shapes["bert"], device_type)
+    for name, ref in (("bert", ref_bert), ("moe", ref_moe)):
+        i = 0 if name == "bert" else 1
+        what = {"bert": "bert-base", "moe": f"qwen2-moe ({moe_cfg.n_layers} layers)"}[name]
+        ranks = [r[i] for r in res]
+        differ = [(r, p) for r, x in enumerate(ranks) for p, dg in x["digest"].items()
+                  if dg != ref["digests"][r][p]]
+        same_metrics = all(x["metrics"] == ref["metrics"] for x in ranks)
+        peaks = [x["peak_bytes"] / 2**30 if x["peak_bytes"] is not None else float("nan")
+                 for x in ranks]
+        kinds = sorted({k for x in ranks for st in x["host_ms"] for k in st})
+        host = {f"{kind} ({fn})": [[round(st.get((kind, fn), 0.0), 1) for st in x["host_ms"]]
+                                   for x in ranks] for kind, fn in kinds}
+        tally_ok = all(st == reckoned[name] for x in ranks for st in x["tally"])
+        print(f"  [{smi}] {what} on {MESH_PROCS} processes (4, 1) over gloo on one card, "
+              f"{len(ranks[0]['metrics'])} steps: metrics {ranks[0]['metrics']} (one process: "
+              f"{ref['metrics']}), equal on every rank {same_metrics}; {len(differ)} of "
+              f"{MESH_PROCS * len(ranks[0]['digest'])} rank leaves differ from the one-process "
+              f"(4, 1) run's {differ[:4]}; ms a step by rank "
+              f"{[[round(m) for m in x['ms']] for x in ranks]} against one process "
+              f"{[round(m) for m in ref['ms']]} (one card time-slices its {MESH_PROCS} "
+              f"processes: no gain expected); each rank's own peak "
+              f"{[f'{p:.2f}' for p in peaks]} GiB allocated against the one-process peak "
+              f"{ref['peak_gib']:.2f} GiB; shard bytes a rank {[x['rank_bytes'] for x in ranks]}")
+        print(f"  [{smi}] {what} collectives a rank a step, host ms by rank and step: {host}; "
+              f"bytes a rank a step (tally, each step): {ranks[0]['tally'][0]}; reckoned from the "
+              f"specs {reckoned[name]}: every rank's every step equal {tally_ok}")
+        check(not differ and same_metrics, f"{what}: the {MESH_PROCS}-process step differs "
+              f"from the one-process step ({differ[:4]}, metrics {same_metrics})")
+        check(tally_ok, f"{what}: a rank's collectives differ from the specs' reckoning")
+    # rank 0's checkpoint against the one-process run's final state, then served
+    sh41 = St.state_shardings(data_mesh(device_type, MESH_PROCS), shapes["bert"])
+    back = [R.digest(x) for x in Pt.split_tree(restored, sh41)]
+    differ = [(r, p) for r, dg in enumerate(back) for p in dg if dg[p] != ref_bert["digests"][r][p]]
+    print(f"  [{smi}] bert-base: rank 0's checkpoint (step {meta['data_step']}) restored here: "
+          f"{len(differ)} leaves differ from the one-process (4, 1) run's final state; "
+          f"{MESH_PROCS} processes took {wall:.1f} s in all")
+    check(not differ and meta["data_step"] == MESH_BERT_STEPS,
+          f"bert-base: rank 0's checkpoint differs from the one-process state at {differ[:4]}")
+    if device_type == "cuda":
+        serve_trained_bert(torch, bert_cfg, restored, kernels, guard, ((1, 128),),
+                           f"[{smi}] bert-base trained by {MESH_PROCS} processes")
+    return {"wall_s": wall, "ranks": res}
+
+
+def phase_mesh(torch, smi, trained, kernels, guard):
     t0 = time.perf_counter()
     bert = mesh_bert(torch, smi)
     gc.collect()
@@ -4693,9 +4889,13 @@ def phase_mesh(torch, smi, trained):
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     moe = mesh_moe(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    procs = mesh_processes(torch, smi, bert, moe, kernels, guard)
     print(f"  [mesh] seconds: bert-base {t1 - t0:.1f}, yi-6b {t2 - t1:.1f}, qwen2-moe "
-          f"{time.perf_counter() - t2:.1f}")
-    return {"bert": bert, "yi6b": yi, "moe": moe}
+          f"{t3 - t2:.1f}, {MESH_PROCS} processes {time.perf_counter() - t3:.1f}")
+    return {"bert": bert, "yi6b": yi, "moe": moe, "processes": procs}
 
 
 def phase_train(torch, kernels, guard):
@@ -4914,8 +5114,10 @@ def main() -> int:
           f"(4, 1) against the unsharded step, the elastic resize; yi-6b at {TRAIN_YI_DEPTH} of 32"
           f" layers, {MESH_YI_STEPS} steps at {TRAIN_YI_SHAPE} on (4, 1) with FSDP; "
           f"qwen2-moe-a2.7b at {MESH_MOE_DEPTH} of 24 layers, {MESH_MOE_STEPS} steps at "
-          f"{TRAIN_YI_SHAPE} on (4, 1), its ranks routing the whole batch")
-    phase_mesh(torch, smi, trained)
+          f"{TRAIN_YI_SHAPE} on (4, 1), its ranks routing the whole batch; then bert-base and "
+          f"qwen2-moe again on {MESH_PROCS} processes, one a rank, sharing the card over gloo")
+    phase_mesh(torch, smi, trained, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm],
+               guard)
     stamp("all phases")
 
     # launches: each kernel's count on its own main path (yi-6b one-shot

@@ -10,17 +10,27 @@ default).  Every arch of ``configs/`` trains, the recurrent ones included
 ``make_host_mesh`` over the visible ``--device`` devices (FSDP unless
 ``--smoke``), or the production mesh with ``--production-mesh`` (16 x 16;
 2 x 16 x 16 with ``--multi-pod``), which raises on fewer than 256 or 512
-devices.
+devices.  One process drives every rank of it.
+
+``--nproc N`` instead trains on an (N, 1) mesh of N processes, one a rank
+(``launch/ranks.py``), joined over ``--backend``: gloo on the CPU or with
+the ranks sharing one card where there are fewer cards than ranks, NCCL
+with a card for each rank (it raises otherwise)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
+        --steps 4 --nproc 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import TrainerConfig, train
@@ -44,6 +54,10 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="ranks, one process each, on an (N, 1) mesh; 0: one process drives "
+                         "every rank")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -55,13 +69,23 @@ def main(argv=None):
         shape = ShapeConfig("custom", args.seq_len or shape.seq_len,
                             args.global_batch or shape.global_batch, "train")
     kind = torch.device(args.device).type
-    mesh = (make_production_mesh(multi_pod=args.multi_pod, device_type=kind)
-            if args.production_mesh else make_host_mesh(device_type=kind))
+    if args.nproc and args.production_mesh:
+        raise ValueError("--nproc runs an (N, 1) mesh; the production mesh is one process's")
+    n = args.nproc
+    if not n:
+        mesh = (make_production_mesh(multi_pod=args.multi_pod, device_type=kind)
+                if args.production_mesh else make_host_mesh(device_type=kind))
+        n = mesh.size
     if args.smoke and args.shape == "train_4k" and not args.seq_len:
-        shape = ShapeConfig("smoke", 128, min(8, mesh.size * 4), "train")
+        shape = ShapeConfig("smoke", 128, min(8, n * 4), "train")
     opt_cfg = AdamWConfig(lr=args.lr, quantize_moments=args.quant_moments)
     tcfg = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, accum_steps=args.accum)
+    if args.nproc:
+        ranks.run(functools.partial(ranks.train_on_ranks, cfg, shape, opt_cfg, tcfg,
+                                    mesh_shape=(n, 1), device_type=kind, fsdp=not args.smoke,
+                                    log=True), n, backend=args.backend, device_type=kind)
+        return
 
     def log(step, m):
         print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "

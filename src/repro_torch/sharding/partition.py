@@ -18,9 +18,9 @@ cuts a tree into one tree per rank (rank order, ``mesh.coords``) and
 ``gather_tree`` puts it back together.  The paged KV pool of the serving
 engine splits over its KV heads only (``kv_pool_pspec``).
 
-The port drives every rank from one process: a split leaf's "model" blocks
-are storage, not Megatron compute (each data rank gathers a leaf before
-using it), so ``constrain`` places nothing.
+A split leaf's "model" blocks are storage, not Megatron compute (each data
+rank gathers a leaf before using it, whether one process drives every rank
+or each rank is a process of its own), so ``constrain`` places nothing.
 """
 from __future__ import annotations
 
@@ -305,13 +305,17 @@ def _slices(shape, index):
     return tuple(slice(i * (d // n), (i + 1) * (d // n)) for d, (i, n) in zip(shape, index))
 
 
+def block_of(v: torch.Tensor, sharding: NamedSharding, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of ``v``, a fresh contiguous tensor on its
+    device."""
+    return v[_slices(v.shape, block_index(sharding, rank, v.dim()))].to(
+        sharding.mesh.devices[rank], copy=True, memory_format=torch.contiguous_format)
+
+
 def split_leaf(v: torch.Tensor, sharding: NamedSharding) -> List[torch.Tensor]:
     """Rank r's block of ``v``, a fresh contiguous tensor on its device, for
     each rank."""
-    mesh = sharding.mesh
-    return [v[_slices(v.shape, block_index(sharding, r, v.dim()))]
-            .to(dev, copy=True, memory_format=torch.contiguous_format)
-            for r, dev in enumerate(mesh.devices)]
+    return [block_of(v, sharding, r) for r in range(sharding.mesh.size)]
 
 
 def gather_leaf(blocks: Sequence[torch.Tensor], sharding: NamedSharding,
@@ -344,6 +348,16 @@ def split_tree(tree, shardings) -> List:
     per_leaf = [split_leaf(v, s) for (_, v), (_, s) in zip(leaves, shs)]
     return [tree_rebuild(tree, [blocks[r] for blocks in per_leaf], sort_keys=True)
             for r in range(shs[0][1].mesh.size if shs else 1)]
+
+
+def rank_tree(tree, shardings, rank: int):
+    """Rank ``rank``'s tree of ``split_tree(tree, shardings)`` alone (a
+    process of a ``ProcessMesh`` holds its own)."""
+    leaves, shs = tree_paths(tree, sort_keys=True), tree_paths(shardings, sort_keys=True)
+    if [p for p, _ in leaves] != [p for p, _ in shs]:
+        raise ValueError("the tree and its shardings differ in their paths")
+    return tree_rebuild(tree, [block_of(v, s, rank) for (_, v), (_, s) in zip(leaves, shs)],
+                        sort_keys=True)
 
 
 def gather_tree(shards: Sequence, shardings, device=None):

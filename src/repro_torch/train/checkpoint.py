@@ -19,7 +19,11 @@ Fault-tolerance contract (as the reference's):
   * ``save`` of a sharded state (the ranks' trees and their shardings)
     writes the full leaves, and ``restore(..., shardings=)`` splits each
     leaf onto the target mesh's ranks: a run may resume on a mesh of
-    another shape (elastic resize);
+    another shape (elastic resize).  On a ``ProcessMesh`` every rank calls
+    both with its own tree: ``save`` gathers the leaves whole, rank 0
+    writes them and the others wait at a barrier; ``restore`` has each rank
+    read the file and cut its own block, so the processes may number
+    otherwise than the writer's;
   * integrity: the crc32 of every leaf is checked on load.
 """
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding import partition as Pt
 
 _LEAF_KEY = "leaf_{:05d}"
@@ -67,7 +73,22 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 def save(ckpt_dir, step: int, tree, meta: Optional[Dict] = None, *, shardings=None) -> Path:
     """Write ``tree`` as checkpoint ``step``.  With ``shardings``, ``tree``
     is the ranks' trees (``partition.split_tree``'s list) and their leaves
-    are gathered whole first."""
+    are gathered whole first; on a ``ProcessMesh`` it is this rank's tree,
+    every rank calls ``save``, rank 0 writes and the others wait for it."""
+    mesh = _process_mesh(shardings)
+    if mesh is not None:
+        proc = C.Process(mesh)
+        shs = dict(_paths(shardings))
+        whole = []
+        for path, v in _paths(tree):
+            w = proc.all_gather(v, shs[path])
+            whole.append(w.cpu() if mesh.rank == 0 else None)
+            del w
+        final = Path(ckpt_dir) / f"step_{step:06d}"
+        if mesh.rank == 0:
+            save(ckpt_dir, step, Pt.tree_rebuild(tree, whole, sort_keys=True), meta)
+        proc.barrier()
+        return final
     if shardings is not None:
         tree = Pt.gather_tree(tree, shardings, device="cpu")
     ckpt_dir = Path(ckpt_dir)
@@ -96,6 +117,13 @@ def save(ckpt_dir, step: int, tree, meta: Optional[Dict] = None, *, shardings=No
     return final
 
 
+def _process_mesh(shardings) -> Optional[ProcessMesh]:
+    if shardings is None:
+        return None
+    mesh = _paths(shardings)[0][1].mesh
+    return mesh if isinstance(mesh, ProcessMesh) else None
+
+
 def latest_step(ckpt_dir) -> Optional[int]:
     ckpt_dir = Path(ckpt_dir)
     if not ckpt_dir.exists():
@@ -112,9 +140,13 @@ def restore(ckpt_dir, step: int, target_tree, device=None, *, shardings=None,
     (tree, meta).  With ``shardings`` (a tree of ``NamedSharding`` shaped as
     ``target_tree``, whose leaves may then lie on ``meta``), the tree comes
     back split onto their mesh: the ranks' trees, as
-    ``partition.split_tree`` cuts them, whatever mesh wrote the checkpoint."""
+    ``partition.split_tree`` cuts them (on a ``ProcessMesh``, this rank's
+    tree alone), whatever mesh wrote the checkpoint."""
     if shardings is not None:
         full, meta = restore(ckpt_dir, step, target_tree, "cpu", strict_crc=strict_crc)
+        mesh = _process_mesh(shardings)
+        if mesh is not None:
+            return Pt.rank_tree(full, shardings, mesh.rank), meta
         return Pt.split_tree(full, shardings), meta
     d = Path(ckpt_dir) / f"step_{step:06d}"
     manifest = json.loads((d / "manifest.json").read_text())

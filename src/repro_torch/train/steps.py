@@ -9,11 +9,14 @@ it modifies no tensor of the state it is given.  ``jit_train_step`` builds
 the step over a device mesh (``launch/mesh.py``): the state split over the
 ranks per ``sharding/partition.py``'s rules, the batch over the data ranks,
 the reference's global math (GSPMD: sharding moves data, not results).
+One process drives every rank of a ``Mesh``; each rank of a
+``ProcessMesh`` is a process of its own, and the two give the same bits.
 Every config trains here, on one data rank or more: attention, dense, MoE
 and recurrent (Mamba, mLSTM, sLSTM) archs, the frontends and BERT.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import ema_tree_update, rdiv
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.sharding import collectives as C
@@ -308,16 +312,91 @@ def _meeting(passes):
         raise first
 
 
+def init_rank_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, shardings: TrainState,
+                    mesh: ProcessMesh, seed: int, bert: bool = False) -> TrainState:
+    """This rank's block of the initial state drawn from ``seed`` on its
+    device: ``rank_tree`` of ``init_(bert_)train_state``'s, bit for bit.
+    The params are drawn whole and cut, and float moments are the zeros of
+    the block's shapes, so the whole moments never exist; int8 moments'
+    scales span whole vectors, so with them the whole state is cut."""
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(seed)
+    if opt_cfg.quantize_moments:
+        whole = (init_bert_train_state if bert else init_train_state)(cfg, gen, opt_cfg)
+        return Pt.rank_tree(whole, shardings, mesh.rank)
+    if bert:
+        from repro_torch.models import bert as B
+
+        params, amax = B.init_bert_params(cfg, gen), B.init_bert_amax(cfg, mesh.device)
+    else:
+        params, amax = T.init_params(cfg, gen), T.init_amax(cfg, mesh.device)
+    mine = Pt.rank_tree(params, shardings.params, mesh.rank)
+    del params
+    return TrainState(params=mine, opt=adamw.init_state(mine, opt_cfg), amax=amax,
+                      step=torch.zeros((), dtype=torch.int32, device=mesh.device))
+
+
+def _loss_and_grads(cfg, bert, params, amax, rows):
+    if bert:
+        return value_and_grad(lambda p: bert_loss(cfg, p, amax, rows), params)
+    return lm_loss_and_grads(cfg, params, amax, rows)
+
+
+def _observed(cfg, bert, params, amax, rows):
+    with torch.no_grad():
+        _, aux = (bert_loss if bert else lm_loss)(cfg, params, amax, rows)
+    return aux["obs"]
+
+
+def _filled(amax, obs):
+    """``amax`` with its zero sites set to ``obs``'s."""
+    a, o = Pt.tree_paths(amax, sort_keys=True), Pt.tree_paths(obs, sort_keys=True)
+    return Pt.tree_rebuild(amax, [torch.where(x > 0, x, y.to(x.device))
+                                  for (_, x), (_, y) in zip(a, o, strict=True)], sort_keys=True)
+
+
+_SCALARS = {True: ("acc",), False: ("ce", "aux")}       # by ``bert``
+
+
+def _mesh_metrics(per_micro, n_ranks: int, accum: int, bert: bool, dev):
+    """The step's metrics but the grad norm, from each microbatch's data
+    ranks' (loss, {metric: value}) in rank order: the losses summed in rank
+    order over the ranks, then over the microbatches, and the other metrics
+    averaged over every (microbatch, rank) in that order."""
+    losses, extras = [], []
+    for ranks in per_micro:
+        loss_i = None
+        for loss, aux in ranks:
+            loss_i = loss.to(dev) if loss_i is None else loss_i + loss.to(dev)
+            extras.append(aux)
+        losses.append(loss_i / n_ranks if n_ranks > 1 else loss_i)
+    loss = losses[0] if accum == 1 else sum(losses, 0.0) / accum
+
+    def mean(k):
+        return extras[0][k] if len(extras) == 1 else \
+            sum(e[k].to(dev) for e in extras) / len(extras)
+
+    if bert:
+        return {"loss": loss, "acc": mean("acc")}
+    if accum == 1:
+        return {"loss": loss, "ce": mean("ce"), "aux": mean("aux")}
+    return {"loss": loss, "ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=dev)}
+
+
 def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_example, *,
                    fsdp: bool = True, donate: bool = True, bert: bool = False,
                    accum_steps: int = 1):
     """The train step over ``mesh``: returns (step, state_shardings,
-    batch_shardings) as the reference's.  ``step(shards, batch) -> (shards,
-    metrics)`` takes the ranks' states (a list in rank order, as
-    ``partition.split_tree(state, state_shardings)`` cuts them) and the
-    global batch (a dict of tensors on any device; ``batch_example`` gives
-    its leaves' shapes, tensors on ``meta`` will do).  The step runs eagerly,
-    as every port step does (capturing it is ROADMAP item 13).
+    batch_shardings) as the reference's.  On a ``Mesh`` (one process drives
+    every rank), ``step(shards, batch) -> (shards, metrics)`` takes the
+    ranks' states (a list in rank order, as ``partition.split_tree(state,
+    state_shardings)`` cuts them); on a ``ProcessMesh`` (this process is one
+    rank), ``step(shard, batch) -> (shard, metrics)`` takes this rank's
+    state (``partition.rank_tree(state, state_shardings, mesh.rank)``) and
+    every rank calls it together, each getting the same metrics.  The batch
+    is the global batch (a dict of tensors on any device; ``batch_example``
+    gives its leaves' shapes, tensors on ``meta`` will do).  The step runs
+    eagerly, as every port step does (capturing it is ROADMAP item 13).
 
     It keeps the reference's global math.  Each data rank (a block of the
     batch axis) gathers the params onto its device once a step and runs the
@@ -328,19 +407,22 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     over the global microbatch first fills those sites with it (its MoE
     layers route the whole microbatch at once, so it exchanges nothing).
     A MoE arch's capacity and aux loss count the global microbatch too: over
-    more than one data rank each rank runs its loss and backward in a thread
-    of its own under ``collectives.data_rank``, and at every MoE layer the
-    ranks gather each other's (k, E) routing counts
+    more than one data rank each rank runs its loss and backward under
+    ``collectives.data_rank`` (on a ``Mesh`` in a thread of its own), and at
+    every MoE layer the ranks gather each other's (k, E) routing counts
     (``collectives.all_gather_counts``, ``moe.route``), a recomputed layer
-    replaying what its forward received; any other arch runs the ranks one
-    after another.  The ranks' gradients are summed in float32 in rank order
-    into the owners' shards and divided by the data ranks and microbatches;
-    the compression, the global norm (``adamw.global_norm``'s order) and the
-    AdamW update then take each leaf whole (an int8 moment's scales span its
-    whole last-axis vectors) and put its blocks back.  ``donate=True`` writes
-    the new values into the given shards; ``donate=False`` leaves every
-    given tensor as it was.  ``bert=True`` builds ``make_bert_train_step``'s
-    step (no accumulation, as the reference's).
+    replaying what its forward received; on a ``Mesh`` any other arch runs
+    the ranks one after another.  The ranks' gradients are summed in
+    float32 in rank order into the owners' shards and divided by the data
+    ranks and microbatches; the compression and the global norm
+    (``adamw.global_norm``'s order) take each leaf whole, and so does the
+    AdamW update on a ``Mesh`` and wherever moments are int8 (a scale spans
+    its whole last-axis vector); on a ``ProcessMesh`` a float-moment leaf is
+    updated on this rank's block alone (elementwise: the same bits).
+    ``donate=True`` writes the new values into the given shards;
+    ``donate=False`` leaves every given tensor as it was.  ``bert=True``
+    builds ``make_bert_train_step``'s step (no accumulation, as the
+    reference's).
     """
     shape = state_shape(cfg, opt_cfg, bert)
     state_sh = state_shardings(mesh, shape, fsdp)
@@ -354,28 +436,15 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     meet = bool(cfg.n_experts) and not bert and len(ranks) > 1
     p_sh, m_sh, v_sh = (_by_path(t) for t in (state_sh.params, state_sh.opt["m"],
                                               state_sh.opt["v"]))
+    if isinstance(mesh, ProcessMesh):
+        step = _process_step(cfg, mesh, opt_cfg, example, ranks, meet, (p_sh, m_sh, v_sh),
+                             donate=donate, bert=bert, accum=accum)
+        return step, state_sh, batch_sh
     dev0 = mesh.devices[0]
     # the whole reduced gradient of a leaf takes the room its owners' blocks
     # took when every rank is on one device, so the norm's pass keeps it for
     # the update's; across devices it is gathered again, not held on one
     keep_whole = len(set(mesh.devices)) == 1
-
-    def loss_and_grads(params, amax, rows):
-        if bert:
-            return value_and_grad(lambda p: bert_loss(cfg, p, amax, rows), params)
-        return lm_loss_and_grads(cfg, params, amax, rows)
-
-    def observed(params, amax, rows):
-        with torch.no_grad():
-            _, aux = (bert_loss if bert else lm_loss)(cfg, params, amax, rows)
-        return aux["obs"]
-
-    def filled(amax, obs):
-        """``amax`` with its zero sites set to ``obs``'s."""
-        a, o = Pt.tree_paths(amax, sort_keys=True), Pt.tree_paths(obs, sort_keys=True)
-        return Pt.tree_rebuild(amax, [torch.where(x > 0, x, y.to(x.device))
-                                      for (_, x), (_, y) in zip(a, o, strict=True)],
-                               sort_keys=True)
 
     def step(shards, batch):
         if len(shards) != mesh.size:
@@ -395,7 +464,7 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
             return gathered[dev]
 
         n = len(ranks) * accum
-        acc, losses, extras = {}, [], []
+        acc, per_micro = {}, []
         obs_by_rank = [[] for _ in ranks]
         fill = len(ranks) > 1 and _any_zero(r0.amax)
         bm = b // accum
@@ -404,30 +473,29 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
             amax = r0.amax
             if fill:
                 dev = ranks[0][1]
-                amax = filled(amax, observed(params_on(dev),
-                                             T.tree_map(lambda t, d=dev: t.to(d), amax),
-                                             {k: v.to(dev) for k, v in mb.items()}))
-            loss_i = None
+                amax = _filled(amax, _observed(cfg, bert, params_on(dev),
+                                               T.tree_map(lambda t, d=dev: t.to(d), amax),
+                                               {k: v.to(dev) for k, v in mb.items()}))
             passes = [functools.partial(
-                loss_and_grads, params_on(dev), T.tree_map(lambda t, d=dev: t.to(d), amax),
+                _loss_and_grads, cfg, bert, params_on(dev),
+                T.tree_map(lambda t, d=dev: t.to(d), amax),
                 {k: v[rows].to(dev) for k, v in mb.items()}) for rows, dev in ranks]
+            per_micro.append([])
             for g_i, (loss, aux, grads) in enumerate(
                     _meeting(passes) if meet else (f() for f in passes)):
-                loss_i = loss.to(dev0) if loss_i is None else loss_i + loss.to(dev0)
+                per_micro[-1].append((loss, {k: aux[k] for k in _SCALARS[bert]}))
                 obs_by_rank[g_i].append(aux["obs"])
-                extras.append(aux)
                 g = _by_path(grads)
-                del grads
+                del grads, aux
                 for p in paths:
                     acc[p] = C.reduce_scatter_add(acc.get(p), g[p], p_sh[p], sole=n == 1)
                 del g
-            losses.append(loss_i / len(ranks) if len(ranks) > 1 else loss_i)
         gathered.clear()
         if n > 1:
             for blocks in acc.values():
                 for t in blocks:
                     t.div_(n)
-        loss = losses[0] if accum == 1 else sum(losses, 0.0) / accum
+        metrics = _mesh_metrics(per_micro, len(ranks), accum, bert, dev0)
         obs = C.max_over_ranks([C.tree_max(o) for o in obs_by_rank])
 
         bits = cfg.quant.grad_compress_bits
@@ -472,17 +540,115 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
                      "step": opt_steps[r]},
                 amax=T.tree_map(lambda c, r=r: c[r], amaxes),
                 step=steps[r]))
-        if bert:
-            acc_m = extras[0]["acc"] if len(extras) == 1 else \
-                sum(e["acc"].to(dev0) for e in extras) / len(extras)
-            return out, {"loss": loss, "acc": acc_m, "grad_norm": gn}
-        if accum == 1:
-            ce = sum(e["ce"].to(dev0) for e in extras) / len(extras) if len(extras) > 1 \
-                else extras[0]["ce"]
-            aux_l = sum(e["aux"].to(dev0) for e in extras) / len(extras) if len(extras) > 1 \
-                else extras[0]["aux"]
-        else:
-            ce, aux_l = loss, torch.zeros((), dtype=torch.float32, device=dev0)
-        return out, {"loss": loss, "ce": ce, "aux": aux_l, "grad_norm": gn}
+        return out, {**metrics, "grad_norm": gn}
 
     return step, state_sh, batch_sh
+
+
+def _process_step(cfg, mesh, opt_cfg, example, ranks, meet, shardings, *, donate, bert, accum):
+    """``jit_train_step``'s step for this rank of a ``ProcessMesh``: the same
+    float operations in the same order as the one-process step, each on
+    this rank's part (``collectives.Process``)."""
+    P = C.Process(mesh)
+    if len(ranks) != P.n:
+        raise ValueError(f"a step on a process mesh needs each microbatch to split over its "
+                         f"{P.n} data ranks (it splits into {len(ranks)})")
+    p_sh, m_sh, v_sh = shardings
+    me, dev = mesh.rank, mesh.device
+    mine = ranks[P.block[me]][0]
+    b = next(iter(example.values()))[0]
+    bm, n = b // accum, len(ranks) * accum
+    qm, bits = opt_cfg.quantize_moments, cfg.quant.grad_compress_bits
+    names = _SCALARS[bert]
+
+    def moment_whole(mo, sh):
+        if isinstance(sh, adamw.QMoment):
+            return adamw.QMoment(*(P.all_gather(mo[i], sh[i]) for i in range(2)))
+        return P.all_gather(mo, sh)
+
+    def moment_block(mo, sh):
+        if isinstance(sh, adamw.QMoment):
+            return adamw.QMoment(*(Pt.block_of(mo[i], sh[i], me) for i in range(2)))
+        return Pt.block_of(mo, sh, me)
+
+    def into(old, new):
+        """``new`` written into ``old`` (donated), or ``new``."""
+        if not donate:
+            return new
+        if isinstance(old, adamw.QMoment):
+            return adamw.QMoment(*(o.copy_(x) for o, x in zip(old, new, strict=True)))
+        return old.copy_(new)
+
+    def step(shard, batch):
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        if shapes != example:
+            raise ValueError(f"a batch of {shapes} for a step built for {example}")
+        own = _by_path(shard.params)
+        paths = list(own)
+        params = T.tree_unflatten(shard.params, [P.all_gather(own[p], p_sh[p]) for p in paths])
+        fill = len(ranks) > 1 and _any_zero(shard.amax)
+        acc, table, obs_micro = {}, [], []
+        for i in range(accum):
+            mb = batch if accum == 1 else {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
+            amax = shard.amax
+            if fill:        # every rank fills from the global microbatch's forward
+                amax = _filled(amax, _observed(cfg, bert, params, amax,
+                                               {k: v.to(dev) for k, v in mb.items()}))
+            rows = {k: v[mine].to(dev) for k, v in mb.items()}
+            with C.data_rank(P, P.block[me]) if meet else contextlib.nullcontext():
+                loss, aux, grads = _loss_and_grads(cfg, bert, params, amax, rows)
+            vals = [loss, *(aux[k] for k in names)]
+            if any(t.dtype != torch.float32 for t in vals):
+                raise TypeError(f"the step's metrics are {[t.dtype for t in vals]}, not float32")
+            table.append(torch.stack(vals))
+            obs_micro.append(aux["obs"])
+            g = _by_path(grads)
+            del grads, aux
+            if i == accum - 1:
+                del params
+            for p in paths:
+                acc[p] = P.reduce_scatter_add(acc.get(p), g.pop(p), p_sh[p], sole=n == 1)
+        if n > 1:
+            for t in acc.values():
+                t.div_(n)
+        blocks = P.gather_blocks(torch.stack(table))
+        metrics = _mesh_metrics([[(t[i, 0], dict(zip(names, t[i, 1:]))) for t in blocks]
+                                 for i in range(accum)], len(ranks), accum, bert, dev)
+        obs = P.max_over_ranks(C.tree_max(obs_micro))
+
+        total, grads = 0, {}
+        for p in paths:                     # adamw.global_norm's order, every rank
+            g = acc.pop(p)
+            whole = P.all_gather(g, p_sh[p])
+            if bits:
+                whole = _compress_grads(whole, bits)
+            total = total + torch.sum(torch.square(whole.to(torch.float32)))
+            grads[p] = whole if qm else Pt.block_of(whole, p_sh[p], me) if bits else g
+            del g, whole
+        gn = torch.sqrt(total)
+        opt_step = shard.opt["step"] + 1
+        scalars = adamw.update_scalars(opt_step, gn, opt_cfg)
+        ms, vs = _by_path(shard.opt["m"]), _by_path(shard.opt["v"])
+        new_p, new_m, new_v = ({} for _ in range(3))
+        for p in paths:
+            if qm:      # an int8 moment's scales span whole last-axis vectors
+                pn, mn, vn = adamw.update_leaf(
+                    P.all_gather(own[p], p_sh[p]), grads.pop(p), moment_whole(ms[p], m_sh[p]),
+                    moment_whole(vs[p], v_sh[p]), scalars, opt_cfg)
+                pn, mn, vn = (Pt.block_of(pn, p_sh[p], me), moment_block(mn, m_sh[p]),
+                              moment_block(vn, v_sh[p]))
+            else:
+                pn, mn, vn = adamw.update_leaf(own[p], grads.pop(p), ms[p], vs[p], scalars,
+                                               opt_cfg)
+            new_p[p], new_m[p], new_v[p] = into(own[p], pn), into(ms[p], mn), into(vs[p], vn)
+
+        def tree(t, new):
+            return T.tree_unflatten(t, [new[p] for p in _by_path(t)])
+
+        return TrainState(params=tree(shard.params, new_p),
+                          opt={"m": tree(shard.opt["m"], new_m), "v": tree(shard.opt["v"], new_v),
+                               "step": opt_step},
+                          amax=ema_tree_update(shard.amax, obs, 0.99),
+                          step=shard.step + 1), {**metrics, "grad_norm": gn}
+
+    return step

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import make_source
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, ProcessMesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.sharding import partition as Pt
 from repro_torch.train import checkpoint as ckpt
@@ -45,14 +45,16 @@ def train(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: AdamWConfig, tcfg: Trai
     ``tcfg.steps``.  With ``mesh`` the state lives split over its ranks per
     ``jit_train_step``'s shardings (``fsdp`` as there) and the call returns
     (the ranks' states in rank order, the metrics of each step this call
-    ran); without one it trains on ``device`` alone, a (1, 1) mesh, and
-    returns (the state, the metrics)."""
+    ran); on a ``ProcessMesh`` every rank calls ``train`` and gets (its own
+    state, the metrics); without a mesh it trains on ``device`` alone, a
+    (1, 1) mesh, and returns (the state, the metrics)."""
     run_mesh = mesh if mesh is not None else Mesh(np.array([[torch.device(device)]],
                                                            dtype=object), ("data", "model"))
     if any(d.type == "cuda" for d in run_mesh.devices) and not torch.cuda.is_available():
         raise RuntimeError("a cuda device was asked for but torch.cuda.is_available() is False; "
                            "pass device='cpu' (or a CPU mesh) to train on the CPU")
-    dev0 = run_mesh.devices[0]
+    proc = isinstance(run_mesh, ProcessMesh)
+    dev0 = run_mesh.device if proc else run_mesh.devices[0]
     source = make_source(cfg, shape, seed=tcfg.seed)
     example = {k: torch.empty(v.shape, dtype=torch.as_tensor(v[:0]).dtype, device="meta")
                for k, v in source.batch_at(0).items()}
@@ -66,7 +68,9 @@ def train(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: AdamWConfig, tcfg: Trai
             shards, meta = ckpt.restore(tcfg.ckpt_dir, last, St.state_shape(cfg, opt_cfg),
                                         shardings=state_sh)
             start_step = int(meta.get("data_step", last))
-        if shards is None:
+        if shards is None and proc:
+            shards = St.init_rank_state(cfg, opt_cfg, state_sh, run_mesh, tcfg.seed)
+        elif shards is None:
             gen = torch.Generator(device=dev0)
             gen.manual_seed(tcfg.seed)
             state = St.init_train_state(cfg, gen, opt_cfg)
@@ -90,7 +94,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: AdamWConfig, tcfg: Trai
             if tcfg.ckpt_dir and ((step + 1) % tcfg.ckpt_every == 0 or step == tcfg.steps - 1):
                 ckpt.save(tcfg.ckpt_dir, step + 1, shards,
                           meta={"data_step": step + 1, "arch": cfg.name}, shardings=state_sh)
-                ckpt.gc_old(tcfg.ckpt_dir, tcfg.keep_ckpts)
+                if not proc or run_mesh.rank == 0:
+                    ckpt.gc_old(tcfg.ckpt_dir, tcfg.keep_ckpts)
         return (shards[0] if mesh is None else shards), history
     finally:
         Pt.set_mesh_ctx(None)

@@ -34,6 +34,17 @@ EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_make_batch(vocab):
     """``make_batch`` of ``examples/train_bert_sst2.py``, compiled alone
     with the globals it reads (``np``, ``jnp``, ``cfg.vocab_size``)."""

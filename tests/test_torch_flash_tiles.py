@@ -36,6 +36,17 @@ CASES = {
 KEYS = [16, 32, 64]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scalars(d):
     """Logits of a few units for random codes (|q|, |k| ~ 73)."""
     s_logit = 73.0 * 73.0 * np.sqrt(d) / 1.5

@@ -49,6 +49,17 @@ LENS = [3, 11, 6, 17, 5]
 MAX_NEWS = [6, 8, 5, 4, 7]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def folded():
     jcfg = j_smoke("yi-6b")

@@ -54,6 +54,17 @@ FLIP_FRACTION = 1e-3
 LUT = jref.make_exp_lut_q7()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}

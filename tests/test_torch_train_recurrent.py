@@ -60,6 +60,17 @@ from test_torch_train import (
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and under
+    pytest-xdist's workers every worker's threads contend for the same
+    cores; the worker's own count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grads_held(what, want, got, rel=1e-5):
     """Each gradient within ``rel`` of its leaf's largest |element|;
     prints the worst leaf and the elements beyond 1e-5."""
