@@ -243,18 +243,32 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    layer the routing choices that differ from the unsharded forward's and
    the choices dropped; ms a step against the unsharded step, the
    exchange's host ms, the peak and each rank's bytes against the specs'.
-   Then (``mesh_processes``) BERT-base's and qwen2-moe's (4, 1) runs again
-   on MESH_PROCS processes, one a rank, sharing the card over gloo
-   (``launch/ranks.py``; the parent frees the card first): every rank's
-   params, moments, amax and steps (``ranks.digest``) and every metric
-   equal to the one-process runs' bit for bit, the routing counts
-   exchanged between the processes; each rank's tally of collectives
-   equal to the reckoning from the specs; rank 0's BERT-base checkpoint
-   restored equal to the one-process final state, folded and served at
-   (1, 128) through rows 1, 2 and 5, each equal to its plain version;
-   printed: each rank's own peak against the one-process peak, ms a step
-   against the one-process step's, each collective kind's host ms and
-   bytes a rank, the op routes (``collectives.ROUTES``).
+   Then ``mesh_split`` (``mesh_split_oracles``): BERT-base (MESH_BERT_STEPS
+   steps on the (32, 128) batches) and yi-6b (``[train]``'s 8 layers,
+   MESH_YI_STEPS steps at (4, 1,024)) under ``model_compute="split"`` on
+   MESH_SPLIT = (1, 4) in this process, each model rank's part in turn:
+   each loss and grad norm against the "gather" runs (BERT-base's (1, 1),
+   yi-6b's ``[train]``) within MESH_RTOL, or else the split island
+   printed (``split_island``: the first activation site whose input
+   differs between the whole and the split forward).  Then
+   (``mesh_processes``, one start) BERT-base's (4, 1) run, qwen2-moe's
+   (4, 1) run (its first MESH_PROC_MOE_STEPS step; 2 before ``mesh_split``)
+   and the two "split" runs again on MESH_PROCS processes, one a rank,
+   sharing the card over gloo (``launch/ranks.py``; the parent frees the
+   card first): every rank's params, moments, amax and steps
+   (``ranks.digest``) and every metric equal to the one-process runs' bit
+   for bit, the routing counts exchanged between the processes; under
+   "split" every replicated leaf's gradient the same bits on every rank;
+   each rank's tally of collectives equal to the reckoning from the specs
+   (``reckon_step_collectives``, ``reckon_split_collectives``: the model
+   group's sums, maxima and logits gather too); rank 0's BERT-base
+   checkpoints ("gather" and "split") restored equal to the one-process
+   final states, folded and served at (1, 128) through rows 1, 2 and 5,
+   each equal to its plain version; printed: each rank's own peak against
+   the one-process peak (and the "split" ranks' against
+   ``reckon_split_peak``), ms a step against the one-process step's, each
+   collective kind's host ms (``model_sum``'s included) and bytes a rank,
+   the op routes (``collectives.ROUTES``).
    Each line carries the card's name and power limit.
 10. ``[analysis]`` (``phase_analysis``): the static analysis of the integer
    datapath (``repro_torch.analysis``) on ``[serve]``'s yi-6b weights at
@@ -4303,10 +4317,11 @@ def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
 
     m11 = data_mesh(dev, 1)
     step11, sh11, _ = St.jit_train_step(cfg, m11, opt, batches[0], bert=True, donate=False)
-    shards, losses11, ms11, after2 = Pt.split_tree(state0, sh11), [], [], None
+    shards, losses11, ms11, after2, met11 = Pt.split_tree(state0, sh11), [], [], None, []
     for i, bt in enumerate(batches):
         shards, m, ms = timed_step(torch, step11, shards, bt)
         losses11.append(m["loss"])
+        met11.append(m)
         ms11.append(ms)
         if i == 1:
             after2 = shards
@@ -4398,7 +4413,7 @@ def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
     check(meta["data_step"] == 2 and not saved_differ and not differ
           and ma["loss"] == mc["loss"], "bert-base: the elastic resize differs from the "
           f"in-memory re-split ({saved_differ[:3]}, {differ[:3]})")
-    return {"ms_11": float(np.median(ms11)), "ms_41": float(np.median(ms41)),
+    return {"ms_11": float(np.median(ms11)), "metrics_11": met11, "ms_41": float(np.median(ms41)),
             "ms_plain": float(np.median(plain_ms)), "rel": rel, "ms": ms41, "metrics": met41,
             "digests": digests41, "peak_gib": peak41 / 2**30}
 
@@ -4657,6 +4672,7 @@ def mesh_moe(torch, smi, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
         exch.append(ex[0])
         if i == 0:
             ranks = [rt.seen[r][:cfg.n_layers] for r in range(MESH_RANKS)]
+            digests_1 = [R.digest(x) for x in shards]     # mesh_processes' one step
     peak = torch.cuda.max_memory_allocated()
     digests = [R.digest(x) for x in shards]
     del shards
@@ -4714,7 +4730,7 @@ def mesh_moe(torch, smi, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
           f"qwen2-moe: the (4, 1) mesh left its bounds against the unsharded steps: {rel_t}")
     return {"ms": walls, "plain_ms": plain_ms, "exchange_ms": exch, "peak_gib": peak / 2**30,
             "differ": differ, "rows_differ": rows_differ, "dropped": mesh_drops,
-            "metrics": mets, "digests": digests}
+            "metrics": mets, "digests": digests, "digests_1": digests_1}
 
 
 MESH_PROCS = 4           # ranks, one process each, sharing the one card over gloo
@@ -4757,21 +4773,290 @@ def reckon_step_collectives(state, shardings, n_data: int, moe_layers: int = 0,
     return out
 
 
-def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None, moe_cfg=None,
-                   device_type="cuda"):
+MESH_PROC_MOE_STEPS = 1  # qwen2-moe's steps on the processes: 2 before mesh_split, cut to pay
+MESH_SPLIT = (1, MESH_PROCS)    # mesh_split's mesh: every rank a model rank
+
+
+def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) -> dict:
+    """One rank's collectives in one step of the process backend under
+    ``model_compute="split"`` on a mesh of one data rank (no zero-amax fill,
+    no reduction over data ranks), reckoned from the specs and the config:
+    a leaf split over the data axes alone gathered whole for the forward, a
+    model-split one into its model block over the data axes (nothing on one
+    data rank), every split leaf's gradient gathered whole for the norm;
+    each amax leaf maxed; and the model group's collectives of the pass.
+    A layer's forward sums the row-parallel ``wo`` and down projections
+    (twice with remat: the recomputation sums again); its backward sums
+    the gradients of the column-parallel inputs (the attention's and the
+    MLP's, one each, and qk-norm's gammas); the vocab-parallel embedding
+    sums its lookups, the LM head gathers its logits and sums its input's
+    gradient; every activation site of a split tensor and every per-tensor
+    weight max of a split weight is maxed (twice with remat).  ``rows``:
+    (B, S) of the rank's batch."""
+    from repro_torch.sharding import partition as Pt
+
+    out = {}
+
+    def add(key, nbytes, times=1):
+        c = out.setdefault(key, [0, 0])
+        c[0] += times
+        c[1] += nbytes * times
+
+    split_tokens = split_head = False
+    for (path, v), (_, sh) in zip(Pt.tree_paths(state.params, sort_keys=True),
+                                  Pt.tree_paths(shardings.params, sort_keys=True), strict=True):
+        md = Pt.model_dim(sh)
+        if path.endswith("embed/tokens"):
+            split_tokens = md is not None
+        if path == "lm_head":
+            split_head = md is not None
+        if any(n > 1 for _, n in Pt.block_index(sh, 0, v.dim())):
+            if md is None:
+                add(("all-gather", "all_gather"), v.numel() * v.element_size())
+            add(("all-gather", "all_gather"), v.numel() * v.element_size())     # one data rank
+    for _, a in Pt.tree_paths(state.amax):
+        add(("all-reduce", "max_over_ranks"), a.numel() * a.element_size())
+    es = torch_dtype_size(cfg.dtype)
+    b, s = rows
+    act, times = b * s * cfg.d_model * es, 2 if cfg.remat else 1
+    swiglu = cfg.act == "swiglu"
+    add(("all-reduce", "model_sum"), act, cfg.n_layers * (2 * times + 2))
+    if cfg.qk_norm:
+        add(("all-reduce", "model_sum"), cfg.hd * es, 2 * cfg.n_layers)
+    if split_tokens:
+        add(("all-reduce", "model_sum"), act)
+    if split_head and not bert:
+        add(("all-reduce", "model_sum"), act)
+        add(("all-gather", "gather_from_model"), b * s * cfg.vocab_size * es)
+    # the sites' maxima are float32; a per-tensor weight max is in the weight's dtype
+    add(("all-reduce", "model_max"), 4, cfg.n_layers * (12 if swiglu else 11) * times)
+    add(("all-reduce", "model_max"), es, cfg.n_layers * (7 if swiglu else 6) * times)
+    return out
+
+
+def torch_dtype_size(dtype) -> int:
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False) -> dict:
+    """One "split" rank's bytes, reckoned before the run: its shard of the
+    state, its gradient (its blocks, in the params' dtype), the largest
+    leaf's reduced float32 gradient gathered whole for the norm with the
+    gather's staging copy, and the activations: with remat each layer's
+    input kept (the residual stream) and one layer recomputed; without it
+    every layer's (the replicated residual-stream tensors, about 16 (B, S,
+    d) a layer, and the rank's split ones, about 8 (B, S, d_ff / m) and
+    6 (B, H / m, S, S) float32 score tensors); an LM's logits: the rank's
+    block, the gathered ones, their float32 copy and its gradient."""
+    from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
+    from repro_torch.sharding import partition as Pt
+
+    m = MESH_SPLIT[1]
+    es = torch_dtype_size(cfg.dtype)
+    b, s = rows
+    shard = rank_bytes_of_specs(state, shardings)
+    grads = rank_bytes_of_specs(state.params, shardings.params)
+    big = max(v.numel() for _, v in Pt.tree_paths(state.params))
+    layer = (16 * b * s * cfg.d_model * es + 8 * b * s * cfg.d_ff // m * 4
+             + 6 * b * cfg.n_heads // m * min(s, 512) * s * 4)
+    acts = (cfg.n_layers * b * s * cfg.d_model * es + layer) if cfg.remat else \
+        cfg.n_layers * layer
+    out = {"its state's shard": shard, "its gradient": grads,
+           "the largest leaf's float32 gradient whole, twice": 2 * 4 * big,
+           "activations": acts}
+    if not bert:
+        out["the logits: its block, gathered, float32 and its gradient"] = \
+            b * s * cfg.vocab_size * (es // m + es + 4 + 4)
+    return out
+
+
+def mesh_split_oracles(torch, smi, trained, bert_ref, bert_cfg=None, yi_cfg=None, dev="cuda",
+                       yi_shape=TRAIN_YI_SHAPE):
+    """mesh_split's one-process oracles: BERT-base (MESH_BERT_STEPS steps on
+    ``[train]``'s (32, 128) batches) and yi-6b at ``[train]``'s depth, shape
+    and seed (MESH_YI_STEPS steps) under ``model_compute="split"`` on the
+    MESH_SPLIT mesh over one device, every model rank's part run in this
+    process (``collectives.ModelRanks``): each rank's digests, the
+    metrics, ms a step and the peak.  Against the "gather" runs (BERT-base
+    on (1, 1), ``bert_ref``; yi-6b: ``[train]``'s unsharded steps, which a
+    (1, 4) "gather" step equals): each loss and grad norm within MESH_RTOL,
+    or else the first activation site whose input differs between the
+    whole and the split forward at the initial state is printed
+    (``split_island``) and counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import ranks as R
+    from repro_torch.launch import train_bert_sst2 as SST
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import bert as B
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import partition as Pt
+    from repro_torch.train import steps as St
+
+    bert_cfg = bert_cfg or get_config("bert-base")
+    if yi_cfg is None:
+        yi_cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_YI_DEPTH)
+    mesh = Mesh(np.array([torch.device(dev)] * MESH_PROCS, dtype=object).reshape(MESH_SPLIT),
+                ("data", "model"))
+    b, s = TRAIN_BERT_SHAPE
+    yb, ys = yi_shape
+    runs = {
+        "bert": (bert_cfg, AdamWConfig(lr=1e-3), True,
+                 [SST.to_device(SST.make_batch(bert_cfg.vocab_size, i, b, s), dev)
+                  for i in range(MESH_BERT_STEPS)],
+                 [{k: x[k] for k in ("loss", "grad_norm")} for x in bert_ref["metrics_11"]]),
+        "yi": (yi_cfg, AdamWConfig(lr=3e-4), False,
+               [{k: torch.as_tensor(v, device=dev) for k, v in
+                 SyntheticLM(yi_cfg.vocab_size, ys, yb, seed=SEED).batch_at(0).items()}]
+               * MESH_YI_STEPS,
+               [{"loss": x, "grad_norm": y} for x, y in zip(trained["losses"], trained["gns"])])}
+    out = {}
+    for name, (cfg, opt, bert, batches, gathered) in runs.items():
+        what = "bert-base" if bert else f"yi-6b ({cfg.n_layers} layers)"
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        state = (St.init_bert_train_state if bert else St.init_train_state)(cfg, gen, opt)
+        step, sh, _ = St.jit_train_step(cfg, mesh, opt, batches[0], bert=bert,
+                                        model_compute="split")
+        shards = Pt.split_tree(state, sh)
+        init_params, init_amax = state.params, state.amax
+        del state
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        mets, walls = [], []
+        for bt in batches:
+            shards, m, ms = timed_step(torch, step, shards, bt)
+            mets.append(m)
+            walls.append(ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+        digests = [R.digest(x) for x in shards]
+        del shards
+        rel = {k: [abs(x[k] - w[k]) / abs(w[k]) for x, w in zip(mets, gathered)]
+               for k in ("loss", "grad_norm")}
+        held = max(max(v) for v in rel.values()) <= MESH_RTOL
+        print(f"  [{smi}] {what} \"split\" on {MESH_SPLIT} in one process ({MESH_PROCS} model "
+              f"ranks' parts in turn), {len(batches)} steps: losses {[x['loss'] for x in mets]},"
+              f" grad norms {[x['grad_norm'] for x in mets]}; \"gather\" "
+              f"{[x['loss'] for x in gathered[:len(mets)]]}, "
+              f"{[x['grad_norm'] for x in gathered[:len(mets)]]}; relative {rel} (bound "
+              f"{MESH_RTOL}: {'held' if held else 'missed'}); ms a step "
+              f"{[round(w) for w in walls]}; peak {peak:.2f} GiB allocated")
+        check(all(np.isfinite([x[k] for x in mets for k in ("loss", "grad_norm")])),
+              f"{what}: a split loss or grad norm is not finite: {mets}")
+        island = None
+        if not held:
+            def loss_of(p, a, bt, bert=bert, cfg=cfg):
+                if bert:
+                    return B.bert_classify(cfg, p, a, bt["tokens"], bt["mask"])
+                return T.forward(cfg, p, a, bt["tokens"])
+            island = split_island(torch, loss_of, init_params, init_amax, batches[0], sh)
+            print(f"  [{smi}] {what}: the split island (ROADMAP §3) at the initial state: "
+                  + island)
+        del init_params, init_amax
+        out[name] = {"digests": digests, "metrics": mets, "ms": walls, "peak_gib": peak,
+                     "rel": rel, "held": held, "island": island, "cfg": cfg, "opt": opt,
+                     "batches": batches}
+    return out
+
+
+def split_island(torch, forward, params, amax, batch, shardings) -> str:
+    """The first activation fake-quant site (``layers.fake_quant_act`` or
+    ``fake_quant_parts``, in call order) whose input differs between the
+    whole forward and the split one (a local model group of MESH_SPLIT[1],
+    ``params``' model-split leaves cut into their model blocks), no
+    gradient, at the amax each site's own batch max fills: its shape and
+    how many inputs and codes differ, whether every site before it agrees,
+    and how many sites end with flipped codes.  A replicated input that
+    several products or ranks quantize counts as one site."""
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import partition as Pt
+
+    m = MESH_SPLIT[1]
+    shs = dict(Pt.tree_paths(shardings.params))
+    split = Pt.tree_rebuild(params, [
+        v if Pt.model_dim(shs[p]) is None else
+        {str(r): Pt.model_block(v, shs[p], r).contiguous() for r in range(m)}
+        for p, v in Pt.tree_paths(params)])
+    parts_fq, act_fq = L.fake_quant_parts, L.fake_quant_act
+    whole, stats, second, last = [], [], [False], [None]
+
+    def flat(ts):
+        return torch.cat([t.reshape(*t.shape[:2], -1) for t in ts], -1)
+
+    def on(x, y):
+        if not second[0]:           # the whole forward: keep each site's input and codes
+            whole.append((x, y))
+            return
+        wx, wy = whole[len(stats)]
+        whole[len(stats)] = None
+        stats.append((tuple(x.shape), int((wx != x).sum()), int((wy != y).sum()), x.numel()))
+
+    def parts(xs, a, bits, enabled, group):
+        res = parts_fq(xs, a, bits, enabled, group)
+        on(flat(xs), flat(res[0]))
+        return res
+
+    def act(x, a, bits, enabled):
+        res = act_fq(x, a, bits, enabled)
+        x_ = flat([x])
+        # one site a replicated input: the q/k/v (gate/up) products of one
+        # input quantize it once each, and the split forward once a rank
+        if not (last[0] is not None and last[0].shape == x_.shape and torch.equal(last[0], x_)):
+            on(x_, flat([res[0]]))
+        last[0] = x_
+        return res
+
+    try:
+        L.fake_quant_parts, L.fake_quant_act = parts, act
+        with torch.no_grad():
+            forward(params, amax, batch)
+            second[0], last[0] = True, None
+            with Pt.model_split(C.ModelRanks(m)):
+                forward(split, amax, batch)
+    finally:
+        L.fake_quant_parts, L.fake_quant_act = parts_fq, act_fq
+    del whole
+    first = next((i for i, st in enumerate(stats) if st[1]), None)
+    if first is None:
+        return f"no site's input differs of {len(stats)}"
+    return (f"the first site whose input differs is #{first} of {len(stats)}, "
+            f"{stats[first][0]}: {stats[first][1]} of {stats[first][3]} inputs differ, "
+            f"{stats[first][2]} codes flipped there; sites before it equal in input and codes: "
+            f"{all(st[1] == 0 and st[2] == 0 for st in stats[:first])}; sites with flipped "
+            f"codes {sum(1 for st in stats if st[2])} of {len(stats)}")
+
+
+def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, kernels, guard, bert_cfg=None,
+                   moe_cfg=None, device_type="cuda"):
     """[mesh]'s training by MESH_PROCS processes, one a rank, on the one
     card over gloo (``launch/ranks.py``; the parent holds no tensor on the
-    card while they run): BERT-base as ``mesh_bert``'s (4, 1) run, with its
-    checkpoint written by rank 0, and qwen2-moe as ``mesh_moe``'s (4, 1)
-    run, the routing counts exchanged between the processes.  Every rank's
+    card while they run), in one start: BERT-base as ``mesh_bert``'s (4, 1)
+    run, with its checkpoint written by rank 0; qwen2-moe as ``mesh_moe``'s
+    (4, 1) run (its first MESH_PROC_MOE_STEPS steps), the routing counts
+    exchanged between the processes; and ``mesh_split``: BERT-base and
+    yi-6b as ``mesh_split_oracles``' "split" runs on MESH_SPLIT, every rank
+    a model rank, BERT-base's checkpoint written by rank 0.  Every rank's
     params, moments, amax and steps (by ``ranks.digest``) and every metric
-    must equal those one-process runs' (``ref_bert``, ``ref_moe``) bit for
-    bit; each rank's tally of collectives must equal the reckoning from the
-    specs.  Rank 0's checkpoint, restored here, must equal the one-process
-    run's final state leaf for leaf, and its fold's integer forward at (1,
-    128) launches rows 1, 2 and 5, each equal to its plain version.
-    Printed: each rank's own peak against the one-process peak, ms a step
-    against the one-process step's, each collective kind's host ms and
+    must equal those one-process runs' (``ref_bert``, ``ref_moe``,
+    ``ref_split``) bit for bit; each rank's tally of collectives must equal
+    the reckoning from the specs (``reckon_step_collectives``,
+    ``reckon_split_collectives``); under "split" each replicated leaf's
+    gradient must be the same bits on every rank.  Rank 0's checkpoints,
+    restored here, must equal the one-process runs' final states leaf for
+    leaf, and each fold's integer forward at (1, 128) launches rows 1, 2 and
+    5, each equal to its plain version.  Printed: each rank's own peak
+    against the one-process peak (and, under "split", the reckoning), ms a
+    step against the one-process step's, each collective kind's host ms and
     bytes a rank, and the op routes."""
     import dataclasses
     import tempfile
@@ -4782,6 +5067,7 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None,
     from repro_torch.launch import train_bert_sst2 as SST
     from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
     from repro_torch.launch.elastic_resume import data_mesh
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.sharding import collectives as C
@@ -4800,14 +5086,25 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None,
     mb, ms = TRAIN_YI_SHAPE
     moe_batch = SyntheticLM(moe_cfg.vocab_size, ms, mb, seed=SEED).batch_at(0)
     meta_mesh = data_mesh("meta", MESH_PROCS)
+    split_mesh = Mesh(np.array([torch.device("meta")] * MESH_PROCS,
+                               dtype=object).reshape(MESH_SPLIT), ("data", "model"))
+    yi_cfg, yi_opt = ref_split["yi"]["cfg"], ref_split["yi"]["opt"]
+    yi_batch = {k: v.cpu().numpy() for k, v in ref_split["yi"]["batches"][0].items()}
+    yb, ys = next(iter(yi_batch.values())).shape
     shapes = {"bert": St.state_shape(bert_cfg, bert_opt, bert=True),
-              "moe": St.state_shape(moe_cfg, moe_opt)}
+              "moe": St.state_shape(moe_cfg, moe_opt), "yi": St.state_shape(yi_cfg, yi_opt)}
+    shapes["bert-split"] = shapes["bert"]
     shs = {"bert": St.state_shardings(meta_mesh, shapes["bert"]),
-           "moe": St.state_shardings(meta_mesh, shapes["moe"])}
+           "moe": St.state_shardings(meta_mesh, shapes["moe"]),
+           "bert-split": St.state_shardings(split_mesh, shapes["bert"]),
+           "yi": St.state_shardings(split_mesh, shapes["yi"])}
     reckoned = {"bert": reckon_step_collectives(shapes["bert"], shs["bert"], MESH_PROCS),
                 "moe": reckon_step_collectives(shapes["moe"], shs["moe"], MESH_PROCS,
                                                moe_cfg.n_layers, moe_cfg.top_k,
-                                               moe_cfg.n_experts)}
+                                               moe_cfg.n_experts),
+                "bert-split": reckon_split_collectives(bert_cfg, shapes["bert"],
+                                                       shs["bert-split"], (b, s), bert=True),
+                "yi": reckon_split_collectives(yi_cfg, shapes["yi"], shs["yi"], (yb, ys))}
     # each qwen2-moe rank's bytes, reckoned before the run
     n_params = sum(t.numel() for t in T.tree_leaves(shapes["moe"].params))
     parts = {"its state's shard": rank_bytes_of_specs(shapes["moe"], shs["moe"]),
@@ -4820,23 +5117,47 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None,
           + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
           + f"; in all {sum(parts.values()) / 2**30:.2f} GiB a rank, "
           f"{MESH_PROCS * sum(parts.values()) / 2**30:.2f} GiB for {MESH_PROCS} ranks")
+    peaks_reckoned = {}
+    for name, cfg, rows, bert in (("bert-split", bert_cfg, (b, s), True),
+                                  ("yi", yi_cfg, (yb, ys), False)):
+        parts = reckon_split_peak(cfg, shapes[name], shs[name], rows, bert)
+        peaks_reckoned[name] = sum(parts.values()) / 2**30
+        print(f"  [{smi}] {name} \"split\" a rank's bytes reckoned before the run: "
+              + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
+              + f"; in all {peaks_reckoned[name]:.2f} GiB")
     gc.collect()
     if device_type == "cuda":
         torch.cuda.empty_cache()
+    split = functools.partial(R.train_steps, mesh_shape=MESH_SPLIT, device_type=device_type,
+                              seed=SEED, keep="digest", model_compute="split")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         res = R.run(R.in_turn, MESH_PROCS, backend="gloo", device_type=device_type, args=([
             functools.partial(R.train_steps, bert_cfg, bert_opt, bert_batches,
                               device_type=device_type, bert=True, seed=SEED, keep="digest",
-                              ckpt_dir=d),
-            functools.partial(R.train_steps, moe_cfg, moe_opt, [moe_batch] * MESH_MOE_STEPS,
-                              device_type=device_type, seed=SEED, keep="digest")],),
+                              ckpt_dir=f"{d}/gather"),
+            functools.partial(R.train_steps, moe_cfg, moe_opt,
+                              [moe_batch] * MESH_PROC_MOE_STEPS, device_type=device_type,
+                              seed=SEED, keep="digest"),
+            functools.partial(split, bert_cfg, bert_opt, bert_batches, bert=True,
+                              ckpt_dir=f"{d}/split"),
+            functools.partial(split, yi_cfg, yi_opt, [yi_batch] * MESH_YI_STEPS)],),
             timeout_s=MESH_PROCS_TIMEOUT_S)
         wall = time.perf_counter() - t0
-        restored, meta = ckpt.restore(d, MESH_BERT_STEPS, shapes["bert"], device_type)
-    for name, ref in (("bert", ref_bert), ("moe", ref_moe)):
-        i = 0 if name == "bert" else 1
-        what = {"bert": "bert-base", "moe": f"qwen2-moe ({moe_cfg.n_layers} layers)"}[name]
+        restored = {k: ckpt.restore(f"{d}/{k}", MESH_BERT_STEPS, shapes["bert"], device_type)
+                    for k in ("gather", "split")}
+    refs = {"bert": ref_bert,
+            "moe": dict(ref_moe, digests=ref_moe["digests_1"],
+                        metrics=ref_moe["metrics"][:MESH_PROC_MOE_STEPS],
+                        ms=ref_moe["ms"][:MESH_PROC_MOE_STEPS]),
+            "bert-split": ref_split["bert"], "yi": ref_split["yi"]}
+    whats = {"bert": "bert-base", "moe": f"qwen2-moe ({moe_cfg.n_layers} layers)",
+             "bert-split": "bert-base \"split\"",
+             "yi": f"yi-6b ({yi_cfg.n_layers} layers) \"split\""}
+    out = {"wall_s": wall}
+    for i, name in enumerate(("bert", "moe", "bert-split", "yi")):
+        ref, what = refs[name], whats[name]
+        mesh_text = f"{MESH_SPLIT}" if name in ("bert-split", "yi") else "(4, 1)"
         ranks = [r[i] for r in res]
         differ = [(r, p) for r, x in enumerate(ranks) for p, dg in x["digest"].items()
                   if dg != ref["digests"][r][p]]
@@ -4847,15 +5168,16 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None,
         host = {f"{kind} ({fn})": [[round(st.get((kind, fn), 0.0), 1) for st in x["host_ms"]]
                                    for x in ranks] for kind, fn in kinds}
         tally_ok = all(st == reckoned[name] for x in ranks for st in x["tally"])
-        print(f"  [{smi}] {what} on {MESH_PROCS} processes (4, 1) over gloo on one card, "
+        reck = f" (reckoned {peaks_reckoned[name]:.2f})" if name in peaks_reckoned else ""
+        print(f"  [{smi}] {what} on {MESH_PROCS} processes {mesh_text} over gloo on one card, "
               f"{len(ranks[0]['metrics'])} steps: metrics {ranks[0]['metrics']} (one process: "
               f"{ref['metrics']}), equal on every rank {same_metrics}; {len(differ)} of "
               f"{MESH_PROCS * len(ranks[0]['digest'])} rank leaves differ from the one-process "
-              f"(4, 1) run's {differ[:4]}; ms a step by rank "
+              f"{mesh_text} run's {differ[:4]}; ms a step by rank "
               f"{[[round(m) for m in x['ms']] for x in ranks]} against one process "
               f"{[round(m) for m in ref['ms']]} (one card time-slices its {MESH_PROCS} "
               f"processes: no gain expected); each rank's own peak "
-              f"{[f'{p:.2f}' for p in peaks]} GiB allocated against the one-process peak "
+              f"{[f'{p:.2f}' for p in peaks]} GiB allocated{reck} against the one-process peak "
               f"{ref['peak_gib']:.2f} GiB; shard bytes a rank {[x['rank_bytes'] for x in ranks]}")
         print(f"  [{smi}] {what} collectives a rank a step, host ms by rank and step: {host}; "
               f"bytes a rank a step (tally, each step): {ranks[0]['tally'][0]}; reckoned from the "
@@ -4863,19 +5185,33 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, kernels, guard, bert_cfg=None,
         check(not differ and same_metrics, f"{what}: the {MESH_PROCS}-process step differs "
               f"from the one-process step ({differ[:4]}, metrics {same_metrics})")
         check(tally_ok, f"{what}: a rank's collectives differ from the specs' reckoning")
-    # rank 0's checkpoint against the one-process run's final state, then served
-    sh41 = St.state_shardings(data_mesh(device_type, MESH_PROCS), shapes["bert"])
-    back = [R.digest(x) for x in Pt.split_tree(restored, sh41)]
-    differ = [(r, p) for r, dg in enumerate(back) for p in dg if dg[p] != ref_bert["digests"][r][p]]
-    print(f"  [{smi}] bert-base: rank 0's checkpoint (step {meta['data_step']}) restored here: "
-          f"{len(differ)} leaves differ from the one-process (4, 1) run's final state; "
-          f"{MESH_PROCS} processes took {wall:.1f} s in all")
-    check(not differ and meta["data_step"] == MESH_BERT_STEPS,
-          f"bert-base: rank 0's checkpoint differs from the one-process state at {differ[:4]}")
-    if device_type == "cuda":
-        serve_trained_bert(torch, bert_cfg, restored, kernels, guard, ((1, 128),),
-                           f"[{smi}] bert-base trained by {MESH_PROCS} processes")
-    return {"wall_s": wall, "ranks": res}
+        if "replicas" in ranks[0]:
+            same = all(x["replicas"] == ranks[0]["replicas"] for x in ranks)
+            print(f"  [{smi}] {what}: {len(ranks[0]['replicas'][0])} replicated leaves' "
+                  f"gradients, every step, the same bits on all {MESH_PROCS} ranks {same}")
+            check(same, f"{what}: a replicated leaf's gradient differs between the model ranks")
+        out[name] = {"ranks": ranks, "peaks": peaks, "host": host}
+    # rank 0's checkpoints against the one-process runs' final states, then served
+    for key, grid, ref in (("gather", (MESH_PROCS, 1), ref_bert),
+                           ("split", MESH_SPLIT, ref_split["bert"])):
+        state, meta = restored[key]
+        mesh = Mesh(np.array([torch.device(device_type)] * MESH_PROCS, dtype=object).reshape(
+            grid), ("data", "model"))
+        back = [R.digest(x) for x in Pt.split_tree(state, St.state_shardings(mesh,
+                                                                              shapes["bert"]))]
+        differ = [(r, p) for r, dg in enumerate(back) for p in dg
+                  if dg[p] != ref["digests"][r][p]]
+        print(f"  [{smi}] bert-base: rank 0's {key} checkpoint (step {meta['data_step']}) "
+              f"restored here: {len(differ)} leaves differ from the one-process {grid} run's "
+              "final state")
+        check(not differ and meta["data_step"] == MESH_BERT_STEPS,
+              f"bert-base: rank 0's {key} checkpoint differs from the one-process state at "
+              f"{differ[:4]}")
+        if device_type == "cuda":
+            serve_trained_bert(torch, bert_cfg, state, kernels, guard, ((1, 128),),
+                               f"[{smi}] bert-base trained by {MESH_PROCS} processes ({key})")
+    print(f"  [{smi}] {MESH_PROCS} processes took {wall:.1f} s in all")
+    return out
 
 
 def phase_mesh(torch, smi, trained, kernels, guard):
@@ -4892,10 +5228,15 @@ def phase_mesh(torch, smi, trained, kernels, guard):
     gc.collect()
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
-    procs = mesh_processes(torch, smi, bert, moe, kernels, guard)
+    split = mesh_split_oracles(torch, smi, trained["yi6b"], bert)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    procs = mesh_processes(torch, smi, bert, moe, split, kernels, guard)
     print(f"  [mesh] seconds: bert-base {t1 - t0:.1f}, yi-6b {t2 - t1:.1f}, qwen2-moe "
-          f"{t3 - t2:.1f}, {MESH_PROCS} processes {time.perf_counter() - t3:.1f}")
-    return {"bert": bert, "yi6b": yi, "moe": moe, "processes": procs}
+          f"{t3 - t2:.1f}, split oracles {t4 - t3:.1f}, {MESH_PROCS} processes "
+          f"{time.perf_counter() - t4:.1f}")
+    return {"bert": bert, "yi6b": yi, "moe": moe, "split": split, "processes": procs}
 
 
 def phase_train(torch, kernels, guard):
@@ -5114,8 +5455,10 @@ def main() -> int:
           f"(4, 1) against the unsharded step, the elastic resize; yi-6b at {TRAIN_YI_DEPTH} of 32"
           f" layers, {MESH_YI_STEPS} steps at {TRAIN_YI_SHAPE} on (4, 1) with FSDP; "
           f"qwen2-moe-a2.7b at {MESH_MOE_DEPTH} of 24 layers, {MESH_MOE_STEPS} steps at "
-          f"{TRAIN_YI_SHAPE} on (4, 1), its ranks routing the whole batch; then bert-base and "
-          f"qwen2-moe again on {MESH_PROCS} processes, one a rank, sharing the card over gloo")
+          f"{TRAIN_YI_SHAPE} on (4, 1), its ranks routing the whole batch; bert-base and yi-6b "
+          f"with the compute split over the model axis on {MESH_SPLIT}; then bert-base, "
+          f"qwen2-moe and the two split runs again on {MESH_PROCS} processes, one a rank, "
+          f"sharing the card over gloo")
     phase_mesh(torch, smi, trained, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm],
                guard)
     stamp("all phases")

@@ -30,6 +30,7 @@ list of programs in one start) and ``fail_on`` (the failure path).
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import tempfile
 import time
@@ -196,7 +197,8 @@ def _cpu(tree):
 def train_steps(cfg, opt_cfg, batches: Sequence[Dict[str, np.ndarray]], *,
                 mesh_shape: Optional[Sequence[int]] = None, device_type: str = "cuda",
                 bert: bool = False, accum_steps: int = 1, state: Optional[str] = None,
-                seed: int = 0, keep: str = "state", ckpt_dir: Optional[str] = None) -> Dict:
+                seed: int = 0, keep: str = "state", ckpt_dir: Optional[str] = None,
+                model_compute: str = "gather") -> Dict:
     """A rank's steps of ``jit_train_step`` (FSDP, donating) on a
     ``mesh_shape`` process mesh (default ``(world, 1)``), one a global batch
     of ``batches``, from the
@@ -206,7 +208,10 @@ def train_steps(cfg, opt_cfg, batches: Sequence[Dict[str, np.ndarray]], *,
     allocated on its card (None on the CPU), this rank's shard bytes, and
     its final shard on the CPU (``keep="state"``) or its ``digest``
     (``keep="digest"``); with ``ckpt_dir``, the final state is saved there
-    as a checkpoint of the step count."""
+    as a checkpoint of the step count.  ``model_compute`` as
+    ``jit_train_step``'s; under "split" the record also holds "replicas",
+    each step's digest of this rank's gradient of each replicated leaf
+    (``step.replicas``)."""
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import partition as Pt
     from repro_torch.train import checkpoint as ckpt
@@ -214,10 +219,13 @@ def train_steps(cfg, opt_cfg, batches: Sequence[Dict[str, np.ndarray]], *,
 
     mesh = make_process_mesh(mesh_shape, device_type)
     dev = mesh.device
+    if dev.type == "cuda":          # what an earlier program of the start left behind
+        gc.collect()
+        torch.cuda.empty_cache()
     example = {k: torch.empty(v.shape, dtype=torch.as_tensor(v[:0]).dtype, device="meta")
                for k, v in batches[0].items()}
     step, sh, _ = St.jit_train_step(cfg, mesh, opt_cfg, example, bert=bert,
-                                    accum_steps=accum_steps)
+                                    accum_steps=accum_steps, model_compute=model_compute)
     if state is not None:
         whole = torch.load(state, map_location=dev, weights_only=False)
         shard = Pt.rank_tree(whole, sh, mesh.rank)
@@ -228,6 +236,8 @@ def train_steps(cfg, opt_cfg, batches: Sequence[Dict[str, np.ndarray]], *,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     rec = {"metrics": [], "ms": [], "tally": [], "host_ms": []}
+    if model_compute == "split":
+        step.replicas = rec["replicas"] = []
     for batch in batches:
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         with C.tally() as tally, C.host_ms() as clock:
@@ -288,7 +298,8 @@ def check_collectives(inputs: Dict, mesh_shape: Sequence[int], device_type: str 
 
 
 def train_on_ranks(cfg, shape, opt_cfg, tcfg, *, mesh_shape: Optional[Sequence[int]] = None,
-                   device_type: str = "cuda", fsdp: bool = True, log: bool = False):
+                   device_type: str = "cuda", fsdp: bool = True, log: bool = False,
+                   model_compute: str = "gather"):
     """``train/trainer.py::train`` on a ``mesh_shape`` process mesh: this
     rank's (state on the CPU, history); rank 0 prints each logged step
     when ``log``."""
@@ -301,5 +312,6 @@ def train_on_ranks(cfg, shape, opt_cfg, tcfg, *, mesh_shape: Optional[Sequence[i
               f"gnorm {m['grad_norm']:.3f} {m['step_s'] * 1e3:.0f} ms", flush=True)
 
     state, history = train(cfg, shape, opt_cfg, tcfg, mesh=mesh, fsdp=fsdp,
-                           log_fn=log_fn if log and mesh.rank == 0 else None)
+                           log_fn=log_fn if log and mesh.rank == 0 else None,
+                           model_compute=model_compute)
     return _cpu(state), history

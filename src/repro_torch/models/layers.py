@@ -2,6 +2,24 @@
 (qk-norm and Qwen2-VL's M-RoPE included) and dense MLP subset of the
 reference ``models/layers.py``.
 
+Split over the model axis (Megatron tensor parallelism, the reference's
+``model`` rules in ``sharding/partition.py``): where a projection's param is
+a dict of model blocks (``{"<model rank>": block}``, this process's ranks
+in rank order; ``train/steps.py`` builds them under ``model_compute=
+"split"``), ``attention_qat`` and ``mlp_qat`` run each rank's part on its
+blocks, in the context's model group (``partition.model_split``): the
+column-parallel products (q/k/v, gate/up, ``w1``, their biases) take the
+replicated input through ``collectives.copy_to_model`` and give the rank's
+output columns (its ``H/m`` query and ``Hkv/m`` KV heads, so rank order is
+head order); the row-parallel products (``wo``, ``wd``, ``w2``) give a
+partial that ``collectives.reduce_from_model`` sums over the ranks, and the
+replicated bias is added once after it.  A site's observed max over a split
+tensor, and a per-tensor weight max over a split weight, are the max over
+every rank's (``collectives.model_max``); qk-norm's replicated gammas reach
+each rank's heads through ``copy_to_model``, so their gradient sums every
+rank's.  A leaf that is a tensor runs whole, the same ops as before the
+split existed.
+
 Conventions as in the reference: params are nested dicts of tensors; every
 activation the integer path quantizes has a *site* whose EMA max arrives in
 ``amax[site]`` and whose batch statistic comes back in ``obs[site]``.
@@ -14,6 +32,7 @@ run these under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -25,6 +44,7 @@ from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qsoftmax import LUT_DELTA
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding import partition as Pt
 
 Obs = Dict[str, torch.Tensor]
 ROW_CHUNK = 512  # query rows a chunk of ``attention_qat`` (the reference's)
@@ -42,6 +62,42 @@ def remat(fn, *args):
     return fn(*args)
 
 
+# --- JAX's gate functions -------------------------------------------------------
+
+def sigmoid_grad(y, g):
+    """``lax.logistic``'s gradient from its output: ``g * (y * (1 - y))``."""
+    return g * (y * (1 - y))
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sigmoid(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return sigmoid_grad(y, g)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``), with its gradient rule
+    (``sigmoid_grad``)."""
+    return _Sigmoid.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``.  ``torch.nn.functional.silu``
+    is another float32 function (an ulp apart on about a quarter of
+    inputs), whose largest output moves a site's per-tensor max and with it
+    every code of the site (ROADMAP §3)."""
+    return x * sigmoid(x)
+
+
+# --- quantized linears ------------------------------------------------------------
+
 def _amax_or_obs(amax: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ob = q.per_tensor_max(x.detach()).to(torch.float32)
     return torch.where(amax > 0, amax, ob), ob
@@ -56,12 +112,80 @@ def fake_quant_act(x, amax, bits, enabled: bool):
 
 def qdense(x, w, b, amax_in, policy: QuantPolicy):
     """Quantization-aware linear; returns (y, observed max|x|)."""
-    x_q, ob = fake_quant_act(x, amax_in, policy.a_bits, policy.quantize_wa)
+    (y,), ob = qdense_column([x], w, b, amax_in, policy, None)
+    return y, ob
+
+
+# --- the model axis's split ------------------------------------------------------
+
+def _parts(w) -> list:
+    """A leaf's blocks in model-rank order: a model-split leaf's (a dict of
+    this process's model ranks' blocks), or the whole leaf alone."""
+    return list(w.values()) if isinstance(w, dict) else [w]
+
+
+def _group(w):
+    """The model group a split leaf runs in, or None for a whole leaf."""
+    if not isinstance(w, dict):
+        return None
+    group = Pt.model_group()
+    if group is None:
+        raise RuntimeError("a model-split param outside a model group "
+                           "(partition.model_split sets one)")
+    return group
+
+
+def _amax_or_obs_parts(amax, xs, group):
+    ob = C.model_max(group, [q.per_tensor_max(x.detach()).to(torch.float32) for x in xs])
+    return torch.where(amax > 0, amax, ob), ob
+
+
+def fake_quant_parts(xs, amax, bits, enabled: bool, group):
+    """``fake_quant_act`` of a tensor split over the model ranks (``xs``:
+    this process's parts in rank order; one part, the whole tensor, when
+    ``group`` is None): its observed max is every rank's max."""
+    a, ob = _amax_or_obs_parts(amax, xs, group)
+    if not enabled:
+        return xs, ob
+    return [q.fake_quant(x, a.to(x.dtype), bits) for x in xs], ob
+
+
+def _products(xs, w, b, policy: QuantPolicy, group, row: bool):
+    """Each rank's ``x @ fake_quant(w)`` (+ b): a per-tensor weight max is
+    the max over every rank's block, a per-channel one a rank's own columns'
+    (over every rank's rows for a row-parallel weight)."""
+    ws = _parts(w)
     if policy.quantize_wa:
-        w_d = w.detach()
-        w_m = q.per_channel_max(w_d, axis=-1) if policy.per_channel_w else q.per_tensor_max(w_d)
-        w = q.fake_quant(w, w_m.to(w.dtype), policy.w_bits)
-    y = x_q @ w
+        ds = [v.detach() for v in ws]
+        if policy.per_channel_w:
+            ms = [q.per_channel_max(d, axis=-1) for d in ds]
+            if row and group is not None:
+                ms = [C.model_max(group, ms)] * len(ms)
+        else:
+            ms = [C.model_max(group, [q.per_tensor_max(d) for d in ds])] * len(ds)
+        ws = [q.fake_quant(v, m.to(v.dtype), policy.w_bits) for v, m in zip(ws, ms, strict=True)]
+    ys = [x @ v for x, v in zip(xs, ws, strict=True)]
+    if b is not None:
+        ys = [y + c for y, c in zip(ys, _parts(b), strict=True)]
+    return ys
+
+
+def qdense_column(xs, w, b, amax_in, policy: QuantPolicy, group):
+    """Column-parallel ``qdense`` of a replicated input (``xs``: its view for
+    each of this process's model ranks, ``collectives.copy_to_model``'s, so
+    that the products of one input share one gradient sum): (each rank's
+    output columns, observed max|x|).  Whole (``group`` None, ``xs`` =
+    ``[x]``): the one linear of ``qdense``."""
+    quantized = [fake_quant_act(x, amax_in, policy.a_bits, policy.quantize_wa) for x in xs]
+    return _products([x for x, _ in quantized], w, b, policy, group, row=False), quantized[0][1]
+
+
+def qdense_row(xs, w, b, amax_in, policy: QuantPolicy, group):
+    """Row-parallel ``qdense`` of a tensor split on its last axis (``xs``):
+    the ranks' partial products summed over the model ranks, then the
+    replicated bias: (y, observed max|x| over every rank)."""
+    xs, ob = fake_quant_parts(xs, amax_in, policy.a_bits, policy.quantize_wa, group)
+    y = C.reduce_from_model(group, _products(xs, w, None, policy, group, row=True))
     if b is not None:
         y = y + b
     return y, ob
@@ -224,38 +348,43 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
                   mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Obs]:
     """Materialized-score QAT attention.  x (B, S, d); pos (B, S), or (B,
     S, 3) for M-RoPE.  The default causal mask keeps, for a sliding-window
-    arch, only the keys less than ``cfg.sliding_window`` positions back."""
+    arch, only the keys less than ``cfg.sliding_window`` positions back.
+    With model-split projections each rank runs its own heads (module
+    docstring)."""
     b, s, _ = x.shape
-    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    group = _group(p["wq"])
+    m = 1 if group is None else group.size
+    hd, nh, nkv = cfg.hd, cfg.n_heads // m, cfg.n_kv_heads // m
     obs: Obs = {}
-    qp, obs["attn_in"] = qdense(x, p["wq"], p.get("bq"), amax["attn_in"], policy)
-    kp, _ = qdense(x, p["wk"], p.get("bk"), amax["attn_in"], policy)
-    vp, _ = qdense(x, p["wv"], p.get("bv"), amax["attn_in"], policy)
-    qh = qp.reshape(b, s, nh, hd)
-    kh = kp.reshape(b, s, nkv, hd)
-    vh = vp.reshape(b, s, nkv, hd)
-    qh, obs["q_pre"] = fake_quant_act(qh, amax["q_pre"], policy.a_bits, policy.quantize_wa)
-    kh, obs["k_pre"] = fake_quant_act(kh, amax["k_pre"], policy.a_bits, policy.quantize_wa)
+    fq = functools.partial(fake_quant_parts, bits=policy.a_bits, enabled=policy.quantize_wa,
+                           group=group)
+    xs = C.copy_to_model(group, x)
+    qs, obs["attn_in"] = qdense_column(xs, p["wq"], p.get("bq"), amax["attn_in"], policy, group)
+    ks, _ = qdense_column(xs, p["wk"], p.get("bk"), amax["attn_in"], policy, group)
+    vs, _ = qdense_column(xs, p["wv"], p.get("bv"), amax["attn_in"], policy, group)
+    qs = [t.reshape(b, s, nh, hd) for t in qs]
+    ks = [t.reshape(b, s, nkv, hd) for t in ks]
+    vs = [t.reshape(b, s, nkv, hd) for t in vs]
+    qs, obs["q_pre"] = fq(qs, amax["q_pre"])
+    ks, obs["k_pre"] = fq(ks, amax["k_pre"])
     if cfg.qk_norm:
-        qh = rmsnorm_xla(qh, p["qn"])
-        kh = rmsnorm_xla(kh, p["kn"])
+        qs = [rmsnorm_xla(t, g) for t, g in zip(qs, C.copy_to_model(group, p["qn"]), strict=True)]
+        ks = [rmsnorm_xla(t, g) for t, g in zip(ks, C.copy_to_model(group, p["kn"]), strict=True)]
     if cfg.mrope_sections is not None:
-        qh = apply_mrope(qh, pos, cfg.rope_theta, cfg.mrope_sections)
-        kh = apply_mrope(kh, pos, cfg.rope_theta, cfg.mrope_sections)
+        qs = [apply_mrope(t, pos, cfg.rope_theta, cfg.mrope_sections) for t in qs]
+        ks = [apply_mrope(t, pos, cfg.rope_theta, cfg.mrope_sections) for t in ks]
     elif not cfg.learned_pos:
-        qh = apply_rope(qh, pos, cfg.rope_theta, cfg.partial_rotary)
-        kh = apply_rope(kh, pos, cfg.rope_theta, cfg.partial_rotary)
-    qh, obs["q"] = fake_quant_act(qh, amax["q"], policy.a_bits, policy.quantize_wa)
-    kh, obs["k"] = fake_quant_act(kh, amax["k"], policy.a_bits, policy.quantize_wa)
-    vh, obs["v"] = fake_quant_act(vh, amax["v"], policy.a_bits, policy.quantize_wa)
-    group = nh // nkv
-    kg = kh.repeat_interleave(group, dim=2)
-    vg = vh.repeat_interleave(group, dim=2)
-    a_q, _ = _amax_or_obs(amax["q"], qh)
-    a_k, _ = _amax_or_obs(amax["k"], kh)
+        qs = [apply_rope(t, pos, cfg.rope_theta, cfg.partial_rotary) for t in qs]
+        ks = [apply_rope(t, pos, cfg.rope_theta, cfg.partial_rotary) for t in ks]
+    qs, obs["q"] = fq(qs, amax["q"])
+    ks, obs["k"] = fq(ks, amax["k"])
+    vs, obs["v"] = fq(vs, amax["v"])
+    group_size = nh // nkv
+    a_q, _ = _amax_or_obs_parts(amax["q"], qs, group)
+    a_k, _ = _amax_or_obs_parts(amax["k"], ks, group)
     s_logit = (math.sqrt(hd) * q.rdiv(127.0, a_q) * q.rdiv(127.0, a_k)).detach()
 
-    def rows(q_rows, row0: int, row_mask):
+    def rows(q_rows, kg, vg, row0: int, row_mask):
         """Full-row LUT softmax for a block of query rows (the paper's
         Softmax Core granularity): (B, Cq, H, hd) -> (B, Cq, H*hd)."""
         cq = q_rows.shape[1]
@@ -272,36 +401,47 @@ def attention_qat(x, p: Dict, amax: Dict, policy: QuantPolicy, cfg, pos,
         pr = lut_softmax_qat(lg, s_logit, policy.quantize_softmax)
         return torch.einsum("bhqk,bkhd->bqhd", pr, vg).reshape(b, cq, nh * hd)
 
-    # rows are independent (each sees every key), so chunks of query rows
-    # give the same result; recomputed in the backward, a chunk's (B, H,
-    # ROW_CHUNK, S) float32 chain is all a layer holds at once
-    if s > ROW_CHUNK and s % ROW_CHUNK == 0 and mask is None:
-        ctx = torch.cat([remat(rows, qh[:, i:i + ROW_CHUNK], i, None)
-                         for i in range(0, s, ROW_CHUNK)], 1)
-    else:
-        ctx = rows(qh, 0, mask)
-    out, obs["attn_out_in"] = qdense(ctx, p["wo"], p.get("bo"), amax["attn_out_in"], policy)
+    ctxs = []
+    for qh, kh, vh in zip(qs, ks, vs, strict=True):
+        kg = kh.repeat_interleave(group_size, dim=2)
+        vg = vh.repeat_interleave(group_size, dim=2)
+        # rows are independent (each sees every key), so chunks of query rows
+        # give the same result; recomputed in the backward, a chunk's (B, H,
+        # ROW_CHUNK, S) float32 chain is all a layer holds at once
+        if s > ROW_CHUNK and s % ROW_CHUNK == 0 and mask is None:
+            ctxs.append(torch.cat([remat(rows, qh[:, i:i + ROW_CHUNK], kg, vg, i, None)
+                                   for i in range(0, s, ROW_CHUNK)], 1))
+        else:
+            ctxs.append(rows(qh, kg, vg, 0, mask))
+    out, obs["attn_out_in"] = qdense_row(ctxs, p["wo"], p.get("bo"), amax["attn_out_in"], policy,
+                                         group)
     return out, obs
 
 
 # --- MLPs ---------------------------------------------------------------------
 
 def mlp_qat(x, p, amax, policy, act: str) -> Tuple[torch.Tensor, Obs]:
+    """The dense MLP (SwiGLU, or GELU's tanh approximation as
+    ``jax.nn.gelu``); with model-split weights each rank runs its d_ff/m
+    columns (module docstring)."""
     obs: Obs = {}
+    group = _group(p["wg" if act == "swiglu" else "w1"])
+    fq = functools.partial(fake_quant_parts, bits=policy.a_bits, enabled=policy.quantize_wa,
+                           group=group)
+    xs = C.copy_to_model(group, x)
     if act == "swiglu":
-        g, obs["mlp_in"] = qdense(x, p["wg"], None, amax["mlp_in"], policy)
-        u, _ = qdense(x, p["wu"], None, amax["mlp_in"], policy)
-        g, obs["g_pre"] = fake_quant_act(g, amax["g_pre"], policy.a_bits, policy.quantize_wa)
-        g, obs["g_out"] = fake_quant_act(F.silu(g), amax["g_out"], policy.a_bits,
-                                         policy.quantize_wa)
-        u, obs["u_out"] = fake_quant_act(u, amax["u_out"], policy.a_bits, policy.quantize_wa)
-        y, obs["h_in"] = qdense(g * u, p["wd"], None, amax["h_in"], policy)
-    else:  # gelu (tanh approximation, as jax.nn.gelu)
-        h, obs["mlp_in"] = qdense(x, p["w1"], p.get("b1"), amax["mlp_in"], policy)
-        h, obs["h_pre"] = fake_quant_act(h, amax["h_pre"], policy.a_bits, policy.quantize_wa)
-        h, obs["g_out"] = fake_quant_act(F.gelu(h, approximate="tanh"), amax["g_out"],
-                                         policy.a_bits, policy.quantize_wa)
-        y, obs["h_in"] = qdense(h, p["w2"], p.get("b2"), amax["h_in"], policy)
+        gs, obs["mlp_in"] = qdense_column(xs, p["wg"], None, amax["mlp_in"], policy, group)
+        us, _ = qdense_column(xs, p["wu"], None, amax["mlp_in"], policy, group)
+        gs, obs["g_pre"] = fq(gs, amax["g_pre"])
+        gs, obs["g_out"] = fq([silu(g) for g in gs], amax["g_out"])
+        us, obs["u_out"] = fq(us, amax["u_out"])
+        y, obs["h_in"] = qdense_row([g * u for g, u in zip(gs, us, strict=True)], p["wd"], None,
+                                    amax["h_in"], policy, group)
+    else:
+        hs, obs["mlp_in"] = qdense_column(xs, p["w1"], p.get("b1"), amax["mlp_in"], policy, group)
+        hs, obs["h_pre"] = fq(hs, amax["h_pre"])
+        hs, obs["g_out"] = fq([F.gelu(h, approximate="tanh") for h in hs], amax["g_out"])
+        y, obs["h_in"] = qdense_row(hs, p["w2"], p.get("b2"), amax["h_in"], policy, group)
     return y, obs
 
 

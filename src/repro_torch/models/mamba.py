@@ -17,9 +17,7 @@ Gradient rules kept (JAX's, where torch's autograd would differ):
 ``softplus`` is ``jax.nn.softplus`` = ``logaddexp(x, 0)`` with
 ``logaddexp``'s own rule, ``g * exp(x - out)`` (0.5 at x = 0; autograd
 through the forward's ``clamp`` and ``abs`` gives 1 there); ``sigmoid``
-passes ``g * (y * (1 - y))``, ``lax.logistic``'s rule (torch's multiplies
-in another order), and ``silu`` is ``x * sigmoid(x)`` through it, as
-``jax.nn.silu``.
+and ``silu`` are ``layers``' (``lax.logistic``'s rule).
 """
 from __future__ import annotations
 
@@ -29,7 +27,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.layers import Obs, fake_quant_act, qdense
+from repro_torch.models.layers import (Obs, fake_quant_act, qdense, sigmoid,  # noqa: F401
+                                       sigmoid_grad, silu)
 
 CHUNK = 128
 MAMBA_SITES = ("mamba_in", "mamba_conv", "mamba_x", "mamba_out")
@@ -59,34 +58,6 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``,
     with ``logaddexp``'s gradient rule (``softplus_grad``)."""
     return _Softplus.apply(x)
-
-
-def sigmoid_grad(y, g):
-    """``lax.logistic``'s gradient from its output: ``g * (y * (1 - y))``."""
-    return g * (y * (1 - y))
-
-
-class _Sigmoid(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        y = torch.sigmoid(x)
-        ctx.save_for_backward(y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return sigmoid_grad(y, g)
-
-
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` (``lax.logistic``), with its gradient rule
-    (``sigmoid_grad``)."""
-    return _Sigmoid.apply(x)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * sigmoid(x)
 
 
 def mamba_dims(cfg) -> Tuple[int, int]:

@@ -25,7 +25,7 @@ The float steps follow the reference's float32 order where it is known:
 the softmax's row sum in XLA's order (``layers.xla_row_sum``), the gate
 renormalization summed over the k choices in order, the combine a
 separate multiply and add per choice, SiLU as ``x * sigmoid(x)`` with
-``lax.logistic``'s gradient (``mamba.silu``).  Its ``exp`` and the router
+``lax.logistic``'s gradient (``layers.silu``).  Its ``exp`` and the router
 product are torch's (a counted float island, ROADMAP §3).
 """
 from __future__ import annotations
@@ -37,8 +37,7 @@ import torch
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models import mamba as Mb
-from repro_torch.models.layers import Obs, fake_quant_act, xla_row_sum
+from repro_torch.models.layers import Obs, fake_quant_act, silu, xla_row_sum
 from repro_torch.sharding import collectives as C
 
 CAPACITY_FACTOR = 1.25
@@ -187,7 +186,7 @@ def _expert_ffn_qat(xe, p, amax, policy: QuantPolicy, prefix: str):
     xq, obs[f"{prefix}_in"] = fq(xe, "in")
     g = torch.einsum("ecd,edf->ecf", xq, fq_w(p["wg"]))
     u = torch.einsum("ecd,edf->ecf", xq, fq_w(p["wu"]))
-    g, obs[f"{prefix}_g"] = fq(Mb.silu(g), "g")
+    g, obs[f"{prefix}_g"] = fq(silu(g), "g")
     u, obs[f"{prefix}_u"] = fq(u, "u")
     h, obs[f"{prefix}_h"] = fq(g * u, "h")
     return torch.einsum("ecf,efd->ecd", h, fq_w(p["wd"])), obs

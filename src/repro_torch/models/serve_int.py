@@ -658,7 +658,7 @@ def mamba_float(x_i8, f, cfg, state=None):
         n = cfg.mamba_d_state
         xi, z = torch.chunk(_lin_wonly(hf, m["w_in"]), 2, dim=-1)
         xc, conv_state = Mb.causal_conv(xi, m["conv_w"], None if state is None else state["conv"])
-        xc = Mb.silu(xc + m["conv_b"])
+        xc = L.silu(xc + m["conv_b"])
         dt_r, B_, C_ = torch.split(_lin_wonly(xc, m["w_x"]), [dt_rank, n, n], dim=-1)
         dt = Mb.softplus(dt_r @ m["w_dt"] + m["dt_bias"])
         A = -torch.exp(m["A_log"])
@@ -667,7 +667,7 @@ def mamba_float(x_i8, f, cfg, state=None):
         else:
             y, hstate = Mb.ssm_step(xc, dt, B_, C_, A, m["D"], state["h"])
             _write_state(state, {"h": hstate, "conv": conv_state})
-        return _lin_wonly(y * Mb.silu(z), m["w_out"])
+        return _lin_wonly(y * L.silu(z), m["w_out"])
 
 
 def xlstm_float(x_i8, f, cfg, kind: str, state=None):

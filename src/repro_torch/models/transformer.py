@@ -27,6 +27,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as Mb
 from repro_torch.models import moe as Moe
 from repro_torch.models import xlstm as Xl
+from repro_torch.sharding import collectives as C
 
 ATTN_SITES = ("attn_in", "q_pre", "k_pre", "q", "k", "v", "attn_out_in", "resid_a")
 MLP_SITES_SWIGLU = ("mlp_in", "g_pre", "g_out", "u_out", "h_in", "resid_m")
@@ -297,7 +298,13 @@ def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
     ``init_amax``; aux_loss summed over the MoE slots)."""
     x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos,
                          extra_embeds=extra_embeds, pos3=pos3)
-    if cfg.tied_embeddings:
+    head = params["embed"]["tokens"] if cfg.tied_embeddings else params.get("lm_head")
+    if isinstance(head, dict):          # vocab-parallel: each rank's block of logits
+        group = L._group(head)
+        parts = [x_r @ (w.T if cfg.tied_embeddings else w)
+                 for x_r, w in zip(C.copy_to_model(group, x), head.values(), strict=True)]
+        logits = C.gather_from_model(group, parts)
+    elif cfg.tied_embeddings:
         logits = x @ params["embed"]["tokens"].T
     elif cfg.n_lm_heads > 1:
         logits = torch.einsum("bsd,kdv->bksv", x, params["lm_head"])
@@ -313,13 +320,32 @@ def embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     a fixed order (an indexing's backward on the CPU does not: the resumed
     run must equal the uninterrupted one bit for bit)."""
     if cfg.frontend != "audio_codebooks":
-        return torch.nn.functional.embedding(tokens.long(), params["embed"]["tokens"])
+        w = params["embed"]["tokens"]
+        if isinstance(w, dict):
+            return _vocab_parallel_embed(tokens, w)
+        return torch.nn.functional.embedding(tokens.long(), w)
     books = params["embed"]["codebooks"]
     x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model), dtype=books.dtype,
                     device=books.device)
     for ci in range(cfg.n_codebooks):
         x = x + torch.nn.functional.embedding(tokens[:, ci].long(), books[ci])
     return x
+
+
+def _vocab_parallel_embed(tokens: torch.Tensor, blocks: Dict) -> torch.Tensor:
+    """The lookup over a vocab-split table (``{"<model rank>": block}``):
+    each rank looks up the tokens of its vocab block, zeros elsewhere, and
+    the ranks' lookups are summed (``collectives.reduce_from_model``):
+    exact, as one term of each sum is nonzero."""
+    group = L._group(blocks)
+    ids, parts = tokens.long(), []
+    for key, w in blocks.items():
+        t = ids - int(key) * w.shape[0]
+        inside = (t >= 0) & (t < w.shape[0])
+        e = torch.nn.functional.embedding(torch.where(inside, t, 0), w)
+        parts.append(torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                                   device=e.device)))
+    return C.reduce_from_model(group, parts)
 
 
 def hidden(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,

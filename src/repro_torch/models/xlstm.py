@@ -12,7 +12,7 @@ counted float island, ROADMAP §3); ``log_sigmoid`` follows JAX's
 Gradient rules kept, JAX's (the reference has no ``stop_gradient`` here,
 so every stabilizer passes gradient): ``log_sigmoid`` through
 ``mamba.softplus`` (``logaddexp``'s rule) and the gates' ``sigmoid``
-through ``mamba.sigmoid`` (``lax.logistic``'s); ``jabs`` passes the
+through ``layers.sigmoid`` (``lax.logistic``'s); ``jabs`` passes the
 gradient whole at 0, as ``jnp.abs`` (``torch.abs`` passes 0 there);
 ``torch.amax`` and ``torch.maximum`` split a tie evenly, as ``jnp.max``
 and ``jnp.maximum`` do.  ``tanh``'s is torch's (an island with its
@@ -32,8 +32,9 @@ import torch
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.layers import Obs, fake_quant_act, qdense, remat, rmsnorm_xla
-from repro_torch.models.mamba import sigmoid, sigmoid_grad, softplus, softplus_grad
+from repro_torch.models.layers import (Obs, fake_quant_act, qdense, remat, rmsnorm_xla, sigmoid,
+                                       sigmoid_grad)
+from repro_torch.models.mamba import softplus, softplus_grad
 
 MLSTM_SITES = ("mlstm_in", "mlstm_y", "mlstm_out")
 SLSTM_SITES = ("slstm_in", "slstm_y", "slstm_out")
@@ -187,7 +188,7 @@ class _SlstmStep(torch.autograd.Function):
     """One sLSTM step: (h, the recurrent matrix r, the step's four gate
     pre-activations, c, n, m) -> (c, n, h, m).  The forward is the
     reference's step op for op; the backward is its chain rule written out
-    in one call under JAX's rules (``mamba.sigmoid_grad``,
+    in one call under JAX's rules (``layers.sigmoid_grad``,
     ``mamba.softplus_grad`` for ``log_sigmoid``, ties split evenly;
     ``tanh``'s as torch's autograd), so a step records one autograd node in
     place of some thirty: the loop is host-bound on the card (1,024 steps a

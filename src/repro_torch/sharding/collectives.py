@@ -1,7 +1,9 @@
 """The sharded train step's collectives, behind one seam: gather a leaf from
 its shards, reduce the data ranks' gradients into the owners' shards, take
-the max over ranks, and gather every data rank's MoE routing counts.  Two
-backends do the same four things and give the same bits.
+the max over ranks, gather every data rank's MoE routing counts, and, when
+the step splits its compute over the model axis (``model_compute="split"``,
+Megatron's tensor parallelism), the model group's activation collectives.
+Two backends do the same things and give the same bits.
 
 The ``local`` backend (the module's functions) serves a ``Mesh`` that one
 process drives: the first three are loops over the ranks' tensors with
@@ -10,7 +12,10 @@ MoE layer's routing counts the whole (micro)batch (``models/moe.py``), so
 each data rank runs its forward and backward in a thread of its own
 (``train/steps.py``), posts its (k, E) int32 table of per-(choice, expert)
 counts at each MoE layer, and blocks in ``all_gather_counts`` until every
-data rank of its ``DataRanks`` group has posted.
+data rank of its ``DataRanks`` group has posted.  Its model group,
+``ModelRanks``, holds every model rank's part in one process: a split op is
+a loop over the ranks' parts in rank order, and a model collective a sum or
+max over that loop's results; no threads, no meeting.
 
 The ``process`` backend (``Process``) serves a ``launch.mesh.ProcessMesh``,
 one OS process per rank over a ``torch.distributed`` process group: each
@@ -21,26 +26,42 @@ rank r), after which each owner sums what it received in float32 in data
 rank order, the local loop's order (neither gloo's nor NCCL's reduce-scatter
 sums in rank order); it takes the max with ``all_reduce(MAX)``; and, as the
 MoE data ranks' group, it all-gathers the counts over the batch axes'
-subgroup.  ``ROUTES`` names how each op it uses moves a CUDA tensor under
-each backend.
+subgroup.  Under "split" a model-split leaf is gathered, and its gradient
+reduced, over the data subgroup of the rank's model coordinate only
+(``all_gather_data``, ``reduce_scatter_data``), and ``Process.model`` is the
+rank's model group over the model axis's subgroup.  ``ROUTES`` names the op
+each collective makes and how it moves a CUDA tensor under each backend.
 
-Under either backend a recomputed (remat) forward replays the tables its
-first forward received, in order, and never meets again:
+The model group's collectives (``model_sum``, ``model_max``, and the
+autograd pair ``copy_to_model`` / ``reduce_from_model``, Megatron's *f* and
+*g*, with ``gather_from_model`` for the vocab-parallel logits) take a group,
+or None for a tensor held whole.  ``model_sum`` all-gathers the ranks'
+float32 partials and every rank sums them in rank order from rank 0's, so
+each holds the same bits (no library all-reduce sums in rank order).
+
+Under either backend a recomputed (remat) forward replays the MoE tables
+its first forward received, in order, and never meets again:
 ``recompute_contexts`` is the ``context_fn`` of ``layers.remat``'s
 checkpoint, so the replay reaches the thread that recomputes (on a CUDA
-card, autograd's own, where a collective would deadlock).  On ``meta``
-tensors (the dry run's traced rank) the gather waits for no one and returns
-a ``meta`` table.
+card, autograd's own, where the counts' thread meeting would deadlock).  A
+recomputed split region instead runs in its model group again and makes
+its model collectives again: they are process-group collectives that
+every rank makes in the same order (the backward's ``model_sum`` too, on
+the same thread), which the CPU's gloo and four processes on one card
+meet without a deadlock.  On ``meta`` tensors (the dry run's traced rank)
+the counts' gather waits for no one and returns a ``meta`` table.
 
 ``tally()`` counts the collectives called while it is open, per kind and
 per function, and the bytes of each call's result on one rank, as the
 reference's dry run sums the result shapes of XLA's collectives: a gathered
-leaf whole, a reduce-scatter's own float32 block (an all-reduce when no rank
-splits the leaf), each maxed leaf, the (n, k, E) counts table.  A call of
-the process backend counts as the local backend counts one rank's part of
-it: one data rank's contribution, one gathered leaf, one rank's table.
-``host_ms()`` sums the host time of the process backend's calls, per kind
-and function.
+leaf whole (a model block: ``all_gather_data``), a reduce-scatter's own
+float32 block (an all-reduce when no rank splits the leaf), each maxed leaf,
+the (n, k, E) counts table, each ``model_sum``'s and ``model_max``'s result
+(an all-reduce), the gathered logits.  A call of the process backend counts
+as the local backend counts one rank's part of it: one data rank's
+contribution, one gathered leaf, one rank's table, one model collective.
+``host_ms()`` sums the host time of the process backend's calls (and the
+model group's, under either backend), per kind and function.
 """
 from __future__ import annotations
 
@@ -274,12 +295,14 @@ class _Recording:
 
 
 class _Replaying:
-    def __init__(self, rank: _Rank, tape: list):
-        self.rank, self.tape = rank, tape
+    def __init__(self, rank: _Rank, tape: list, model=None):
+        self.rank, self.tape, self.model = rank, tape, model
 
     def __enter__(self):
-        self._cm = _as(_Rank(self.rank.group, self.rank.rank, source=iter(self.tape)))
-        self._cm.__enter__()
+        self._cm = contextlib.ExitStack()
+        self._cm.enter_context(_as(_Rank(self.rank.group, self.rank.rank,
+                                         source=iter(self.tape))))
+        self._cm.enter_context(Pt.model_split(self.model))
 
     def __exit__(self, *exc):
         return self._cm.__exit__(*exc)
@@ -288,25 +311,176 @@ class _Replaying:
 def recompute_contexts():
     """``torch.utils.checkpoint``'s ``context_fn``: inside a data rank, the
     region's forward records the counts tables it receives and its
-    recomputation replays them, on whichever thread recomputes it; outside
-    one, nothing."""
-    me = _current()
-    if me is None:
+    recomputation replays them, on whichever thread recomputes it; inside a
+    model group (``partition.model_split``) the recomputation runs in it
+    too, and makes its model collectives again (every rank recomputes the
+    same regions in the same order, so they meet); otherwise nothing."""
+    me, model = _current(), Pt.model_group()
+    if me is None and model is None:
         return contextlib.nullcontext(), contextlib.nullcontext()
     tape: list = []
-    return _Recording(me, tape), _Replaying(me, tape)
+    if me is None:
+        return contextlib.nullcontext(), Pt.model_split(model)
+    return _Recording(me, tape), _Replaying(me, tape, model)
+
+
+# --- the model axis: Megatron's split compute --------------------------------------
+
+class ModelRanks:
+    """The local model group: one process holds every one of ``size`` model
+    ranks' parts, so a split op is a loop over them in rank order and a
+    model collective is a sum or max over the loop's parts (no threads, no
+    meeting).  The one-process oracle of the process backend's bits."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.ranks = tuple(range(size))
+
+    def every(self, parts: Sequence[torch.Tensor], fn: str) -> List[torch.Tensor]:
+        """Every model rank's part, in rank order, from this process's
+        (for collective ``fn``)."""
+        return list(parts)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+def _model_count(group, kind: str, fn: str, t: torch.Tensor):
+    if group.size > 1:
+        _count(kind, fn, _nbytes(t.shape, t.dtype))
+
+
+def model_max(group, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise max of a statistic over every model rank (this
+    process's ``parts``, in rank order): ``all_reduce(MAX)`` over the model
+    subgroup.  Exact.  ``group`` None: the one part, whole."""
+    out = parts[0]
+    for t in parts[1:]:
+        out = torch.maximum(out, t)
+    if group is None:
+        return out
+    _model_count(group, "all-reduce", "model_max", out)
+    with _clocked("all-reduce", "model_max"):
+        return group.max(out)
+
+
+def model_sum(group, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The row-parallel all-reduce: every model rank's partial in float32,
+    summed in model-rank order from rank 0's, in the partials' dtype.  The
+    process backend all-gathers the partials (neither gloo's nor NCCL's
+    all-reduce sums in rank order), so every rank holds the same bits; they
+    travel in their own dtype and are widened on arrival (the same float32
+    values as widening first, in half the bytes for bf16)."""
+    dtype = partials[0].dtype
+    with _clocked("all-reduce", "model_sum"):
+        every = [t.to(torch.float32) for t in group.every(partials, "model_sum")]
+        out = every[0]
+        for t in every[1:]:
+            out = out + t
+        out = out.to(dtype)
+    _model_count(group, "all-reduce", "model_sum", out)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: the replicated input of a column-parallel product,
+    one view a model rank; the backward sums the ranks' gradients
+    (``model_sum``)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return tuple(x.view_as(x) for _ in group.ranks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, model_sum(ctx.group, grads)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: the sum of the row-parallel partials (``model_sum``);
+    the backward hands each rank the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, group, *partials):
+        ctx.n = len(partials)
+        return model_sum(group, partials)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *([g] * ctx.n))
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every rank's block of a tensor split on ``dim``, concatenated in rank
+    order (the vocab-parallel logits); the backward gives each rank its
+    block of the gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, group, dim, *parts):
+        ctx.group, ctx.dim, ctx.width = group, dim, parts[0].shape[dim]
+        with _clocked("all-gather", "gather_from_model"):
+            out = torch.cat(group.every(parts, "gather_from_model"), dim)
+        _model_count(group, "all-gather", "gather_from_model", out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks = g.split(ctx.width, ctx.dim)
+        return (None, None, *(blocks[r] for r in ctx.group.ranks))
+
+
+def copy_to_model(group, x: torch.Tensor) -> List[torch.Tensor]:
+    """``x`` for each of this process's model ranks (``[x]`` when ``group``
+    is None); its gradient is the sum of theirs, in rank order."""
+    return [x] if group is None else list(_CopyToModel.apply(group, x))
+
+
+def reduce_from_model(group, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``model_sum`` of the ranks' partials, each rank's gradient the sum's
+    (the one partial when ``group`` is None)."""
+    return partials[0] if group is None else _ReduceFromModel.apply(group, *partials)
+
+
+def gather_from_model(group, parts: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
+    """The tensor whose blocks on ``dim`` the ranks' ``parts`` are."""
+    if group is None:
+        return parts[0]
+    return _GatherFromModel.apply(group, dim % parts[0].dim(), *parts)
+
+
+def gather_model_block(blocks: Sequence[torch.Tensor], sharding: Pt.NamedSharding, model: int,
+                       device=None) -> torch.Tensor:
+    """Model block ``model`` of a leaf from every rank's ``blocks`` (rank
+    order): the blocks of that model coordinate's ranks gathered over the
+    data axes only.  A block no data rank splits is its rank's own tensor."""
+    ranks = Pt.model_ranks(sharding.mesh, model)
+    sub = Pt.data_sharding(sharding)
+    dev = torch.device(device) if device is not None else sharding.mesh.devices[ranks[0]]
+    mine = [blocks[r] for r in ranks]
+    if _whole(sub, mine[0].dim()):
+        return mine[0] if mine[0].device == dev else mine[0].to(dev)
+    out = Pt.gather_leaf(mine, sub, dev, ranks=ranks)
+    _count("all-gather", "all_gather_data", _nbytes(out.shape, out.dtype))
+    return out
 
 
 # --- the process backend: one OS process per rank ------------------------------------
 
-# How each op of the process backend moves a CUDA tensor under each backend:
-# "device" hands the tensor to the process group where it lies.  A probe of
-# the card's torch (2.11, gloo, two ranks on cuda:0) ran all_gather,
-# all_to_all_single and all_reduce(MAX) on CUDA tensors; gloo lacks
-# only all_to_all's list form there, which this backend does not use, so no
-# op needs a host buffer.  An op missing here raises for a CUDA tensor.
-ROUTES = {(backend, op): "device" for backend in ("gloo", "nccl")
-          for op in ("all_gather", "all_to_all_single", "all_reduce")}
+# Each collective of the process backend: the ``torch.distributed`` op it
+# makes, and how that op moves a CUDA tensor under each backend ("device":
+# the tensor goes to the process group where it lies).  A probe of the
+# card's torch (2.11, gloo, two ranks on cuda:0) ran all_gather,
+# all_to_all_single and all_reduce(MAX) on CUDA tensors; gloo lacks only
+# all_to_all's list form there, which this backend does not use, so no op
+# needs a host buffer.  A collective missing here raises for a CUDA tensor.
+DIST_OPS = {"all_gather": "all_gather", "reduce_scatter_add": "all_to_all_single",
+            "max_over_ranks": "all_reduce", "gather_blocks": "all_gather",
+            "all_gather_counts": "all_gather", "all_gather_data": "all_gather",
+            "model_sum": "all_gather", "model_max": "all_reduce",
+            "gather_from_model": "all_gather"}
+ROUTES = {(backend, fn): (op, "device") for backend in ("gloo", "nccl")
+          for fn, op in DIST_OPS.items()}
 
 
 @contextlib.contextmanager
@@ -342,6 +516,18 @@ def _from_bytes(b: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return b.view(like.dtype).reshape(like.shape)
 
 
+def _add_in_order(owner: Optional[torch.Tensor], parts, like: torch.Tensor) -> torch.Tensor:
+    """``owner`` (None starts it) plus each of ``parts`` (the bytes of
+    tensors shaped as ``like``) in float32, in order."""
+    for part in parts:
+        part = _from_bytes(part, like)
+        if owner is None:
+            owner = part.to(torch.float32, copy=True, memory_format=torch.contiguous_format)
+        else:
+            owner.add_(part.to(torch.float32))
+    return owner
+
+
 class Process:
     """The process backend over ``mesh`` (a ``launch.mesh.ProcessMesh``):
     this rank's part of each collective.  Every (micro)batch must split over
@@ -361,22 +547,25 @@ class Process:
         self.n = math.prod(mesh.shape[a] for a in axes)
         # each data block's first rank: the one whose gradient counts
         self.reps = [self.block.index(k) for k in range(self.n)]
+        self.model = _ProcessModel(self)
 
-    def _op(self, op: str, t: torch.Tensor):
-        if t.is_cuda and ROUTES.get((self.mesh.backend, op)) != "device":
-            raise NotImplementedError(f"{op} has no route for CUDA tensors under "
+    def _op(self, fn: str, t: torch.Tensor):
+        """The ``torch.distributed`` op that collective ``fn`` makes on ``t``."""
+        op, route = ROUTES.get((self.mesh.backend, fn), (None, None))
+        if op is None or (t.is_cuda and route != "device"):
+            raise NotImplementedError(f"{fn} has no route for CUDA tensors under "
                                       f"{self.mesh.backend} (collectives.ROUTES)")
         return getattr(self.dist, op)
 
-    def _all_gather(self, t: torch.Tensor, group=None, n: Optional[int] = None):
+    def _all_gather(self, fn: str, t: torch.Tensor, group=None, n: Optional[int] = None):
         """Every rank's ``t`` (one shape and dtype on every rank), in rank
-        order."""
+        order, for collective ``fn``."""
         n = self.mesh.size if n is None else n
         if n == 1:
             return [t]
         b = _bytes(t)
         out = [torch.empty_like(b) for _ in range(n)]
-        self._op("all_gather", b)(out, b, group=group)
+        self._op(fn, b)(out, b, group=group)
         return [_from_bytes(o, t) for o in out]
 
     def all_gather(self, block: torch.Tensor, sharding: Pt.NamedSharding) -> torch.Tensor:
@@ -385,7 +574,7 @@ class Process:
         if _whole(sharding, block.dim()):
             return block
         with _clocked("all-gather", "all_gather"):
-            out = Pt.gather_leaf(self._all_gather(block), sharding, self.device)
+            out = Pt.gather_leaf(self._all_gather("all_gather", block), sharding, self.device)
         _count("all-gather", "all_gather", _nbytes(out.shape, out.dtype))
         return out
 
@@ -415,17 +604,53 @@ class Process:
             src = torch.cat(send) if send else mine.new_empty(0, dtype=torch.uint8)
             del send
             out = torch.empty(nb * self.n, dtype=torch.uint8, device=contribution.device)
-            self._op("all_to_all_single", out)(
+            self._op("reduce_scatter_add", out)(
                 out, src, [nb if r in self.reps else 0 for r in range(size)],
                 [nb] * size if me in self.reps else [0] * size)
             del src
-            for part in out.split(nb):          # one per data block, in block order
-                part = _from_bytes(part, mine)
-                if owner is None:
-                    owner = part.to(torch.float32, copy=True, memory_format=torch.contiguous_format)
-                else:
-                    owner.add_(part.to(torch.float32))
+            owner = _add_in_order(owner, out.split(nb), mine)   # one per data block, in order
         return owner
+
+    def all_gather_data(self, block: torch.Tensor, sharding: Pt.NamedSharding) -> torch.Tensor:
+        """This rank's model block of the leaf, from its data subgroup's
+        ``block`` (``gather_model_block``'s process part): gathered over the
+        data axes only, never over the model axis."""
+        ranks = Pt.model_ranks(self.mesh, self.model.rank)
+        sub = Pt.data_sharding(sharding)
+        if _whole(sub, block.dim()):
+            return block
+        with _clocked("all-gather", "all_gather_data"):
+            every = self._all_gather("all_gather_data", block, self.batch_group, self.n)
+            out = Pt.gather_leaf(every, sub, self.device, ranks=ranks)
+        _count("all-gather", "all_gather_data", _nbytes(out.shape, out.dtype))
+        return out
+
+    def reduce_scatter_data(self, owner: Optional[torch.Tensor], contribution: torch.Tensor,
+                            sharding: Pt.NamedSharding, *, sole: bool = False) -> torch.Tensor:
+        """``reduce_scatter_add`` of a model-split leaf: ``contribution`` is
+        this rank's gradient of its model block, summed in float32 in data
+        rank order over the data subgroup of its model coordinate into this
+        rank's running sum of its own block (``owner``)."""
+        ranks = Pt.model_ranks(self.mesh, self.model.rank)
+        sub = Pt.data_sharding(sharding)
+
+        def block(r):
+            return contribution[Pt._slices(contribution.shape,
+                                           Pt.block_index(sub, r, contribution.dim()))]
+
+        mine = block(self.mesh.rank)
+        if sole:
+            return mine
+        _count("reduce-scatter", "reduce_scatter_add", _nbytes(mine.shape, torch.float32))
+        nb = mine.numel() * mine.element_size()
+        with _clocked("reduce-scatter", "reduce_scatter_add"):
+            if self.n == 1:
+                return _add_in_order(owner, [_bytes(mine)], mine)
+            src = torch.cat([_bytes(block(r)) for r in ranks])
+            out = torch.empty(nb * self.n, dtype=torch.uint8, device=contribution.device)
+            self._op("reduce_scatter_add", out)(out, src, group=self.batch_group)
+            del src
+            return _add_in_order(owner, out.split(nb), mine)    # one per data rank, in order
 
     def max_over_ranks(self, tree):
         """The elementwise max of every rank's ``tree`` (nested dicts of
@@ -434,7 +659,7 @@ class Process:
         for _, t in Pt.tree_paths(tree):
             out = t.clone(memory_format=torch.contiguous_format)
             with _clocked("all-reduce", "max_over_ranks"):
-                self._op("all_reduce", out)(out, op=self.dist.ReduceOp.MAX)
+                self._op("max_over_ranks", out)(out, op=self.dist.ReduceOp.MAX)
             _count("all-reduce", "max_over_ranks", _nbytes(t.shape, t.dtype))
             leaves.append(out)
         return Pt.tree_rebuild(tree, leaves)
@@ -442,7 +667,7 @@ class Process:
     def gather_blocks(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Each data block's ``t`` (a table of one shape on every rank), in
         block order, from the block's first rank: the step's metrics."""
-        every = self._all_gather(t)
+        every = self._all_gather("gather_blocks", t)
         return [every[r] for r in self.reps]
 
     def gather(self, rank: int, call: int, counts: torch.Tensor) -> List[torch.Tensor]:
@@ -451,10 +676,34 @@ class Process:
         subgroup's rank order)."""
         del rank, call              # the group's calls meet in the order made
         with _clocked("all-gather", "all_gather_counts"):
-            return self._all_gather(counts, self.batch_group, self.n)
+            return self._all_gather("all_gather_counts", counts, self.batch_group, self.n)
 
     def barrier(self):
         if self.mesh.backend == "nccl":
             self.dist.barrier(device_ids=[self.device.index])
         else:
             self.dist.barrier()
+
+
+class _ProcessModel:
+    """A ``Process``'s model group: this rank's model coordinate alone
+    (``ranks``), its peers over the model axis's subgroup."""
+
+    def __init__(self, proc: Process):
+        mesh = proc.mesh
+        self.proc = proc
+        self.size = mesh.shape.get("model", 1)
+        self.rank = mesh.coords(mesh.rank).get("model", 0)
+        self.ranks = (self.rank,)
+        self.group = mesh.groups.get(("model",))
+
+    def every(self, parts: Sequence[torch.Tensor], fn: str) -> List[torch.Tensor]:
+        (t,) = parts
+        return self.proc._all_gather(fn, t, self.group, self.size)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        out = t.clone(memory_format=torch.contiguous_format)
+        self.proc._op("model_max", out)(out, op=self.proc.dist.ReduceOp.MAX, group=self.group)
+        return out

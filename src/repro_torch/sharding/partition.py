@@ -18,9 +18,17 @@ cuts a tree into one tree per rank (rank order, ``mesh.coords``) and
 ``gather_tree`` puts it back together.  The paged KV pool of the serving
 engine splits over its KV heads only (``kv_pool_pspec``).
 
-A split leaf's "model" blocks are storage, not Megatron compute (each data
-rank gathers a leaf before using it, whether one process drives every rank
-or each rank is a process of its own), so ``constrain`` places nothing.
+How the model axis computes is the train step's choice
+(``train/steps.py::jit_train_step``'s ``model_compute``).  Under "gather" a
+split leaf's "model" blocks are storage: each data rank gathers a leaf
+whole before using it, and its model ranks compute the same pass.  Under
+"split" (Megatron tensor parallelism, as the reference's model axis) a
+model-split leaf is gathered over the data axes only (``data_sharding``,
+``model_ranks``), each model rank computes its own split of each
+projection, and the activations' collectives meet in the model group that
+``model_split`` sets for the forward (``models/layers.py``).  ``constrain``
+places nothing: an activation is split where the forward holds each rank's
+part (a model group's context), whole elsewhere.
 """
 from __future__ import annotations
 
@@ -312,6 +320,37 @@ def block_of(v: torch.Tensor, sharding: NamedSharding, rank: int) -> torch.Tenso
         sharding.mesh.devices[rank], copy=True, memory_format=torch.contiguous_format)
 
 
+def model_dim(sharding: NamedSharding) -> Optional[int]:
+    """The dim that ``sharding`` splits over the model axis, or None (a leaf
+    every model rank holds whole)."""
+    for i, ax in enumerate(sharding.spec):
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if "model" in axes:
+            if len(axes) > 1:
+                raise ValueError(f"a dim split over {axes}: the model axis shares no dim")
+            return i
+    return None
+
+
+def data_sharding(sharding: NamedSharding) -> NamedSharding:
+    """``sharding`` without its model axis: how one model block of a leaf
+    splits over the data ranks of that model coordinate."""
+    return NamedSharding(sharding.mesh, tuple(None if ax == "model" else ax
+                                              for ax in sharding.spec))
+
+
+def model_ranks(mesh, model: int) -> List[int]:
+    """The ranks at model coordinate ``model``, in rank order (data order)."""
+    return [r for r in range(mesh.size) if mesh.coords(r).get("model", 0) == model]
+
+
+def model_block(v: torch.Tensor, sharding: NamedSharding, model: int) -> torch.Tensor:
+    """Model block ``model`` of the whole leaf ``v`` (a view)."""
+    dim, n = model_dim(sharding), sharding.mesh.shape["model"]
+    w = v.shape[dim] // n
+    return v.narrow(dim, model * w, w)
+
+
 def split_leaf(v: torch.Tensor, sharding: NamedSharding) -> List[torch.Tensor]:
     """Rank r's block of ``v``, a fresh contiguous tensor on its device, for
     each rank."""
@@ -319,15 +358,17 @@ def split_leaf(v: torch.Tensor, sharding: NamedSharding) -> List[torch.Tensor]:
 
 
 def gather_leaf(blocks: Sequence[torch.Tensor], sharding: NamedSharding,
-                device=None) -> torch.Tensor:
+                device=None, ranks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The leaf the ranks' ``blocks`` split, on ``device`` (default rank 0's):
-    each distinct block taken from the first rank that holds it."""
+    each distinct block taken from the first rank that holds it.  ``ranks``:
+    the ranks whose blocks these are (default every rank, in rank order)."""
     mesh = sharding.mesh
-    if len(blocks) != mesh.size:
-        raise ValueError(f"{len(blocks)} shards for a {mesh.size}-rank mesh")
+    ranks = range(mesh.size) if ranks is None else ranks
+    if len(blocks) != len(ranks):
+        raise ValueError(f"{len(blocks)} shards for {len(ranks)} ranks")
     dev = torch.device(device) if device is not None else mesh.devices[0]
     b0 = blocks[0]
-    index = [block_index(sharding, r, b0.dim()) for r in range(mesh.size)]
+    index = [block_index(sharding, r, b0.dim()) for r in ranks]
     full = tuple(d * n for d, (_, n) in zip(b0.shape, index[0]))
     out = torch.empty(full, dtype=b0.dtype, device=dev)
     seen = set()
@@ -434,9 +475,36 @@ def get_mesh_ctx():
     return getattr(_CTX, "mesh", None)
 
 
+def model_split(group):
+    """While open, the calling thread's forward computes each model rank's
+    split in ``group`` (``collectives.ModelRanks`` or a ``Process``'s model
+    group; None: no group)."""
+    return _ModelSplit(group)
+
+
+class _ModelSplit:
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        self.old = model_group()
+        _CTX.model = self.group
+        return self.group
+
+    def __exit__(self, *exc):
+        _CTX.model = self.old
+
+
+def model_group():
+    """The model group of the calling thread's forward, or None."""
+    return getattr(_CTX, "model", None)
+
+
 def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
-    """``x`` itself: the reference's sharding constraint places activations,
-    which one process driving every rank does not split.  The spec is still
+    """``x`` itself: the reference's sharding constraint places activations.
+    Under a model group (``model_split``) the forward already holds each
+    rank's part where the reference's constraint splits over "model";
+    elsewhere one process computes the whole activation.  The spec is still
     fitted to ``x`` on the context's mesh, so a spec naming an axis the mesh
     lacks fails here as there."""
     mesh = get_mesh_ctx()

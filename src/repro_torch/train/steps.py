@@ -246,6 +246,34 @@ def _by_path(tree) -> Dict[str, Any]:
     return dict(zip(paths, T.tree_leaves(tree), strict=True))
 
 
+def _at(tree, path: str):
+    """The node of nested dicts at ``path`` (a model-split leaf's dict of
+    model blocks, or a tensor)."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def check_split(cfg: ModelConfig, mesh):
+    """Raises ``ValueError`` where ``model_compute="split"`` cannot run
+    ``cfg`` on ``mesh``: the expert FFN, Mamba, xLSTM and the frontends take
+    the reference's other model rules (ROADMAP item 5c), and a head count or
+    d_ff the model axis does not divide would leave its leaf whole (the
+    reference's ``_fit_spec``) under a split computation."""
+    what = [w for w, bad in (("experts", cfg.n_experts), ("a frontend", cfg.frontend != "none"),
+                             ("Mamba or xLSTM mixers", set(cfg.pattern) != {"a"}),
+                             ("several LM heads", cfg.n_lm_heads > 1)) if bad]
+    if what:
+        raise ValueError(f"model_compute='split' covers the dense attention archs and BERT; "
+                         f"{cfg.name} has {', '.join(what)} (ROADMAP item 5c: the expert-FFN, "
+                         "state-dim and wide-dim rules are still to split)")
+    m = mesh.shape.get("model", 1)
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)):
+        if n % m:
+            raise ValueError(f"model_compute='split' needs {name} = {n} to divide by the model "
+                             f"axis of {m}")
+
+
 def _any_zero(tree) -> bool:
     return any(bool((t == 0).any()) for t in T.tree_leaves(tree))
 
@@ -336,14 +364,15 @@ def init_rank_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, shardings: Tra
                       step=torch.zeros((), dtype=torch.int32, device=mesh.device))
 
 
-def _loss_and_grads(cfg, bert, params, amax, rows):
-    if bert:
-        return value_and_grad(lambda p: bert_loss(cfg, p, amax, rows), params)
-    return lm_loss_and_grads(cfg, params, amax, rows)
+def _loss_and_grads(cfg, bert, params, amax, rows, model=None):
+    with Pt.model_split(model):
+        if bert:
+            return value_and_grad(lambda p: bert_loss(cfg, p, amax, rows), params)
+        return lm_loss_and_grads(cfg, params, amax, rows)
 
 
-def _observed(cfg, bert, params, amax, rows):
-    with torch.no_grad():
+def _observed(cfg, bert, params, amax, rows, model=None):
+    with torch.no_grad(), Pt.model_split(model):
         _, aux = (bert_loss if bert else lm_loss)(cfg, params, amax, rows)
     return aux["obs"]
 
@@ -385,7 +414,7 @@ def _mesh_metrics(per_micro, n_ranks: int, accum: int, bert: bool, dev):
 
 def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_example, *,
                    fsdp: bool = True, donate: bool = True, bert: bool = False,
-                   accum_steps: int = 1):
+                   accum_steps: int = 1, model_compute: str = "gather"):
     """The train step over ``mesh``: returns (step, state_shardings,
     batch_shardings) as the reference's.  On a ``Mesh`` (one process drives
     every rank), ``step(shards, batch) -> (shards, metrics)`` takes the
@@ -423,7 +452,29 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     ``donate=False`` leaves every given tensor as it was.  ``bert=True``
     builds ``make_bert_train_step``'s step (no accumulation, as the
     reference's).
+
+    ``model_compute`` says what the model axis does.  "gather" (the
+    default): a split leaf is gathered whole and the model ranks of a data
+    rank compute the same pass, which is the unsharded step's (bit for bit
+    on one data rank).  "split": the reference's model axis, Megatron's
+    tensor parallelism (``models/layers.py``): a model-split leaf is
+    gathered over the data axes only, for its FSDP dim, into its model
+    blocks, never over the model axis; each model rank computes its own
+    heads, MLP columns and vocab block, and the ranks meet in the
+    activations' collectives (``collectives.model_sum``, ``model_max``,
+    ``gather_from_model``).  A model-split leaf's gradient is its model
+    block's, summed over the data ranks of its model coordinate; a
+    replicated leaf's is the same bits on every model rank (each holds the
+    same ``model_sum``), so one contribution a data rank counts, as under
+    "gather".  On a ``Mesh`` each data rank's pass runs every model rank's
+    part in one process (``collectives.ModelRanks``), the process step's
+    bit oracle; on a model axis of 1 "split" gives "gather"'s bits.  It
+    covers the dense attention archs and BERT (``check_split``).
     """
+    if model_compute not in ("gather", "split"):
+        raise ValueError(f"model_compute must be 'gather' or 'split' (got {model_compute!r})")
+    if model_compute == "split":
+        check_split(cfg, mesh)
     shape = state_shape(cfg, opt_cfg, bert)
     state_sh = state_shardings(mesh, shape, fsdp)
     example = {k: tuple(v.shape) for k, v in batch_example.items()}
@@ -436,10 +487,14 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     meet = bool(cfg.n_experts) and not bert and len(ranks) > 1
     p_sh, m_sh, v_sh = (_by_path(t) for t in (state_sh.params, state_sh.opt["m"],
                                               state_sh.opt["v"]))
+    # the params that "split" holds as model blocks
+    split = {p for p, sh in p_sh.items()
+             if model_compute == "split" and Pt.model_dim(sh) is not None}
     if isinstance(mesh, ProcessMesh):
         step = _process_step(cfg, mesh, opt_cfg, example, ranks, meet, (p_sh, m_sh, v_sh),
-                             donate=donate, bert=bert, accum=accum)
+                             split, donate=donate, bert=bert, accum=accum)
         return step, state_sh, batch_sh
+    model = C.ModelRanks(mesh.shape.get("model", 1)) if model_compute == "split" else None
     dev0 = mesh.devices[0]
     # the whole reduced gradient of a leaf takes the room its owners' blocks
     # took when every rank is on one device, so the norm's pass keeps it for
@@ -457,10 +512,16 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
         params = [_by_path(s.params) for s in shards]
         gathered = {}
 
+        def leaf_on(p, dev):
+            blocks = [pr[p] for pr in params]
+            if p in split:
+                return {str(m): C.gather_model_block(blocks, p_sh[p], m, dev)
+                        for m in model.ranks}
+            return C.all_gather(blocks, p_sh[p], dev)
+
         def params_on(dev):
             if dev not in gathered:
-                gathered[dev] = T.tree_unflatten(r0.params, [
-                    C.all_gather([pr[p] for pr in params], p_sh[p], dev) for p in paths])
+                gathered[dev] = T.tree_unflatten(r0.params, [leaf_on(p, dev) for p in paths])
             return gathered[dev]
 
         n = len(ranks) * accum
@@ -475,21 +536,22 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
                 dev = ranks[0][1]
                 amax = _filled(amax, _observed(cfg, bert, params_on(dev),
                                                T.tree_map(lambda t, d=dev: t.to(d), amax),
-                                               {k: v.to(dev) for k, v in mb.items()}))
+                                               {k: v.to(dev) for k, v in mb.items()}, model))
             passes = [functools.partial(
                 _loss_and_grads, cfg, bert, params_on(dev),
                 T.tree_map(lambda t, d=dev: t.to(d), amax),
-                {k: v[rows].to(dev) for k, v in mb.items()}) for rows, dev in ranks]
+                {k: v[rows].to(dev) for k, v in mb.items()}, model) for rows, dev in ranks]
             per_micro.append([])
             for g_i, (loss, aux, grads) in enumerate(
                     _meeting(passes) if meet else (f() for f in passes)):
                 per_micro[-1].append((loss, {k: aux[k] for k in _SCALARS[bert]}))
                 obs_by_rank[g_i].append(aux["obs"])
-                g = _by_path(grads)
+                g = {p: _at(grads, p) for p in paths}
                 del grads, aux
                 for p in paths:
-                    acc[p] = C.reduce_scatter_add(acc.get(p), g[p], p_sh[p], sole=n == 1)
-                del g
+                    if p in split:      # the model blocks' gradients: the leaf's, placed
+                        g[p] = torch.cat(list(g[p].values()), Pt.model_dim(p_sh[p]))
+                    acc[p] = C.reduce_scatter_add(acc.get(p), g.pop(p), p_sh[p], sole=n == 1)
         gathered.clear()
         if n > 1:
             for blocks in acc.values():
@@ -545,11 +607,19 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     return step, state_sh, batch_sh
 
 
-def _process_step(cfg, mesh, opt_cfg, example, ranks, meet, shardings, *, donate, bert, accum):
+def _process_step(cfg, mesh, opt_cfg, example, ranks, meet, shardings, split, *, donate, bert,
+                  accum):
     """``jit_train_step``'s step for this rank of a ``ProcessMesh``: the same
     float operations in the same order as the one-process step, each on
-    this rank's part (``collectives.Process``)."""
+    this rank's part (``collectives.Process``).  Under "split" (``split``:
+    the model-split params), where the caller sets ``step.replicas`` to a
+    list, each step appends the ``launch.ranks.digest`` of this rank's
+    gradient of each replicated leaf (its last microbatch's), which every
+    model rank must share."""
+    from repro_torch.launch.ranks import digest
+
     P = C.Process(mesh)
+    model = P.model if split else None
     if len(ranks) != P.n:
         raise ValueError(f"a step on a process mesh needs each microbatch to split over its "
                          f"{P.n} data ranks (it splits into {len(ranks)})")
@@ -585,7 +655,10 @@ def _process_step(cfg, mesh, opt_cfg, example, ranks, meet, shardings, *, donate
             raise ValueError(f"a batch of {shapes} for a step built for {example}")
         own = _by_path(shard.params)
         paths = list(own)
-        params = T.tree_unflatten(shard.params, [P.all_gather(own[p], p_sh[p]) for p in paths])
+        key = str(P.model.rank)
+        params = T.tree_unflatten(shard.params, [
+            {key: P.all_gather_data(own[p], p_sh[p])} if p in split
+            else P.all_gather(own[p], p_sh[p]) for p in paths])
         fill = len(ranks) > 1 and _any_zero(shard.amax)
         acc, table, obs_micro = {}, [], []
         for i in range(accum):
@@ -593,21 +666,27 @@ def _process_step(cfg, mesh, opt_cfg, example, ranks, meet, shardings, *, donate
             amax = shard.amax
             if fill:        # every rank fills from the global microbatch's forward
                 amax = _filled(amax, _observed(cfg, bert, params, amax,
-                                               {k: v.to(dev) for k, v in mb.items()}))
+                                               {k: v.to(dev) for k, v in mb.items()}, model))
             rows = {k: v[mine].to(dev) for k, v in mb.items()}
             with C.data_rank(P, P.block[me]) if meet else contextlib.nullcontext():
-                loss, aux, grads = _loss_and_grads(cfg, bert, params, amax, rows)
+                loss, aux, grads = _loss_and_grads(cfg, bert, params, amax, rows, model)
             vals = [loss, *(aux[k] for k in names)]
             if any(t.dtype != torch.float32 for t in vals):
                 raise TypeError(f"the step's metrics are {[t.dtype for t in vals]}, not float32")
             table.append(torch.stack(vals))
             obs_micro.append(aux["obs"])
-            g = _by_path(grads)
+            g = {p: _at(grads, p) for p in paths}
             del grads, aux
             if i == accum - 1:
                 del params
+                if split and step.replicas is not None:
+                    step.replicas.append(digest({p: g[p] for p in paths if p not in split}))
             for p in paths:
-                acc[p] = P.reduce_scatter_add(acc.get(p), g.pop(p), p_sh[p], sole=n == 1)
+                if p in split:
+                    acc[p] = P.reduce_scatter_data(acc.get(p), g.pop(p)[key], p_sh[p],
+                                                   sole=n == 1)
+                else:
+                    acc[p] = P.reduce_scatter_add(acc.get(p), g.pop(p), p_sh[p], sole=n == 1)
         if n > 1:
             for t in acc.values():
                 t.div_(n)
@@ -651,4 +730,5 @@ def _process_step(cfg, mesh, opt_cfg, example, ranks, meet, shardings, *, donate
                           amax=ema_tree_update(shard.amax, obs, 0.99),
                           step=shard.step + 1), {**metrics, "grad_norm": gn}
 
+    step.replicas = None
     return step

@@ -39,7 +39,7 @@ class TrainerConfig:
 
 def train(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: AdamWConfig, tcfg: TrainerConfig,
           *, mesh: Optional[Mesh] = None, fsdp: bool = True, device="cuda",
-          log_fn: Callable[[int, Dict], None] | None = None):
+          log_fn: Callable[[int, Dict], None] | None = None, model_compute: str = "gather"):
     """Train ``cfg`` from ``tcfg.seed`` (or from the newest checkpoint in
     ``tcfg.ckpt_dir``, whatever mesh wrote it, resuming at its data step) to
     ``tcfg.steps``.  With ``mesh`` the state lives split over its ranks per
@@ -47,7 +47,9 @@ def train(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: AdamWConfig, tcfg: Trai
     (the ranks' states in rank order, the metrics of each step this call
     ran); on a ``ProcessMesh`` every rank calls ``train`` and gets (its own
     state, the metrics); without a mesh it trains on ``device`` alone, a
-    (1, 1) mesh, and returns (the state, the metrics)."""
+    (1, 1) mesh, and returns (the state, the metrics).  ``model_compute`` as
+    ``jit_train_step``'s: a checkpoint holds the same whole leaves under
+    either."""
     run_mesh = mesh if mesh is not None else Mesh(np.array([[torch.device(device)]],
                                                            dtype=object), ("data", "model"))
     if any(d.type == "cuda" for d in run_mesh.devices) and not torch.cuda.is_available():
@@ -61,7 +63,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: AdamWConfig, tcfg: Trai
     Pt.set_mesh_ctx(run_mesh)
     try:
         step_fn, state_sh, _ = St.jit_train_step(cfg, run_mesh, opt_cfg, example, fsdp=fsdp,
-                                                 accum_steps=tcfg.accum_steps)
+                                                 accum_steps=tcfg.accum_steps,
+                                                 model_compute=model_compute)
         start_step, shards = 0, None
         last = ckpt.latest_step(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
         if last is not None:
