@@ -213,8 +213,9 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
 9. ``[mesh]`` (``phase_mesh``): training over a (data, model) mesh
    (``train/steps.py::jit_train_step``), its ranks named on the one card.
    BERT-base at full size under W4A8 on ``[train]``'s (32, 128) batches:
-   3 steps on a (1, 1) mesh equal 3 steps of ``make_bert_train_step``,
-   every leaf bit for bit; 3 steps on (4, 1) over ``(cuda:0,) * 4`` with
+   MESH_BERT_STEPS (2; 3 before ``mesh_split_archs``) steps on a
+   (1, 1) mesh equal as many of ``make_bert_train_step``, every leaf bit
+   for bit; as many on (4, 1) over ``(cuda:0,) * 4`` with
    FSDP against ``blocked_step``, the same steps on the same 8-row blocks
    with no sharding (each loss and grad norm within ``MESH_RTOL``, step 1's
    gradient and the final moments within ``MESH_RTOL`` of each leaf's
@@ -233,7 +234,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    second and the first grad norm within ``MESH_TRAIN_RTOL``), ms per step
    beside ``[train]``'s, the collectives' device time, the peak
    memory and a profiled step.  qwen2-moe-a2.7b at its published widths
-   (60 experts top-4, 4 shared, bf16, remat) and 2 of 24 layers on (4, 1)
+   (60 experts top-4, 4 shared, bf16, remat) and MESH_MOE_DEPTH (1; 2
+   before ``mesh_split_archs``) of 24 layers on (4, 1)
    with FSDP, its ranks routing each MoE layer over the whole batch
    through the counts exchange: 2 steps at (4, 1,024) against
    ``blocked_step`` (whose four blocks route together; each loss, grad
@@ -251,9 +253,18 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    yi-6b's ``[train]``) within MESH_RTOL, or else the split island
    printed (``split_island``: the first activation site whose input
    differs between the whole and the split forward).  Then
+   ``mesh_split_archs``: qwen2-moe-a2.7b (MESH_SPLIT_MOE_DEPTH of 24 layers,
+   published widths, its experts' moe_d_ff split over the model ranks) at
+   (4, 1,024) and jamba-1.5-large (MESH_SPLIT_JAMBA_DEPTH of 72 layers, its
+   Mamba slot at published widths with ``n_experts=0`` and a dense SwiGLU
+   FFN, its d_in split) at MESH_SPLIT_JAMBA_SHAPE under "split" on
+   MESH_SPLIT in this process, MESH_SPLIT_ARCH_STEPS steps each: losses,
+   grad norms, ms a step, the peak, the split island.  Then
    (``mesh_processes``, one start) BERT-base's (4, 1) run, qwen2-moe's
    (4, 1) run (its first MESH_PROC_MOE_STEPS step; 2 before ``mesh_split``)
-   and the two "split" runs again on MESH_PROCS processes, one a rank,
+   and the four "split" runs again (yi-6b's first MESH_PROC_YI_STEPS step, 2
+   before ``mesh_split_archs``; the two archs' first step) on MESH_PROCS
+   processes, one a rank,
    sharing the card over gloo (``launch/ranks.py``; the parent frees the
    card first): every rank's params, moments, amax and steps
    (``ranks.digest``) and every metric equal to the one-process runs' bit
@@ -261,7 +272,8 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    "split" every replicated leaf's gradient the same bits on every rank;
    each rank's tally of collectives equal to the reckoning from the specs
    (``reckon_step_collectives``, ``reckon_split_collectives``: the model
-   group's sums, maxima and logits gather too); rank 0's BERT-base
+   group's sums, maxima and all-to-alls too; no rank gathers the logits);
+   rank 0's BERT-base
    checkpoints ("gather" and "split") restored equal to the one-process
    final states, folded and served at (1, 128) through rows 1, 2 and 5,
    each equal to its plain version; printed: each rank's own peak against
@@ -4073,7 +4085,7 @@ def phase_sst2(torch):
 
 
 MESH_RANKS = 4
-MESH_BERT_STEPS = 3
+MESH_BERT_STEPS = 2        # 3 before mesh_split_archs: cut to keep the script in its time
 MESH_YI_STEPS = 2
 # bounds written before [mesh] first ran on the card (PERF.md §6)
 MESH_LOSS_RTOL = 1e-3      # yi-6b's first (4, 1) loss against [train]'s unsharded one
@@ -4403,8 +4415,9 @@ def mesh_bert(torch, smi, cfg=None, dev="cuda", shape=TRAIN_BERT_SHAPE):
         io_s = time.perf_counter() - t0
     saved_differ = leaves_differ(torch, Pt.gather_tree(restored, sh41), after2[0])
     in_memory = Pt.split_tree(after2[0], sh41)
-    a, ma, _ = timed_step(torch, step41, restored, batches[2])
-    c, mc, _ = timed_step(torch, step41, in_memory, batches[2])
+    third = SST.to_device(SST.make_batch(cfg.vocab_size, 2, b, s), dev)
+    a, ma, _ = timed_step(torch, step41, restored, third)
+    c, mc, _ = timed_step(torch, step41, in_memory, third)
     differ = [p for r in range(MESH_RANKS) for p in leaves_differ(torch, a[r], c[r])]
     print(f"  [{smi}] bert-base elastic resize (1, 1) -> checkpoint -> (4, 1): save + restore "
           f"{io_s:.2f} s, {len(saved_differ)} restored leaves differ from the saved ones; step "
@@ -4534,7 +4547,7 @@ def mesh_yi6b(torch, smi, trained, cfg=None, dev="cuda", shape=TRAIN_YI_SHAPE):
             "spans": spans}
 
 
-MESH_MOE_DEPTH = 2        # of qwen2-moe-a2.7b's 24 layers
+MESH_MOE_DEPTH = 1        # of qwen2-moe-a2.7b's 24 layers (2 before mesh_split_archs)
 MESH_MOE_STEPS = 2
 
 
@@ -4774,6 +4787,7 @@ def reckon_step_collectives(state, shardings, n_data: int, moe_layers: int = 0,
 
 
 MESH_PROC_MOE_STEPS = 1  # qwen2-moe's steps on the processes: 2 before mesh_split, cut to pay
+MESH_PROC_YI_STEPS = 1   # yi-6b's "split" steps on the processes: 2 before mesh_split_archs
 MESH_SPLIT = (1, MESH_PROCS)    # mesh_split's mesh: every rank a model rank
 
 
@@ -4785,22 +4799,32 @@ def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) ->
     model-split one into its model block over the data axes (nothing on one
     data rank), every split leaf's gradient gathered whole for the norm;
     each amax leaf maxed; and the model group's collectives of the pass.
-    A layer's forward sums the row-parallel ``wo`` and down projections
-    (twice with remat: the recomputation sums again); its backward sums
-    the gradients of the column-parallel inputs (the attention's and the
-    MLP's, one each, and qk-norm's gammas); the vocab-parallel embedding
-    sums its lookups, the LM head gathers its logits and sums its input's
-    gradient; every activation site of a split tensor and every per-tensor
-    weight max of a split weight is maxed (twice with remat).  ``rows``:
-    (B, S) of the rank's batch."""
+    Its forward: the vocab-parallel embedding sums its lookups; per layer
+    (twice with remat: the recomputation meets again) the attention sums
+    its row-parallel ``wo`` and maxes 8 activation sites and 4 per-tensor
+    weight maxima; a Mamba mixer sums ``w_x``'s (dt_r, B, C) and ``w_out``,
+    re-blocks [x | z] (``model_exchange``, an all-to-all) and maxes 3 and
+    3; a dense MLP sums its down projection and maxes 4 and 3 (SwiGLU) or
+    3 and 2 (GELU); a MoE layer sums the routed experts' combined float32
+    (T, d) partials and the shared experts' and maxes 3 and 3 an expert
+    group; an LM's vocab-parallel cross-entropy maxes its rows and sums two
+    float32 rows (no rank gathers the logits).  Its backward sums the
+    gradient of each replicated input of column-parallel products (the
+    attention's, the MLP's, the Mamba's and its (dt_r, B, C), the MoE's
+    tokens and combine weights, qk-norm's gammas, the LM head's input) and
+    re-blocks each Mamba's [x | z] gradient.  ``rows``: (B, S) of the
+    rank's batch."""
+    from repro_torch.models import mamba as Mb
+    from repro_torch.models import transformer as T
     from repro_torch.sharding import partition as Pt
 
     out = {}
 
     def add(key, nbytes, times=1):
-        c = out.setdefault(key, [0, 0])
-        c[0] += times
-        c[1] += nbytes * times
+        if times:
+            c = out.setdefault(key, [0, 0])
+            c[0] += times
+            c[1] += nbytes * times
 
     split_tokens = split_head = False
     for (path, v), (_, sh) in zip(Pt.tree_paths(state.params, sort_keys=True),
@@ -4808,7 +4832,7 @@ def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) ->
         md = Pt.model_dim(sh)
         if path.endswith("embed/tokens"):
             split_tokens = md is not None
-        if path == "lm_head":
+        if path == "lm_head" or (cfg.tied_embeddings and path == "embed/tokens"):
             split_head = md is not None
         if any(n > 1 for _, n in Pt.block_index(sh, 0, v.dim())):
             if md is None:
@@ -4816,21 +4840,42 @@ def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) ->
             add(("all-gather", "all_gather"), v.numel() * v.element_size())     # one data rank
     for _, a in Pt.tree_paths(state.amax):
         add(("all-reduce", "max_over_ranks"), a.numel() * a.element_size())
+    m = MESH_SPLIT[1]
     es = torch_dtype_size(cfg.dtype)
     b, s = rows
-    act, times = b * s * cfg.d_model * es, 2 if cfg.remat else 1
-    swiglu = cfg.act == "swiglu"
-    add(("all-reduce", "model_sum"), act, cfg.n_layers * (2 * times + 2))
-    if cfg.qk_norm:
-        add(("all-reduce", "model_sum"), cfg.hd * es, 2 * cfg.n_layers)
-    if split_tokens:
-        add(("all-reduce", "model_sum"), act)
+    act, t, fwd = b * s * cfg.d_model * es, b * s, 2 if cfg.remat else 1
+    d_in, dt_rank = Mb.mamba_dims(cfg)
+    add(("all-reduce", "model_sum"), act, split_tokens)
+    for mixer, ffn in T.slot_kinds(cfg) * cfg.n_reps:
+        if mixer == "attn":
+            add(("all-reduce", "model_sum"), act, fwd + 1)
+            add(("all-reduce", "model_sum"), cfg.hd * es, 2 * cfg.qk_norm)
+            add(("all-reduce", "model_max"), 4, 8 * fwd)
+            add(("all-reduce", "model_max"), es, 4 * fwd)
+        else:
+            add(("all-reduce", "model_sum"), b * s * (dt_rank + 2 * cfg.mamba_d_state) * es,
+                fwd + 1)
+            add(("all-reduce", "model_sum"), act, fwd + 1)
+            add(("all-to-all", "model_exchange"), b * s * 2 * d_in // m * es, fwd + 1)
+            add(("all-reduce", "model_max"), 4, 3 * fwd)
+            add(("all-reduce", "model_max"), es, 3 * fwd)
+        if ffn == "dense":
+            swiglu = cfg.act == "swiglu"
+            add(("all-reduce", "model_sum"), act, fwd + 1)
+            add(("all-reduce", "model_max"), 4, (4 if swiglu else 3) * fwd)
+            add(("all-reduce", "model_max"), es, (3 if swiglu else 2) * fwd)
+        elif ffn == "moe":
+            groups = 1 + bool(cfg.n_shared_experts)
+            add(("all-reduce", "model_sum"), t * cfg.d_model * 4, fwd)
+            add(("all-reduce", "model_sum"), act, fwd * bool(cfg.n_shared_experts))
+            add(("all-reduce", "model_sum"), act)
+            add(("all-reduce", "model_sum"), cfg.top_k * t * 4)
+            add(("all-reduce", "model_max"), 4, 3 * groups * fwd)
+            add(("all-reduce", "model_max"), es, 3 * groups * fwd)
     if split_head and not bert:
         add(("all-reduce", "model_sum"), act)
-        add(("all-gather", "gather_from_model"), b * s * cfg.vocab_size * es)
-    # the sites' maxima are float32; a per-tensor weight max is in the weight's dtype
-    add(("all-reduce", "model_max"), 4, cfg.n_layers * (12 if swiglu else 11) * times)
-    add(("all-reduce", "model_max"), es, cfg.n_layers * (7 if swiglu else 6) * times)
+        add(("all-reduce", "model_max"), b * (s - 1) * 4)
+        add(("all-reduce", "model_sum"), b * (s - 1) * 4, 2)
     return out
 
 
@@ -4845,12 +4890,19 @@ def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False) -> dict:
     state, its gradient (its blocks, in the params' dtype), the largest
     leaf's reduced float32 gradient gathered whole for the norm with the
     gather's staging copy, and the activations: with remat each layer's
-    input kept (the residual stream) and one layer recomputed; without it
-    every layer's (the replicated residual-stream tensors, about 16 (B, S,
-    d) a layer, and the rank's split ones, about 8 (B, S, d_ff / m) and
-    6 (B, H / m, S, S) float32 score tensors); an LM's logits: the rank's
-    block, the gathered ones, their float32 copy and its gradient."""
+    input kept (the residual stream) and one super-block recomputed;
+    without it every layer's.  A layer holds about 16 replicated (B, S, d)
+    tensors and its rank's split ones: an attention's 6 (B, H / m, S, S)
+    float32 score tensors (512 query rows at a time); a dense MLP's 8 (B,
+    S, d_ff / m) float32; a Mamba's 16 float32 (B, 128, d_in / m, N) scan
+    tensors for each 128-row chunk and 12 (B, S, d_in / m); a MoE layer's
+    6 dispatched (E cap, d) and 8 float32 (E cap, moe_d_ff / m) an expert
+    group.  An LM's vocab-parallel logits: the rank's block, its float32
+    copy, its exp and its gradient."""
     from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
+    from repro_torch.models import mamba as Mb
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import transformer as T
     from repro_torch.sharding import partition as Pt
 
     m = MESH_SPLIT[1]
@@ -4859,16 +4911,30 @@ def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False) -> dict:
     shard = rank_bytes_of_specs(state, shardings)
     grads = rank_bytes_of_specs(state.params, shardings.params)
     big = max(v.numel() for _, v in Pt.tree_paths(state.params))
-    layer = (16 * b * s * cfg.d_model * es + 8 * b * s * cfg.d_ff // m * 4
-             + 6 * b * cfg.n_heads // m * min(s, 512) * s * 4)
-    acts = (cfg.n_layers * b * s * cfg.d_model * es + layer) if cfg.remat else \
-        cfg.n_layers * layer
+    d_in, _ = Mb.mamba_dims(cfg)
+    cap = Moe.capacity(b * s, cfg.n_experts, cfg.top_k) if cfg.n_experts else 0
+    per_slot = []
+    for mixer, ffn in T.slot_kinds(cfg):
+        n = 16 * b * s * cfg.d_model * es
+        if mixer == "attn":
+            n += 6 * b * cfg.n_heads // m * min(s, 512) * s * 4
+        else:
+            n += 16 * b * s * d_in // m * cfg.mamba_d_state * 4 + 12 * b * s * d_in // m * 4
+        if ffn == "dense":
+            n += 8 * b * s * cfg.d_ff // m * 4
+        elif ffn == "moe":
+            groups = 1 + bool(cfg.n_shared_experts)
+            n += groups * (6 * cfg.n_experts * cap * cfg.d_model * es
+                           + 8 * cfg.n_experts * cap * (cfg.moe_d_ff or cfg.d_ff) // m * 4)
+        per_slot.append(n)
+    rep = sum(per_slot)
+    acts = (cfg.n_layers * b * s * cfg.d_model * es + rep) if cfg.remat else cfg.n_reps * rep
     out = {"its state's shard": shard, "its gradient": grads,
            "the largest leaf's float32 gradient whole, twice": 2 * 4 * big,
            "activations": acts}
     if not bert:
-        out["the logits: its block, gathered, float32 and its gradient"] = \
-            b * s * cfg.vocab_size * (es // m + es + 4 + 4)
+        out["the logits: its vocab block, float32, exp and gradient"] = \
+            b * s * cfg.vocab_size // m * (es + 4 + 4 + 4)
     return out
 
 
@@ -4937,6 +5003,8 @@ def mesh_split_oracles(torch, smi, trained, bert_ref, bert_cfg=None, yi_cfg=None
             shards, m, ms = timed_step(torch, step, shards, bt)
             mets.append(m)
             walls.append(ms)
+            if len(mets) == 1:
+                digests_1 = [R.digest(x) for x in shards]     # mesh_processes' yi-6b step
         peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
         digests = [R.digest(x) for x in shards]
         del shards
@@ -4962,9 +5030,9 @@ def mesh_split_oracles(torch, smi, trained, bert_ref, bert_cfg=None, yi_cfg=None
             print(f"  [{smi}] {what}: the split island (ROADMAP §3) at the initial state: "
                   + island)
         del init_params, init_amax
-        out[name] = {"digests": digests, "metrics": mets, "ms": walls, "peak_gib": peak,
-                     "rel": rel, "held": held, "island": island, "cfg": cfg, "opt": opt,
-                     "batches": batches}
+        out[name] = {"digests": digests, "digests_1": digests_1, "metrics": mets, "ms": walls,
+                     "peak_gib": peak, "rel": rel, "held": held, "island": island, "cfg": cfg,
+                     "opt": opt, "batches": batches}
     return out
 
 
@@ -4978,6 +5046,8 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
     and how many sites end with flipped codes.  A replicated input that
     several products or ranks quantize counts as one site."""
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba as Mb
+    from repro_torch.models import moe as Moe
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import partition as Pt
 
@@ -5017,14 +5087,16 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
         return res
 
     try:
-        L.fake_quant_parts, L.fake_quant_act = parts, act
+        L.fake_quant_parts = Mb.fake_quant_parts = Moe.fake_quant_parts = parts
+        L.fake_quant_act = Moe.fake_quant_act = act
         with torch.no_grad():
             forward(params, amax, batch)
             second[0], last[0] = True, None
             with Pt.model_split(C.ModelRanks(m)):
                 forward(split, amax, batch)
     finally:
-        L.fake_quant_parts, L.fake_quant_act = parts_fq, act_fq
+        L.fake_quant_parts = Mb.fake_quant_parts = Moe.fake_quant_parts = parts_fq
+        L.fake_quant_act = Moe.fake_quant_act = act_fq
     del whole
     first = next((i for i, st in enumerate(stats) if st[1]), None)
     if first is None:
@@ -5036,19 +5108,124 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
             f"codes {sum(1 for st in stats if st[2])} of {len(stats)}")
 
 
-def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, kernels, guard, bert_cfg=None,
-                   moe_cfg=None, device_type="cuda"):
+MESH_SPLIT_MOE_DEPTH = 2       # of qwen2-moe's 24 layers in mesh_split_archs
+MESH_SPLIT_JAMBA_DEPTH = 2     # of jamba's 72 layers: Mamba slots, each its own remat region
+MESH_SPLIT_JAMBA_SHAPE = (1, 1024)
+MESH_SPLIT_ARCH_STEPS = 2      # the one-process oracles' steps; the processes take 1
+
+
+def split_arch_cfgs():
+    """mesh_split_archs' configs: qwen2-moe-a2.7b at its published widths
+    and MESH_SPLIT_MOE_DEPTH of 24 layers; jamba-1.5-large at its published
+    widths with ``n_experts=0``, cut to MESH_SPLIT_JAMBA_DEPTH of 72 layers
+    of its Mamba slot (``block_pattern=("m",)``: each layer its own remat
+    region, so the backward holds one layer's scan at a time), each with its
+    dense SwiGLU FFN at d_ff 24,576."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    moe, jamba = get_config("qwen2-moe-a2.7b"), get_config("jamba-1.5-large-398b")
+    check((moe.d_model, moe.n_experts, moe.moe_d_ff, moe.vocab_size, moe.param_dtype)
+          == (2048, 60, 1408, 151936, "bfloat16")
+          and (jamba.d_model, jamba.mamba_expand, jamba.mamba_d_state, jamba.d_ff,
+               jamba.vocab_size, jamba.param_dtype, jamba.remat)
+          == (8192, 2, 16, 24576, 65536, "bfloat16", True),
+          "qwen2-moe-a2.7b or jamba-1.5-large is not at its published widths")
+    return {"moe": dataclasses.replace(moe, n_layers=MESH_SPLIT_MOE_DEPTH),
+            "jamba": dataclasses.replace(jamba, n_layers=MESH_SPLIT_JAMBA_DEPTH,
+                                         block_pattern=("m",), n_experts=0)}
+
+
+def mesh_split_archs(torch, smi, cfgs=None, shapes=None, dev="cuda"):
+    """mesh_split_archs' one-process oracles: qwen2-moe (its expert FFN
+    split over the model ranks' moe_d_ff columns) and jamba (its Mamba
+    mixers' d_in channels) under ``model_compute="split"`` on MESH_SPLIT
+    over one device, every model rank's part in this process
+    (``collectives.ModelRanks``), MESH_SPLIT_ARCH_STEPS steps on one
+    ``SyntheticLM`` batch from seed SEED: each run's digests after its first
+    step and its last (``mesh_processes`` runs the first step again on
+    processes), the metrics, ms a step, the peak, and where the split parts
+    from the whole forward at the initial state (``split_island``)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import ranks as R
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import partition as Pt
+    from repro_torch.train import steps as St
+
+    cfgs = cfgs or split_arch_cfgs()
+    shapes = shapes or {"moe": TRAIN_YI_SHAPE, "jamba": MESH_SPLIT_JAMBA_SHAPE}
+    mesh = Mesh(np.array([torch.device(dev)] * MESH_PROCS, dtype=object).reshape(MESH_SPLIT),
+                ("data", "model"))
+    out = {}
+    for name, cfg in cfgs.items():
+        what = f"{cfg.name} ({cfg.n_layers} layers)"
+        opt = AdamWConfig(lr=3e-4)
+        b, s = shapes[name]
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        state = St.init_train_state(cfg, gen, opt)
+        n_params = sum(t.numel() for t in T.tree_leaves(state.params))
+        step, sh, _ = St.jit_train_step(cfg, mesh, opt, batch, model_compute="split")
+        shards = Pt.split_tree(state, sh)
+        init_params, init_amax = state.params, state.amax
+        del state
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        mets, walls = [], []
+        for i in range(MESH_SPLIT_ARCH_STEPS):
+            shards, m, ms = timed_step(torch, step, shards, batch)
+            mets.append(m)
+            walls.append(ms)
+            if i == 0:
+                digests_1 = [R.digest(x) for x in shards]
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+        digests = [R.digest(x) for x in shards]
+        del shards
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        check(all(np.isfinite([x[k] for x in mets for k in ("loss", "grad_norm")])),
+              f"{what}: a split loss or grad norm is not finite: {mets}")
+        island = split_island(torch, lambda p, a, bt, cfg=cfg: T.forward(cfg, p, a, bt["tokens"]),
+                              init_params, init_amax, batch, sh)
+        del init_params, init_amax
+        print(f"  [{smi}] {what}, {n_params / 1e9:.3f} B params, \"split\" on {MESH_SPLIT} in "
+              f"one process ({MESH_PROCS} model ranks' parts in turn), {len(mets)} steps at "
+              f"{(b, s)}: losses {[x['loss'] for x in mets]}, grad norms "
+              f"{[x['grad_norm'] for x in mets]}, aux {[x['aux'] for x in mets]}; ms a step "
+              f"{[round(w) for w in walls]}; peak {peak:.2f} GiB allocated; against the whole "
+              f"forward at the initial state (split_island, ROADMAP §3): {island}")
+        out[name] = {"digests": digests_1, "digests_last": digests, "metrics": mets[:1],
+                     "metrics_all": mets, "ms": walls[:1], "peak_gib": peak, "island": island,
+                     "cfg": cfg, "opt": opt,
+                     "batch": {k: v.cpu().numpy() for k, v in batch.items()}}
+    return out
+
+
+def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels, guard,
+                   bert_cfg=None, moe_cfg=None, device_type="cuda"):
     """[mesh]'s training by MESH_PROCS processes, one a rank, on the one
     card over gloo (``launch/ranks.py``; the parent holds no tensor on the
     card while they run), in one start: BERT-base as ``mesh_bert``'s (4, 1)
     run, with its checkpoint written by rank 0; qwen2-moe as ``mesh_moe``'s
     (4, 1) run (its first MESH_PROC_MOE_STEPS steps), the routing counts
-    exchanged between the processes; and ``mesh_split``: BERT-base and
-    yi-6b as ``mesh_split_oracles``' "split" runs on MESH_SPLIT, every rank
-    a model rank, BERT-base's checkpoint written by rank 0.  Every rank's
-    params, moments, amax and steps (by ``ranks.digest``) and every metric
-    must equal those one-process runs' (``ref_bert``, ``ref_moe``,
-    ``ref_split``) bit for bit; each rank's tally of collectives must equal
+    exchanged between the processes; ``mesh_split``: BERT-base and yi-6b
+    (its first MESH_PROC_YI_STEPS steps) as ``mesh_split_oracles``' "split"
+    runs on MESH_SPLIT, every rank a model rank, BERT-base's checkpoint
+    written by rank 0; and ``mesh_split_archs``: qwen2-moe and jamba as its
+    "split" runs, their first step.  Every rank's params, moments, amax and
+    steps (by ``ranks.digest``) and every metric must equal those
+    one-process runs' (``ref_bert``, ``ref_moe``, ``ref_split``,
+    ``ref_archs``) bit for bit; each rank's tally of collectives must equal
     the reckoning from the specs (``reckon_step_collectives``,
     ``reckon_split_collectives``); under "split" each replicated leaf's
     gradient must be the same bits on every rank.  Rank 0's checkpoints,
@@ -5105,6 +5282,14 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, kernels, guard, ber
                 "bert-split": reckon_split_collectives(bert_cfg, shapes["bert"],
                                                        shs["bert-split"], (b, s), bert=True),
                 "yi": reckon_split_collectives(yi_cfg, shapes["yi"], shs["yi"], (yb, ys))}
+    arch_rows = {}
+    for name, ref in ref_archs.items():
+        key = f"{name}-split"
+        shapes[key] = St.state_shape(ref["cfg"], ref["opt"])
+        shs[key] = St.state_shardings(split_mesh, shapes[key])
+        arch_rows[key] = next(iter(ref["batch"].values())).shape
+        reckoned[key] = reckon_split_collectives(ref["cfg"], shapes[key], shs[key],
+                                                 arch_rows[key])
     # each qwen2-moe rank's bytes, reckoned before the run
     n_params = sum(t.numel() for t in T.tree_leaves(shapes["moe"].params))
     parts = {"its state's shard": rank_bytes_of_specs(shapes["moe"], shs["moe"]),
@@ -5119,7 +5304,9 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, kernels, guard, ber
           f"{MESH_PROCS * sum(parts.values()) / 2**30:.2f} GiB for {MESH_PROCS} ranks")
     peaks_reckoned = {}
     for name, cfg, rows, bert in (("bert-split", bert_cfg, (b, s), True),
-                                  ("yi", yi_cfg, (yb, ys), False)):
+                                  ("yi", yi_cfg, (yb, ys), False),
+                                  *((k, ref_archs[k[:-6]]["cfg"], arch_rows[k], False)
+                                    for k in arch_rows)):
         parts = reckon_split_peak(cfg, shapes[name], shs[name], rows, bert)
         peaks_reckoned[name] = sum(parts.values()) / 2**30
         print(f"  [{smi}] {name} \"split\" a rank's bytes reckoned before the run: "
@@ -5141,7 +5328,9 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, kernels, guard, ber
                               seed=SEED, keep="digest"),
             functools.partial(split, bert_cfg, bert_opt, bert_batches, bert=True,
                               ckpt_dir=f"{d}/split"),
-            functools.partial(split, yi_cfg, yi_opt, [yi_batch] * MESH_YI_STEPS)],),
+            functools.partial(split, yi_cfg, yi_opt, [yi_batch] * MESH_PROC_YI_STEPS),
+            *(functools.partial(split, ref["cfg"], ref["opt"], [ref["batch"]])
+              for ref in ref_archs.values())],),
             timeout_s=MESH_PROCS_TIMEOUT_S)
         wall = time.perf_counter() - t0
         restored = {k: ckpt.restore(f"{d}/{k}", MESH_BERT_STEPS, shapes["bert"], device_type)
@@ -5150,14 +5339,21 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, kernels, guard, ber
             "moe": dict(ref_moe, digests=ref_moe["digests_1"],
                         metrics=ref_moe["metrics"][:MESH_PROC_MOE_STEPS],
                         ms=ref_moe["ms"][:MESH_PROC_MOE_STEPS]),
-            "bert-split": ref_split["bert"], "yi": ref_split["yi"]}
+            "bert-split": ref_split["bert"],
+            "yi": dict(ref_split["yi"], digests=ref_split["yi"]["digests_1"],
+                       metrics=ref_split["yi"]["metrics"][:MESH_PROC_YI_STEPS],
+                       ms=ref_split["yi"]["ms"][:MESH_PROC_YI_STEPS]),
+            **{f"{k}-split": ref for k, ref in ref_archs.items()}}
     whats = {"bert": "bert-base", "moe": f"qwen2-moe ({moe_cfg.n_layers} layers)",
              "bert-split": "bert-base \"split\"",
-             "yi": f"yi-6b ({yi_cfg.n_layers} layers) \"split\""}
+             "yi": f"yi-6b ({yi_cfg.n_layers} layers) \"split\"",
+             **{f"{k}-split": f"{ref['cfg'].name} ({ref['cfg'].n_layers} layers) \"split\""
+                for k, ref in ref_archs.items()}}
     out = {"wall_s": wall}
-    for i, name in enumerate(("bert", "moe", "bert-split", "yi")):
+    for i, name in enumerate(("bert", "moe", "bert-split", "yi",
+                              *(f"{k}-split" for k in ref_archs))):
         ref, what = refs[name], whats[name]
-        mesh_text = f"{MESH_SPLIT}" if name in ("bert-split", "yi") else "(4, 1)"
+        mesh_text = f"{MESH_SPLIT}" if name not in ("bert", "moe") else "(4, 1)"
         ranks = [r[i] for r in res]
         differ = [(r, p) for r, x in enumerate(ranks) for p, dg in x["digest"].items()
                   if dg != ref["digests"][r][p]]
@@ -5232,11 +5428,16 @@ def phase_mesh(torch, smi, trained, kernels, guard):
     gc.collect()
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
-    procs = mesh_processes(torch, smi, bert, moe, split, kernels, guard)
+    archs = mesh_split_archs(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    procs = mesh_processes(torch, smi, bert, moe, split, archs, kernels, guard)
     print(f"  [mesh] seconds: bert-base {t1 - t0:.1f}, yi-6b {t2 - t1:.1f}, qwen2-moe "
-          f"{t3 - t2:.1f}, split oracles {t4 - t3:.1f}, {MESH_PROCS} processes "
-          f"{time.perf_counter() - t4:.1f}")
-    return {"bert": bert, "yi6b": yi, "moe": moe, "split": split, "processes": procs}
+          f"{t3 - t2:.1f}, split oracles {t4 - t3:.1f}, split archs' oracles {t5 - t4:.1f}, "
+          f"{MESH_PROCS} processes {time.perf_counter() - t5:.1f}")
+    return {"bert": bert, "yi6b": yi, "moe": moe, "split": split, "split_archs": archs,
+            "processes": procs}
 
 
 def phase_train(torch, kernels, guard):
@@ -5456,9 +5657,12 @@ def main() -> int:
           f" layers, {MESH_YI_STEPS} steps at {TRAIN_YI_SHAPE} on (4, 1) with FSDP; "
           f"qwen2-moe-a2.7b at {MESH_MOE_DEPTH} of 24 layers, {MESH_MOE_STEPS} steps at "
           f"{TRAIN_YI_SHAPE} on (4, 1), its ranks routing the whole batch; bert-base and yi-6b "
-          f"with the compute split over the model axis on {MESH_SPLIT}; then bert-base, "
-          f"qwen2-moe and the two split runs again on {MESH_PROCS} processes, one a rank, "
-          f"sharing the card over gloo")
+          f"with the compute split over the model axis on {MESH_SPLIT}; mesh_split_archs: "
+          f"qwen2-moe ({MESH_SPLIT_MOE_DEPTH} layers, its experts' d_ff split) at "
+          f"{TRAIN_YI_SHAPE} and jamba-1.5-large ({MESH_SPLIT_JAMBA_DEPTH} Mamba layers, "
+          f"n_experts=0, d_in split) at {MESH_SPLIT_JAMBA_SHAPE} on {MESH_SPLIT}; then "
+          f"bert-base, qwen2-moe and the four split runs again on {MESH_PROCS} processes, one "
+          f"a rank, sharing the card over gloo")
     phase_mesh(torch, smi, trained, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm],
                guard)
     stamp("all phases")

@@ -30,7 +30,15 @@ gathers onto rank 0 belong to the one process that drives every rank and
 are not counted);
 and ``hlo_cost``, the bytes by dtype of the traced rank's loss and backward
 (``analysis/graph_audit.record`` on ``meta``, ``analysis/cost.py``'s eager
-traffic model), or ``hlo_cost_error`` where recording fails.
+traffic model), or ``hlo_cost_error`` where recording fails.  Beside them,
+``collectives_split`` (and ``collectives_split_by_call``) count the same
+for the step under ``model_compute="split"``: each model-split param
+gathered over the data axes only into model rank 0's block, the rest as
+above, and per microbatch the traced pass of model coordinate 0 alone
+(``collectives.TracedModelRank``: its model group's sums, maxima and
+all-to-alls, its peers taken to hold parts of its shapes) and the reduce
+of every gradient leaf; where ``train/steps.py::check_split`` refuses the
+cell, ``collectives_split_error`` holds its message instead.
 One JSON per cell under ``results/dryrun/``.
 """
 from __future__ import annotations
@@ -155,6 +163,7 @@ def train_cell(cfg, shape, mesh, fsdp=True, accum_steps=4) -> dict:
     with C.tally() as per_step_max:
         C.max_over_ranks([aux["obs"]] * n_data)
     kinds, calls = collectives_record((per_step, 1), (per_micro, accum_steps), (per_step_max, 1))
+    rec.update(split_collectives(cfg, mesh, state, p_sh, rows, n_data, accum_steps, per_step_max))
     ok = loss.shape == () and all(
         g.shape == p.shape for (_, g), (_, p) in zip(Pt.tree_paths(grads),
                                                      Pt.tree_paths(state.params)))
@@ -167,6 +176,32 @@ def train_cell(cfg, shape, mesh, fsdp=True, accum_steps=4) -> dict:
                            "batch": rank_bytes(batch, batch_sh)},
             "collectives": kinds, "collectives_by_call": calls,
             "collectives_note": COLLECTIVES_NOTE, **rec}
+
+
+def split_collectives(cfg, mesh, state, p_sh, rows, n_data: int, accum_steps: int,
+                      per_step_max) -> dict:
+    """``train_cell``'s record of the "split" step's collectives a rank (the
+    module docstring), or ``check_split``'s refusal."""
+    try:
+        St.check_split(cfg, mesh)
+    except ValueError as e:
+        return {"collectives_split_error": str(e)}
+    group = C.TracedModelRank(mesh.shape["model"], 0)
+    leaves = Pt.tree_paths(state.params, sort_keys=True)
+    with C.tally() as per_step:
+        mine = []
+        for p, v in leaves:
+            blocks, sh = Pt.split_leaf(v, p_sh[p]), p_sh[p]
+            mine.append({"0": C.gather_model_block(blocks, sh, 0, META)}
+                        if Pt.model_dim(sh) is not None else C.all_gather(blocks, sh, META))
+    params = Pt.tree_rebuild(state.params, mine, sort_keys=True)
+    with C.tally() as per_micro:
+        with C.data_rank(C.DataRanks(n_data), 0), Pt.model_split(group):
+            St.lm_loss_and_grads(cfg, params, state.amax, rows)
+        for p, v in leaves:     # a model block's gradient reduces as the leaf's own block
+            C.reduce_scatter_add(None, torch.empty(v.shape, dtype=v.dtype, device=META), p_sh[p])
+    kinds, calls = collectives_record((per_step, 1), (per_micro, accum_steps), (per_step_max, 1))
+    return {"collectives_split": kinds, "collectives_split_by_call": calls}
 
 
 def serve_cell(cfg, shape, mesh) -> dict:

@@ -27,8 +27,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.layers import (Obs, fake_quant_act, qdense, sigmoid,  # noqa: F401
-                                       sigmoid_grad, silu)
+from repro_torch.models.layers import (Obs, _group, _parts, fake_quant_parts,  # noqa: F401
+                                       qdense_column, qdense_row, sigmoid, sigmoid_grad, silu)
+from repro_torch.sharding import collectives as C
 
 CHUNK = 128
 MAMBA_SITES = ("mamba_in", "mamba_conv", "mamba_x", "mamba_out")
@@ -151,26 +152,51 @@ def mamba_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy, cfg,
     """The calibration forward of one Mamba mixer: x (B, S, d) -> (out, obs,
     new state).  Without ``state`` the whole sequence runs through the
     chunked scan from a zero state (new state None); with ``state`` {h
-    (B, d_in, N), conv (B, K-1, d_in)} one decode step (S == 1)."""
+    (B, d_in, N), conv (B, K-1, d_in)} one decode step (S == 1).
+
+    With model-split params (``{"<model rank>": block}``, d_in split:
+    ``train/steps.py``'s "split", no ``state``) each model rank runs its
+    block of d_in channels, in the context's model group: ``w_in`` column-
+    parallel, whose column block m holds [x | z]'s columns [2 m d_in / M,
+    2 (m + 1) d_in / M), so ``collectives.model_exchange`` hands each rank
+    x's and z's block m; the conv, its bias and the ``mamba_conv`` site on
+    the rank's channels; ``w_x`` row-parallel, its (dt_r, B, C) summed over
+    the ranks and then handed to each rank through ``copy_to_model`` (each
+    rank consumes it, so its gradient sums every rank's); ``w_dt``'s,
+    ``dt_bias``', ``A_log``'s and ``D``'s blocks; the scan, elementwise over
+    d_in, on the rank's channels; ``w_out`` row-parallel."""
     _, dt_rank = mamba_dims(cfg)
     n = cfg.mamba_d_state
     obs: Obs = {}
-    xz, obs["mamba_in"] = qdense(x, p["w_in"], None, amax["mamba_in"], policy)
-    xi, z = torch.chunk(xz, 2, dim=-1)
-    xc, conv_state = causal_conv(xi, p["conv_w"], None if state is None else state["conv"])
-    xc = silu(xc + p["conv_b"])
-    xc, obs["mamba_conv"] = fake_quant_act(xc, amax["mamba_conv"], policy.a_bits,
-                                           policy.quantize_wa)
-    prm, obs["mamba_x"] = qdense(xc, p["w_x"], None, amax["mamba_x"], policy)
-    dt_r, B_, C_ = torch.split(prm.to(torch.float32), [dt_rank, n, n], dim=-1)
-    dt = softplus(dt_r @ p["w_dt"].to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"].to(torch.float32))
-    xf, D = xc.to(torch.float32), p["D"].to(torch.float32)
-    if state is None:
-        y, new_state = ssm_chunked(xf, dt, B_, C_, A, D), None
-    else:
-        y, h = ssm_step(xf, dt, B_, C_, A, D, state["h"])
-        new_state = {"h": h, "conv": conv_state}
-    y = y.to(x.dtype) * silu(z)
-    out, obs["mamba_out"] = qdense(y, p["w_out"], None, amax["mamba_out"], policy)
+    group = _group(p["w_in"])
+    if group is not None and state is not None:
+        raise ValueError("a decode step's state is whole: model-split Mamba params run the "
+                         "sequence from a zero state only")
+    xs = C.copy_to_model(group, x)
+    xzs, obs["mamba_in"] = qdense_column(xs, p["w_in"], None, amax["mamba_in"], policy, group)
+    xzs = C.model_exchange(group, xzs, 2)
+    xcs, zs, conv_state = [], [], None
+    for xz, w, cb in zip(xzs, _parts(p["conv_w"]), _parts(p["conv_b"]), strict=True):
+        xi, z = torch.chunk(xz, 2, dim=-1)
+        xc, conv_state = causal_conv(xi, w, None if state is None else state["conv"])
+        xcs.append(silu(xc + cb))
+        zs.append(z)
+    xcs, obs["mamba_conv"] = fake_quant_parts(xcs, amax["mamba_conv"], policy.a_bits,
+                                              policy.quantize_wa, group)
+    prm, obs["mamba_x"] = qdense_row(xcs, p["w_x"], None, amax["mamba_x"], policy, group)
+    ys, new_state = [], None
+    for prm_r, xc, z, w_dt, dt_bias, a_log, d_skip in zip(
+            C.copy_to_model(group, prm), xcs, zs, *(_parts(p[k]) for k in (
+                "w_dt", "dt_bias", "A_log", "D")), strict=True):
+        dt_r, B_, C_ = torch.split(prm_r.to(torch.float32), [dt_rank, n, n], dim=-1)
+        dt = softplus(dt_r @ w_dt.to(torch.float32) + dt_bias)
+        A = -torch.exp(a_log.to(torch.float32))
+        xf, D = xc.to(torch.float32), d_skip.to(torch.float32)
+        if state is None:
+            y = ssm_chunked(xf, dt, B_, C_, A, D)
+        else:
+            y, h = ssm_step(xf, dt, B_, C_, A, D, state["h"])
+            new_state = {"h": h, "conv": conv_state}
+        ys.append(y.to(x.dtype) * silu(z))
+    out, obs["mamba_out"] = qdense_row(ys, p["w_out"], None, amax["mamba_out"], policy, group)
     return out, obs, new_state

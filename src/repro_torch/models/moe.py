@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.layers import Obs, fake_quant_act, silu, xla_row_sum
+from repro_torch.models.layers import (Obs, _group, _parts, fake_quant_act, fake_quant_parts,
+                                       silu, xla_row_sum)
 from repro_torch.sharding import collectives as C
 
 CAPACITY_FACTOR = 1.25
@@ -170,44 +171,76 @@ def gather_combine(ye_flat: torch.Tensor, dest: torch.Tensor, gates: torch.Tenso
     return y.to(dtype)
 
 
-def _expert_ffn_qat(xe, p, amax, policy: QuantPolicy, prefix: str):
-    """xe (E, C, d); stacked expert weights (E, d, f) / (E, f, d), fake
-    quantized under one maximum over the whole stack."""
+def _expert_ffn_qat(xs, p, amax, policy: QuantPolicy, prefix: str, group):
+    """xs: the (E, C, d) input for each of this process's model ranks;
+    stacked expert weights (E, d, f) / (E, f, d), or their model blocks
+    (``moe_qat``), fake quantized under one maximum over the whole stack
+    (``collectives.model_max`` of the ranks' blocks' maxima).  Returns each
+    rank's (E, C, d) partial (the whole product when ``group`` is None) and
+    the obs."""
     obs: Obs = {}
 
     def fq_w(w):
+        ws = _parts(w)
         if not policy.quantize_wa:
-            return w
-        return q.fake_quant(w, q.per_tensor_max(w.detach()).to(w.dtype), policy.w_bits)
+            return ws
+        m = C.model_max(group, [q.per_tensor_max(v.detach()) for v in ws])
+        return [q.fake_quant(v, m.to(v.dtype), policy.w_bits) for v in ws]
 
     def fq(x, site):
-        return fake_quant_act(x, amax[f"{prefix}_{site}"], policy.a_bits, policy.quantize_wa)
+        return fake_quant_parts(x, amax[f"{prefix}_{site}"], policy.a_bits, policy.quantize_wa,
+                                group)
 
-    xq, obs[f"{prefix}_in"] = fq(xe, "in")
-    g = torch.einsum("ecd,edf->ecf", xq, fq_w(p["wg"]))
-    u = torch.einsum("ecd,edf->ecf", xq, fq_w(p["wu"]))
-    g, obs[f"{prefix}_g"] = fq(silu(g), "g")
+    quantized = [fake_quant_act(x, amax[f"{prefix}_in"], policy.a_bits, policy.quantize_wa)
+                 for x in xs]
+    xq, obs[f"{prefix}_in"] = [x for x, _ in quantized], quantized[0][1]
+    g = [torch.einsum("ecd,edf->ecf", x, w) for x, w in zip(xq, fq_w(p["wg"]), strict=True)]
+    u = [torch.einsum("ecd,edf->ecf", x, w) for x, w in zip(xq, fq_w(p["wu"]), strict=True)]
+    g, obs[f"{prefix}_g"] = fq([silu(t) for t in g], "g")
     u, obs[f"{prefix}_u"] = fq(u, "u")
-    h, obs[f"{prefix}_h"] = fq(g * u, "h")
-    return torch.einsum("ecf,efd->ecd", h, fq_w(p["wd"])), obs
+    h, obs[f"{prefix}_h"] = fq([a * b for a, b in zip(g, u, strict=True)], "h")
+    return [torch.einsum("ecf,efd->ecd", a, w) for a, w in zip(h, fq_w(p["wd"]), strict=True)], \
+        obs
 
 
 def moe_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy,
             cfg) -> Tuple[torch.Tensor, Obs, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), obs, aux loss)."""
+    """x (B, S, d) -> (y (B, S, d), obs, aux loss).
+
+    With model-split expert weights (``{"<model rank>": block}``, their
+    ``moe_d_ff`` split: ``train/steps.py``'s "split") each model rank runs
+    its d_ff columns of every expert's gate and up products and its rows of
+    the down product, in the context's model group.  The router, the
+    routing, the dispatch and the combine weights are the replicated
+    computation of every rank.  The token rows reach the ranks through one
+    ``collectives.copy_to_model`` (the routed experts' dispatch and the
+    shared experts' input), and so do the combine weights: each rank's
+    combine consumes them, so their gradients, and through them the
+    router's, sum every rank's.  A rank's row-parallel partial is combined
+    first (float32, its dropped choices reading a zero row) and the ranks'
+    combined partials are summed after (``reduce_from_model``): (T, d) a
+    layer, not the (E x cap, d) of a sum right after the down product (the
+    reference partitioner's place), top_k x 1.25 fewer rows; the shared
+    experts' sum over their stack is taken a rank before its sum over the
+    ranks, likewise."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     obs: Obs = {}
+    group = _group(p["experts"]["wg"])
     gate_logits = xt.to(torch.float32) @ p["router"].to(torch.float32)
     cap, dest, gates, aux = route(gate_logits, cfg.n_experts, cfg.top_k)
-    xe = scatter_dispatch(xt, dest, cfg.n_experts, cap).reshape(cfg.n_experts, cap, d)
-    ye, o = _expert_ffn_qat(xe, p["experts"], amax, policy, "exp")
+    xts = C.copy_to_model(group, xt)
+    xe = [scatter_dispatch(v, dest, cfg.n_experts, cap).reshape(cfg.n_experts, cap, d)
+          for v in xts]
+    ye, o = _expert_ffn_qat(xe, p["experts"], amax, policy, "exp", group)
     obs.update(o)
-    yt = gather_combine(ye.reshape(cfg.n_experts * cap, d), dest, gates, x.dtype)
+    combined = [gather_combine(y.reshape(cfg.n_experts * cap, d), dest, g, torch.float32)
+                for y, g in zip(ye, C.copy_to_model(group, gates), strict=True)]
+    yt = C.reduce_from_model(group, combined).to(x.dtype)
     if cfg.n_shared_experts:
-        xs = xt[None].expand(cfg.n_shared_experts, t, d)
-        ys, o = _expert_ffn_qat(xs, p["shared"], amax, policy, "shr")
+        xs = [v[None].expand(cfg.n_shared_experts, t, d) for v in xts]
+        ys, o = _expert_ffn_qat(xs, p["shared"], amax, policy, "shr", group)
         obs.update(o)
-        yt = yt + torch.sum(ys, 0)
+        yt = yt + C.reduce_from_model(group, [torch.sum(y, 0) for y in ys])
     return yt.reshape(b, s, d), obs, aux

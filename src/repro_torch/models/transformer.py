@@ -295,16 +295,20 @@ def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
             pos3: Optional[torch.Tensor] = None):
     """QAT forward (arguments as ``hidden``).  Returns
     (logits (B, S, V), or (B, K, S, V) for K LM heads; the obs tree matching
-    ``init_amax``; aux_loss summed over the MoE slots)."""
+    ``init_amax``; aux_loss summed over the MoE slots).  With a vocab-split
+    head (``{"<model rank>": block}``) over more than one model rank the
+    logits stay split too: a dict of this process's model ranks' float32
+    (B, S, V / m) blocks, which ``train/steps.py``'s vocab-parallel
+    cross-entropy takes as they are (one rank's block is the whole)."""
     x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos,
                          extra_embeds=extra_embeds, pos3=pos3)
     head = params["embed"]["tokens"] if cfg.tied_embeddings else params.get("lm_head")
-    if isinstance(head, dict):          # vocab-parallel: each rank's block of logits
+    if isinstance(head, dict):
         group = L._group(head)
-        parts = [x_r @ (w.T if cfg.tied_embeddings else w)
-                 for x_r, w in zip(C.copy_to_model(group, x), head.values(), strict=True)]
-        logits = C.gather_from_model(group, parts)
-    elif cfg.tied_embeddings:
+        blocks = {k: (x_r @ (w.T if cfg.tied_embeddings else w)).to(torch.float32)
+                  for x_r, (k, w) in zip(C.copy_to_model(group, x), head.items(), strict=True)}
+        return (blocks if group.size > 1 else blocks["0"]), obs, aux
+    if cfg.tied_embeddings:
         logits = x @ params["embed"]["tokens"].T
     elif cfg.n_lm_heads > 1:
         logits = torch.einsum("bsd,kdv->bksv", x, params["lm_head"])

@@ -32,12 +32,13 @@ reduced, over the data subgroup of the rank's model coordinate only
 rank's model group over the model axis's subgroup.  ``ROUTES`` names the op
 each collective makes and how it moves a CUDA tensor under each backend.
 
-The model group's collectives (``model_sum``, ``model_max``, and the
-autograd pair ``copy_to_model`` / ``reduce_from_model``, Megatron's *f* and
-*g*, with ``gather_from_model`` for the vocab-parallel logits) take a group,
-or None for a tensor held whole.  ``model_sum`` all-gathers the ranks'
-float32 partials and every rank sums them in rank order from rank 0's, so
-each holds the same bits (no library all-reduce sums in rank order).
+The model group's collectives (``model_sum``, ``model_max``, the autograd
+pair ``copy_to_model`` / ``reduce_from_model``, Megatron's *f* and *g*, and
+``model_exchange``, the all-to-all that re-blocks a column-split tensor of
+several segments, Mamba's ``[x | z]``) take a group, or None for a tensor
+held whole.  ``model_sum`` all-gathers the ranks' float32 partials and
+every rank sums them in rank order from rank 0's, so each holds the same
+bits (no library all-reduce sums in rank order).
 
 Under either backend a recomputed (remat) forward replays the MoE tables
 its first forward received, in order, and never meets again:
@@ -57,9 +58,10 @@ reference's dry run sums the result shapes of XLA's collectives: a gathered
 leaf whole (a model block: ``all_gather_data``), a reduce-scatter's own
 float32 block (an all-reduce when no rank splits the leaf), each maxed leaf,
 the (n, k, E) counts table, each ``model_sum``'s and ``model_max``'s result
-(an all-reduce), the gathered logits.  A call of the process backend counts
-as the local backend counts one rank's part of it: one data rank's
-contribution, one gathered leaf, one rank's table, one model collective.
+(an all-reduce), one rank's block out of ``model_exchange`` (an all-to-all,
+its backward's too).  A call of the process backend counts as the local
+backend counts one rank's part of it: one data rank's contribution, one
+gathered leaf, one rank's table, one model collective.
 ``host_ms()`` sums the host time of the process backend's calls (and the
 model group's, under either backend), per kind and function.
 """
@@ -344,6 +346,30 @@ class ModelRanks:
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return t
 
+    def move(self, chunks: Dict, routes) -> Dict:
+        """``model_exchange``'s moves: {(rank, slot): chunk} of this
+        process's ranks after each route ``(src, dst)`` carried ``chunks[src]``
+        to ``dst``."""
+        return {dst: chunks[src] for src, dst in routes}
+
+
+class TracedModelRank(ModelRanks):
+    """Model rank ``rank`` of ``size`` alone, its peers absent: the dry
+    run's traced model coordinate on ``meta`` tensors, whose collectives
+    return results of the right shapes (a peer's part is taken to be this
+    rank's) and move nothing."""
+
+    def __init__(self, size: int, rank: int = 0):
+        self.size, self.rank = size, rank
+        self.ranks = (rank,)
+
+    def every(self, parts: Sequence[torch.Tensor], fn: str) -> List[torch.Tensor]:
+        return [parts[0]] * self.size
+
+    def move(self, chunks: Dict, routes) -> Dict:
+        like = next(iter(chunks.values()))
+        return {dst: like for _, dst in routes if dst[0] == self.rank}
+
 
 def _model_count(group, kind: str, fn: str, t: torch.Tensor):
     if group.size > 1:
@@ -411,23 +437,38 @@ class _ReduceFromModel(torch.autograd.Function):
         return (None, *([g] * ctx.n))
 
 
-class _GatherFromModel(torch.autograd.Function):
-    """Every rank's block of a tensor split on ``dim``, concatenated in rank
-    order (the vocab-parallel logits); the backward gives each rank its
-    block of the gradient, which every rank holds whole."""
+def _exchange_routes(size: int, segments: int, inverse: bool = False):
+    """``model_exchange``'s ((src rank, slot), (dst rank, slot)) of every
+    chunk c, in chunk order: the whole tensor's ``size * segments`` chunks,
+    rank r holding chunks [r segments, (r + 1) segments) before and chunks
+    c = s size + r (block r of segment s) after."""
+    routes = [((c // segments, c % segments), (c % size, c // size))
+              for c in range(size * segments)]
+    return [(d, s) for s, d in routes] if inverse else routes
+
+
+def _exchange(group, parts, segments: int, inverse: bool):
+    chunks = {(r, j): c for r, part in zip(group.ranks, parts, strict=True)
+              for j, c in enumerate(part.chunk(segments, -1))}
+    with _clocked("all-to-all", "model_exchange"):
+        moved = group.move(chunks, _exchange_routes(group.size, segments, inverse))
+        out = [torch.cat([moved[(r, j)] for j in range(segments)], -1) for r in group.ranks]
+    _model_count(group, "all-to-all", "model_exchange", out[0])
+    return out
+
+
+class _ModelExchange(torch.autograd.Function):
+    """``model_exchange``; the backward moves each rank's gradient back by
+    the inverse routes."""
 
     @staticmethod
-    def forward(ctx, group, dim, *parts):
-        ctx.group, ctx.dim, ctx.width = group, dim, parts[0].shape[dim]
-        with _clocked("all-gather", "gather_from_model"):
-            out = torch.cat(group.every(parts, "gather_from_model"), dim)
-        _model_count(group, "all-gather", "gather_from_model", out)
-        return out
+    def forward(ctx, group, segments, *parts):
+        ctx.group, ctx.segments = group, segments
+        return tuple(_exchange(group, parts, segments, inverse=False))
 
     @staticmethod
-    def backward(ctx, g):
-        blocks = g.split(ctx.width, ctx.dim)
-        return (None, None, *(blocks[r] for r in ctx.group.ranks))
+    def backward(ctx, *grads):
+        return (None, None, *_exchange(ctx.group, grads, ctx.segments, inverse=True))
 
 
 def copy_to_model(group, x: torch.Tensor) -> List[torch.Tensor]:
@@ -442,11 +483,18 @@ def reduce_from_model(group, partials: Sequence[torch.Tensor]) -> torch.Tensor:
     return partials[0] if group is None else _ReduceFromModel.apply(group, *partials)
 
 
-def gather_from_model(group, parts: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
-    """The tensor whose blocks on ``dim`` the ranks' ``parts`` are."""
-    if group is None:
-        return parts[0]
-    return _GatherFromModel.apply(group, dim % parts[0].dim(), *parts)
+def model_exchange(group, parts: Sequence[torch.Tensor], segments: int) -> List[torch.Tensor]:
+    """Each rank's block of every segment of a tensor that the ranks'
+    ``parts`` split into column blocks: the tensor is ``segments`` segments
+    along its last axis (Mamba's ``[x | z]``, 2), and rank r's result is
+    block r of segment 0, then of segment 1, ...  An all-to-all over the
+    model ranks (the reshard the reference's partitioner inserts between
+    a column-parallel product and a split of its output); exact, its
+    backward the inverse exchange.  ``group`` None, or one rank: ``parts``
+    as they are."""
+    if group is None or group.size == 1:
+        return list(parts)
+    return list(_ModelExchange.apply(group, segments, *parts))
 
 
 def gather_model_block(blocks: Sequence[torch.Tensor], sharding: Pt.NamedSharding, model: int,
@@ -478,7 +526,7 @@ DIST_OPS = {"all_gather": "all_gather", "reduce_scatter_add": "all_to_all_single
             "max_over_ranks": "all_reduce", "gather_blocks": "all_gather",
             "all_gather_counts": "all_gather", "all_gather_data": "all_gather",
             "model_sum": "all_gather", "model_max": "all_reduce",
-            "gather_from_model": "all_gather"}
+            "model_exchange": "all_to_all_single"}
 ROUTES = {(backend, fn): (op, "device") for backend in ("gloo", "nccl")
           for fn, op in DIST_OPS.items()}
 
@@ -707,3 +755,21 @@ class _ProcessModel:
         out = t.clone(memory_format=torch.contiguous_format)
         self.proc._op("model_max", out)(out, op=self.proc.dist.ReduceOp.MAX, group=self.group)
         return out
+
+    def move(self, chunks: Dict, routes) -> Dict:
+        """``ModelRanks.move`` across the model subgroup: one
+        ``all_to_all_single`` of the chunks' bytes (every chunk one shape
+        and dtype), each pair of ranks' chunks in chunk order."""
+        me = self.rank
+        like = next(iter(chunks.values()))
+        nb = like.numel() * like.element_size()
+        sends = [[src for src, dst in routes if src[0] == me and dst[0] == d]
+                 for d in range(self.size)]
+        recvs = [[dst for src, dst in routes if src[0] == s and dst[0] == me]
+                 for s in range(self.size)]
+        src = torch.cat([_bytes(chunks[k]) for row in sends for k in row])
+        out = torch.empty(nb * sum(map(len, recvs)), dtype=torch.uint8, device=like.device)
+        self.proc._op("model_exchange", out)(out, src, [nb * len(r) for r in recvs],
+                                             [nb * len(r) for r in sends], group=self.group)
+        got = iter(out.split(nb))
+        return {k: _from_bytes(next(got), like) for row in recvs for k in row}

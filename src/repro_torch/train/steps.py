@@ -27,6 +27,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import ema_tree_update, rdiv
 from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.sharding import collectives as C
@@ -73,21 +75,48 @@ def _sharded_ce(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - picked)
 
 
+def _vocab_parallel_ce(blocks: Dict[str, torch.Tensor], tgt: torch.Tensor) -> torch.Tensor:
+    """``_sharded_ce`` of logits split over the model ranks' vocab blocks
+    (``{"<model rank>": (..., V / m) float32 block}``, ``transformer.
+    forward``'s under "split"), in the reference's form, with no rank
+    holding the whole logits: the row max over every rank's block
+    (``collectives.model_max``, under stop-gradient, as ``jax.nn.
+    logsumexp``'s), lse = max + log of the ranks' sums of exp(logit - max),
+    added in rank order (``reduce_from_model``), and the target's logit
+    from the rank whose block holds it, 0 on the others, summed over the
+    ranks (exact: one term is nonzero)."""
+    group = L._group(blocks)
+    m = C.model_max(group, [torch.amax(lg.detach(), -1) for lg in blocks.values()])
+    sums, picks = [], []
+    for key, lg in blocks.items():
+        sums.append(torch.sum(torch.exp(lg - m[..., None]), -1))
+        t = tgt.long() - int(key) * lg.shape[-1]
+        inside = (t >= 0) & (t < lg.shape[-1])
+        v = torch.gather(lg, -1, torch.where(inside, t, 0)[..., None])[..., 0]
+        picks.append(torch.where(inside, v, torch.zeros((), dtype=v.dtype, device=v.device)))
+    lse = m + torch.log(C.reduce_from_model(group, sums))
+    return torch.mean(lse - C.reduce_from_model(group, picks))
+
+
 def lm_loss(cfg: ModelConfig, params, amax, batch) -> Tuple[torch.Tensor, Dict]:
     """Next-token CE + ``AUX_WEIGHT`` x the MoE aux loss.  batch: {'tokens':
     (B, S) or (B, K, S), 'extra_embeds'?, 'pos3'?}.  Audio archs score each
-    codebook; the vision stub's image rows are not scored."""
+    codebook; the vision stub's image rows are not scored.  Logits split
+    over the model ranks' vocab blocks take ``_vocab_parallel_ce``."""
     tokens = batch["tokens"]
     logits, obs, aux = T.forward(cfg, params, amax, tokens,
                                  extra_embeds=batch.get("extra_embeds"),
                                  pos3=batch.get("pos3"))
-    if cfg.frontend == "audio_codebooks":
-        tgt, lg = tokens[:, :, 1:], logits[:, :, :-1]
+    if isinstance(logits, dict):
+        loss = _vocab_parallel_ce({k: v[:, :-1] for k, v in logits.items()}, tokens[:, 1:])
     else:
-        tgt, lg = tokens[:, 1:], logits[:, :-1]
-        if batch.get("extra_embeds") is not None:
-            lg = lg[:, batch["extra_embeds"].shape[1]:]
-    loss = _sharded_ce(lg, tgt)
+        if cfg.frontend == "audio_codebooks":
+            tgt, lg = tokens[:, :, 1:], logits[:, :, :-1]
+        else:
+            tgt, lg = tokens[:, 1:], logits[:, :-1]
+            if batch.get("extra_embeds") is not None:
+                lg = lg[:, batch["extra_embeds"].shape[1]:]
+        loss = _sharded_ce(lg, tgt)
     return loss + AUX_WEIGHT * aux, {"obs": obs, "ce": loss.detach(), "aux": aux.detach()}
 
 
@@ -254,21 +283,30 @@ def _at(tree, path: str):
     return tree
 
 
-def check_split(cfg: ModelConfig, mesh):
+def check_split(cfg: ModelConfig, mesh, bert: bool = False):
     """Raises ``ValueError`` where ``model_compute="split"`` cannot run
-    ``cfg`` on ``mesh``: the expert FFN, Mamba, xLSTM and the frontends take
-    the reference's other model rules (ROADMAP item 5c), and a head count or
-    d_ff the model axis does not divide would leave its leaf whole (the
-    reference's ``_fit_spec``) under a split computation."""
-    what = [w for w, bad in (("experts", cfg.n_experts), ("a frontend", cfg.frontend != "none"),
-                             ("Mamba or xLSTM mixers", set(cfg.pattern) != {"a"}),
+    ``cfg`` on ``mesh``: xLSTM's mixers, the frontends and several LM heads
+    take the reference's other model rules (ROADMAP item 5d), and a width
+    the model axis does not divide would leave its leaf whole (the
+    reference's ``_fit_spec``) under a split computation: the heads, d_ff,
+    the experts' d_ff, Mamba's d_in, and an LM's vocab (BERT's embedding
+    may stay whole: its lookup is then replicated)."""
+    what = [w for w, bad in (("a frontend", cfg.frontend != "none"),
+                             ("xLSTM mixers", bool(set(cfg.pattern) & {"s", "x"})),
                              ("several LM heads", cfg.n_lm_heads > 1)) if bad]
     if what:
-        raise ValueError(f"model_compute='split' covers the dense attention archs and BERT; "
-                         f"{cfg.name} has {', '.join(what)} (ROADMAP item 5c: the expert-FFN, "
-                         "state-dim and wide-dim rules are still to split)")
+        raise ValueError(f"model_compute='split' covers the attention, MoE and Mamba archs and "
+                         f"BERT; {cfg.name} has {', '.join(what)} (ROADMAP item 5d: the wide-dim "
+                         "rules and the codebooks' and LM heads' vocab blocks are still to split)")
     m = mesh.shape.get("model", 1)
-    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)):
+    widths = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)]
+    if cfg.n_experts:
+        widths.append(("moe_d_ff", cfg.moe_d_ff or cfg.d_ff))
+    if "m" in cfg.pattern:
+        widths.append(("Mamba's d_in", Mb.mamba_dims(cfg)[0]))
+    if not bert:
+        widths.append(("vocab_size", cfg.vocab_size))
+    for name, n in widths:
         if n % m:
             raise ValueError(f"model_compute='split' needs {name} = {n} to divide by the model "
                              f"axis of {m}")
@@ -460,21 +498,23 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     tensor parallelism (``models/layers.py``): a model-split leaf is
     gathered over the data axes only, for its FSDP dim, into its model
     blocks, never over the model axis; each model rank computes its own
-    heads, MLP columns and vocab block, and the ranks meet in the
+    heads, MLP and experts' d_ff columns, Mamba channels and vocab block
+    (``models/moe.py``, ``models/mamba.py``), the cross-entropy stays
+    vocab-parallel (``_vocab_parallel_ce``), and the ranks meet in the
     activations' collectives (``collectives.model_sum``, ``model_max``,
-    ``gather_from_model``).  A model-split leaf's gradient is its model
+    ``model_exchange``).  A model-split leaf's gradient is its model
     block's, summed over the data ranks of its model coordinate; a
     replicated leaf's is the same bits on every model rank (each holds the
     same ``model_sum``), so one contribution a data rank counts, as under
     "gather".  On a ``Mesh`` each data rank's pass runs every model rank's
     part in one process (``collectives.ModelRanks``), the process step's
     bit oracle; on a model axis of 1 "split" gives "gather"'s bits.  It
-    covers the dense attention archs and BERT (``check_split``).
+    covers the attention, MoE and Mamba archs and BERT (``check_split``).
     """
     if model_compute not in ("gather", "split"):
         raise ValueError(f"model_compute must be 'gather' or 'split' (got {model_compute!r})")
     if model_compute == "split":
-        check_split(cfg, mesh)
+        check_split(cfg, mesh, bert)
     shape = state_shape(cfg, opt_cfg, bert)
     state_sh = state_shardings(mesh, shape, fsdp)
     example = {k: tuple(v.shape) for k, v in batch_example.items()}

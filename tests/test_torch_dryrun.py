@@ -10,7 +10,13 @@ the step's worked out from those shardings: an all-gather of every split
 param (its whole bytes), and per microbatch a reduce-scatter of each split
 param's float32 block or an all-reduce of a whole one, and each MoE layer's
 (data ranks, k, E) int32 counts gathered; one all-reduce of each observed
-max.  ``hlo_cost`` holds the traced rank's bytes by dtype.
+max.  ``hlo_cost`` holds the traced rank's bytes by dtype.  The "split"
+step's collectives (``collectives_split``) of a MoE cell equal those worked
+out from the same shardings and the config: a model-split param gathered
+over the data axes into its model block, the others as above, and per
+microbatch model coordinate 0's model-group collectives
+(``test_torch_megatron_moe.model_group_collectives``, as its process ranks
+are held to); a cell whose mesh ``check_split`` refuses records the refusal.
 
 Every config runs at its published widths and one layer
 (``cfg_overrides``): a traced layer at S = 4,096 costs ~1 s of meta ops,
@@ -33,8 +39,10 @@ from repro.optim import adamw as JA
 from repro.sharding import partition as JPt
 from repro.train import steps as JSt
 from repro_torch.launch import dryrun as D
+from test_torch_megatron_moe import model_group_collectives
 
 ONE_LAYER = {"n_layers": 1}
+_CELLS = {}     # (arch, multi_pod) -> the cell's record, traced once a module
 
 
 def _rank_bytes(tree, shardings):
@@ -52,7 +60,8 @@ def _mesh(multi_pod):
 def test_train_cells_trace_with_the_reference_bytes_per_rank(arch, multi_pod, tmp_path,
                                                              monkeypatch):
     monkeypatch.setattr(D, "RESULTS", tmp_path)
-    rec = D.run_cell(arch, "train_4k", multi_pod, cfg_overrides=ONE_LAYER)
+    rec = _CELLS[(arch, multi_pod)] = D.run_cell(arch, "train_4k", multi_pod,
+                                                 cfg_overrides=ONE_LAYER)
     saved = json.loads((tmp_path / f"{arch}--train_4k--{'multipod' if multi_pod else 'pod'}"
                         ".json").read_text())
     assert saved == rec
@@ -116,3 +125,61 @@ def test_a_failing_cell_is_recorded_and_serve_cells_trace(tmp_path, monkeypatch)
     assert rec["rank_bytes"]["cache"] == _rank_bytes(cache, JPt.cache_sharding(mesh, cache))
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "qwen2-moe-a2.7b--train_4k--pod.json", "yi-6b--decode_32k--pod.json"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["256", "512"])
+def test_moe_train_cell_records_the_split_steps_collectives(multi_pod, tmp_path, monkeypatch):
+    monkeypatch.setattr(D, "RESULTS", tmp_path)
+    arch = "qwen2-moe-a2.7b"
+    rec = _CELLS.get((arch, multi_pod)) or D.run_cell(arch, "train_4k", multi_pod,
+                                                       cfg_overrides=ONE_LAYER)
+    mixtral = _CELLS.get(("mixtral-8x22b", multi_pod)) or D.run_cell(
+        "mixtral-8x22b", "train_4k", multi_pod, cfg_overrides=ONE_LAYER)
+    assert rec["ok"] and mixtral["ok"], (rec.get("traceback"), mixtral.get("traceback"))
+    assert "collectives_split" not in mixtral
+    assert mixtral["collectives_split_error"] == ("model_compute='split' needs n_kv_heads = 8 to "
+                                                  "divide by the model axis of 16")
+    cfg, mesh = j_get_config(arch, **ONE_LAYER), _mesh(multi_pod)
+    tcfg = D.get_config(arch, **ONE_LAYER)
+    state = jax.eval_shape(lambda k: JSt.init_train_state(
+        cfg, k, JA.AdamWConfig(quantize_moments=True)), jax.random.PRNGKey(0))
+    p_sh = JPt.make_param_shardings(mesh, state.params)
+    accum, n_data, m = rec["accum_steps"], rec["data_ranks"], mesh.shape["model"]
+    want = {}
+
+    def add(key, nbytes, times=1):
+        if times:
+            c = want.setdefault(key, [0, 0])
+            c[0] += times
+            c[1] += nbytes * times
+
+    for v, sh in zip(jax.tree.leaves(state.params), jax.tree.leaves(p_sh)):
+        block, size = sh.shard_shape(v.shape), np.dtype(v.dtype).itemsize
+        model = [i for i, ax in enumerate(sh.spec)
+                 if "model" in (ax if isinstance(ax, tuple) else (ax,))]
+        whole = list(v.shape)
+        for i in model:
+            whole[i] //= m
+        if tuple(block) != tuple(whole):        # split over the data axes
+            add(("all-gather", "all_gather_data" if model else "all_gather"),
+                math.prod(whole) * size)
+        add(("reduce-scatter" if tuple(block) != tuple(v.shape) else "all-reduce",
+             "reduce_scatter_add"), math.prod(block) * 4, accum)
+    for a in jax.tree.leaves(state.amax):
+        add(("all-reduce", "max_over_ranks"), math.prod(a.shape) * 4)
+    for _ in range(accum):
+        model_group_collectives(tcfg, m, n_data, tuple(rec["microbatch"]), True, add)
+    kinds = {k: {"count": 0, "bytes": 0} for k in D.COLLECTIVE_KINDS}
+    for (kind, _), (n, nbytes) in want.items():
+        kinds[kind]["count"] += n
+        kinds[kind]["bytes"] += nbytes
+    calls = {}
+    for (_, fn), (n, nbytes) in want.items():
+        c = calls.setdefault(fn, {"count": 0, "bytes": 0})
+        c["count"] += n
+        c["bytes"] += nbytes
+    print(f"  {arch} train_4k on {rec['chips']} ranks, \"split\": a rank's collectives a step "
+          f"{rec['collectives_split_by_call']}; \"gather\": {rec['collectives_by_call']}")
+    assert rec["collectives_split_by_call"] == calls
+    assert rec["collectives_split"] == kinds
+    assert "gather_from_model" not in calls and calls["model_sum"]["count"] > 0
