@@ -202,9 +202,10 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    steps at (2, 1,024) on one ``SyntheticLM`` batch (S crosses the
    mLSTM's 512-row chunks, each sLSTM layer loops 1,024 times; loss and
    grad norm each step, finite, the last loss below the first; ms per step,
-   tokens/s, peak memory, the state reckoned before the run), a step
-   profiled and one sLSTM layer's loop (forward, recompute, backward)
-   timed alone for its share of the step;
+   tokens/s, peak memory, the state reckoned before the run), its last
+   step profiled (an extra profiled step before item 5d's split runs) and
+   one sLSTM layer's loop (forward, recompute, backward) timed alone for
+   its share of the step;
 8. ``[sst2]`` (``phase_sst2``): the paper's Table I experiment as
    ``launch/train_bert_sst2.py`` runs it at its defaults (a BERT of
    d_model 128 and 2 layers, 150 QAT steps at (16, 32), lr 1e-3): every 25th
@@ -258,21 +259,31 @@ Run it from the root of a checkout on a machine with one CUDA card (an H100),
    (4, 1,024) and jamba-1.5-large (MESH_SPLIT_JAMBA_DEPTH of 72 layers, its
    Mamba slot at published widths with ``n_experts=0`` and a dense SwiGLU
    FFN, its d_in split) at MESH_SPLIT_JAMBA_SHAPE under "split" on
-   MESH_SPLIT in this process, MESH_SPLIT_ARCH_STEPS steps each: losses,
-   grad norms, ms a step, the peak, the split island.  Then
-   (``mesh_processes``, one start) BERT-base's (4, 1) run, qwen2-moe's
-   (4, 1) run (its first MESH_PROC_MOE_STEPS step; 2 before ``mesh_split``)
-   and the four "split" runs again (yi-6b's first MESH_PROC_YI_STEPS step, 2
-   before ``mesh_split_archs``; the two archs' first step) on MESH_PROCS
-   processes, one a rank,
+   MESH_SPLIT in this process, MESH_SPLIT_ARCH_STEPS steps each; and item
+   5d's archs at published widths, MESH_SPLIT_5D_STEPS step each:
+   xlstm-1.3b (its sLSTM slot and first mLSTM slot, MESH_SPLIT_XLSTM_DEPTH
+   of 48 layers, one head a rank) at (1, 1,024) and musicgen-medium
+   (MESH_SPLIT_MUSICGEN_DEPTH of 48 layers, each rank 512 of every
+   codebook's and head's 2,048 codes) at (4, 4, 1,024) codes on MESH_SPLIT,
+   qwen2-vl-2b (MESH_SPLIT_VL_DEPTH of 28 layers, 4 sequences of 256 image
+   rows with ``image_pos3``'s M-RoPE ids + 768 text tokens, the image rows
+   unscored) on MESH_SPLIT_VL = (2, 2), the first "split" run with a data
+   axis on the card: losses, grad norms, ms a step, the peak, the split
+   island.  Then (``mesh_processes``, one start) BERT-base's (4, 1) run,
+   qwen2-moe's (4, 1) run (its first MESH_PROC_MOE_STEPS step; 2 before
+   ``mesh_split``) and the seven "split" runs again (yi-6b's first
+   MESH_PROC_YI_STEPS step, 2 before ``mesh_split_archs``; the five archs'
+   first step, each on its mesh) on MESH_PROCS processes, one a rank,
    sharing the card over gloo (``launch/ranks.py``; the parent frees the
    card first): every rank's params, moments, amax and steps
    (``ranks.digest``) and every metric equal to the one-process runs' bit
    for bit, the routing counts exchanged between the processes; under
-   "split" every replicated leaf's gradient the same bits on every rank;
+   "split" every replicated leaf's gradient the same bits on every model
+   rank of a data rank;
    each rank's tally of collectives equal to the reckoning from the specs
    (``reckon_step_collectives``, ``reckon_split_collectives``: the model
-   group's sums, maxima and all-to-alls too; no rank gathers the logits);
+   group's sums, maxima, all-to-alls and gathers too, a lookup a codebook,
+   the zero-amax fill over 2 data ranks; no rank gathers the logits);
    rank 0's BERT-base
    checkpoints ("gather" and "split") restored equal to the one-process
    final states, folded and served at (1, 128) through rows 1, 2 and 5,
@@ -3244,13 +3255,13 @@ VISION_DECODE = 32
 MUSIC_STREAMS, MUSIC_FRAMES, MUSIC_DECODE = 8, 64, 64
 
 
-def image_pos3(torch, grid: int, text: int):
-    """(1, grid^2 + text, 3) M-RoPE positions on the card: the image's (t 0,
-    h the row, w the column), then the text at ``grid`` onwards on all
+def image_pos3(torch, grid: int, text: int, device="cuda"):
+    """(1, grid^2 + text, 3) M-RoPE positions on ``device``: the image's (t
+    0, h the row, w the column), then the text at ``grid`` onwards on all
     three streams (Qwen2-VL's rule)."""
-    g = torch.arange(grid * grid, dtype=torch.int32, device="cuda")
+    g = torch.arange(grid * grid, dtype=torch.int32, device=device)
     img = torch.stack([torch.zeros_like(g), g // grid, g % grid], -1)
-    txt = (grid + torch.arange(text, dtype=torch.int32, device="cuda"))[:, None].expand(text, 3)
+    txt = (grid + torch.arange(text, dtype=torch.int32, device=device))[:, None].expand(text, 3)
     return torch.cat([img, txt])[None]
 
 
@@ -3746,7 +3757,8 @@ TRAIN_YI_DEPTH = 8          # of 32 layers
 TRAIN_YI_SHAPE = (4, 1024)
 TRAIN_YI_STEPS = 5
 TRAIN_XLSTM_SHAPE = (2, 1024)
-TRAIN_XLSTM_STEPS = 2         # 3 before [mesh]: cut to keep the script in its time
+TRAIN_XLSTM_STEPS = 2         # 3 before [mesh]: cut to keep the script in its time; the
+                              # last is the profiled one since item 5d's split runs
 
 
 def _nbytes(tree) -> int:
@@ -3999,8 +4011,9 @@ def slstm_loop_ms(torch, cfg, params, s: int):
 def train_xlstm(torch):
     """xlstm-1.3b at its full published size: bf16 params, float32 moments,
     remat, TRAIN_XLSTM_STEPS steps of ``make_train_step`` on one SyntheticLM
-    batch at TRAIN_XLSTM_SHAPE, a step profiled and the sLSTM loop's share
-    of it."""
+    batch at TRAIN_XLSTM_SHAPE, the last of them profiled (its busy share
+    against the unprofiled steps' median wall), and the sLSTM loop's share
+    of a step."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.transformer import tree_leaves
@@ -4035,20 +4048,33 @@ def train_xlstm(torch):
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
     step = St.make_train_step(cfg, opt)
-    losses, gns, walls = [], [], []
-    for i in range(TRAIN_XLSTM_STEPS):
+    losses, gns, walls, out = [], [], [], {}
+
+    def one_step():
+        out["state"], m = step(out["state"], batch)
+        out["metrics"] = {k: float(m[k]) for k in ("loss", "grad_norm")}   # waits for the card
+
+    out["state"] = state
+    del state
+    for i in range(TRAIN_XLSTM_STEPS - 1):
         t0 = time.perf_counter()
-        state, m = step(state, batch)
-        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        one_step()
         walls.append(time.perf_counter() - t0)
-        losses.append(loss)
-        gns.append(gn)
-        print(f"  xlstm-1.3b step {i}: loss {loss:.4f} grad norm {gn:.4f} "
+        losses.append(out["metrics"]["loss"])
+        gns.append(out["metrics"]["grad_norm"])
+        print(f"  xlstm-1.3b step {i}: loss {losses[-1]:.4f} grad norm {gns[-1]:.4f} "
               f"({walls[-1] * 1e3:.0f} ms)")
     ms = float(np.median(walls)) * 1e3
-    print(f"  xlstm-1.3b ({b}, {s}) QAT step: median {ms:.0f} ms, {b * s / ms * 1e3:.0f} "
-          f"tokens/s (first step {walls[0] * 1e3:.0f} ms), peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    print(f"  xlstm-1.3b ({b}, {s}) QAT step: median {ms:.0f} ms over the "
+          f"{len(walls)} unprofiled step(s), {b * s / ms * 1e3:.0f} tokens/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; its last step "
+          "profiled:")
+    profile_steps(torch, one_step, "xlstm-1.3b QAT train step", n=1, wall_ms=ms)
+    losses.append(out["metrics"]["loss"])
+    gns.append(out["metrics"]["grad_norm"])
+    print(f"  xlstm-1.3b step {len(walls)} (profiled): loss {losses[-1]:.4f} grad norm "
+          f"{gns[-1]:.4f}")
+    state = out.pop("state")
     check(all(np.isfinite(losses)) and all(np.isfinite(gns)),
           f"xlstm-1.3b: a loss or grad norm is not finite: {losses} {gns}")
     check(losses[-1] < losses[0], f"xlstm-1.3b: the loss did not fall ({losses})")
@@ -4057,8 +4083,6 @@ def train_xlstm(torch):
     print(f"  one sLSTM layer's loop over {s} steps (forward, recompute, backward): "
           f"{wall:.0f} ms wall, {busy:.1f} ms device; x {n_s} layers = {n_s * wall:.0f} ms "
           f"wall ({100 * n_s * wall / ms:.1f} % of the median step)")
-    profile_steps(torch, lambda: step(state, batch), "xlstm-1.3b QAT train step", n=1,
-                  wall_ms=ms)
     del state
     torch.cuda.empty_cache()
     return {"ms": ms, "losses": losses, "slstm_ms": n_s * wall}
@@ -4791,29 +4815,38 @@ MESH_PROC_YI_STEPS = 1   # yi-6b's "split" steps on the processes: 2 before mesh
 MESH_SPLIT = (1, MESH_PROCS)    # mesh_split's mesh: every rank a model rank
 
 
-def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) -> dict:
+def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False, *,
+                             mesh_shape=MESH_SPLIT, fill: bool = False, n_img: int = 0) -> dict:
     """One rank's collectives in one step of the process backend under
-    ``model_compute="split"`` on a mesh of one data rank (no zero-amax fill,
-    no reduction over data ranks), reckoned from the specs and the config:
-    a leaf split over the data axes alone gathered whole for the forward, a
-    model-split one into its model block over the data axes (nothing on one
-    data rank), every split leaf's gradient gathered whole for the norm;
-    each amax leaf maxed; and the model group's collectives of the pass.
-    Its forward: the vocab-parallel embedding sums its lookups; per layer
-    (twice with remat: the recomputation meets again) the attention sums
-    its row-parallel ``wo`` and maxes 8 activation sites and 4 per-tensor
-    weight maxima; a Mamba mixer sums ``w_x``'s (dt_r, B, C) and ``w_out``,
-    re-blocks [x | z] (``model_exchange``, an all-to-all) and maxes 3 and
-    3; a dense MLP sums its down projection and maxes 4 and 3 (SwiGLU) or
-    3 and 2 (GELU); a MoE layer sums the routed experts' combined float32
-    (T, d) partials and the shared experts' and maxes 3 and 3 an expert
-    group; an LM's vocab-parallel cross-entropy maxes its rows and sums two
-    float32 rows (no rank gathers the logits).  Its backward sums the
-    gradient of each replicated input of column-parallel products (the
-    attention's, the MLP's, the Mamba's and its (dt_r, B, C), the MoE's
-    tokens and combine weights, qk-norm's gammas, the LM head's input) and
-    re-blocks each Mamba's [x | z] gradient.  ``rows``: (B, S) of the
-    rank's batch."""
+    ``model_compute="split"`` on a ``mesh_shape`` (data, model) mesh, one
+    microbatch, reckoned from the specs and the config: a leaf split over
+    the data axes alone gathered whole for the forward, a model-split one
+    into its model block over the data axes, every split leaf's gradient
+    gathered whole for the norm (in the params' dtype on one data rank,
+    float32 summed over more); each gradient leaf reduced over the data
+    ranks (a rank's float32 block; none on one data rank); each amax leaf
+    maxed; and the model group's collectives of the pass (with ``fill``,
+    the zero-amax forward over the global batch first).  Its forward: the
+    vocab-parallel embedding sums its lookups (one a codebook for an audio
+    arch); per layer (twice with remat: the recomputation meets again) the
+    attention sums its row-parallel ``wo`` and maxes 8 activation sites and
+    4 per-tensor weight maxima; a Mamba mixer sums ``w_x``'s (dt_r, B, C)
+    and ``w_out``, re-blocks [x | z] (``model_exchange``, an all-to-all)
+    and maxes 3 and 3; an mLSTM sums ``wo``, gathers ``ln_y``'s float32
+    window sums (``model_gather``) and maxes 2 and 4; an sLSTM sums
+    ``w_out`` and maxes 2 and 5; a dense MLP sums its down projection and
+    maxes 4 and 3 (SwiGLU) or 3 and 2 (GELU); a MoE layer sums the routed
+    experts' combined float32 (T, d) partials and the shared experts' and
+    maxes 3 and 3 an expert group; an LM's vocab-parallel cross-entropy
+    maxes its scored rows and sums two float32 rows (no rank gathers the
+    logits).  Its backward sums the gradient of each replicated input of
+    column-parallel products (the attention's, the MLP's, the Mamba's and
+    its (dt_r, B, C), an xLSTM mixer's, the MoE's tokens and combine
+    weights, qk-norm's gammas, the LM head's input), re-blocks each Mamba's
+    [x | z] gradient, sums ``ln_y``'s row-sum gradient and gathers the
+    replicated xLSTM leaves' gradient blocks (``w_ig``, ``w_fg``, ``w_og``,
+    ``ln_y``; the sLSTM's ``r``).  ``rows``: (B, S) of the rank's token
+    rows, ``n_img`` image rows before each."""
     from repro_torch.models import mamba as Mb
     from repro_torch.models import transformer as T
     from repro_torch.sharding import partition as Pt
@@ -4826,6 +4859,8 @@ def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) ->
             c[0] += times
             c[1] += nbytes * times
 
+    n_data, m = mesh_shape
+    sole = n_data == 1
     split_tokens = split_head = False
     for (path, v), (_, sh) in zip(Pt.tree_paths(state.params, sort_keys=True),
                                   Pt.tree_paths(shardings.params, sort_keys=True), strict=True):
@@ -4834,48 +4869,79 @@ def reckon_split_collectives(cfg, state, shardings, rows, bert: bool = False) ->
             split_tokens = md is not None
         if path == "lm_head" or (cfg.tied_embeddings and path == "embed/tokens"):
             split_head = md is not None
-        if any(n > 1 for _, n in Pt.block_index(sh, 0, v.dim())):
+        split = any(n > 1 for _, n in Pt.block_index(sh, 0, v.dim()))
+        if split:
             if md is None:
                 add(("all-gather", "all_gather"), v.numel() * v.element_size())
-            add(("all-gather", "all_gather"), v.numel() * v.element_size())     # one data rank
+            elif any(n > 1 for _, n in Pt.block_index(Pt.data_sharding(sh), 0, v.dim())):
+                add(("all-gather", "all_gather_data"), v.numel() // m * v.element_size())
+            add(("all-gather", "all_gather"), v.numel() * (v.element_size() if sole else 4))
+        if not sole:
+            add(("reduce-scatter" if split else "all-reduce", "reduce_scatter_add"),
+                math.prod(Pt.shard_shape(tuple(v.shape), sh)) * 4)
     for _, a in Pt.tree_paths(state.amax):
         add(("all-reduce", "max_over_ranks"), a.numel() * a.element_size())
-    m = MESH_SPLIT[1]
     es = torch_dtype_size(cfg.dtype)
-    b, s = rows
-    act, t, fwd = b * s * cfg.d_model * es, b * s, 2 if cfg.remat else 1
+    d = cfg.d_model
     d_in, dt_rank = Mb.mamba_dims(cfg)
-    add(("all-reduce", "model_sum"), act, split_tokens)
-    for mixer, ffn in T.slot_kinds(cfg) * cfg.n_reps:
-        if mixer == "attn":
-            add(("all-reduce", "model_sum"), act, fwd + 1)
-            add(("all-reduce", "model_sum"), cfg.hd * es, 2 * cfg.qk_norm)
-            add(("all-reduce", "model_max"), 4, 8 * fwd)
-            add(("all-reduce", "model_max"), es, 4 * fwd)
-        else:
-            add(("all-reduce", "model_sum"), b * s * (dt_rank + 2 * cfg.mamba_d_state) * es,
-                fwd + 1)
-            add(("all-reduce", "model_sum"), act, fwd + 1)
-            add(("all-to-all", "model_exchange"), b * s * 2 * d_in // m * es, fwd + 1)
-            add(("all-reduce", "model_max"), 4, 3 * fwd)
-            add(("all-reduce", "model_max"), es, 3 * fwd)
-        if ffn == "dense":
-            swiglu = cfg.act == "swiglu"
-            add(("all-reduce", "model_sum"), act, fwd + 1)
-            add(("all-reduce", "model_max"), 4, (4 if swiglu else 3) * fwd)
-            add(("all-reduce", "model_max"), es, (3 if swiglu else 2) * fwd)
-        elif ffn == "moe":
-            groups = 1 + bool(cfg.n_shared_experts)
-            add(("all-reduce", "model_sum"), t * cfg.d_model * 4, fwd)
-            add(("all-reduce", "model_sum"), act, fwd * bool(cfg.n_shared_experts))
-            add(("all-reduce", "model_sum"), act)
-            add(("all-reduce", "model_sum"), cfg.top_k * t * 4)
-            add(("all-reduce", "model_max"), 4, 3 * groups * fwd)
-            add(("all-reduce", "model_max"), es, 3 * groups * fwd)
-    if split_head and not bert:
-        add(("all-reduce", "model_sum"), act)
-        add(("all-reduce", "model_max"), b * (s - 1) * 4)
-        add(("all-reduce", "model_sum"), b * (s - 1) * 4, 2)
+    audio = cfg.frontend == "audio_codebooks"
+
+    def model_group(b, s, grad):
+        act, t, fwd = b * (n_img + s) * d * es, b * (n_img + s), 2 if grad and cfg.remat else 1
+        add(("all-reduce", "model_sum"), b * s * d * es,
+            (cfg.n_codebooks if audio else 1) * split_tokens)
+        for mixer, ffn in T.slot_kinds(cfg) * cfg.n_reps:
+            if mixer == "attn":
+                add(("all-reduce", "model_sum"), act, fwd + grad)
+                add(("all-reduce", "model_sum"), cfg.hd * es, 2 * grad * cfg.qk_norm)
+                add(("all-reduce", "model_max"), 4, 8 * fwd)
+                add(("all-reduce", "model_max"), es, 4 * fwd)
+            elif mixer == "mamba":
+                add(("all-reduce", "model_sum"), t * (dt_rank + 2 * cfg.mamba_d_state) * es,
+                    fwd + grad)
+                add(("all-reduce", "model_sum"), act, fwd + grad)
+                add(("all-to-all", "model_exchange"), t * 2 * d_in // m * es, fwd + grad)
+                add(("all-reduce", "model_max"), 4, 3 * fwd)
+                add(("all-reduce", "model_max"), es, 3 * fwd)
+            elif mixer == "mlstm":
+                add(("all-reduce", "model_sum"), act, fwd + grad)
+                add(("all-reduce", "model_sum"), t * 4, grad)
+                add(("all-gather", "model_gather"), t * d // 32 * 4, fwd)
+                add(("all-gather", "model_gather"), d * cfg.n_heads * es, 2 * grad)
+                add(("all-gather", "model_gather"), d * d * es, grad)
+                add(("all-gather", "model_gather"), d * es, grad)
+                add(("all-reduce", "model_max"), 4, 2 * fwd)
+                add(("all-reduce", "model_max"), es, 4 * fwd)
+            else:                                                   # slstm
+                add(("all-reduce", "model_sum"), act, fwd + grad)
+                add(("all-gather", "model_gather"), d * 4 * d // cfg.n_heads * es, grad)
+                add(("all-reduce", "model_max"), 4, 2 * fwd)
+                add(("all-reduce", "model_max"), es, 5 * fwd)
+            if ffn == "dense":
+                swiglu = cfg.act == "swiglu"
+                add(("all-reduce", "model_sum"), act, fwd + grad)
+                add(("all-reduce", "model_max"), 4, (4 if swiglu else 3) * fwd)
+                add(("all-reduce", "model_max"), es, (3 if swiglu else 2) * fwd)
+            elif ffn == "moe":
+                groups = 1 + bool(cfg.n_shared_experts)
+                add(("all-reduce", "model_sum"), t * d * 4, fwd)
+                add(("all-reduce", "model_sum"), act, fwd * bool(cfg.n_shared_experts))
+                add(("all-reduce", "model_sum"), act, grad)
+                add(("all-reduce", "model_sum"), cfg.top_k * t * 4, grad)
+                add(("all-reduce", "model_max"), 4, 3 * groups * fwd)
+                add(("all-reduce", "model_max"), es, 3 * groups * fwd)
+                add(("all-gather", "all_gather_counts"), n_data * cfg.top_k * cfg.n_experts * 4,
+                    grad * (n_data > 1))
+        if split_head and not bert:
+            scored = b * (cfg.n_codebooks if audio else 1) * (s - 1) * 4
+            add(("all-reduce", "model_sum"), act, grad)
+            add(("all-reduce", "model_max"), scored)
+            add(("all-reduce", "model_sum"), scored, 2)
+
+    b, s = rows
+    if fill:
+        model_group(b * n_data, s, False)
+    model_group(b, s, True)
     return out
 
 
@@ -4885,7 +4951,8 @@ def torch_dtype_size(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False) -> dict:
+def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False, *, mesh_shape=MESH_SPLIT,
+                      n_img: int = 0) -> dict:
     """One "split" rank's bytes, reckoned before the run: its shard of the
     state, its gradient (its blocks, in the params' dtype), the largest
     leaf's reduced float32 gradient gathered whole for the norm with the
@@ -4895,19 +4962,25 @@ def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False) -> dict:
     tensors and its rank's split ones: an attention's 6 (B, H / m, S, S)
     float32 score tensors (512 query rows at a time); a dense MLP's 8 (B,
     S, d_ff / m) float32; a Mamba's 16 float32 (B, 128, d_in / m, N) scan
-    tensors for each 128-row chunk and 12 (B, S, d_in / m); a MoE layer's
-    6 dispatched (E cap, d) and 8 float32 (E cap, moe_d_ff / m) an expert
-    group.  An LM's vocab-parallel logits: the rank's block, its float32
-    copy, its exp and its gradient."""
+    tensors for each 128-row chunk and 12 (B, S, d_in / m); an mLSTM's 6
+    float32 (B, 512, S, H / m) decay and score tensors (512 query rows at a
+    time) and 12 (B, S, d / m); an sLSTM's 17 float32 (B, H / m, d / H)
+    tensors a step that its loop keeps for the backward; a MoE layer's 6
+    dispatched (E cap, d) and 8 float32 (E cap, moe_d_ff / m) an expert
+    group.  An LM's vocab-parallel logits: the rank's block (K of them for
+    several heads), its float32 copy, its exp and its gradient.  ``rows``:
+    (B, S) of the rank's token rows, ``n_img`` image rows before each."""
     from repro_torch.launch.dryrun import rank_bytes as rank_bytes_of_specs
     from repro_torch.models import mamba as Mb
     from repro_torch.models import moe as Moe
     from repro_torch.models import transformer as T
     from repro_torch.sharding import partition as Pt
 
-    m = MESH_SPLIT[1]
+    m = mesh_shape[1]
     es = torch_dtype_size(cfg.dtype)
-    b, s = rows
+    b, s_tok = rows
+    s = s_tok + n_img
+    d = cfg.d_model
     shard = rank_bytes_of_specs(state, shardings)
     grads = rank_bytes_of_specs(state.params, shardings.params)
     big = max(v.numel() for _, v in Pt.tree_paths(state.params))
@@ -4915,26 +4988,30 @@ def reckon_split_peak(cfg, state, shardings, rows, bert: bool = False) -> dict:
     cap = Moe.capacity(b * s, cfg.n_experts, cfg.top_k) if cfg.n_experts else 0
     per_slot = []
     for mixer, ffn in T.slot_kinds(cfg):
-        n = 16 * b * s * cfg.d_model * es
+        n = 16 * b * s * d * es
         if mixer == "attn":
             n += 6 * b * cfg.n_heads // m * min(s, 512) * s * 4
-        else:
+        elif mixer == "mamba":
             n += 16 * b * s * d_in // m * cfg.mamba_d_state * 4 + 12 * b * s * d_in // m * 4
+        elif mixer == "mlstm":
+            n += 6 * b * min(s, 512) * s * cfg.n_heads // m * 4 + 12 * b * s * d // m * 4
+        else:
+            n += 17 * b * s * d // m * 4
         if ffn == "dense":
             n += 8 * b * s * cfg.d_ff // m * 4
         elif ffn == "moe":
             groups = 1 + bool(cfg.n_shared_experts)
-            n += groups * (6 * cfg.n_experts * cap * cfg.d_model * es
+            n += groups * (6 * cfg.n_experts * cap * d * es
                            + 8 * cfg.n_experts * cap * (cfg.moe_d_ff or cfg.d_ff) // m * 4)
         per_slot.append(n)
     rep = sum(per_slot)
-    acts = (cfg.n_layers * b * s * cfg.d_model * es + rep) if cfg.remat else cfg.n_reps * rep
+    acts = (cfg.n_layers * b * s * d * es + rep) if cfg.remat else cfg.n_reps * rep
     out = {"its state's shard": shard, "its gradient": grads,
            "the largest leaf's float32 gradient whole, twice": 2 * 4 * big,
            "activations": acts}
     if not bert:
         out["the logits: its vocab block, float32, exp and gradient"] = \
-            b * s * cfg.vocab_size // m * (es + 4 + 4 + 4)
+            b * s * max(1, cfg.n_lm_heads) * cfg.vocab_size // m * (es + 4 + 4 + 4)
     return out
 
 
@@ -5039,8 +5116,8 @@ def mesh_split_oracles(torch, smi, trained, bert_ref, bert_cfg=None, yi_cfg=None
 def split_island(torch, forward, params, amax, batch, shardings) -> str:
     """The first activation fake-quant site (``layers.fake_quant_act`` or
     ``fake_quant_parts``, in call order) whose input differs between the
-    whole forward and the split one (a local model group of MESH_SPLIT[1],
-    ``params``' model-split leaves cut into their model blocks), no
+    whole forward and the split one (a local model group of the shardings'
+    model axis, ``params``' model-split leaves cut into their model blocks), no
     gradient, at the amax each site's own batch max fills: its shape and
     how many inputs and codes differ, whether every site before it agrees,
     and how many sites end with flipped codes.  A replicated input that
@@ -5048,11 +5125,12 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
     from repro_torch.models import layers as L
     from repro_torch.models import mamba as Mb
     from repro_torch.models import moe as Moe
+    from repro_torch.models import xlstm as Xl
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import partition as Pt
 
-    m = MESH_SPLIT[1]
     shs = dict(Pt.tree_paths(shardings.params))
+    m = next(iter(shs.values())).mesh.shape["model"]
     split = Pt.tree_rebuild(params, [
         v if Pt.model_dim(shs[p]) is None else
         {str(r): Pt.model_block(v, shs[p], r).contiguous() for r in range(m)}
@@ -5087,7 +5165,8 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
         return res
 
     try:
-        L.fake_quant_parts = Mb.fake_quant_parts = Moe.fake_quant_parts = parts
+        L.fake_quant_parts = Mb.fake_quant_parts = Moe.fake_quant_parts = \
+            Xl.fake_quant_parts = parts
         L.fake_quant_act = Moe.fake_quant_act = act
         with torch.no_grad():
             forward(params, amax, batch)
@@ -5095,7 +5174,8 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
             with Pt.model_split(C.ModelRanks(m)):
                 forward(split, amax, batch)
     finally:
-        L.fake_quant_parts = Mb.fake_quant_parts = Moe.fake_quant_parts = parts_fq
+        L.fake_quant_parts = Mb.fake_quant_parts = Moe.fake_quant_parts = \
+            Xl.fake_quant_parts = parts_fq
         L.fake_quant_act = Moe.fake_quant_act = act_fq
     del whole
     first = next((i for i, st in enumerate(stats) if st[1]), None)
@@ -5111,43 +5191,107 @@ def split_island(torch, forward, params, amax, batch, shardings) -> str:
 MESH_SPLIT_MOE_DEPTH = 2       # of qwen2-moe's 24 layers in mesh_split_archs
 MESH_SPLIT_JAMBA_DEPTH = 2     # of jamba's 72 layers: Mamba slots, each its own remat region
 MESH_SPLIT_JAMBA_SHAPE = (1, 1024)
-MESH_SPLIT_ARCH_STEPS = 2      # the one-process oracles' steps; the processes take 1
+MESH_SPLIT_ARCH_STEPS = 1      # the one-process oracles' steps, as the processes': 2 before
+                               # item 5d's split runs, cut to pay for them
+MESH_SPLIT_XLSTM_DEPTH = 2     # of xlstm's 48 layers: its sLSTM slot and first mLSTM slot
+MESH_SPLIT_XLSTM_SHAPE = (1, 1024)   # S crosses the mLSTM's 512-row chunk
+MESH_SPLIT_MUSICGEN_DEPTH = 2  # of musicgen's 48 layers
+MESH_SPLIT_MUSICGEN_SHAPE = (4, 1024)   # (B, S) of the (B, 4, S) codes
+MESH_SPLIT_VL_DEPTH = 2        # of qwen2-vl's 28 layers
+MESH_SPLIT_VL_SHAPE = (4, 768)  # text tokens after IMAGE_GRID^2 = 256 image rows
+MESH_SPLIT_VL = (2, 2)         # its 2 KV heads allow no wider model axis
+MESH_SPLIT_5D_STEPS = 1        # item 5d's oracles' steps: the processes take 1
 
 
 def split_arch_cfgs():
-    """mesh_split_archs' configs: qwen2-moe-a2.7b at its published widths
-    and MESH_SPLIT_MOE_DEPTH of 24 layers; jamba-1.5-large at its published
-    widths with ``n_experts=0``, cut to MESH_SPLIT_JAMBA_DEPTH of 72 layers
-    of its Mamba slot (``block_pattern=("m",)``: each layer its own remat
-    region, so the backward holds one layer's scan at a time), each with its
-    dense SwiGLU FFN at d_ff 24,576."""
+    """mesh_split_archs' configs, each at its published widths: qwen2-moe-
+    a2.7b at MESH_SPLIT_MOE_DEPTH of 24 layers; jamba-1.5-large with
+    ``n_experts=0``, cut to MESH_SPLIT_JAMBA_DEPTH of 72 layers of its Mamba
+    slot (``block_pattern=("m",)``: each layer its own remat region, so the
+    backward holds one layer's scan at a time), each with its dense SwiGLU
+    FFN at d_ff 24,576; xlstm-1.3b at its sLSTM slot and first mLSTM slot
+    (MESH_SPLIT_XLSTM_DEPTH of 48 layers, one super-block of 2, remat);
+    musicgen-medium and qwen2-vl-2b at MESH_SPLIT_MUSICGEN_DEPTH and
+    MESH_SPLIT_VL_DEPTH of 48 and 28 layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     moe, jamba = get_config("qwen2-moe-a2.7b"), get_config("jamba-1.5-large-398b")
+    xl, mg, vl = get_config("xlstm-1.3b"), get_config("musicgen-medium"), get_config("qwen2-vl-2b")
     check((moe.d_model, moe.n_experts, moe.moe_d_ff, moe.vocab_size, moe.param_dtype)
           == (2048, 60, 1408, 151936, "bfloat16")
           and (jamba.d_model, jamba.mamba_expand, jamba.mamba_d_state, jamba.d_ff,
                jamba.vocab_size, jamba.param_dtype, jamba.remat)
-          == (8192, 2, 16, 24576, 65536, "bfloat16", True),
-          "qwen2-moe-a2.7b or jamba-1.5-large is not at its published widths")
+          == (8192, 2, 16, 24576, 65536, "bfloat16", True)
+          and (xl.d_model, xl.n_heads, xl.pattern[:2], xl.vocab_size, xl.param_dtype, xl.remat)
+          == (2048, 4, ("s", "x"), 50304, "bfloat16", True)
+          and (mg.d_model, mg.n_heads, mg.d_ff, mg.n_codebooks, mg.n_lm_heads, mg.vocab_size,
+               mg.param_dtype) == (1536, 24, 6144, 4, 4, 2048, "bfloat16")
+          and (vl.d_model, vl.n_heads, vl.n_kv_heads, vl.d_ff, vl.vocab_size,
+               vl.tied_embeddings, vl.param_dtype)
+          == (1536, 12, 2, 8960, 151936, True, "bfloat16"),
+          "a mesh_split_archs config is not at its published widths")
     return {"moe": dataclasses.replace(moe, n_layers=MESH_SPLIT_MOE_DEPTH),
             "jamba": dataclasses.replace(jamba, n_layers=MESH_SPLIT_JAMBA_DEPTH,
-                                         block_pattern=("m",), n_experts=0)}
+                                         block_pattern=("m",), n_experts=0),
+            "xlstm": dataclasses.replace(xl, n_layers=MESH_SPLIT_XLSTM_DEPTH,
+                                         block_pattern=xl.pattern[:2]),
+            "musicgen": dataclasses.replace(mg, n_layers=MESH_SPLIT_MUSICGEN_DEPTH),
+            "vl": dataclasses.replace(vl, n_layers=MESH_SPLIT_VL_DEPTH)}
 
 
-def mesh_split_archs(torch, smi, cfgs=None, shapes=None, dev="cuda"):
-    """mesh_split_archs' one-process oracles: qwen2-moe (its expert FFN
-    split over the model ranks' moe_d_ff columns) and jamba (its Mamba
-    mixers' d_in channels) under ``model_compute="split"`` on MESH_SPLIT
-    over one device, every model rank's part in this process
-    (``collectives.ModelRanks``), MESH_SPLIT_ARCH_STEPS steps on one
-    ``SyntheticLM`` batch from seed SEED: each run's digests after its first
-    step and its last (``mesh_processes`` runs the first step again on
-    processes), the metrics, ms a step, the peak, and where the split parts
-    from the whole forward at the initial state (``split_island``)."""
+SPLIT_ARCH_RUNS = {   # name -> (rows (B, S) of tokens, mesh, the one-process oracle's steps)
+    "moe": (TRAIN_YI_SHAPE, MESH_SPLIT, MESH_SPLIT_ARCH_STEPS),
+    "jamba": (MESH_SPLIT_JAMBA_SHAPE, MESH_SPLIT, MESH_SPLIT_ARCH_STEPS),
+    "xlstm": (MESH_SPLIT_XLSTM_SHAPE, MESH_SPLIT, MESH_SPLIT_5D_STEPS),
+    "musicgen": (MESH_SPLIT_MUSICGEN_SHAPE, MESH_SPLIT, MESH_SPLIT_5D_STEPS),
+    "vl": (MESH_SPLIT_VL_SHAPE, MESH_SPLIT_VL, MESH_SPLIT_5D_STEPS)}
+
+
+def split_arch_batch(torch, cfg, rows) -> dict:
+    """A ``SyntheticLM`` batch from seed SEED as numpy arrays: (B, S)
+    tokens, an audio arch's (B, K, S) codes, or the vision stub's (B, S)
+    text tokens after IMAGE_GRID^2 image rows of random patch embeddings
+    with ``image_pos3``'s M-RoPE ids."""
     from repro_torch.data.pipeline import SyntheticLM
+
+    b, s = rows
+    audio = cfg.frontend == "audio_codebooks"
+    batch = SyntheticLM(cfg.vocab_size, s, b, seed=SEED,
+                        n_codebooks=cfg.n_codebooks if audio else 0).batch_at(0)
+    if cfg.frontend == "vision_stub":
+        n_img = IMAGE_GRID * IMAGE_GRID
+        batch["extra_embeds"] = np.random.default_rng(SEED).normal(
+            0, 1, (b, n_img, cfg.d_model)).astype(np.float32)
+        batch["pos3"] = np.ascontiguousarray(np.broadcast_to(
+            image_pos3(torch, IMAGE_GRID, s, "cpu").numpy(), (b, n_img + s, 3)))
+    return batch
+
+
+def forward_of(cfg):
+    """``transformer.forward`` of a batch (its frontend's inputs too)."""
+    from repro_torch.models import transformer as T
+
+    return lambda p, a, bt: T.forward(cfg, p, a, bt["tokens"],
+                                      extra_embeds=bt.get("extra_embeds"), pos3=bt.get("pos3"))
+
+
+def mesh_split_archs(torch, smi, cfgs=None, runs=None, dev="cuda"):
+    """mesh_split_archs' one-process oracles under ``model_compute="split"``,
+    every model rank's part in this process (``collectives.ModelRanks``), on
+    each run's mesh over one device (``SPLIT_ARCH_RUNS``): qwen2-moe (its
+    expert FFN split over the model ranks' moe_d_ff columns) and jamba (its
+    Mamba mixers' d_in channels) on MESH_SPLIT, MESH_SPLIT_ARCH_STEPS steps;
+    item 5d's xlstm-1.3b (each rank its one mLSTM and sLSTM head) and
+    musicgen-medium (each rank its vocab block of every codebook and head)
+    on MESH_SPLIT and qwen2-vl-2b (2 data ranks, each of 2 model ranks its
+    heads and vocab block; the image rows unscored) on MESH_SPLIT_VL,
+    MESH_SPLIT_5D_STEPS steps; each on one ``split_arch_batch``: each run's
+    digests after its first step and its last (``mesh_processes`` runs the
+    first step again on processes), the metrics, ms a step, the peak, and
+    where the split parts from the whole forward at the initial state
+    (``split_island``)."""
     from repro_torch.launch import ranks as R
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as T
@@ -5156,16 +5300,16 @@ def mesh_split_archs(torch, smi, cfgs=None, shapes=None, dev="cuda"):
     from repro_torch.train import steps as St
 
     cfgs = cfgs or split_arch_cfgs()
-    shapes = shapes or {"moe": TRAIN_YI_SHAPE, "jamba": MESH_SPLIT_JAMBA_SHAPE}
-    mesh = Mesh(np.array([torch.device(dev)] * MESH_PROCS, dtype=object).reshape(MESH_SPLIT),
-                ("data", "model"))
+    runs = runs or SPLIT_ARCH_RUNS
     out = {}
     for name, cfg in cfgs.items():
         what = f"{cfg.name} ({cfg.n_layers} layers)"
+        rows, grid, n_steps = runs[name]
+        mesh = Mesh(np.array([torch.device(dev)] * MESH_PROCS, dtype=object).reshape(grid),
+                    ("data", "model"))
         opt = AdamWConfig(lr=3e-4)
-        b, s = shapes[name]
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=SEED).batch_at(0).items()}
+        host = split_arch_batch(torch, cfg, rows)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
         gc.collect()
         if dev == "cuda":
             torch.cuda.empty_cache()
@@ -5181,7 +5325,7 @@ def mesh_split_archs(torch, smi, cfgs=None, shapes=None, dev="cuda"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         mets, walls = [], []
-        for i in range(MESH_SPLIT_ARCH_STEPS):
+        for i in range(n_steps):
             shards, m, ms = timed_step(torch, step, shards, batch)
             mets.append(m)
             walls.append(ms)
@@ -5195,19 +5339,18 @@ def mesh_split_archs(torch, smi, cfgs=None, shapes=None, dev="cuda"):
             torch.cuda.empty_cache()
         check(all(np.isfinite([x[k] for x in mets for k in ("loss", "grad_norm")])),
               f"{what}: a split loss or grad norm is not finite: {mets}")
-        island = split_island(torch, lambda p, a, bt, cfg=cfg: T.forward(cfg, p, a, bt["tokens"]),
-                              init_params, init_amax, batch, sh)
+        island = split_island(torch, forward_of(cfg), init_params, init_amax, batch, sh)
         del init_params, init_amax
-        print(f"  [{smi}] {what}, {n_params / 1e9:.3f} B params, \"split\" on {MESH_SPLIT} in "
-              f"one process ({MESH_PROCS} model ranks' parts in turn), {len(mets)} steps at "
-              f"{(b, s)}: losses {[x['loss'] for x in mets]}, grad norms "
-              f"{[x['grad_norm'] for x in mets]}, aux {[x['aux'] for x in mets]}; ms a step "
-              f"{[round(w) for w in walls]}; peak {peak:.2f} GiB allocated; against the whole "
-              f"forward at the initial state (split_island, ROADMAP §3): {island}")
+        print(f"  [{smi}] {what}, {n_params / 1e9:.3f} B params, \"split\" on {grid} in "
+              f"one process ({MESH_PROCS} ranks' parts in turn), {len(mets)} steps at "
+              f"{rows}{' + 256 image rows' if 'extra_embeds' in host else ''}: losses "
+              f"{[x['loss'] for x in mets]}, grad norms {[x['grad_norm'] for x in mets]}, aux "
+              f"{[x['aux'] for x in mets]}; ms a step {[round(w) for w in walls]}; peak "
+              f"{peak:.2f} GiB allocated; against the whole forward at the initial state "
+              f"(split_island, ROADMAP §3): {island}")
         out[name] = {"digests": digests_1, "digests_last": digests, "metrics": mets[:1],
                      "metrics_all": mets, "ms": walls[:1], "peak_gib": peak, "island": island,
-                     "cfg": cfg, "opt": opt,
-                     "batch": {k: v.cpu().numpy() for k, v in batch.items()}}
+                     "cfg": cfg, "opt": opt, "batch": host, "mesh": grid, "rows": rows}
     return out
 
 
@@ -5221,14 +5364,15 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels,
     exchanged between the processes; ``mesh_split``: BERT-base and yi-6b
     (its first MESH_PROC_YI_STEPS steps) as ``mesh_split_oracles``' "split"
     runs on MESH_SPLIT, every rank a model rank, BERT-base's checkpoint
-    written by rank 0; and ``mesh_split_archs``: qwen2-moe and jamba as its
-    "split" runs, their first step.  Every rank's params, moments, amax and
+    written by rank 0; and ``mesh_split_archs``: qwen2-moe, jamba, xlstm-1.3b,
+    musicgen-medium and qwen2-vl-2b as its "split" runs on their meshes,
+    their first step.  Every rank's params, moments, amax and
     steps (by ``ranks.digest``) and every metric must equal those
     one-process runs' (``ref_bert``, ``ref_moe``, ``ref_split``,
     ``ref_archs``) bit for bit; each rank's tally of collectives must equal
     the reckoning from the specs (``reckon_step_collectives``,
     ``reckon_split_collectives``); under "split" each replicated leaf's
-    gradient must be the same bits on every rank.  Rank 0's checkpoints,
+    gradient must be the same bits on every model rank of a data rank.  Rank 0's checkpoints,
     restored here, must equal the one-process runs' final states leaf for
     leaf, and each fold's integer forward at (1, 128) launches rows 1, 2 and
     5, each equal to its plain version.  Printed: each rank's own peak
@@ -5282,14 +5426,21 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels,
                 "bert-split": reckon_split_collectives(bert_cfg, shapes["bert"],
                                                        shs["bert-split"], (b, s), bert=True),
                 "yi": reckon_split_collectives(yi_cfg, shapes["yi"], shs["yi"], (yb, ys))}
-    arch_rows = {}
+    arch_rows, grids, n_imgs = {}, {"bert-split": MESH_SPLIT, "yi": MESH_SPLIT}, {}
     for name, ref in ref_archs.items():
         key = f"{name}-split"
+        grids[key] = ref["mesh"]
+        arch_mesh = Mesh(np.array([torch.device("meta")] * MESH_PROCS,
+                                  dtype=object).reshape(ref["mesh"]), ("data", "model"))
         shapes[key] = St.state_shape(ref["cfg"], ref["opt"])
-        shs[key] = St.state_shardings(split_mesh, shapes[key])
-        arch_rows[key] = next(iter(ref["batch"].values())).shape
-        reckoned[key] = reckon_split_collectives(ref["cfg"], shapes[key], shs[key],
-                                                 arch_rows[key])
+        shs[key] = St.state_shardings(arch_mesh, shapes[key])
+        arch_rows[key] = (ref["rows"][0] // ref["mesh"][0], ref["rows"][1])
+        n_imgs[key] = ref["batch"]["extra_embeds"].shape[1] if "extra_embeds" in ref["batch"] \
+            else 0
+        # the step fills the zero amax from the global batch's forward over > 1 data rank
+        reckoned[key] = reckon_split_collectives(
+            ref["cfg"], shapes[key], shs[key], arch_rows[key], mesh_shape=ref["mesh"],
+            fill=ref["mesh"][0] > 1, n_img=n_imgs[key])
     # each qwen2-moe rank's bytes, reckoned before the run
     n_params = sum(t.numel() for t in T.tree_leaves(shapes["moe"].params))
     parts = {"its state's shard": rank_bytes_of_specs(shapes["moe"], shs["moe"]),
@@ -5307,7 +5458,8 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels,
                                   ("yi", yi_cfg, (yb, ys), False),
                                   *((k, ref_archs[k[:-6]]["cfg"], arch_rows[k], False)
                                     for k in arch_rows)):
-        parts = reckon_split_peak(cfg, shapes[name], shs[name], rows, bert)
+        parts = reckon_split_peak(cfg, shapes[name], shs[name], rows, bert,
+                                  mesh_shape=grids[name], n_img=n_imgs.get(name, 0))
         peaks_reckoned[name] = sum(parts.values()) / 2**30
         print(f"  [{smi}] {name} \"split\" a rank's bytes reckoned before the run: "
               + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
@@ -5329,7 +5481,8 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels,
             functools.partial(split, bert_cfg, bert_opt, bert_batches, bert=True,
                               ckpt_dir=f"{d}/split"),
             functools.partial(split, yi_cfg, yi_opt, [yi_batch] * MESH_PROC_YI_STEPS),
-            *(functools.partial(split, ref["cfg"], ref["opt"], [ref["batch"]])
+            *(functools.partial(split, ref["cfg"], ref["opt"], [ref["batch"]],
+                                mesh_shape=ref["mesh"])
               for ref in ref_archs.values())],),
             timeout_s=MESH_PROCS_TIMEOUT_S)
         wall = time.perf_counter() - t0
@@ -5353,7 +5506,7 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels,
     for i, name in enumerate(("bert", "moe", "bert-split", "yi",
                               *(f"{k}-split" for k in ref_archs))):
         ref, what = refs[name], whats[name]
-        mesh_text = f"{MESH_SPLIT}" if name not in ("bert", "moe") else "(4, 1)"
+        mesh_text = f"{grids[name]}" if name not in ("bert", "moe") else "(4, 1)"
         ranks = [r[i] for r in res]
         differ = [(r, p) for r, x in enumerate(ranks) for p, dg in x["digest"].items()
                   if dg != ref["digests"][r][p]]
@@ -5382,9 +5535,12 @@ def mesh_processes(torch, smi, ref_bert, ref_moe, ref_split, ref_archs, kernels,
               f"from the one-process step ({differ[:4]}, metrics {same_metrics})")
         check(tally_ok, f"{what}: a rank's collectives differ from the specs' reckoning")
         if "replicas" in ranks[0]:
-            same = all(x["replicas"] == ranks[0]["replicas"] for x in ranks)
+            # the model ranks of each data coordinate (rank r's is r // m)
+            m = grids[name][1]
+            same = all(x["replicas"] == ranks[r - r % m]["replicas"] for r, x in enumerate(ranks))
             print(f"  [{smi}] {what}: {len(ranks[0]['replicas'][0])} replicated leaves' "
-                  f"gradients, every step, the same bits on all {MESH_PROCS} ranks {same}")
+                  f"gradients, every step, the same bits on the {m} model ranks of each data "
+                  f"rank {same}")
             check(same, f"{what}: a replicated leaf's gradient differs between the model ranks")
         out[name] = {"ranks": ranks, "peaks": peaks, "host": host}
     # rank 0's checkpoints against the one-process runs' final states, then served
@@ -5660,8 +5816,13 @@ def main() -> int:
           f"with the compute split over the model axis on {MESH_SPLIT}; mesh_split_archs: "
           f"qwen2-moe ({MESH_SPLIT_MOE_DEPTH} layers, its experts' d_ff split) at "
           f"{TRAIN_YI_SHAPE} and jamba-1.5-large ({MESH_SPLIT_JAMBA_DEPTH} Mamba layers, "
-          f"n_experts=0, d_in split) at {MESH_SPLIT_JAMBA_SHAPE} on {MESH_SPLIT}; then "
-          f"bert-base, qwen2-moe and the four split runs again on {MESH_PROCS} processes, one "
+          f"n_experts=0, d_in split) at {MESH_SPLIT_JAMBA_SHAPE} on {MESH_SPLIT}; xlstm-1.3b "
+          f"({MESH_SPLIT_XLSTM_DEPTH} layers, a head a rank) at {MESH_SPLIT_XLSTM_SHAPE} and "
+          f"musicgen-medium ({MESH_SPLIT_MUSICGEN_DEPTH} layers, each codebook's and head's "
+          f"vocab split) at {MESH_SPLIT_MUSICGEN_SHAPE} on {MESH_SPLIT}, qwen2-vl-2b "
+          f"({MESH_SPLIT_VL_DEPTH} layers) at {MESH_SPLIT_VL_SHAPE} + 256 image rows on "
+          f"{MESH_SPLIT_VL}; then "
+          f"bert-base, qwen2-moe and the seven split runs again on {MESH_PROCS} processes, one "
           f"a rank, sharing the card over gloo")
     phase_mesh(torch, smi, trained, [sm.quant_softmax, mm.int4_matmul, ln.quant_layernorm],
                guard)

@@ -17,8 +17,10 @@ replicated bias is added once after it.  A site's observed max over a split
 tensor, and a per-tensor weight max over a split weight, are the max over
 every rank's (``collectives.model_max``); qk-norm's replicated gammas reach
 each rank's heads through ``copy_to_model``, so their gradient sums every
-rank's.  A leaf that is a tensor runs whole, the same ops as before the
-split existed.
+rank's.  A norm over a row split over the ranks (xLSTM's ``ln_y``,
+``rmsnorm_xla_parts``) takes the whole row's mean square from every rank's
+window sums, bit for bit the unsplit one's.  A leaf that is a tensor runs
+whole, the same ops as before the split existed.
 
 Conventions as in the reference: params are nested dicts of tensors; every
 activation the integer path quantizes has a *site* whose EMA max arrives in
@@ -212,6 +214,21 @@ def rmsnorm_xla(x, gamma, eps=1e-6):
     return (n * gamma.to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm_xla_parts(xs, gammas, group, eps=1e-6):
+    """``rmsnorm_xla`` of rows split over the model ranks (``xs``: this
+    process's parts in rank order, ``gammas`` their blocks of the gain):
+    the mean square of the whole row from ``xla_row_sum_parts``, bit for bit
+    the unsplit one's, then each rank's own columns normalized.  ``group``
+    None: the one part, whole (``rmsnorm_xla``)."""
+    if group is None:
+        return [rmsnorm_xla(xs[0], gammas[0], eps)]
+    x32s = [x.to(torch.float32) for x in xs]
+    sums = xla_row_sum_parts([t * t for t in x32s], group)
+    inv_d = q.recip_f32(xs[0].shape[-1] * group.size)
+    return [(x32 * torch.rsqrt(ms * inv_d + eps)[..., None] * g.to(torch.float32)).to(x.dtype)
+            for x, x32, ms, g in zip(xs, x32s, sums, gammas, strict=True)]
+
+
 def layernorm(x, gamma, beta, eps=1e-6):
     x32 = x.to(torch.float32)
     mu = torch.mean(x32, -1, keepdim=True)
@@ -290,6 +307,37 @@ class _XlaRowSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g[..., None].expand(ctx.shape), None
+
+
+class _XlaRowSumParts(torch.autograd.Function):
+    """``xla_row_sum`` of a row split over the model ranks' parts, each a
+    whole number of windows long: each rank sums its own windows, the window
+    sums are gathered in rank order (``collectives.model_gather``) and
+    reduced as ``_row_sum_ordered`` reduces the unsplit row's, so every rank
+    holds the row's sum, bit for bit.  The gradient: the ranks' gradients of
+    that sum added in rank order (``collectives.model_sum``), broadcast over
+    each part's row."""
+
+    @staticmethod
+    def forward(ctx, group, window, *xs):
+        ctx.group, ctx.shapes = group, [x.shape for x in xs]
+        sums = [_row_sum_ordered(x.reshape(*x.shape[:-1], -1, window), window) for x in xs]
+        s = _row_sum_ordered(C.model_gather(group, sums, -1), window)
+        return tuple(s.view_as(s) for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = C.model_sum(ctx.group, grads)
+        return (None, None, *(g[..., None].expand(sh) for sh in ctx.shapes))
+
+
+def xla_row_sum_parts(xs, group, window: int = 32) -> list:
+    """``xla_row_sum`` of the row that this process's parts ``xs`` (rank
+    order) split over the model ranks: the whole row's sum for each part."""
+    if xs[0].shape[-1] % window:
+        raise ValueError(f"a split row sum needs each part ({xs[0].shape[-1]} long) to be a "
+                         f"whole number of {window}-wide windows")
+    return list(_XlaRowSumParts.apply(group, window, *xs))
 
 
 def _row_sum_ordered(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -298,23 +298,26 @@ def forward(cfg: ModelConfig, params: Dict, amax: Dict, tokens: torch.Tensor, *,
     ``init_amax``; aux_loss summed over the MoE slots).  With a vocab-split
     head (``{"<model rank>": block}``) over more than one model rank the
     logits stay split too: a dict of this process's model ranks' float32
-    (B, S, V / m) blocks, which ``train/steps.py``'s vocab-parallel
-    cross-entropy takes as they are (one rank's block is the whole)."""
+    (B, S, V / m) blocks, (B, K, S, V / m) for K heads, which
+    ``train/steps.py``'s vocab-parallel cross-entropy takes as they are (one
+    rank's block is the whole)."""
     x, obs, aux = hidden(cfg, params, amax, tokens, mask=mask, pos=pos,
                          extra_embeds=extra_embeds, pos3=pos3)
     head = params["embed"]["tokens"] if cfg.tied_embeddings else params.get("lm_head")
+
+    def logits_of(x, w):
+        if cfg.tied_embeddings:
+            return x @ w.T
+        if cfg.n_lm_heads > 1:          # (K, d, V) or a rank's (K, d, V / m)
+            return torch.einsum("bsd,kdv->bksv", x, w)
+        return x @ w
+
     if isinstance(head, dict):
         group = L._group(head)
-        blocks = {k: (x_r @ (w.T if cfg.tied_embeddings else w)).to(torch.float32)
+        blocks = {k: logits_of(x_r, w).to(torch.float32)
                   for x_r, (k, w) in zip(C.copy_to_model(group, x), head.items(), strict=True)}
         return (blocks if group.size > 1 else blocks["0"]), obs, aux
-    if cfg.tied_embeddings:
-        logits = x @ params["embed"]["tokens"].T
-    elif cfg.n_lm_heads > 1:
-        logits = torch.einsum("bsd,kdv->bksv", x, params["lm_head"])
-    else:
-        logits = x @ params["lm_head"]
-    return logits.to(torch.float32), obs, aux
+    return logits_of(x, head).to(torch.float32), obs, aux
 
 
 def embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -322,17 +325,25 @@ def embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     over the K codebooks in order -> float embeddings (B, S, d).  A lookup
     by ``F.embedding``, whose backward sums a repeated token's gradients in
     a fixed order (an indexing's backward on the CPU does not: the resumed
-    run must equal the uninterrupted one bit for bit)."""
+    run must equal the uninterrupted one bit for bit).  A vocab-split table
+    takes ``_vocab_parallel_embed``: a split codebook table's lookups, one
+    a codebook, are added in codebook order, as the whole table's are
+    (each lookup is exact, so the sums are the same bits)."""
     if cfg.frontend != "audio_codebooks":
         w = params["embed"]["tokens"]
         if isinstance(w, dict):
             return _vocab_parallel_embed(tokens, w)
         return torch.nn.functional.embedding(tokens.long(), w)
     books = params["embed"]["codebooks"]
-    x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model), dtype=books.dtype,
-                    device=books.device)
+    like = next(iter(books.values())) if isinstance(books, dict) else books
+    x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model), dtype=like.dtype,
+                    device=like.device)
     for ci in range(cfg.n_codebooks):
-        x = x + torch.nn.functional.embedding(tokens[:, ci].long(), books[ci])
+        if isinstance(books, dict):     # each codebook vocab-parallel, in codebook order
+            e = _vocab_parallel_embed(tokens[:, ci], {k: w[ci] for k, w in books.items()})
+        else:
+            e = torch.nn.functional.embedding(tokens[:, ci].long(), books[ci])
+        x = x + e
     return x
 
 

@@ -32,9 +32,11 @@ import torch
 
 from repro_torch.core import quant as q
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.layers import (Obs, fake_quant_act, qdense, remat, rmsnorm_xla, sigmoid,
+from repro_torch.models.layers import (Obs, _group, _parts, fake_quant_parts, qdense_column,
+                                       qdense_row, remat, rmsnorm_xla_parts, sigmoid,
                                        sigmoid_grad)
 from repro_torch.models.mamba import softplus, softplus_grad
+from repro_torch.sharding import collectives as C
 
 MLSTM_SITES = ("mlstm_in", "mlstm_y", "mlstm_out")
 SLSTM_SITES = ("slstm_in", "slstm_y", "slstm_out")
@@ -142,32 +144,58 @@ def mlstm_step(qh, kh, vh, gi, logf, state: Dict):
     return (num / den[..., None])[:, None], {"C": C, "n": nvec, "m": m_new}
 
 
+def _split_group(w, state):
+    group = _group(w)
+    if group is not None and state is not None:
+        raise ValueError("a decode step's state is whole: model-split xLSTM params run the "
+                         "sequence from a zero state only")
+    return group, 1 if group is None else group.size
+
+
 def mlstm_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy, cfg,
               state: Optional[Dict] = None) -> Tuple[torch.Tensor, Obs, Optional[Dict]]:
     """mLSTM: linear attention with exponential input / forget gates and a
     (E x E) matrix memory per head; the parallel form over a sequence, the
-    recurrent one (S == 1) with ``state``."""
+    recurrent one (S == 1) with ``state``.
+
+    With model-split params (``train/steps.py``'s "split", no ``state``)
+    each model rank runs its ``H/m`` heads (module docstring of
+    ``layers``): q/k/v column-parallel (``heads`` is head-major, so a
+    rank's columns are whole heads); the gates from its head columns of the
+    replicated ``w_ig`` / ``w_fg`` and its d/m columns of ``w_og``
+    (``collectives.model_blocks``) and its blocks of the split biases;
+    ``ln_y`` over the whole row from every rank's window sums
+    (``layers.rmsnorm_xla_parts``); ``wo`` row-parallel."""
     b, s, d = x.shape
-    nh = cfg.n_heads
+    group, m = _split_group(p["wq"], state)
+    nh = cfg.n_heads // m
     obs: Obs = {}
-    qp, obs["mlstm_in"] = qdense(x, p["wq"], None, amax["mlstm_in"], policy)
-    kp, _ = qdense(x, p["wk"], None, amax["mlstm_in"], policy)
-    vp, _ = qdense(x, p["wv"], None, amax["mlstm_in"], policy)
-    qh = heads(qp, nh).to(torch.float32)
-    kh = heads(kp, nh).to(torch.float32) * key_scale(qh.shape[-1])
-    vh = heads(vp, nh).to(torch.float32)
-    xf = x.to(torch.float32)
-    gi = xf @ p["w_ig"].to(torch.float32) + p["b_ig"]
-    logf = log_sigmoid(xf @ p["w_fg"].to(torch.float32) + p["b_fg"])
-    if state is None:
-        y, new_state = mlstm_parallel(qh, kh, vh, gi, logf), None
-    else:
-        y, new_state = mlstm_step(qh, kh, vh, gi, logf, state)
-    y = y.reshape(b, s, d).to(x.dtype)
-    og = sigmoid(x @ p["w_og"] + p["b_og"])
-    y = rmsnorm_xla(y, p["ln_y"]) * og
-    y, obs["mlstm_y"] = fake_quant_act(y, amax["mlstm_y"], policy.a_bits, policy.quantize_wa)
-    out, obs["mlstm_out"] = qdense(y, p["wo"], None, amax["mlstm_out"], policy)
+    xs = C.copy_to_model(group, x)
+    qs, obs["mlstm_in"] = qdense_column(xs, p["wq"], None, amax["mlstm_in"], policy, group)
+    ks, _ = qdense_column(xs, p["wk"], None, amax["mlstm_in"], policy, group)
+    vs, _ = qdense_column(xs, p["wv"], None, amax["mlstm_in"], policy, group)
+    ys, new_state = [], None
+    for x_r, qp, kp, vp, w_ig, b_ig, w_fg, b_fg in zip(
+            xs, qs, ks, vs, C.model_blocks(group, p["w_ig"], -1), _parts(p["b_ig"]),
+            C.model_blocks(group, p["w_fg"], -1), _parts(p["b_fg"]), strict=True):
+        qh = heads(qp, nh).to(torch.float32)
+        kh = heads(kp, nh).to(torch.float32) * key_scale(qh.shape[-1])
+        vh = heads(vp, nh).to(torch.float32)
+        xf = x_r.to(torch.float32)
+        gi = xf @ w_ig.to(torch.float32) + b_ig
+        logf = log_sigmoid(xf @ w_fg.to(torch.float32) + b_fg)
+        if state is None:
+            y = mlstm_parallel(qh, kh, vh, gi, logf)
+        else:
+            y, new_state = mlstm_step(qh, kh, vh, gi, logf, state)
+        ys.append(y.reshape(b, s, d // m).to(x.dtype))
+    ogs = [sigmoid(x_r @ w + c) for x_r, w, c in zip(
+        xs, C.model_blocks(group, p["w_og"], -1), _parts(p["b_og"]), strict=True)]
+    ys = [y * og for y, og in zip(
+        rmsnorm_xla_parts(ys, C.model_blocks(group, p["ln_y"], -1), group), ogs, strict=True)]
+    ys, obs["mlstm_y"] = fake_quant_parts(ys, amax["mlstm_y"], policy.a_bits, policy.quantize_wa,
+                                          group)
+    out, obs["mlstm_out"] = qdense_row(ys, p["wo"], None, amax["mlstm_out"], policy, group)
     return out, obs, new_state
 
 
@@ -267,16 +295,23 @@ def slstm_qat(x: torch.Tensor, p: Dict, amax: Dict, policy: QuantPolicy, cfg,
               state: Optional[Dict] = None) -> Tuple[torch.Tensor, Obs, Optional[Dict]]:
     """sLSTM: scalar memory, exponential gating, a per-head recurrent
     matrix, run step by step over the sequence.  With ``state`` the final
-    state comes back too."""
-    b, s, d = x.shape
+    state comes back too.  With model-split params (no ``state``) each
+    model rank runs its ``H/m`` heads: the four gates column-parallel with
+    their bias blocks, the loop on its heads of the replicated ``r``
+    (``collectives.model_blocks``), ``w_out`` row-parallel."""
+    group, m = _split_group(p["w_z"], state)
     obs: Obs = {}
-    zi, obs["slstm_in"] = qdense(x, p["w_z"], p["b_z"], amax["slstm_in"], policy)
-    ii, _ = qdense(x, p["w_i"], p["b_i"], amax["slstm_in"], policy)
-    ff, _ = qdense(x, p["w_f"], p["b_f"], amax["slstm_in"], policy)
-    oo, _ = qdense(x, p["w_o"], p["b_o"], amax["slstm_in"], policy)
-    hs, final = slstm_scan(*(t.to(torch.float32) for t in (zi, ii, ff, oo)),
-                           p["r"].to(torch.float32), cfg.n_heads, state)
-    y, obs["slstm_y"] = fake_quant_act(hs.to(x.dtype), amax["slstm_y"], policy.a_bits,
-                                       policy.quantize_wa)
-    out, obs["slstm_out"] = qdense(y, p["w_out"], None, amax["slstm_out"], policy)
+    xs = C.copy_to_model(group, x)
+    zs, obs["slstm_in"] = qdense_column(xs, p["w_z"], p["b_z"], amax["slstm_in"], policy, group)
+    is_, _ = qdense_column(xs, p["w_i"], p["b_i"], amax["slstm_in"], policy, group)
+    fs, _ = qdense_column(xs, p["w_f"], p["b_f"], amax["slstm_in"], policy, group)
+    os_, _ = qdense_column(xs, p["w_o"], p["b_o"], amax["slstm_in"], policy, group)
+    hss, final = [], None
+    for zi, ii, ff, oo, r in zip(zs, is_, fs, os_, C.model_blocks(group, p["r"], 0), strict=True):
+        hs, final = slstm_scan(*(t.to(torch.float32) for t in (zi, ii, ff, oo)),
+                               r.to(torch.float32), cfg.n_heads // m, state)
+        hss.append(hs.to(x.dtype))
+    ys, obs["slstm_y"] = fake_quant_parts(hss, amax["slstm_y"], policy.a_bits, policy.quantize_wa,
+                                          group)
+    out, obs["slstm_out"] = qdense_row(ys, p["w_out"], None, amax["slstm_out"], policy, group)
     return out, obs, None if state is None else final

@@ -35,8 +35,10 @@ each collective makes and how it moves a CUDA tensor under each backend.
 The model group's collectives (``model_sum``, ``model_max``, the autograd
 pair ``copy_to_model`` / ``reduce_from_model``, Megatron's *f* and *g*, and
 ``model_exchange``, the all-to-all that re-blocks a column-split tensor of
-several segments, Mamba's ``[x | z]``) take a group, or None for a tensor
-held whole.  ``model_sum`` all-gathers the ranks' float32 partials and
+several segments, Mamba's ``[x | z]``; ``model_gather``, the ranks' parts
+concatenated in rank order, and ``model_blocks``, a replicated leaf's
+per-rank blocks whose gradient it assembles) take a group, or None for a
+tensor held whole.  ``model_sum`` all-gathers the ranks' float32 partials and
 every rank sums them in rank order from rank 0's, so each holds the same
 bits (no library all-reduce sums in rank order).
 
@@ -59,9 +61,10 @@ leaf whole (a model block: ``all_gather_data``), a reduce-scatter's own
 float32 block (an all-reduce when no rank splits the leaf), each maxed leaf,
 the (n, k, E) counts table, each ``model_sum``'s and ``model_max``'s result
 (an all-reduce), one rank's block out of ``model_exchange`` (an all-to-all,
-its backward's too).  A call of the process backend counts as the local
-backend counts one rank's part of it: one data rank's contribution, one
-gathered leaf, one rank's table, one model collective.
+its backward's too), each ``model_gather``'s concatenated result.  A call of
+the process backend counts as the local backend counts one rank's part of
+it: one data rank's contribution, one gathered leaf, one rank's table, one
+model collective.
 ``host_ms()`` sums the host time of the process backend's calls (and the
 model group's, under either backend), per kind and function.
 """
@@ -437,6 +440,43 @@ class _ReduceFromModel(torch.autograd.Function):
         return (None, *([g] * ctx.n))
 
 
+def model_gather(group, parts: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
+    """Every model rank's part (this process's ``parts``, in rank order; one
+    shape and dtype on every rank) concatenated along ``dim`` in rank order:
+    an all-gather over the model subgroup.  Exact; no gradient."""
+    with _clocked("all-gather", "model_gather"):
+        out = torch.cat(group.every(parts, "model_gather"), dim)
+    _model_count(group, "all-gather", "model_gather", out)
+    return out
+
+
+class _ModelBlocks(torch.autograd.Function):
+    """This process's model ranks' blocks of a replicated leaf along a dim;
+    the backward assembles the ranks' disjoint gradient blocks in rank
+    order (``model_gather``), so every rank holds the leaf's whole gradient,
+    the same bits (a sum of zero-padded copies would turn -0.0 into +0.0)."""
+
+    @staticmethod
+    def forward(ctx, group, dim, w):
+        ctx.group, ctx.dim = group, dim
+        n = w.shape[dim] // group.size
+        return tuple(w.narrow(dim, r * n, n) for r in group.ranks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, model_gather(ctx.group, grads, ctx.dim)
+
+
+def model_blocks(group, w: torch.Tensor, dim: int) -> List[torch.Tensor]:
+    """Each of this process's model ranks' block of the replicated ``w``
+    along ``dim`` (rank r's: the r-th of ``group.size`` equal blocks), for a
+    split computation that reads only its own columns of a leaf every rank
+    holds whole (xLSTM's gate weights, ``ln_y`` and the sLSTM's recurrent
+    heads); its gradient is the ranks' blocks assembled.  ``group`` None:
+    ``[w]``."""
+    return [w] if group is None else list(_ModelBlocks.apply(group, dim % w.dim(), w))
+
+
 def _exchange_routes(size: int, segments: int, inverse: bool = False):
     """``model_exchange``'s ((src rank, slot), (dst rank, slot)) of every
     chunk c, in chunk order: the whole tensor's ``size * segments`` chunks,
@@ -526,7 +566,7 @@ DIST_OPS = {"all_gather": "all_gather", "reduce_scatter_add": "all_to_all_single
             "max_over_ranks": "all_reduce", "gather_blocks": "all_gather",
             "all_gather_counts": "all_gather", "all_gather_data": "all_gather",
             "model_sum": "all_gather", "model_max": "all_reduce",
-            "model_exchange": "all_to_all_single"}
+            "model_exchange": "all_to_all_single", "model_gather": "all_gather"}
 ROUTES = {(backend, fn): (op, "device") for backend in ("gloo", "nccl")
           for fn, op in DIST_OPS.items()}
 

@@ -101,22 +101,27 @@ def _vocab_parallel_ce(blocks: Dict[str, torch.Tensor], tgt: torch.Tensor) -> to
 def lm_loss(cfg: ModelConfig, params, amax, batch) -> Tuple[torch.Tensor, Dict]:
     """Next-token CE + ``AUX_WEIGHT`` x the MoE aux loss.  batch: {'tokens':
     (B, S) or (B, K, S), 'extra_embeds'?, 'pos3'?}.  Audio archs score each
-    codebook; the vision stub's image rows are not scored.  Logits split
-    over the model ranks' vocab blocks take ``_vocab_parallel_ce``."""
+    codebook, in one mean over (B, K, S - 1); the vision stub's image rows
+    are not scored.  Logits split over the model ranks' vocab blocks take
+    ``_vocab_parallel_ce`` on the same rows."""
     tokens = batch["tokens"]
     logits, obs, aux = T.forward(cfg, params, amax, tokens,
                                  extra_embeds=batch.get("extra_embeds"),
                                  pos3=batch.get("pos3"))
-    if isinstance(logits, dict):
-        loss = _vocab_parallel_ce({k: v[:, :-1] for k, v in logits.items()}, tokens[:, 1:])
-    else:
+    n_img = 0 if batch.get("extra_embeds") is None else batch["extra_embeds"].shape[1]
+
+    def scored(lg):
+        """The logits that predict a next token: every codebook's, or the
+        text rows' (the image rows are not scored)."""
         if cfg.frontend == "audio_codebooks":
-            tgt, lg = tokens[:, :, 1:], logits[:, :, :-1]
-        else:
-            tgt, lg = tokens[:, 1:], logits[:, :-1]
-            if batch.get("extra_embeds") is not None:
-                lg = lg[:, batch["extra_embeds"].shape[1]:]
-        loss = _sharded_ce(lg, tgt)
+            return lg[:, :, :-1]
+        return lg[:, :-1][:, n_img:]
+
+    tgt = tokens[:, :, 1:] if cfg.frontend == "audio_codebooks" else tokens[:, 1:]
+    if isinstance(logits, dict):
+        loss = _vocab_parallel_ce({k: scored(v) for k, v in logits.items()}, tgt)
+    else:
+        loss = _sharded_ce(scored(logits), tgt)
     return loss + AUX_WEIGHT * aux, {"obs": obs, "ce": loss.detach(), "aux": aux.detach()}
 
 
@@ -285,19 +290,15 @@ def _at(tree, path: str):
 
 def check_split(cfg: ModelConfig, mesh, bert: bool = False):
     """Raises ``ValueError`` where ``model_compute="split"`` cannot run
-    ``cfg`` on ``mesh``: xLSTM's mixers, the frontends and several LM heads
-    take the reference's other model rules (ROADMAP item 5d), and a width
-    the model axis does not divide would leave its leaf whole (the
-    reference's ``_fit_spec``) under a split computation: the heads, d_ff,
-    the experts' d_ff, Mamba's d_in, and an LM's vocab (BERT's embedding
-    may stay whole: its lookup is then replicated)."""
-    what = [w for w, bad in (("a frontend", cfg.frontend != "none"),
-                             ("xLSTM mixers", bool(set(cfg.pattern) & {"s", "x"})),
-                             ("several LM heads", cfg.n_lm_heads > 1)) if bad]
-    if what:
-        raise ValueError(f"model_compute='split' covers the attention, MoE and Mamba archs and "
-                         f"BERT; {cfg.name} has {', '.join(what)} (ROADMAP item 5d: the wide-dim "
-                         "rules and the codebooks' and LM heads' vocab blocks are still to split)")
+    ``cfg`` on ``mesh``, naming the width: a width the model axis does not
+    divide would leave its leaf whole (the reference's ``_fit_spec``) under
+    a split computation, and a rank takes whole heads (the reference's
+    ``_fit_spec`` would split inside a head, ROADMAP §3): the heads (an
+    xLSTM mixer's too), d_ff, the experts' d_ff, Mamba's d_in, and an LM's
+    vocab, each codebook's and each head's (BERT's embedding may stay
+    whole: its lookup is then replicated); and an xLSTM's ``ln_y`` sums its
+    row in 32-wide windows that must not cross a rank's columns, so d_model
+    / m must be a multiple of 32."""
     m = mesh.shape.get("model", 1)
     widths = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)]
     if cfg.n_experts:
@@ -310,6 +311,10 @@ def check_split(cfg: ModelConfig, mesh, bert: bool = False):
         if n % m:
             raise ValueError(f"model_compute='split' needs {name} = {n} to divide by the model "
                              f"axis of {m}")
+    if "x" in cfg.pattern and m > 1 and (cfg.d_model % m or cfg.d_model // m % 32):
+        raise ValueError(f"model_compute='split' needs d_model / {m} (d_model = {cfg.d_model}) "
+                         "to be a multiple of 32: the mLSTM's ln_y sums its row in 32-wide "
+                         "windows, each within one rank's columns")
 
 
 def _any_zero(tree) -> bool:
@@ -498,18 +503,24 @@ def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig, batch_exa
     tensor parallelism (``models/layers.py``): a model-split leaf is
     gathered over the data axes only, for its FSDP dim, into its model
     blocks, never over the model axis; each model rank computes its own
-    heads, MLP and experts' d_ff columns, Mamba channels and vocab block
-    (``models/moe.py``, ``models/mamba.py``), the cross-entropy stays
+    heads (attention, mLSTM and sLSTM), MLP and experts' d_ff columns,
+    Mamba channels and vocab blocks (``models/moe.py``, ``models/mamba.py``,
+    ``models/xlstm.py``; a codebook table's and several heads' per codebook
+    and head), the cross-entropy stays
     vocab-parallel (``_vocab_parallel_ce``), and the ranks meet in the
     activations' collectives (``collectives.model_sum``, ``model_max``,
-    ``model_exchange``).  A model-split leaf's gradient is its model
-    block's, summed over the data ranks of its model coordinate; a
-    replicated leaf's is the same bits on every model rank (each holds the
-    same ``model_sum``), so one contribution a data rank counts, as under
-    "gather".  On a ``Mesh`` each data rank's pass runs every model rank's
-    part in one process (``collectives.ModelRanks``), the process step's
-    bit oracle; on a model axis of 1 "split" gives "gather"'s bits.  It
-    covers the attention, MoE and Mamba archs and BERT (``check_split``).
+    ``model_exchange``, ``model_gather``).  A model-split leaf's gradient
+    is its model block's, summed over the data ranks of its model
+    coordinate; a replicated leaf's is the same bits on every model rank
+    (each holds the same ``model_sum``, or the ranks' blocks assembled by
+    ``collectives.model_blocks``), so one contribution a data rank counts,
+    as under "gather".  On a ``Mesh`` each data rank's pass runs every
+    model rank's part in one process (``collectives.ModelRanks``), the
+    process step's bit oracle; on a model axis of 1 "split" gives
+    "gather"'s bits.  It covers every arch and BERT wherever the model axis
+    divides their widths (``check_split``): the attention, MoE, Mamba and
+    xLSTM mixers (``models/xlstm.py``), the audio codebooks and several LM
+    heads, and the vision stub's prepended rows.
     """
     if model_compute not in ("gather", "split"):
         raise ValueError(f"model_compute must be 'gather' or 'split' (got {model_compute!r})")

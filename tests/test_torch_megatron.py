@@ -401,11 +401,18 @@ def test_split_refuses_what_it_does_not_cover():
     opt = A.AdamWConfig(lr=LR)
     moe = smoke_config("qwen2-moe-a2.7b")
     batch = {"tokens": torch.zeros((4, 16), dtype=torch.int32)}
-    # the MoE and Mamba archs split since item 5c (tests/test_torch_megatron_moe.py)
+    # the MoE and Mamba archs split since item 5c (tests/test_torch_megatron_moe.py), xLSTM
+    # and the frontends since item 5d (tests/test_torch_megatron_xlstm.py): where the model
+    # axis divides their widths they build, where it does not the width is named
     for cfg in (smoke_config("xlstm-1.3b"), smoke_config("musicgen-medium"),
                 smoke_config("qwen2-vl-2b")):
-        with pytest.raises(ValueError, match="ROADMAP item 5d"):
-            St.jit_train_step(cfg, _mesh(1, 2), opt, batch, model_compute="split")
+        St.jit_train_step(cfg, _mesh(1, 2), opt, batch, model_compute="split")
+    with pytest.raises(ValueError, match="n_heads = 2 to divide by the model axis of 4"):
+        St.jit_train_step(smoke_config("xlstm-1.3b"), _mesh(1, 4), opt, batch,
+                          model_compute="split")
+    with pytest.raises(ValueError, match="n_kv_heads = 2 to divide by the model axis of 4"):
+        St.jit_train_step(smoke_config("qwen2-vl-2b"), _mesh(1, 4), opt, batch,
+                          model_compute="split")
     with pytest.raises(ValueError, match="d_ff = 90 to divide by the model axis of 4"):
         St.jit_train_step(smoke_config("yi-6b", d_ff=90), _mesh(1, 4), opt, batch,
                           model_compute="split")
